@@ -4,7 +4,7 @@
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit. Phases, each printed as one JSON line; any failure exits
-non-zero:
+non-zero (on one H100 the whole script takes a few minutes):
 
   1. environment: torch/CUDA versions and the card's name and power limit;
      build the hand-written kernels (csrc/*.cu, one nvcc per source, in
@@ -28,7 +28,23 @@ non-zero:
      torch.profiler (device busy share, the port's kernels, top device ops);
   6. small configs (udp_echo with a server overflowing its queue, PHOLD on
      a two-node graph with loss and jitter): the card's report must equal
-     the CPU path's.
+     the CPU path's;
+  7. kernels K5-K8 (pop_k, clear_popped, the bucketed push, block_minima)
+     and K3 with push reserves against their plain versions at bench
+     config 6's shapes (H = 10,000, C = 28, block 7, K = 4, P = 4, the 12
+     push ports of a K = 4 tgen microstep) on seeded slabs with empty hosts,
+     full blocks, time ties, partial executed prefixes and reserves that
+     force drops; exact equality, with the same timings as phase 2;
+  8. the second main path: bench config 6 (10,000 tgen-TCP hosts on the
+     10x10 torus at 50 ms, K = 4, bucketed queue of 28 slots in blocks of
+     7, 24 sends per host per round) cut to 10 simulated seconds, which must
+     reproduce the JAX package's digest, event count, drop counters and
+     tgen report for that depth, with every kernel of the path launched;
+  9. where its time goes: one steady 8-round chunk under torch.profiler
+     (busy share, launches per microstep, the plain per-event chain B5 and
+     outbox append B4 per microstep, the port's kernels);
+ 10. config 6 small (128 hosts on a 4x4 torus) for K in {1, 4} x {flat,
+     bucketed}, a lossy torus and a tight capacity: card == CPU.
 
 The last lines are the kernel table (one JSON object), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}.
@@ -46,6 +62,38 @@ import torch
 
 ANCHOR_DIGEST = "d6c9a273e3a92bb7"
 ANCHOR_EVENTS = 668_614
+# bench config 6 at full width cut to TGEN_STOP: the JAX package's report on
+# the CPU (digests, events, drops and the tgen report do not depend on K or
+# the queue layout; microsteps and popk_deferred are those of K = 4)
+TGEN_STOP = "10 s"
+TGEN_REF = {
+    "determinism_digest": "048dd065b5674234",
+    "events_processed": 18_793_550,
+    "rounds": 200,
+    "packets_sent": 13_462_070,
+    "packets_delivered": 13_382_220,
+    "packets_lost": 0,
+    "packets_unreachable": 0,
+    "packets_codel_dropped": 0,
+    "queue_overflow_dropped": 0,
+    "packets_budget_dropped": 0,
+    "outbox_overflow_dropped": 0,
+    "queue_occupancy_hwm": 25,
+    "outbox_send_hwm": 24,
+    "monotonic_violations": 0,
+    "bucket_cache_rebuilds": 199,
+    "microsteps": 1406,
+    "popk_deferred": 4322,
+    "model_report": {
+        "flows_completed": 79_740, "flows_expected": 640_000,
+        "data_segments_sent": 8_748_800, "retransmits": 0, "fast_retransmits": 0,
+        "timeouts": 110, "dup_segments": 0, "mean_fct_ms": 1101.755706044645,
+        "payload_bytes_received": 12_772_780_800,
+    },
+}
+# config 6's queue shapes: hosts, slots, block, K, push ports of a K = 4
+# tgen microstep (ingress requeue + the model's two pushes, per event)
+H6, C6, BLK6, K6, NP6 = 10_000, 28, 7, 4, 12
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (fp32 table entry)
 # NP: push ports per microstep on the anchor's path (ingress requeue + PHOLD's one
@@ -80,6 +128,54 @@ graph [
 
 def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def torus_gml(side: int, lat_ms: int = 10) -> str:
+    """The JAX repo's bench.py torus (a copy: bench.py imports JAX)."""
+    lines = ["graph [", "  directed 0"]
+    for i in range(side * side):
+        lines.append(
+            f'  node [ id {i} host_bandwidth_down "1 Gbit" '
+            f'host_bandwidth_up "1 Gbit" ]'
+        )
+    for r in range(side):
+        for c in range(side):
+            i = r * side + c
+            right = r * side + (c + 1) % side
+            down = ((r + 1) % side) * side + c
+            lines.append(f'  edge [ source {i} target {i} latency "{lat_ms} ms" ]')
+            if right != i:
+                lines.append(f'  edge [ source {i} target {right} latency "{lat_ms} ms" ]')
+            if down != i:
+                lines.append(f'  edge [ source {i} target {down} latency "{lat_ms} ms" ]')
+    lines.append("]")
+    return "\n".join(lines)
+
+
+def tgen_config(small: bool, stop: str, k: int = 4, block: int = 7, cap: int = 28,
+                loss: float = 0.0, rounds_per_chunk: int = 256) -> dict:
+    """bench.py baseline_config(6, small) as built off the CPU (K = 4), with
+    `stop` for its 120 s; the other arguments vary the queue shape, K, the
+    torus's loss and the chunk length (which does not change results)."""
+    side = 4 if small else 10
+    per_node = 8 if small else 100
+    gml = torus_gml(side, lat_ms=50)
+    if loss:
+        gml = gml.replace('latency "50 ms" ]', f'latency "50 ms" packet_loss {loss} ]')
+    ex = {"event_queue_capacity": cap, "microstep_events": k, "sends_per_host_round": 24,
+          "rounds_per_chunk": rounds_per_chunk}
+    if block:
+        ex["event_queue_block"] = block
+    return {
+        "general": {"stop_time": stop, "seed": 1},
+        "network": {"graph": {"type": "gml", "inline": gml}},
+        "experimental": ex,
+        "hosts": {f"n{i:03d}": {"count": per_node, "network_node_id": i, "processes": [{
+            "model": "tgen_tcp",
+            "model_args": {"flows": 8 if small else 64, "flow_segs": 20 if small else 100,
+                           "cwnd_cap": 16, "mss": 1460, "flow_gap": "50 ms", "tx_batch": 2},
+        }]} for i in range(side * side)},
+    }
 
 
 def anchor_config() -> dict:
@@ -187,22 +283,22 @@ def bound(bytes_moved: float, int_ops: float) -> tuple[float, str]:
 # --------------------------------------------------------------------------
 
 
-def random_queue(rng: np.random.Generator, fill: np.ndarray, dev):
-    """[H, C] queue with fill[h] live slots at random positions; times drawn
-    from a narrow range so equal times (order-key ties) are common."""
+def random_queue(rng: np.random.Generator, fill: np.ndarray, dev, cap: int = C):
+    """[H, cap] queue with fill[h] live slots at random positions; times
+    drawn from a narrow range so equal times (order-key ties) are common."""
     from shadow_tpu_torch.ops.events import EventQueue, ORDER_MAX
 
     h = fill.shape[0]
-    t = np.full((h, C), TIME_MAX, np.int64)
-    order = np.full((h, C), ORDER_MAX, np.int64)
-    live = rng.random((h, C)).argsort(axis=1) < fill[:, None]
+    t = np.full((h, cap), TIME_MAX, np.int64)
+    order = np.full((h, cap), ORDER_MAX, np.int64)
+    live = rng.random((h, cap)).argsort(axis=1) < fill[:, None]
     n = int(live.sum())
     t[live] = rng.integers(0, 50, n) * 1_000_000
     hosts = np.nonzero(live)[0]
     order[live] = ((rng.integers(0, 2, n) << 62) | (hosts.astype(np.int64) << 40)
                    | np.arange(n, dtype=np.int64))
-    kind = rng.integers(0, 1 << 18, (h, C)).astype(np.int32)
-    payload = rng.integers(-(1 << 31), 1 << 31, (h, C, P)).astype(np.int32)
+    kind = rng.integers(0, 1 << 18, (h, cap)).astype(np.int32)
+    payload = rng.integers(-(1 << 31), 1 << 31, (h, cap, P)).astype(np.int32)
     dropped = rng.integers(0, 5, h).astype(np.int64)
     return EventQueue(*(torch.as_tensor(a, device=dev)
                         for a in (t, order, kind, payload, dropped)))
@@ -363,6 +459,143 @@ def phase_kernels(dev) -> dict[str, dict]:
     return results
 
 
+def phase_kernels_cfg6(dev) -> dict[str, dict]:
+    """K5-K8, and K3 with push reserves, at config 6's queue shapes."""
+    from shadow_tpu_torch.ops import events as ev
+
+    rng = np.random.default_rng(6)
+    nb = C6 // BLK6
+    limit = 30_000_000
+
+    def fills():
+        f = rng.integers(0, C6 + 1, H6)
+        f[rng.random(H6) < 0.1] = 0  # empty hosts
+        f[rng.random(H6) < 0.1] = C6  # full rows: every block full
+        return f
+
+    def bucketed(q):
+        return ev.BucketQueue(*q, *ev.block_minima_plain(q.t, q.order, nb))
+
+    def clone_any(q):
+        return type(q)(*(x.clone() for x in q))
+
+    def pushes(seed, reserve_hi=5):
+        r = np.random.default_rng(seed)
+        hosts = np.arange(H6, dtype=np.int64)
+        return [ev.Push(*(torch.as_tensor(a, device=dev) for a in (
+            r.random(H6) < 0.6,
+            r.integers(0, 50, H6) * 1_000_000 + 500,
+            (1 << 62) | (hosts << 40) | ((1 << 39) + 64 * seed + port),
+            r.integers(0, 1 << 18, H6).astype(np.int32),
+            r.integers(-(1 << 31), 1 << 31, (H6, P)).astype(np.int32),
+            r.integers(0, reserve_hi, H6).astype(np.int32),
+        ))) for port in range(NP6)]
+
+    err = {k: 0.0 for k in ("pop_k", "clear", "bq_push", "push_reserve", "block_minima")}
+    n_over_seen = 0
+    for case in range(2):
+        q = random_queue(rng, fills(), dev, C6)
+        got = ev.block_minima(q.t, q.order, nb)
+        err["block_minima"] = max(err["block_minima"], check_equal(
+            f"K8/{case}", list(got), list(ev.block_minima_plain(q.t, q.order, nb))))
+        for lim in (limit, TIME_MAX):
+            pk = ev.pop_k(q, lim, K6)
+            err["pop_k"] = max(err["pop_k"], check_equal(
+                f"K5/{case}", list(pk), list(ev.pop_k_plain(q, lim, K6))))
+            m = torch.minimum(
+                torch.as_tensor(rng.integers(0, K6 + 1, H6).astype(np.int32), device=dev),
+                pk.active.sum(dim=1, dtype=torch.int32))
+            for qq in (q, bucketed(q)):
+                a = ev.clear_popped(clone_any(qq), pk, m)
+                b = ev.clear_popped_plain(clone_any(qq), pk, m)
+                err["clear"] = max(err["clear"], check_equal(f"K6/{case}", list(a), list(b)))
+        ps = pushes(100 + case)
+        a = ev.push_many(clone_any(q), ps)
+        b = ev.push_many_plain(clone_any(q), ps)
+        err["push_reserve"] = max(err["push_reserve"], check_equal(f"K3r/{case}", list(a), list(b)))
+        bq = bucketed(q)
+        a = ev.bq_push_many(clone_any(bq), ps)
+        b = ev.push_many_plain(clone_any(bq), ps)
+        err["bq_push"] = max(err["bq_push"], check_equal(f"K7/{case}", list(a), list(b)))
+        n_over_seen += int((b.dropped - q.dropped).sum())
+    if not n_over_seen:
+        raise AssertionError("K3/K7 check: no push was dropped; the reserve path went untested")
+
+    # timings on one slab, as on the tgen path (bucketed)
+    q = random_queue(rng, fills(), dev, C6)
+    bq = bucketed(q)
+    results: dict[str, dict] = {}
+    live = q.t != TIME_MAX
+    pk = ev.pop_k_plain(q, limit, K6)
+    n_act = int(pk.active.sum())
+    # bytes this input needs: the time plane; order only where t equals a
+    # selected event's time; the active events' kind/payload; [H, K] out
+    n_tie = int((live & (q.t[:, :, None] == pk.t[:, None, :]).any(dim=2)).sum())
+    results["queue_pop_k"] = dict(
+        **kernel_ms(lambda: ev.pop_k(bq, limit, K6)),
+        plain_ms=time_ms(lambda: ev.pop_k_plain(bq, limit, K6)),
+        library_ms=None,
+        library_why="no single PyTorch call: a top-K over two int64 keys (time, order)",
+        bound=bound(H6 * C6 * 8 + n_tie * 8 + n_act * (4 + 4 * P)
+                    + H6 * K6 * (8 + 8 + 4 + 4 * P + 1 + 4), H6 * C6 * K6),
+        max_abs_err=err["pop_k"],
+    )
+    m = pk.active.sum(dim=1, dtype=torch.int32)
+    after = ev.clear_popped_plain(clone_any(bq), pk, m)
+    n_tb = int((after.bfill != bq.bfill).sum())
+    # active/idx/m read, one slot cleared per executed event, the touched
+    # blocks' slots read and their caches rewritten
+    results["queue_clear_popped"] = dict(
+        **kernel_ms(lambda qq: ev.clear_popped(qq, pk, m), lambda: (clone_any(bq),)),
+        plain_ms=time_ms(lambda qq: ev.clear_popped_plain(qq, pk, m), lambda: (clone_any(bq),)),
+        library_ms=None,
+        library_why="no single PyTorch call: a scatter clear plus a per-block recompute",
+        bound=bound(H6 * K6 * 5 + H6 * 4 + n_act * 16 + n_tb * (BLK6 * 16 + 4 + 20),
+                    H6 * K6 + n_tb * BLK6),
+        max_abs_err=err["clear"],
+    )
+    ps = pushes(7)
+    fired = torch.stack([x.mask for x in ps]).sum(dim=0)
+    free = (~live).sum(dim=1)
+    n_fired, n_recv = int(fired.sum()), int((fired > 0).sum())
+    flat_after = ev.push_many_plain(clone_any(q), ps)
+    n_landed = int((flat_after.t != TIME_MAX).sum() - live.sum())
+    n_over = int((flat_after.dropped != q.dropped).sum())
+    bq_after = ev.push_many_plain(clone_any(bq), ps)
+    n_tb = int((bq_after.bfill != bq.bfill).sum())
+    # every mask; the fired pushes' fields and reserves; the time plane of
+    # receiving hosts; one slot per landed push; dropped where one
+    # overflows; (bucketed) the receiving blocks' caches read and written
+    push_bytes = (NP6 * H6 + n_fired * (8 + 8 + 4 + 4 * P + 4) + n_recv * C6 * 8
+                  + n_landed * (8 + 8 + 4 + 4 * P) + n_over * 16)
+    results["queue_push_many_bucketed"] = dict(
+        **kernel_ms(lambda qq: ev.bq_push_many(qq, ps), lambda: (clone_any(bq),)),
+        plain_ms=time_ms(lambda qq: ev.push_many_plain(qq, ps), lambda: (clone_any(bq),)),
+        library_ms=None,
+        library_why="no single PyTorch call: ranked free-slot insertion with drops",
+        bound=bound(push_bytes + n_tb * 40, n_recv * C6 + NP6 * H6),
+        max_abs_err=err["bq_push"],
+    )
+    k3r = kernel_ms(lambda qq: ev.push_many(qq, ps), lambda: (clone_any(q),))
+    results["queue_push_many_reserve"] = dict(
+        ms=k3r["ms"], call_ms=k3r["call_ms"],
+        plain_ms=time_ms(lambda qq: ev.push_many_plain(qq, ps), lambda: (clone_any(q),)),
+        bound_ms=bound(push_bytes, n_recv * C6 + NP6 * H6)[0],
+        ports=NP6, max_abs_err=err["push_reserve"],
+    )
+    bmin = ev.block_minima_plain(q.t, q.order, nb)[0]
+    n_at_min = int((live & (q.t.view(H6, nb, BLK6) == bmin[:, :, None]).view(H6, C6)).sum())
+    results["queue_block_minima"] = dict(
+        **kernel_ms(lambda: ev.block_minima(q.t, q.order, nb)),
+        plain_ms=time_ms(lambda: ev.block_minima_plain(q.t, q.order, nb)),
+        library_ms=None,
+        library_why="no single PyTorch call: amin gives bt only, not bo or bfill",
+        bound=bound(H6 * C6 * 8 + n_at_min * 8 + H6 * nb * 20, H6 * C6),
+        max_abs_err=err["block_minima"],
+    )
+    return results
+
+
 def phase_log(dev) -> int:
     from shadow_tpu_torch.models.phold import log_f32
 
@@ -376,8 +609,12 @@ def phase_log(dev) -> int:
 KERNEL_SYMBOLS = {
     "queue_next_time": ("next_time_kernel",),
     "queue_pop_min": ("pop_min_kernel",),
-    "queue_push_many": ("push_many_kernel",),
+    "queue_push_many": ("push_many_kernel<false>",),
     "merge_insert": ("histogram_kernel", "scan_kernel", "scatter_kernel", "insert_kernel"),
+    "queue_pop_k": ("pop_k_kernel",),
+    "queue_clear_popped": ("clear_popped_kernel",),
+    "queue_push_many_bucketed": ("push_many_kernel<true>",),
+    "queue_block_minima": ("block_minima_kernel",),
 }
 
 
@@ -429,6 +666,107 @@ def phase_anchor_profile() -> dict:
     }
 
 
+def phase_tgen_profile() -> dict:
+    """Where config 6's time goes: 8-round chunks, two unprofiled, then one
+    under torch.profiler, with the per-event chain (Engine.event_body, B5)
+    and the outbox append (B4) marked as ranges so their device time and
+    launches per microstep can be read."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import shadow_tpu_torch.core.engine as engine_mod
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.sim import Simulation
+
+    def ranged(name, fn):
+        def wrapped(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapped
+
+    # a range's own "kernel" is its span on the device timeline (idle gaps
+    # included); its work is the kernels of the ops inside it
+    def launches_in(e) -> int:
+        return len(e.kernels) + sum(launches_in(c) for c in e.cpu_children)
+
+    def kernel_us_in(e) -> float:
+        return sum(k.duration for k in e.kernels) + sum(kernel_us_in(c) for c in e.cpu_children)
+
+    sim = Simulation(ConfigOptions.from_dict(
+        tgen_config(False, TGEN_STOP, rounds_per_chunk=8)))
+    eng, st = sim.engine, sim.state
+    for _ in range(2):
+        st = eng.run_chunk(st, sim.params)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    st = eng.run_chunk(st, sim.params)
+    torch.cuda.synchronize()
+    wall_unprofiled, now0 = time.monotonic() - t0, st.now
+    msteps0 = int(st.stats.microsteps.sum())
+    syncs0 = eng.host_syncs
+    orig_append = engine_mod.outbox_append_multi
+    eng.event_body = ranged("B5_event_body", eng.event_body)
+    engine_mod.outbox_append_multi = ranged("B4_outbox_append", orig_append)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            st = eng.run_chunk(st, sim.params)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        del eng.event_body
+        engine_mod.outbox_append_multi = orig_append
+    msteps = int(st.stats.microsteps.sum()) - msteps0
+    names = ("B5_event_body", "B4_outbox_append")
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in names]
+    dev_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    ranges = {}
+    for name in names:
+        evs = [e for e in prof.events() if e.name == name]
+        ranges[name] = {
+            "calls": len(evs),
+            "device_ms_per_microstep": sum(
+                kernel_us_in(c) for e in evs for c in e.cpu_children) / 1e3 / msteps,
+            "launches_per_microstep": sum(
+                launches_in(c) for e in evs for c in e.cpu_children) / msteps,
+        }
+    ours = {
+        k: sum(e.self_device_time_total for e in dev if any(t in e.key for t in tags)) / 1e3
+        for k, tags in KERNEL_SYMBOLS.items()
+    }
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
+    return {
+        "chunk_rounds": 8,
+        "chunk_sim_s": (st.now - now0) / 1e9,
+        "unprofiled_chunk_wall_s": wall_unprofiled,
+        "profiled_chunk_wall_s": wall,
+        "microsteps": msteps,
+        "host_syncs": eng.host_syncs - syncs0,
+        "device_busy_ms": dev_ms,
+        "device_busy_share": dev_ms / (wall * 1e3),
+        "device_launches": sum(e.count for e in dev),
+        "device_launches_per_microstep": sum(e.count for e in dev) / msteps,
+        "ranges": ranges,
+        "port_kernels_ms": ours,
+        "top_device_ops": [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in top],
+    }
+
+
+def tgen_small_configs() -> dict[str, dict]:
+    """Config 6 small (bench.py baseline_config(6, small=True)) cut to 4
+    simulated seconds, over K, the queue layout, a lossy torus and a tight
+    capacity."""
+    stop = "4 s"
+    return {
+        "k1_flat": tgen_config(True, stop, k=1, block=0),
+        "k1_block7": tgen_config(True, stop, k=1, block=7),
+        "k4_flat": tgen_config(True, stop, k=4, block=0),
+        "k4_block7": tgen_config(True, stop, k=4, block=7),
+        "lossy_k4_block7": tgen_config(True, stop, k=4, block=7, loss=0.02),
+        "tight_k4_cap9_block3": tgen_config(True, stop, k=4, block=3, cap=9),
+    }
+
+
 def run_config(cfg_dict: dict, device) -> dict:
     from shadow_tpu_torch.config.options import ConfigOptions
     from shadow_tpu_torch.sim import Simulation
@@ -476,6 +814,7 @@ def main() -> int:
         k.launches = 0
     report = run_config(anchor_config(), None)
     launches = {k: v.launches for k, v in KERNELS.items()}
+    anchor_path = ("queue_next_time", "queue_pop_min", "queue_push_many", "merge_insert")
     emit("anchor", digest=report["determinism_digest"], events=report["events_processed"],
          wall_seconds=report["wall_seconds"], sim_wall_ratio=report["sim_wall_ratio"],
          rounds=report["rounds"], microsteps=report["microsteps"],
@@ -487,7 +826,7 @@ def main() -> int:
             f"anchor: digest {report['determinism_digest']} / events "
             f"{report['events_processed']}, expected {ANCHOR_DIGEST} / {ANCHOR_EVENTS}"
         )
-    if not all(launches.values()):
+    if not all(launches[k] for k in anchor_path):
         raise AssertionError(f"anchor: a kernel of the main path never launched: {launches}")
 
     emit("anchor_profile", **phase_anchor_profile())
@@ -503,6 +842,47 @@ def main() -> int:
         if not all(same.values()):
             raise AssertionError(f"{name}: card and CPU reports differ: {same}")
 
+    k6res = phase_kernels_cfg6(dev)
+    emit("kernels_cfg6_vs_plain", ok=True, exact=True,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in k6res.items()})
+    kres["queue_push_many"]["reserve_timing"] = k6res.pop("queue_push_many_reserve")
+    kres.update(k6res)
+
+    for k in KERNELS.values():
+        k.launches = 0
+    report = run_config(tgen_config(False, TGEN_STOP), None)
+    tgen_launches = {k: v.launches for k, v in KERNELS.items()}
+    tgen_path = ("queue_next_time", "merge_insert", "queue_pop_k", "queue_clear_popped",
+                 "queue_push_many_bucketed", "queue_block_minima")
+    emit("tgen", **{k: report[k] for k in TGEN_REF}, wall_seconds=report["wall_seconds"],
+         sim_wall_ratio=report["sim_wall_ratio"], host_syncs=report["host_syncs"],
+         launches=tgen_launches)
+    diff = {k: (report[k], v) for k, v in TGEN_REF.items() if report[k] != v}
+    if diff:
+        raise AssertionError(f"tgen: differs from the JAX reference (port, JAX): {diff}")
+    if not all(tgen_launches[k] for k in tgen_path):
+        raise AssertionError(f"tgen: a kernel of the path never launched: {tgen_launches}")
+
+    emit("tgen_profile", **phase_tgen_profile())
+
+    keys += ("bucket_cache_rebuilds", "popk_deferred", "model_report")
+    prev_threads = torch.get_num_threads()
+    for name, cfg in tgen_small_configs().items():
+        a = run_config(cfg, None)
+        torch.set_num_threads(1)  # tiny tensors: intra-op threads only cost
+        try:
+            b = run_config(cfg, "cpu")
+        finally:
+            torch.set_num_threads(prev_threads)
+        same = {k: a[k] == b[k] for k in keys}
+        emit("tgen_small", name=name, cuda={k: a[k] for k in keys}, equal_to_cpu=all(same.values()))
+        if not all(same.values()):
+            raise AssertionError(f"{name}: card and CPU reports differ: {same}")
+        if name.startswith("lossy") and not (a["packets_lost"] and a["model_report"]["retransmits"]):
+            raise AssertionError(f"{name}: no loss or retransmit was exercised")
+        if name.startswith("tight") and not a["queue_overflow_dropped"]:
+            raise AssertionError(f"{name}: no queue overflow drop was exercised")
+
     table = []
     sources = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu"}
     replaces = {
@@ -510,13 +890,21 @@ def main() -> int:
         "queue_pop_min": "shadow_tpu/ops/events.py:138",
         "queue_push_many": "shadow_tpu/ops/events.py:342",
         "merge_insert": "shadow_tpu/ops/merge.py:240",
+        "queue_pop_k": "shadow_tpu/ops/events.py:201",
+        "queue_clear_popped": "shadow_tpu/ops/events.py:290",
+        "queue_push_many_bucketed": "shadow_tpu/ops/events.py:616",
+        "queue_block_minima": "shadow_tpu/ops/events.py:460",
     }
     for name, r in kres.items():
         b_ms, b_by = r["bound"]
+        # launches: the run of the path the kernel was ported for (K1-K4
+        # the PHOLD anchor, K5-K8 the tgen leg); both runs' counts beside
         table.append({
             "name": name, "route": "cuda",
             "source": sources.get(name, "shadow_tpu_torch/csrc/queue.cu"),
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name],
+            "launches": launches[name] if name in anchor_path else tgen_launches[name],
+            "launches_by_path": {"anchor": launches[name], "tgen": tgen_launches[name]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": r["library_ms"],
         })

@@ -8,13 +8,18 @@ does not implement yet raises `ConfigError` naming the knob — a config is
 never silently run with a plane switched off:
 
   - `general.parallelism > 1` (world > 1);
-  - `experimental.event_queue_block > 0`, `microstep_events > 1`,
-    `merge_gears`, `timer_wheel`, `merge_scatter`, `merge_rows > 0`,
-    `cpu_delay > 0`, `scheduler: cpu-reference`;
+  - `experimental.merge_gears`, `timer_wheel`, `merge_scatter`,
+    `merge_rows > 0`, `cpu_delay > 0`, `scheduler: cpu-reference`;
   - any non-empty `faults`, `fluid`, `pressure`, `integrity` or `campaign`
     block, and any enabled `observability` knob (`trace`, `network`, ...);
   - `pcap_enabled`, managed processes (`path:`), and models other than
-    phold, udp_echo and timer (checked when the simulation is built).
+    phold, udp_echo, timer and tgen_tcp (checked when the simulation is
+    built).
+
+`experimental.event_queue_block` (the bucketed queue) and
+`microstep_events` (K events per host per microstep) are accepted with the
+JAX package's validation: the block is >= 0 and divides the queue capacity,
+and K >= 1.
 
 `ExperimentalOptions.resolve_shapes` is the JAX package's auto-sizing rule,
 copied verbatim, so both packages resolve a config to the same queue
@@ -120,8 +125,6 @@ class NetworkOptions:
 # experimental knobs of the JAX engine that this port rejects, with the
 # value that means "off" (a config may spell the default explicitly)
 _EXPERIMENTAL_OFF = {
-    "event_queue_block": 0,
-    "microstep_events": 1,
     "merge_gears": 0,
     "timer_wheel": 0,
     "timer_wheel_block": 0,
@@ -142,10 +145,37 @@ class ExperimentalOptions:
     overflow_shed: str = "urgency"
     # engine static shapes (0 = auto-size from the host count)
     event_queue_capacity: int = 0
+    # bucketed queue: slots per block (0 = flat); must divide the capacity
+    event_queue_block: int = 0
     sends_per_host_round: int = 0
     max_round_inserts: int = 0
     rounds_per_chunk: int = 0
     microstep_limit: int = 0
+    # events folded per host per microstep (K >= 1)
+    microstep_events: int = 1
+
+    def validate(self) -> None:
+        """The JAX package's checks of the queue-shape knobs; the block's
+        divisibility is checked here when the capacity is set explicitly,
+        and by `check_queue_block` once an auto capacity is resolved."""
+        if self.event_queue_block < 0:
+            raise ConfigError(
+                f"experimental.event_queue_block must be >= 0 (0 = flat), "
+                f"got {self.event_queue_block}"
+            )
+        if self.microstep_events < 1:
+            raise ConfigError(
+                f"experimental.microstep_events must be >= 1, got {self.microstep_events}"
+            )
+        if self.event_queue_capacity:
+            self.check_queue_block(self.event_queue_capacity)
+
+    def check_queue_block(self, capacity: int) -> None:
+        if self.event_queue_block and capacity % self.event_queue_block:
+            raise ConfigError(
+                f"experimental.event_queue_block={self.event_queue_block} must "
+                f"divide the queue capacity {capacity} evenly"
+            )
 
     def resolve_shapes(self, num_hosts: int) -> tuple[int, int, int]:
         """(queue_capacity, send_budget, rounds_per_chunk), 0-valued knobs
@@ -198,15 +228,18 @@ class ExperimentalOptions:
                 setattr(e, f, bool(d.pop(f)))
         for f in (
             "event_queue_capacity",
+            "event_queue_block",
             "sends_per_host_round",
             "max_round_inserts",
             "rounds_per_chunk",
             "microstep_limit",
+            "microstep_events",
         ):
             if f in d:
                 setattr(e, f, int(d.pop(f)))
         if d:
             raise ConfigError(f"unknown experimental options: {sorted(d)}")
+        e.validate()
         return e
 
 
@@ -355,6 +388,7 @@ class ConfigOptions:
             )
         if self.host_option_defaults.pcap_enabled:
             raise _unsupported("pcap_enabled")
+        self.experimental.validate()
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

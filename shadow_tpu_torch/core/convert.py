@@ -4,7 +4,10 @@ what carries over is the engine's parameters and its simulation state).
 `from_jax_numpy` takes the JAX engine's `EngineParams` / `SimState` pytrees
 with every leaf already a numpy array (`jax.device_get`) and returns the
 port's `(params, state)` on the requested device; uint64 lanes (RNG state,
-digests) are reinterpreted bit for bit as int64. `engine_config_from` maps a
+digests) are reinterpreted bit for bit as int64, and uint32 lanes (tgen's
+reassembly bitmap) are widened to int64 holding 0..2^32-1. A flat queue
+comes across as `EventQueue`, a bucketed one (with its bt/bo/bfill caches)
+as `BucketQueue`. `engine_config_from` maps a
 JAX `EngineConfig` onto the port's, refusing any knob the port does not run.
 `to_numpy` flattens either package's state into {"queue.t": array, ...} for a
 field-by-field comparison. Nothing here imports JAX: the inputs are read by
@@ -28,15 +31,13 @@ from shadow_tpu_torch.core.engine import (
     Stats,
 )
 from shadow_tpu_torch.net import CodelState, TBParams, TBState
-from shadow_tpu_torch.ops.events import EventQueue
+from shadow_tpu_torch.ops.events import BucketQueue, EventQueue
 from shadow_tpu_torch.ops.rng import RngState
 
 # JAX EngineConfig fields of planes this port does not run, with their "off"
 # value
 _OFF_FIELDS = {
     "world": 1,
-    "queue_block": 0,
-    "microstep_events": 1,
     "gear_cols": 0,
     "trace_rounds": 0,
     "fault_crash_windows": 0,
@@ -69,6 +70,8 @@ def _t(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint64:
         a = a.view(np.int64)
+    elif a.dtype == np.uint32:
+        a = a.astype(np.int64)
     return torch.from_numpy(np.array(a)).to(device)
 
 
@@ -102,10 +105,11 @@ def state_from_jax_numpy(sim_state, model_state=None, *, device) -> SimState:
     """The port's SimState from the JAX package's numpy `SimState`;
     `model_state` defaults to `sim_state.model`."""
     s = sim_state
+    qtype = BucketQueue if hasattr(s.queue, "bt") else EventQueue
     return SimState(
         now=int(s.now),
         done=bool(s.done),
-        queue=EventQueue(*(_t(getattr(s.queue, f), device) for f in EventQueue._fields)),
+        queue=qtype(*(_t(getattr(s.queue, f), device) for f in qtype._fields)),
         rng=RngState(_t(s.rng.s, device)),
         seq=_t(s.seq, device),
         sent_round=_t(s.sent_round, device),
@@ -132,6 +136,8 @@ def _np(v: Any) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     a = np.asarray(v)
+    if a.dtype == np.uint32:
+        return a.astype(np.int64)
     return a.view(np.int64) if a.dtype == np.uint64 else a
 
 
@@ -147,7 +153,8 @@ def to_numpy(state) -> dict[str, np.ndarray]:
         "min_used_lat": _np(state.min_used_lat),
     }
     groups = {
-        "queue": (state.queue, EventQueue._fields),
+        "queue": (state.queue, BucketQueue._fields if hasattr(state.queue, "bt")
+                  else EventQueue._fields),
         "tb_egress": (state.tb_egress, TBState._fields),
         "tb_ingress": (state.tb_ingress, TBState._fields),
         "codel": (state.codel, CodelState._fields),

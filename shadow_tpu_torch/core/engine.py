@@ -3,21 +3,29 @@ single-device subset of shadow_tpu/core/engine.py).
 
 One round advances every host through the safe window [now, window_end):
 
-  1. barrier: the minimum over hosts of the next event time (K1);
+  1. barrier: the minimum over hosts of the next event time (K1, over the
+     slab or the bucketed queue's block caches);
   2. window_end = min(gmin + runahead, stop_time);
   3. microsteps, while any host has an event before window_end: every host
-     pops its earliest event (K2), one vectorized model handler runs for all
-     hosts, packet arrivals pass ingress shaping (CoDel + downlink token
-     bucket), sends pass egress shaping (budget, uplink bucket, loss/jitter
-     draws, routing) into the [H, B] outbox, local pushes land in the
-     queue (K3);
-  4. exchange: the outbox merges into the destination queues (K4).
+     pops its earliest event (K2; K5 + K6 on the bucketed queue), one
+     vectorized model handler runs for all hosts, packet arrivals pass
+     ingress shaping (CoDel + downlink token bucket), sends pass egress
+     shaping (budget, uplink bucket, loss/jitter draws, routing) into the
+     [H, B] outbox, local pushes land in the queue (K3; K7 bucketed);
+  4. exchange: the outbox merges into the destination queues (K4), and a
+     bucketed queue's block caches are rebuilt (K8).
 
-The slice is the JAX package's default single-device path: flat queue, one
-event per host per microstep, world 1. `lax.while_loop` becomes a Python
-loop; each loop condition is one device-to-host read, counted in
-`Engine.host_syncs`. The window itself is computed on the device and read
-back with the `done` flag in the same read.
+With `microstep_events` K > 1 a microstep peeks each host's K earliest
+in-window events (K5), runs them through the handler in turn as long as no
+push of this microstep would pop before the next one, clears the executed
+prefix (K6) and applies all pushes in one pass (K3/K7), each holding back a
+reserve so that drops equal the one-event microstep's.
+
+The slice is the JAX package's single-device path: flat or bucketed queue,
+K >= 1, world 1. `lax.while_loop` becomes a Python loop; each loop
+condition is one device-to-host read, counted in `Engine.host_syncs`. The
+window itself is computed on the device and read back with the `done` flag
+in the same read.
 
 Determinism: pops follow the packed (time, order) key; RNG lanes advance
 only under masks; the merge orders rows by (dst, time, order). Per-host
@@ -31,6 +39,7 @@ place on CUDA (a state's queue is consumed by the step that takes it).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -58,14 +67,19 @@ from shadow_tpu_torch.ops.events import (
     EVENT_PAYLOAD_WORDS,
     ORDER_MAX,
     SEQ_MASK,
+    BucketQueue,
     EventQueue,
     Push,
+    as_flat,
+    bucket_rebuild,
     check_order_limits,
-    next_time,
+    clear_popped,
     pack_order,
-    pop_min,
-    push_many,
-    queue_len,
+    pop_k,
+    q_len,
+    q_next_time,
+    q_pop_min,
+    q_push_many,
     unpack_order_src,
 )
 from shadow_tpu_torch.ops.merge import merge_flat_events
@@ -102,6 +116,8 @@ class Stats(NamedTuple):
     pkts_budget_dropped: torch.Tensor  # i64[H]
     ob_dropped: torch.Tensor  # i64[1]
     microsteps: torch.Tensor  # i64[1]
+    bq_rebuilds: torch.Tensor  # i64[1] wholesale block-cache rebuilds
+    popk_deferred: torch.Tensor  # i64[1] K-way batch events peeked but deferred
     q_occ_hwm: torch.Tensor  # i64[H]
     outbox_hwm: torch.Tensor  # i64[1]
     digest: torch.Tensor  # i64[H] (uint64 FNV fold, bit pattern)
@@ -111,7 +127,7 @@ class Stats(NamedTuple):
 class SimState(NamedTuple):
     now: int  # completed-up-to time (host scalar)
     done: bool
-    queue: EventQueue
+    queue: EventQueue | BucketQueue
     rng: RngState
     seq: torch.Tensor  # i64[H] per-host emission counter
     sent_round: torch.Tensor  # i32[H] sends staged this round
@@ -157,19 +173,41 @@ class EngineConfig:
     cheap_shed: bool = False
     use_jitter: bool = False
     queue_capacity: int = 64
+    # slots per block of the bucketed queue; 0 = flat queue
+    queue_block: int = 0
     sends_per_host_round: int = 8
     max_round_inserts: int = 64
     microstep_limit: int = 0  # 0 -> 2 * queue_capacity
+    # events folded per host per microstep (K)
+    microstep_events: int = 1
     rounds_per_chunk: int = 64
     # host->node map is contiguous uniform blocks (node = host // g)
     hosts_per_node: int = 0
 
     def __post_init__(self):
         check_order_limits(self.num_hosts)
+        if self.queue_block < 0 or (
+            self.queue_block and self.queue_capacity % self.queue_block
+        ):
+            raise ValueError(
+                f"queue_block={self.queue_block} must be 0 (flat) or divide "
+                f"queue_capacity={self.queue_capacity} evenly"
+            )
+        if self.microstep_events < 1:
+            raise ValueError(f"microstep_events={self.microstep_events} must be >= 1")
 
     @property
     def effective_microstep_limit(self) -> int:
+        """The per-round livelock valve: for K = 1 it bounds microsteps; for
+        K > 1 it bounds each host's executed events in the round (the round
+        loop stops when any host's count reaches it), so the same number
+        denominates an event budget either way."""
         return self.microstep_limit or 2 * self.queue_capacity
+
+    @property
+    def effective_microstep_events(self) -> int:
+        """K clamped to the queue capacity."""
+        return min(self.microstep_events, self.queue_capacity)
 
 
 def digest_update(digest, active, t, kind, order):
@@ -194,7 +232,7 @@ def _init_stats(cfg: EngineConfig, device) -> Stats:
         events=zi(), pkts_sent=zi(), pkts_lost=zi(), pkts_unreachable=zi(),
         pkts_codel_dropped=zi(), pkts_delivered=zi(), monotonic_violations=zi(),
         pkts_budget_dropped=zi(), ob_dropped=z1(), microsteps=z1(),
-        q_occ_hwm=zi(), outbox_hwm=z1(),
+        bq_rebuilds=z1(), popk_deferred=z1(), q_occ_hwm=zi(), outbox_hwm=z1(),
         digest=torch.full((h,), _FNV_OFFSET, dtype=torch.int64, device=device),
         rounds=torch.zeros((), dtype=torch.int64, device=device),
     )
@@ -212,9 +250,10 @@ def make_empty_outbox(num_hosts: int, send_budget: int, device) -> Outbox:
     )
 
 
-def seed_queue(cfg: EngineConfig, initial_events, device) -> tuple[EventQueue, torch.Tensor]:
-    """The t=0 queue from (host_id, t_ns, kind, payload) events, and the
-    per-host seq counters advanced past them."""
+def seed_queue(cfg: EngineConfig, initial_events, device):
+    """The t=0 queue from (host_id, t_ns, kind, payload) events (bucketed
+    when `queue_block`), and the per-host seq counters advanced past
+    them."""
     h, c = cfg.num_hosts, cfg.queue_capacity
     t = np.full((h, c), TIME_MAX, np.int64)
     order = np.full((h, c), ORDER_MAX, np.int64)
@@ -239,6 +278,8 @@ def seed_queue(cfg: EngineConfig, initial_events, device) -> tuple[EventQueue, t
         payload=torch.as_tensor(payload, device=device),
         dropped=torch.zeros((h,), dtype=torch.int64, device=device),
     )
+    if cfg.queue_block:
+        queue = bucket_rebuild(queue, cfg.queue_block)
     return queue, torch.as_tensor(seq, device=device)
 
 
@@ -275,6 +316,16 @@ class _EvCarry(NamedTuple):
     tb_ingress: TBState
     codel: CodelState
     model: Any
+
+
+def _ev_carry_of(st: SimState) -> _EvCarry:
+    return _EvCarry(st.stats, st.rng, st.seq, st.sent_round, st.tb_egress,
+                    st.tb_ingress, st.codel, st.model)
+
+
+def _lex_less(at, ao, bt, bo):
+    """(at, ao) < (bt, bo) on the (time, order) total key."""
+    return (at < bt) | ((at == bt) & (ao < bo))
 
 
 class Engine:
@@ -344,7 +395,7 @@ class Engine:
     def compute_window(self, st: SimState) -> tuple[int, bool]:
         """Barrier + window: (window_end, done), one device-to-host read."""
         cfg = self.cfg
-        gmin = next_time(st.queue).min()
+        gmin = q_next_time(st.queue).min()
         done = gmin >= cfg.stop_time
         gmin_safe = torch.clamp_max(gmin, cfg.stop_time)
         if cfg.use_dynamic_runahead:
@@ -362,17 +413,32 @@ class Engine:
 
     def window_step(self, st: SimState, params: EngineParams, window_end: int, done: bool) -> SimState:
         cfg = self.cfg
+        limit = cfg.effective_microstep_limit
         steps = 0
-        while steps < cfg.effective_microstep_limit:
-            pending = bool((next_time(st.queue) < window_end).any())
-            self.host_syncs += 1
-            if not pending:
-                break
-            st = self.microstep(st, params, window_end)
-            steps += 1
+        if cfg.effective_microstep_events > 1:
+            # the valve is a per-host executed-event vector bounded by its
+            # max, read in the same device-to-host read as the loop test
+            valve = torch.zeros((cfg.num_hosts,), dtype=torch.int64, device=self.device)
+            while True:
+                pending = (q_next_time(st.queue) < window_end).any().to(torch.int64)
+                go, vmax = torch.stack([pending, valve.max()]).tolist()
+                self.host_syncs += 1
+                if not go or vmax >= limit:
+                    break
+                st, executed = self.microstep_k(st, params, window_end)
+                valve = valve + executed
+                steps += 1
+        else:
+            while steps < limit:
+                pending = bool((q_next_time(st.queue) < window_end).any())
+                self.host_syncs += 1
+                if not pending:
+                    break
+                st = self.microstep(st, params, window_end)
+                steps += 1
         st_m = st
         st_x = self.exchange(st_m)
-        occ = queue_len(st_x.queue).to(torch.int64)
+        occ = q_len(st_x.queue).to(torch.int64)
         ob_hwm = st_m.sent_round.max().to(torch.int64)
         s = st_x.stats
         stats = s._replace(
@@ -386,14 +452,72 @@ class Engine:
         )
 
     def microstep(self, st: SimState, params: EngineParams, window_end: int) -> SimState:
-        queue, ev, active = pop_min(st.queue, window_end)
+        """The one-event microstep: pop, execute, push, append."""
+        queue, ev, active = q_pop_min(st.queue, window_end)
         c, push_list, entries, used_lats = self.event_body(
-            _EvCarry(st.stats, st.rng, st.seq, st.sent_round, st.tb_egress,
-                     st.tb_ingress, st.codel, st.model),
-            params, window_end, ev, active,
+            _ev_carry_of(st), params, window_end, ev, active,
         )
         if push_list:
-            queue = push_many(queue, push_list)
+            queue = q_push_many(queue, push_list)
+        return self._finish_microstep(st, c, queue, entries, used_lats)
+
+    def microstep_k(self, st: SimState, params: EngineParams, window_end: int):
+        """The K-way microstep: peek each host's K earliest in-window events
+        (K5), fold them through the handler in turn, clear the executed
+        prefix (K6) and apply every push in one pass. Returns (state',
+        executed[H]).
+
+        Exactness guard: batch event j+1 of a host executes only if no push
+        this host emitted so far in this microstep (model pushes and ingress
+        requeues) has an earlier (time, order) key — with one event per
+        microstep that push would pop first. Deferral is monotone, so the
+        executed events are a prefix of the batch; the rest stay in the
+        slab. Drop exactness: the pushes run after the clear, in one-event
+        chronological order (requeue_0, pushes_0, requeue_1, ...), each
+        holding a reserve of the batch events that executed after it."""
+        cfg = self.cfg
+        k = cfg.effective_microstep_events
+        h = cfg.num_hosts
+        dev = self.device
+        popped = pop_k(st.queue, window_end, k)
+        c = _ev_carry_of(st)
+        deferred = torch.zeros((h,), dtype=torch.bool, device=dev)
+        pm_t = torch.full((h,), TIME_MAX, dtype=torch.int64, device=dev)
+        pm_o = torch.full((h,), ORDER_MAX, dtype=torch.int64, device=dev)
+        cons_ks, push_lists, entries, used_lats = [], [], [], []
+        for j in range(popped.t.shape[1]):
+            ev = popped.event(j)
+            if j > 0:
+                deferred = deferred | _lex_less(pm_t, pm_o, ev.t, ev.order)
+            cons_j = popped.active[:, j] & ~deferred
+            c, push_list, ents, lats = self.event_body(c, params, window_end, ev, cons_j)
+            # an event's own pushes cannot defer it: fold them in after
+            for push in push_list:
+                better = push.mask & _lex_less(push.t, push.order, pm_t, pm_o)
+                pm_t = torch.where(better, push.t, pm_t)
+                pm_o = torch.where(better, push.order, pm_o)
+            cons_ks.append(cons_j.to(torch.int32))
+            push_lists.append(push_list)
+            entries += ents
+            used_lats += lats
+        m = functools.reduce(torch.add, cons_ks)
+        queue = clear_popped(st.queue, popped, m)
+        all_pushes = []
+        for j, push_list in enumerate(push_lists):
+            reserve = (functools.reduce(torch.add, cons_ks[j + 1 :]) if j + 1 < len(cons_ks)
+                       else torch.zeros_like(m))
+            all_pushes += [p._replace(reserve=reserve) for p in push_list]
+        if all_pushes:
+            queue = q_push_many(queue, all_pushes)
+        n_deferred = popped.active.sum() - m.sum()
+        c = c._replace(stats=c.stats._replace(
+            popk_deferred=c.stats.popk_deferred + n_deferred
+        ))
+        return self._finish_microstep(st, c, queue, entries, used_lats), m
+
+    def _finish_microstep(self, st: SimState, c: "_EvCarry", queue, entries, used_lats):
+        """Apply the microstep's outbox appends, fold the used-latency
+        lookahead, and reassemble the state."""
         outbox, min_used = st.outbox, st.min_used_lat
         stats = c.stats
         if entries:
@@ -474,47 +598,61 @@ class Engine:
             ))
             seq = seq + mask
 
+        # sends: each port may carry a burst of up to count_max segments to
+        # one destination, sharing the route lookup; each segment has its
+        # own budget slot, bandwidth charge, loss draw and order key
         entries, used_lats = [], []
         for s in out.sends:
-            mask = s.mask & dispatch
+            mask0 = s.mask & dispatch
+            # gate on count is None: count=None with count_max > 1 is legal,
+            # and an explicit count of 0 suppresses the send
+            if s.count is None:
+                counts = mask0.to(torch.int32)
+            else:
+                counts = torch.where(mask0, s.count.to(torch.int32), 0)
             sz = s.size_bytes.to(torch.int32)
-            bad_dst = mask & ((s.dst < 0) | (s.dst >= cfg.num_hosts))
+            bad_dst = mask0 & ((s.dst < 0) | (s.dst >= cfg.num_hosts))
             dst = torch.clamp(s.dst, 0, cfg.num_hosts - 1)
             lat, lossp, jit = self._route(params, dst)
             lat_bound0 = lat - jit if cfg.use_jitter else lat
-            over_budget = sent_round >= cfg.sends_per_host_round
-            if cfg.shaping:
-                tb_eg, eg_depart = tb_conforming_remove(
-                    tb_eg, params.eg_tb, cfg.tb_interval_ns, ev.t,
-                    sz.to(torch.int64) * 8, mask & ~over_budget,
+            port_kind = s.kind.to(torch.int32) | KIND_PKT
+            for j in range(s.count_max):
+                mask = mask0 & (counts > j)
+                over_budget = sent_round >= cfg.sends_per_host_round
+                if cfg.shaping:
+                    tb_eg, eg_depart = tb_conforming_remove(
+                        tb_eg, params.eg_tb, cfg.tb_interval_ns, ev.t,
+                        sz.to(torch.int64) * 8, mask & ~over_budget,
+                    )
+                else:
+                    eg_depart = ev.t
+                lat_j = lat
+                if cfg.use_jitter:
+                    rng, uj = rng_uniform(rng, mask)
+                    lat_j = lat + ((uj * 2.0 - 1.0) * jit.to(torch.float32)).to(torch.int64)
+                unreachable = mask & ((lat_bound0 < 0) | bad_dst)
+                rng, u = rng_uniform(rng, mask)
+                lost = mask & (u < lossp) & (ev.t >= cfg.bootstrap_end_time)
+                send_ok = mask & ~lost & ~unreachable & ~over_budget
+                budget_dropped = mask & ~lost & ~unreachable & over_budget
+                ob_col = sent_round
+                sent_round = sent_round + send_ok.to(torch.int32)
+                arrive = torch.clamp_min(eg_depart + torch.clamp_min(lat_j, 0), window_end)
+                order = pack_order(0, host_gid, seq)
+                seq = seq + mask
+                payload = s.payload.to(torch.int32)
+                if j > 0 and s.payload_inc is not None:
+                    payload = payload + j * s.payload_inc.to(torch.int32)
+                payload = payload.clone()
+                payload[:, PAYLOAD_SIZE_WORD] = sz
+                entries.append((send_ok, ob_col, dst, arrive, order, port_kind, payload))
+                used_lats.append(torch.where(send_ok, lat_bound0, TIME_MAX))
+                stats = stats._replace(
+                    pkts_sent=stats.pkts_sent + mask,
+                    pkts_lost=stats.pkts_lost + lost,
+                    pkts_unreachable=stats.pkts_unreachable + unreachable,
+                    pkts_budget_dropped=stats.pkts_budget_dropped + budget_dropped,
                 )
-            else:
-                eg_depart = ev.t
-            lat_j = lat
-            if cfg.use_jitter:
-                rng, uj = rng_uniform(rng, mask)
-                lat_j = lat + ((uj * 2.0 - 1.0) * jit.to(torch.float32)).to(torch.int64)
-            unreachable = mask & ((lat_bound0 < 0) | bad_dst)
-            rng, u = rng_uniform(rng, mask)
-            lost = mask & (u < lossp) & (ev.t >= cfg.bootstrap_end_time)
-            send_ok = mask & ~lost & ~unreachable & ~over_budget
-            budget_dropped = mask & ~lost & ~unreachable & over_budget
-            ob_col = sent_round
-            sent_round = sent_round + send_ok.to(torch.int32)
-            arrive = torch.clamp_min(eg_depart + torch.clamp_min(lat_j, 0), window_end)
-            order = pack_order(0, host_gid, seq)
-            seq = seq + mask
-            payload = s.payload.to(torch.int32).clone()
-            payload[:, PAYLOAD_SIZE_WORD] = sz
-            entries.append((send_ok, ob_col, dst, arrive, order, s.kind.to(torch.int32) | KIND_PKT,
-                            payload))
-            used_lats.append(torch.where(send_ok, lat_bound0, TIME_MAX))
-            stats = stats._replace(
-                pkts_sent=stats.pkts_sent + mask,
-                pkts_lost=stats.pkts_lost + lost,
-                pkts_unreachable=stats.pkts_unreachable + unreachable,
-                pkts_budget_dropped=stats.pkts_budget_dropped + budget_dropped,
-            )
         carry = _EvCarry(stats, rng, seq, sent_round, tb_eg, tb_in, codel, out.state)
         return carry, push_list, entries, used_lats
 
@@ -542,18 +680,26 @@ class Engine:
                 params.jitter_ns[src_node, dst_node])
 
     def exchange(self, st: SimState) -> SimState:
-        """World-1 exchange: merge the outbox, host-major, into the queues."""
+        """World-1 exchange: merge the outbox, host-major, into the queues;
+        a bucketed queue then gets its block caches rebuilt (counted in
+        rounds that sent anything, as the reference counts them — its
+        skipped rebuild of an unchanged slab gives the same caches)."""
         cfg, ob = self.cfg, st.outbox
         dst_f = ob.dst.reshape(-1)
         t_f = ob.t.reshape(-1)
         valid = (t_f != TIME_MAX) & (dst_f >= 0) & (dst_f < cfg.num_hosts)
         queue = merge_flat_events(
-            st.queue, dst_f, t_f, ob.order.reshape(-1), ob.kind.reshape(-1),
+            as_flat(st.queue), dst_f, t_f, ob.order.reshape(-1), ob.kind.reshape(-1),
             ob.payload.reshape(-1, ob.payload.shape[-1]), valid,
             cfg.max_round_inserts, shed_urgency=not cfg.cheap_shed,
         )
+        stats = st.stats
+        if isinstance(st.queue, BucketQueue):
+            queue = bucket_rebuild(queue, st.queue.block)
+            stats = stats._replace(bq_rebuilds=stats.bq_rebuilds + (ob.count > 0))
         return st._replace(
             queue=queue,
+            stats=stats,
             outbox=make_empty_outbox(cfg.num_hosts, cfg.sends_per_host_round, ob.t.device),
             sent_round=torch.zeros_like(st.sent_round),
         )

@@ -1,24 +1,39 @@
-// Event-queue kernels of the round loop: K1 queue_next_time, K2 queue_pop_min,
-// K3 queue_push_many. Plain C interface (ctypes); every entry point launches on
-// the stream it is given and returns cudaGetLastError().
+// Event-queue kernels of the round loop. Plain C interface (ctypes); every
+// entry point launches on the stream it is given and returns
+// cudaGetLastError().
 //
 // Replaces (JAX reference):
-//   K1  shadow_tpu/ops/events.py:129 next_time   (row min of the time plane)
-//   K2  shadow_tpu/ops/events.py:138 pop_min     (lexicographic min, read, clear)
-//   K3  shadow_tpu/ops/events.py:342 push_many   (k-th firing push -> k-th free slot)
+//   K1  shadow_tpu/ops/events.py:129 next_time      (row min; also bq_next_time
+//                                                    over the [H, C/B] block caches)
+//   K2  shadow_tpu/ops/events.py:138 pop_min        (lexicographic min, read, clear)
+//   K3  shadow_tpu/ops/events.py:342 push_many      (k-th firing push -> k-th free
+//                                                    slot, minus its reserve)
+//   K5  shadow_tpu/ops/events.py:201 pop_k          (peek the K earliest in-window)
+//   K6  shadow_tpu/ops/events.py:290 clear_popped   (clear the executed prefix;
+//                                                    bucketed: victim-block recompute)
+//   K7  shadow_tpu/ops/events.py:616 bq_push_many   (K3 plus the block-cache update)
+//   K8  shadow_tpu/ops/events.py:460 block_minima   (wholesale cache rebuild)
 //
 // Layout: one [H, C] slab per field, row-major; t/order int64, kind int32,
-// payload int32[P] per slot. Empty slots hold (TIME_MAX, ORDER_MAX).
+// payload int32[P] per slot. Empty slots hold (TIME_MAX, ORDER_MAX). The
+// bucketed queue adds [H, NB] caches over NB = C / B blocks of B contiguous
+// slots: bt/bo int64 (the block's lexicographic (t, order) minimum) and bfill
+// int32 (its live slots).
 //
-// What bounds them on an H100: all three are memory-bound streams over the
-// slab (H = 10,000, C = 64: 5.1 MB per int64 plane) with a handful of integer
-// compares per element; the bound is bytes / 3.35 TB/s. Design: ONE WARP PER
-// HOST ROW. Lane l reads slots l, l+32, ... so every load of a warp is one
-// coalesced 256-byte transaction per int64 plane; the row reduction is five
-// butterfly shuffles (no shared memory, no atomics, no block barrier). Only
-// the winning slot's kind/payload are touched, so K2 reads 2 of the 4 planes
-// in full. Results are independent of scheduling: each host is owned by
-// exactly one warp and every reduction is over a total order with unique keys.
+// What bounds them on an H100: all are memory-bound passes over the slab
+// (H = 10,000, C = 28 at bench config 6: 2.2 MB per int64 plane) with a few
+// integer compares per element; the bound is bytes / 3.35 TB/s. Design: ONE
+// WARP PER HOST ROW. Lane l owns slots l, l+32, ... so every load of a warp is
+// one coalesced transaction per plane, and row reductions are five butterfly
+// shuffles (no shared memory, no atomics, no block barrier). Results are
+// independent of scheduling: each host is owned by exactly one warp and every
+// reduction is over a total order with unique keys ((t, order) among live
+// slots; (t, order, slot) where empty slots must be told apart).
+//
+// Limits checked at the C entry points: P <= 32, C <= 1024 (a lane tracks its
+// slots in one 32-bit mask), K <= 32 and NP <= 32 (pushes per host per call;
+// bench config 6 at K = 4 has 12), NB <= 32 blocks per row for the bucketed
+// kernels.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -29,16 +44,36 @@ constexpr long long kTimeMax = 0x7fffffffffffffffLL;
 constexpr long long kOrderMax = 0x7fffffffffffffffLL;
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxPorts = 32;
 
 __device__ __forceinline__ bool lex_less(long long at, long long ao, long long bt, long long bo) {
   return at < bt || (at == bt && ao < bo);
+}
+
+__device__ __forceinline__ bool lex_less3(long long at, long long ao, int ai, long long bt,
+                                          long long bo, int bi) {
+  return at < bt || (at == bt && (ao < bo || (ao == bo && ai < bi)));
+}
+
+// warp-wide lexicographic (t, order) minimum; every lane gets the result
+__device__ __forceinline__ void warp_lexmin(long long& t, long long& o) {
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    long long ot = __shfl_xor_sync(kFull, t, off);
+    long long oo = __shfl_xor_sync(kFull, o, off);
+    if (lex_less(ot, oo, t, o)) { t = ot; o = oo; }
+  }
+}
+
+__device__ __forceinline__ int host_of_warp() {
+  return blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
 }
 
 // K1: out[h] = min_c t[h, c]
 __global__ void next_time_kernel(const long long* __restrict__ t, long long* __restrict__ out,
                                  int H, int C) {
   const int lane = threadIdx.x & (kWarp - 1);
-  const int h = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int h = host_of_warp();
   if (h >= H) return;  // whole warp exits together
   const long long* row = t + (long long)h * C;
   long long m = kTimeMax;
@@ -47,7 +82,7 @@ __global__ void next_time_kernel(const long long* __restrict__ t, long long* __r
     m = v < m ? v : m;
   }
   for (int off = kWarp / 2; off > 0; off >>= 1) {
-    long long o = __shfl_xor_sync(0xffffffffu, m, off);
+    long long o = __shfl_xor_sync(kFull, m, off);
     m = o < m ? o : m;
   }
   if (lane == 0) out[h] = m;
@@ -63,7 +98,7 @@ __global__ void pop_min_kernel(long long* __restrict__ t, long long* __restrict_
                                int* __restrict__ ev_payload, bool* __restrict__ active,
                                int H, int C, int P) {
   const int lane = threadIdx.x & (kWarp - 1);
-  const int h = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int h = host_of_warp();
   if (h >= H) return;
   const long long base = (long long)h * C;
   long long bt = kTimeMax, bo = kOrderMax;
@@ -73,9 +108,9 @@ __global__ void pop_min_kernel(long long* __restrict__ t, long long* __restrict_
     if (lex_less(vt, vo, bt, bo)) { bt = vt; bo = vo; bi = c; }
   }
   for (int off = kWarp / 2; off > 0; off >>= 1) {
-    long long ot = __shfl_xor_sync(0xffffffffu, bt, off);
-    long long oo = __shfl_xor_sync(0xffffffffu, bo, off);
-    int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+    long long ot = __shfl_xor_sync(kFull, bt, off);
+    long long oo = __shfl_xor_sync(kFull, bo, off);
+    int oi = __shfl_xor_sync(kFull, bi, off);
     if (lex_less(ot, oo, bt, bo)) { bt = ot; bo = oo; bi = oi; }
   }
   // every lane now holds the same winner (unique keys; empties tie only
@@ -96,18 +131,25 @@ __global__ void pop_min_kernel(long long* __restrict__ t, long long* __restrict_
   }
 }
 
-// K3: pushes are applied in port order; the k-th push that fires takes the
-// k-th free slot of the ORIGINAL free set (ranked by slot index), as long as
-// k < the row's free count; the rest add to dropped[h]. Push arrays are
-// [NP, H] (payload [NP, H, P]).
+// K3 (flat) and K7 (bucketed): pushes are applied in port order; the k-th
+// push that fires takes the k-th free slot of the ORIGINAL free set (ranked
+// by slot index), as long as k + reserve[push] < the row's free count; the
+// rest add to dropped[h]. Push arrays are [NP, H] (payload [NP, H, P]);
+// `preserve` may be null (no reserves). The bucketed variant then folds the
+// landed pushes into their blocks' caches: (bt, bo) lexicographic min with
+// the pushed keys (the reference's running 2-way min, which is a min over
+// the set) and bfill += pushes landed in the block.
+template <bool kBucketed>
 __global__ void push_many_kernel(long long* __restrict__ t, long long* __restrict__ order,
                                  int* __restrict__ kind, int* __restrict__ payload,
-                                 long long* __restrict__ dropped,
+                                 long long* __restrict__ dropped, long long* __restrict__ bt,
+                                 long long* __restrict__ bo, int* __restrict__ bfill,
                                  const bool* __restrict__ pmask, const long long* __restrict__ pt,
                                  const long long* __restrict__ po, const int* __restrict__ pk,
-                                 const int* __restrict__ pp, int H, int C, int P, int NP) {
+                                 const int* __restrict__ pp, const int* __restrict__ preserve,
+                                 int H, int C, int P, int NP, int B) {
   const int lane = threadIdx.x & (kWarp - 1);
-  const int h = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int h = host_of_warp();
   if (h >= H) return;
   const long long base = (long long)h * C;
   // 1. free count of the row
@@ -115,26 +157,30 @@ __global__ void push_many_kernel(long long* __restrict__ t, long long* __restric
   for (int c0 = 0; c0 < C; c0 += kWarp) {
     const int c = c0 + lane;
     const bool f = c < C && t[base + c] == kTimeMax;
-    free_count += __popc(__ballot_sync(0xffffffffu, f));
+    free_count += __popc(__ballot_sync(kFull, f));
   }
   // 2. which pushes fire and fit (uniform across the warp): firing push
   //    number k (k < n_ok) is pushes[src[k]]
   int n_ok = 0, n_drop = 0;
-  int src[8];  // pushes per host per microstep are few (the host wrapper caps NP)
+  int src[kMaxPorts];
   for (int p = 0; p < NP; ++p) {
-    if (pmask[(long long)p * H + h]) {
-      if (n_ok < free_count) src[n_ok++] = p;
+    const long long i = (long long)p * H + h;
+    if (pmask[i]) {
+      const int reserve = preserve ? preserve[i] : 0;
+      if (n_ok + reserve < free_count) src[n_ok++] = p;
       else ++n_drop;
     }
   }
   if (lane == 0 && n_drop) dropped[h] += n_drop;
   if (n_ok == 0) return;
-  // 3. one pass over the row: the slot of free rank r < n_ok gets push src[r]
+  // 3. one pass over the row: the slot of free rank r < n_ok gets push
+  //    src[r]; bit k of `wrote` marks this lane's slot in chunk k
+  unsigned wrote = 0;
   int rank0 = 0;
-  for (int c0 = 0; c0 < C && rank0 < n_ok; c0 += kWarp) {
+  for (int c0 = 0, k = 0; c0 < C && rank0 < n_ok; c0 += kWarp, ++k) {
     const int c = c0 + lane;
     const bool f = c < C && t[base + c] == kTimeMax;
-    const unsigned bal = __ballot_sync(0xffffffffu, f);
+    const unsigned bal = __ballot_sync(kFull, f);
     const int r = rank0 + __popc(bal & ((1u << lane) - 1u));
     if (f && r < n_ok) {
       const long long i = (long long)src[r] * H + h;
@@ -142,12 +188,189 @@ __global__ void push_many_kernel(long long* __restrict__ t, long long* __restric
       order[base + c] = po[i];
       kind[base + c] = pk[i];
       for (int w = 0; w < P; ++w) payload[(base + c) * P + w] = pp[i * P + w];
+      wrote |= 1u << k;
     }
     rank0 += __popc(bal);
+  }
+  if (!kBucketed) return;
+  // 4. block caches of the blocks that received a push
+  const int NB = C / B;
+  unsigned touched = 0;
+  for (unsigned w = wrote; w; w &= w - 1) touched |= 1u << (((__ffs(w) - 1) * kWarp + lane) / B);
+  touched = __reduce_or_sync(kFull, touched);
+  for (unsigned tb = touched; tb; tb &= tb - 1) {
+    const int j = __ffs(tb) - 1;
+    long long mt = kTimeMax, mo = kOrderMax;
+    int cnt = 0;
+    for (unsigned w = wrote; w; w &= w - 1) {
+      const int c = (__ffs(w) - 1) * kWarp + lane;
+      if (c / B == j) {
+        ++cnt;
+        const long long vt = t[base + c], vo = order[base + c];
+        if (lex_less(vt, vo, mt, mo)) { mt = vt; mo = vo; }
+      }
+    }
+    warp_lexmin(mt, mo);
+    cnt = __reduce_add_sync(kFull, cnt);
+    if (lane == 0) {
+      const long long bi = (long long)h * NB + j;
+      if (lex_less(mt, mo, bt[bi], bo[bi])) { bt[bi] = mt; bo[bi] = mo; }
+      bfill[bi] += cnt;
+    }
+  }
+}
+
+// K5: peek each host's K earliest events: round j takes the lexicographic
+// (t, order, slot) minimum over the slots not taken by rounds < j (live keys
+// are unique; the slot index only orders the empty sentinels). Column j is
+// active iff its time is below `limit` (a prefix: times ascend). Nothing is
+// written to the slab. Bit k of `taken` marks this lane's slot in chunk k.
+__global__ void pop_k_kernel(const long long* __restrict__ t, const long long* __restrict__ order,
+                             const int* __restrict__ kind, const int* __restrict__ payload,
+                             long long limit, long long* __restrict__ out_t,
+                             long long* __restrict__ out_order, int* __restrict__ out_kind,
+                             int* __restrict__ out_payload, bool* __restrict__ out_active,
+                             int* __restrict__ out_idx, int H, int C, int P, int K) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int h = host_of_warp();
+  if (h >= H) return;
+  const long long base = (long long)h * C;
+  unsigned taken = 0;
+  for (int j = 0; j < K; ++j) {
+    long long bt = kTimeMax, bo = kOrderMax;
+    int bi = 0x7fffffff;
+    for (int c0 = 0, k = 0; c0 < C; c0 += kWarp, ++k) {
+      const int c = c0 + lane;
+      if (c < C && !(taken >> k & 1u)) {
+        const long long vt = t[base + c], vo = order[base + c];
+        if (lex_less3(vt, vo, c, bt, bo, bi)) { bt = vt; bo = vo; bi = c; }
+      }
+    }
+    for (int off = kWarp / 2; off > 0; off >>= 1) {
+      const long long ot = __shfl_xor_sync(kFull, bt, off);
+      const long long oo = __shfl_xor_sync(kFull, bo, off);
+      const int oi = __shfl_xor_sync(kFull, bi, off);
+      if (lex_less3(ot, oo, oi, bt, bo, bi)) { bt = ot; bo = oo; bi = oi; }
+    }
+    // K <= C, so an untaken slot always exists and bi is a real slot
+    if ((bi & (kWarp - 1)) == lane) taken |= 1u << (bi / kWarp);
+    const bool act = bt < limit;
+    const long long o = (long long)h * K + j;
+    if (lane < P) out_payload[o * P + lane] = act ? payload[(base + bi) * P + lane] : 0;
+    if (lane == 0) {
+      out_t[o] = act ? bt : kTimeMax;
+      out_order[o] = act ? bo : kOrderMax;
+      out_kind[o] = act ? kind[base + bi] : 0;
+      out_active[o] = act;
+      out_idx[o] = bi;
+    }
+  }
+}
+
+// K6: clear the first m[h] active batch slots of a K5 peek. Bucketed: each
+// block that lost a slot gets its (bt, bo) recomputed from its B slots and
+// its bfill reduced by the slots it lost; untouched blocks are not written.
+template <bool kBucketed>
+__global__ void clear_popped_kernel(long long* __restrict__ t, long long* __restrict__ order,
+                                    long long* __restrict__ bt, long long* __restrict__ bo,
+                                    int* __restrict__ bfill, const bool* __restrict__ active,
+                                    const int* __restrict__ idx, const int* __restrict__ m,
+                                    int H, int C, int K, int B) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int h = host_of_warp();
+  if (h >= H) return;
+  const long long base = (long long)h * C;
+  const bool take = lane < K && active[(long long)h * K + lane] && lane < m[h];
+  const int c = take ? idx[(long long)h * K + lane] : 0;
+  if (take) {
+    t[base + c] = kTimeMax;
+    order[base + c] = kOrderMax;
+  }
+  if (!kBucketed) return;
+  __syncwarp();  // the clears are visible to every lane of the warp
+  const int NB = C / B;
+  const unsigned touched = __reduce_or_sync(kFull, take ? 1u << (c / B) : 0u);
+  for (unsigned tb = touched; tb; tb &= tb - 1) {
+    const int j = __ffs(tb) - 1;
+    const int lost = __popc(__ballot_sync(kFull, take && c / B == j));
+    long long mt = kTimeMax, mo = kOrderMax;
+    for (int s = lane; s < B; s += kWarp) {
+      const long long vt = t[base + j * B + s], vo = order[base + j * B + s];
+      if (lex_less(vt, vo, mt, mo)) { mt = vt; mo = vo; }
+    }
+    warp_lexmin(mt, mo);
+    if (lane == 0) {
+      const long long bi = (long long)h * NB + j;
+      bt[bi] = mt;
+      bo[bi] = mo;
+      bfill[bi] -= lost;
+    }
+  }
+}
+
+// K8: (bt, bo, bfill) of every block, from the slab. With B <= 32 one pass
+// covers 32 / B whole blocks: lane l reads slot pass_start + l and a
+// segmented shuffle-down reduction within each run of B lanes leaves the
+// block's minimum in its first lane; the live count is a popcount of the
+// segment's ballot bits. With B > 32 each block is one strided warp
+// reduction.
+__global__ void block_minima_kernel(const long long* __restrict__ t,
+                                    const long long* __restrict__ order,
+                                    long long* __restrict__ bt, long long* __restrict__ bo,
+                                    int* __restrict__ bfill, int H, int C, int B) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int h = host_of_warp();
+  if (h >= H) return;
+  const long long base = (long long)h * C;
+  const int NB = C / B;
+  if (B <= kWarp) {
+    const int per_pass = kWarp / B;  // whole blocks per pass
+    const int seg = lane / B, pos = lane - seg * B;
+    for (int j0 = 0; j0 < NB; j0 += per_pass) {
+      const int j = j0 + seg;
+      const bool mine = seg < per_pass && j < NB;
+      long long vt = kTimeMax, vo = kOrderMax;
+      if (mine) {
+        vt = t[base + (long long)j * B + pos];
+        vo = order[base + (long long)j * B + pos];
+      }
+      const unsigned live = __ballot_sync(kFull, mine && vt != kTimeMax);
+      for (int off = 1; off < B; off <<= 1) {
+        const long long ot = __shfl_down_sync(kFull, vt, off);
+        const long long oo = __shfl_down_sync(kFull, vo, off);
+        if (pos + off < B && lex_less(ot, oo, vt, vo)) { vt = ot; vo = oo; }
+      }
+      if (mine && pos == 0) {
+        const unsigned segmask = (B == kWarp ? kFull : ((1u << B) - 1u)) << (seg * B);
+        bt[(long long)h * NB + j] = vt;
+        bo[(long long)h * NB + j] = vo;
+        bfill[(long long)h * NB + j] = __popc(live & segmask);
+      }
+    }
+  } else {
+    for (int j = 0; j < NB; ++j) {
+      long long mt = kTimeMax, mo = kOrderMax;
+      int cnt = 0;
+      for (int s = lane; s < B; s += kWarp) {
+        const long long vt = t[base + (long long)j * B + s], vo = order[base + (long long)j * B + s];
+        cnt += vt != kTimeMax;
+        if (lex_less(vt, vo, mt, mo)) { mt = vt; mo = vo; }
+      }
+      warp_lexmin(mt, mo);
+      cnt = __reduce_add_sync(kFull, cnt);
+      if (lane == 0) {
+        bt[(long long)h * NB + j] = mt;
+        bo[(long long)h * NB + j] = mo;
+        bfill[(long long)h * NB + j] = cnt;
+      }
+    }
   }
 }
 
 inline int blocks_for(int H) { return (H + kWarpsPerBlock - 1) / kWarpsPerBlock; }
+constexpr int kThreads = kWarpsPerBlock * kWarp;
+
+inline bool bad_block(int C, int B) { return B <= 0 || C % B != 0 || C / B > kWarp; }
 
 }  // namespace
 
@@ -155,8 +378,7 @@ extern "C" {
 
 int queue_next_time(const long long* t, long long* out, int H, int C, void* stream) {
   if (H > 0)
-    next_time_kernel<<<blocks_for(H), kWarpsPerBlock * kWarp, 0, (cudaStream_t)stream>>>(
-        t, out, H, C);
+    next_time_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(t, out, H, C);
   return (int)cudaGetLastError();
 }
 
@@ -165,18 +387,70 @@ int queue_pop_min(long long* t, long long* order, const int* kind, const int* pa
                   int* ev_payload, bool* active, int H, int C, int P, void* stream) {
   if (P > kWarp) return (int)cudaErrorInvalidValue;
   if (H > 0)
-    pop_min_kernel<<<blocks_for(H), kWarpsPerBlock * kWarp, 0, (cudaStream_t)stream>>>(
+    pop_min_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
         t, order, kind, payload, limit, ev_t, ev_order, ev_kind, ev_payload, active, H, C, P);
   return (int)cudaGetLastError();
 }
 
 int queue_push_many(long long* t, long long* order, int* kind, int* payload, long long* dropped,
                     const bool* pmask, const long long* pt, const long long* po, const int* pk,
-                    const int* pp, int H, int C, int P, int NP, void* stream) {
-  if (NP > 8) return (int)cudaErrorInvalidValue;
+                    const int* pp, const int* preserve, int H, int C, int P, int NP,
+                    void* stream) {
+  if (NP > kMaxPorts || C > kWarp * kWarp) return (int)cudaErrorInvalidValue;
   if (H > 0 && NP > 0)
-    push_many_kernel<<<blocks_for(H), kWarpsPerBlock * kWarp, 0, (cudaStream_t)stream>>>(
-        t, order, kind, payload, dropped, pmask, pt, po, pk, pp, H, C, P, NP);
+    push_many_kernel<false><<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
+        t, order, kind, payload, dropped, nullptr, nullptr, nullptr, pmask, pt, po, pk, pp,
+        preserve, H, C, P, NP, C);
+  return (int)cudaGetLastError();
+}
+
+int queue_push_many_bucketed(long long* t, long long* order, int* kind, int* payload,
+                             long long* dropped, long long* bt, long long* bo, int* bfill,
+                             const bool* pmask, const long long* pt, const long long* po,
+                             const int* pk, const int* pp, const int* preserve, int H, int C,
+                             int P, int NP, int B, void* stream) {
+  if (NP > kMaxPorts || C > kWarp * kWarp || bad_block(C, B)) return (int)cudaErrorInvalidValue;
+  if (H > 0 && NP > 0)
+    push_many_kernel<true><<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
+        t, order, kind, payload, dropped, bt, bo, bfill, pmask, pt, po, pk, pp, preserve, H, C,
+        P, NP, B);
+  return (int)cudaGetLastError();
+}
+
+int queue_pop_k(const long long* t, const long long* order, const int* kind, const int* payload,
+                long long limit, long long* out_t, long long* out_order, int* out_kind,
+                int* out_payload, bool* out_active, int* out_idx, int H, int C, int P, int K,
+                void* stream) {
+  if (P > kWarp || K > kWarp || K > C || C > kWarp * kWarp) return (int)cudaErrorInvalidValue;
+  if (H > 0 && K > 0)
+    pop_k_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
+        t, order, kind, payload, limit, out_t, out_order, out_kind, out_payload, out_active,
+        out_idx, H, C, P, K);
+  return (int)cudaGetLastError();
+}
+
+// B == 0: flat queue (bt/bo/bfill unused)
+int queue_clear_popped(long long* t, long long* order, long long* bt, long long* bo, int* bfill,
+                       const bool* active, const int* idx, const int* m, int H, int C, int K,
+                       int B, void* stream) {
+  if (K > kWarp || (B != 0 && bad_block(C, B))) return (int)cudaErrorInvalidValue;
+  if (H > 0 && K > 0) {
+    if (B == 0)
+      clear_popped_kernel<false><<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
+          t, order, nullptr, nullptr, nullptr, active, idx, m, H, C, K, C);
+    else
+      clear_popped_kernel<true><<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
+          t, order, bt, bo, bfill, active, idx, m, H, C, K, B);
+  }
+  return (int)cudaGetLastError();
+}
+
+int queue_block_minima(const long long* t, const long long* order, long long* bt, long long* bo,
+                       int* bfill, int H, int C, int B, void* stream) {
+  if (B <= 0 || C % B != 0) return (int)cudaErrorInvalidValue;
+  if (H > 0)
+    block_minima_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
+        t, order, bt, bo, bfill, H, C, B);
   return (int)cudaGetLastError();
 }
 

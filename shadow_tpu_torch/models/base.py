@@ -55,14 +55,37 @@ class LocalPush(NamedTuple):
 
 
 class PacketSend(NamedTuple):
-    """Send one packet per host to a (possibly remote) host through the
-    egress pipeline (budget, token bucket, latency/loss, exchange)."""
+    """Send packets to a (possibly remote) host through the egress pipeline
+    (budget, token bucket, latency/loss, exchange).
+
+    Burst sends (count_max > 1): one port emits up to `count_max`
+    back-to-back packets to the SAME destination in one microstep; segment
+    k (k < count[h]) carries payload + k * payload_inc and its own loss
+    draw, bandwidth charge, order key and budget slot, while the route
+    lookup runs once per port."""
 
     mask: torch.Tensor  # bool[H]
     dst: torch.Tensor  # i64[H] destination host id
     size_bytes: torch.Tensor  # i32[H]
     kind: torch.Tensor  # i32[H] model kind at the destination
     payload: torch.Tensor  # i32[H, P] (word 0 overwritten with size_bytes)
+    count: Any = None  # i32[H] burst length (None -> mask as 0/1)
+    payload_inc: Any = None  # i32[H, P] per-segment payload increment
+    count_max: int = 1  # static burst width
+
+
+class FlowDone(NamedTuple):
+    """A flow-completion record for the JAX package's flow ledger (a
+    network-observatory instrument). The port runs with the observatory off,
+    so the engine accepts and ignores it, as the JAX engine does when its
+    ledger is off."""
+
+    mask: torch.Tensor  # bool[H] this host completed a flow at this event
+    dst: torch.Tensor  # i32/i64[H] the peer (server) host id
+    flow: torch.Tensor  # i32[H] model flow index
+    t_start: torch.Tensor  # i64[H] flow start time (ns)
+    bytes: torch.Tensor  # i64[H] application payload bytes transferred
+    retransmits: torch.Tensor  # i64[H] retransmitted segments of this flow
 
 
 class HandlerOut(NamedTuple):
@@ -70,6 +93,7 @@ class HandlerOut(NamedTuple):
     rng: RngState
     pushes: tuple[LocalPush, ...] = ()
     sends: tuple[PacketSend, ...] = ()
+    flow: Any = None  # FlowDone | None
 
 
 class Model(Protocol):

@@ -1,19 +1,29 @@
 """Device-side kernels and their plain PyTorch versions: event-queue slab
-ops (K1-K3), the exchange merge (K4) and the per-host RNG lanes."""
+ops (K1-K3, K5-K8: flat and bucketed queues, the K-way peek and clear), the
+exchange merge (K4) and the per-host RNG lanes."""
 
 from shadow_tpu_torch.ops import events, merge
 from shadow_tpu_torch.ops.events import (
     EVENT_PAYLOAD_WORDS,
     ORDER_MAX,
+    BucketQueue,
     Event,
     EventQueue,
+    PoppedK,
     Push,
+    bucket_rebuild,
+    clear_popped,
     make_queue,
     next_time,
     pack_order,
+    pop_k,
     pop_min,
     push_many,
     push_one,
+    q_len,
+    q_next_time,
+    q_pop_min,
+    q_push_many,
     queue_len,
     unpack_order_src,
 )
@@ -27,17 +37,26 @@ __all__ = [
     "EVENT_PAYLOAD_WORDS",
     "KERNELS",
     "ORDER_MAX",
+    "BucketQueue",
     "Event",
     "EventQueue",
+    "PoppedK",
     "Push",
     "RngState",
+    "bucket_rebuild",
+    "clear_popped",
     "make_queue",
     "merge_flat_events",
     "next_time",
     "pack_order",
+    "pop_k",
     "pop_min",
     "push_many",
     "push_one",
+    "q_len",
+    "q_next_time",
+    "q_pop_min",
+    "q_push_many",
     "queue_len",
     "rng_init",
     "rng_next_u64",

@@ -1,28 +1,42 @@
-"""Per-host event queues as fixed-capacity SoA slabs (port of the flat queue
-in shadow_tpu/ops/events.py).
+"""Per-host event queues as fixed-capacity SoA slabs (port of the flat and
+bucketed queues in shadow_tpu/ops/events.py).
 
 A queue is a `[H, C]` slab per field: times i64, order key i64, kind i32,
 payload i32 x P. Empty slots hold TIME_MAX / ORDER_MAX. The total event
 order is the lexicographic (time, order) pair; `order` packs
 (is_local << 62) | (src_host << 40) | seq, so live keys are globally unique.
 
-This module holds three hand-written CUDA kernels (csrc/queue.cu):
+The bucketed queue (`BucketQueue`) adds per-block caches over C/B blocks of
+B contiguous slots: the block's (time, order) minimum and its live count. Its
+pops, pushes and drops are bit-identical to the flat queue's; the caches are
+kept up incrementally by pops and pushes and rebuilt wholesale at the
+exchange merge.
 
-  K1 `queue_next_time`  per-host row minimum of the time plane
-  K2 `queue_pop_min`    per-host (time, order) minimum below a limit, read
-                        out and cleared in place
-  K3 `queue_push_many`  the k-th firing push lands in the k-th free slot
+This module holds the queue's hand-written CUDA kernels (csrc/queue.cu):
+
+  K1 `queue_next_time`   per-host row minimum (the time plane, or the
+                         bucketed queue's block-minimum plane)
+  K2 `queue_pop_min`     per-host (time, order) minimum below a limit, read
+                         out and cleared in place
+  K3 `queue_push_many`   the k-th firing push lands in the k-th free slot,
+                         each push holding back its reserve
+  K5 `queue_pop_k`       peek each host's K earliest in-window events
+  K6 `queue_clear_popped`  clear the executed prefix of a peek (and the
+                         victim blocks' caches)
+  K7 `queue_push_many_bucketed`  K3 plus the block-cache update
+  K8 `queue_block_minima`  every block's cache, from the slab
 
 Each public function dispatches on where its tensors live: CPU tensors run
 the plain PyTorch version beside it (the same function, used by the tests
 and as the reference the kernel is held against on the card); CUDA tensors
-launch the kernel. There is no fallback from one to the other.
+launch the kernel. There is no fallback from one to the other. On CUDA the
+kernels that change a queue change its planes in place and return it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -36,6 +50,8 @@ _SRC_SHIFT = _SEQ_BITS
 _LOCAL_SHIFT = 62
 SEQ_MASK = (1 << _SEQ_BITS) - 1
 ORDER_MAX = (1 << 63) - 1  # empty-slot sentinel, compares after any real key
+MAX_PUSH_PORTS = 32  # pushes per host per push_many call (kernel limit)
+MAX_BATCH = 32  # K of pop_k / clear_popped (kernel limit)
 
 
 class EventQueue(NamedTuple):
@@ -44,6 +60,27 @@ class EventQueue(NamedTuple):
     kind: torch.Tensor  # i32[H, C]
     payload: torch.Tensor  # i32[H, C, P]
     dropped: torch.Tensor  # i64[H] events lost to capacity overflow
+
+
+class BucketQueue(NamedTuple):
+    """The flat planes plus per-block caches. Invariant: for every host h
+    and block j, (bt, bo)[h, j] is the lexicographic (t, order) minimum over
+    the block's slots (TIME_MAX/ORDER_MAX when empty) and bfill[h, j] its
+    live slots."""
+
+    t: torch.Tensor  # i64[H, C]
+    order: torch.Tensor  # i64[H, C]
+    kind: torch.Tensor  # i32[H, C]
+    payload: torch.Tensor  # i32[H, C, P]
+    dropped: torch.Tensor  # i64[H]
+    bt: torch.Tensor  # i64[H, C/B] block-minimum time
+    bo: torch.Tensor  # i64[H, C/B] order key at that minimum
+    bfill: torch.Tensor  # i32[H, C/B] live slots per block
+
+    @property
+    def block(self) -> int:
+        """Slots per block (B)."""
+        return self.t.shape[1] // self.bt.shape[1]
 
 
 class Event(NamedTuple):
@@ -55,14 +92,34 @@ class Event(NamedTuple):
     payload: torch.Tensor  # i32[H, P]
 
 
+class PoppedK(NamedTuple):
+    """Each host's K earliest in-window events, PEEKED (still in the slab),
+    sorted by (time, order); `active` is a prefix per host. `clear_popped`
+    removes the prefix that was executed."""
+
+    t: torch.Tensor  # i64[H, K] (TIME_MAX where inactive)
+    order: torch.Tensor  # i64[H, K] (ORDER_MAX where inactive)
+    kind: torch.Tensor  # i32[H, K] (0 where inactive)
+    payload: torch.Tensor  # i32[H, K, P] (0 where inactive)
+    active: torch.Tensor  # bool[H, K]
+    idx: torch.Tensor  # i32[H, K] slab column of each event
+
+    def event(self, j: int) -> Event:
+        return Event(self.t[:, j], self.order[:, j], self.kind[:, j], self.payload[:, j])
+
+
 class Push(NamedTuple):
-    """One push port: at most one event per host, where `mask`."""
+    """One push port: at most one event per host, where `mask`. `reserve`
+    (i32[H] or None) is the K-way microstep's capacity hold: free slots
+    spoken for by batch events that executed after this push's event (in
+    the one-event microstep they still sat in the queue when it landed)."""
 
     mask: torch.Tensor  # bool[H]
     t: torch.Tensor  # i64[H]
     order: torch.Tensor  # i64[H]
     kind: torch.Tensor  # i32[H]
     payload: torch.Tensor  # i32[H, P]
+    reserve: Any = None  # i32[H] | None
 
 
 def pack_order(is_local: int, src_host: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
@@ -95,8 +152,37 @@ def make_queue(num_hosts: int, capacity: int, device) -> EventQueue:
     )
 
 
+def as_flat(q) -> EventQueue:
+    """The flat-slab view of either queue type (shared planes, no copy)."""
+    if isinstance(q, BucketQueue):
+        return EventQueue(q.t, q.order, q.kind, q.payload, q.dropped)
+    return q
+
+
 def queue_len(q: EventQueue) -> torch.Tensor:
     return (q.t != TIME_MAX).sum(dim=1, dtype=torch.int32)
+
+
+def _check_slab(q) -> tuple[int, int, int]:
+    h, c = q.t.shape
+    p = q.payload.shape[2]
+    check(q.t, torch.int64, (h, c), "t")
+    check(q.order, torch.int64, (h, c), "order")
+    check(q.kind, torch.int32, (h, c), "kind")
+    check(q.payload, torch.int32, (h, c, p), "payload")
+    check(q.dropped, torch.int64, (h,), "dropped")
+    return h, c, p
+
+
+def _check_caches(q: BucketQueue) -> int:
+    h, c = q.t.shape
+    nb = q.bt.shape[1]
+    if c % nb:
+        raise ValueError(f"{nb} blocks do not divide capacity {c}")
+    check(q.bt, torch.int64, (h, nb), "bt")
+    check(q.bo, torch.int64, (h, nb), "bo")
+    check(q.bfill, torch.int32, (h, nb), "bfill")
+    return c // nb
 
 
 # --------------------------------------------------------------------------
@@ -113,15 +199,25 @@ def next_time_plain(t: torch.Tensor) -> torch.Tensor:
     return t.min(dim=1).values
 
 
+def row_min(t: torch.Tensor) -> torch.Tensor:
+    """Per-row minimum of an i64[H, W] plane (K1 on CUDA)."""
+    if on_cpu(t):
+        return next_time_plain(t)
+    h, w = t.shape
+    check(t, torch.int64, (h, w), "t")
+    out = torch.empty((h,), dtype=torch.int64, device=t.device)
+    _next_time_k(ptr(t), ptr(out), h, w)
+    return out
+
+
 def next_time(q: EventQueue) -> torch.Tensor:
     """Per-host earliest pending event time (i64[H], TIME_MAX = empty)."""
-    if on_cpu(q.t):
-        return next_time_plain(q.t)
-    h, c = q.t.shape
-    check(q.t, torch.int64, (h, c), "t")
-    out = torch.empty((h,), dtype=torch.int64, device=q.t.device)
-    _next_time_k(ptr(q.t), ptr(out), h, c)
-    return out
+    return row_min(q.t)
+
+
+def bq_next_time(q: BucketQueue) -> torch.Tensor:
+    """The same from the [H, C/B] block caches alone (no slab read)."""
+    return row_min(q.bt)
 
 
 # --------------------------------------------------------------------------
@@ -171,12 +267,7 @@ def pop_min(q: EventQueue, limit: int) -> tuple[EventQueue, Event, torch.Tensor]
     stay as they were, exactly as in the reference."""
     if on_cpu(q.t):
         return pop_min_plain(q, limit)
-    h, c = q.t.shape
-    p = q.payload.shape[2]
-    check(q.t, torch.int64, (h, c), "t")
-    check(q.order, torch.int64, (h, c), "order")
-    check(q.kind, torch.int32, (h, c), "kind")
-    check(q.payload, torch.int32, (h, c, p), "payload")
+    h, c, p = _check_slab(q)
     dev = q.t.device
     ev = Event(
         t=torch.empty((h,), dtype=torch.int64, device=dev),
@@ -194,52 +285,81 @@ def pop_min(q: EventQueue, limit: int) -> tuple[EventQueue, Event, torch.Tensor]
 
 
 # --------------------------------------------------------------------------
-# K3 queue_push_many
+# K3 queue_push_many / K7 queue_push_many_bucketed
 # --------------------------------------------------------------------------
 
 _push_many_k = CudaKernel(
     "queue", "queue_push_many",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4,
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4,
+)
+_bq_push_many_k = CudaKernel(
+    "queue", "queue_push_many_bucketed",
+    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5,
 )
 
 
-def push_many_plain(q: EventQueue, pushes: list[Push]) -> EventQueue:
-    """Sequential-push semantics in one pass: push k lands in the k-th free
-    slot counting only earlier pushes that fired; overflow adds to
-    `dropped`."""
+def push_many_plain(q, pushes: list[Push]):
+    """Sequential-push semantics in one pass over either queue type: push k
+    lands in the k-th free slot counting only earlier pushes that fired, if
+    that count plus its reserve is below the row's free count; the rest add
+    to `dropped`. A bucketed queue folds each landed push into its block's
+    cache (a running lexicographic 2-way min, and bfill + 1)."""
     free = q.t == TIME_MAX
     free_rank = torch.cumsum(free.to(torch.int32), dim=1) - 1
     free_count = free.sum(dim=1, dtype=torch.int32)
     need = torch.zeros_like(free_count)
     new_t, new_order, new_kind, new_payload = q.t, q.order, q.kind, q.payload
     dropped = q.dropped
+    bucketed = isinstance(q, BucketQueue)
+    if bucketed:
+        h, c = q.t.shape
+        nb = q.bt.shape[1]
+        bt, bo, bfill = q.bt, q.bo, q.bfill
     for push in pushes:
-        ok = push.mask & (need < free_count)
+        avail = free_count if push.reserve is None else free_count - push.reserve
+        ok = push.mask & (need < avail)
         oh = ok[:, None] & free & (free_rank == need[:, None])
         new_t = torch.where(oh, push.t[:, None], new_t)
         new_order = torch.where(oh, push.order[:, None], new_order)
-        new_kind = torch.where(oh, push.kind[:, None], new_kind)
-        new_payload = torch.where(oh[:, :, None], push.payload[:, None, :], new_payload)
+        new_kind = torch.where(oh, push.kind.to(torch.int32)[:, None], new_kind)
+        new_payload = torch.where(
+            oh[:, :, None], push.payload.to(torch.int32)[:, None, :], new_payload
+        )
         dropped = dropped + (push.mask & ~ok)
         need = need + ok.to(torch.int32)
-    return EventQueue(new_t, new_order, new_kind, new_payload, dropped)
+        if bucketed:
+            boh = oh.reshape(h, nb, c // nb).any(dim=2)
+            pt, po = push.t[:, None], push.order[:, None]
+            better = boh & ((pt < bt) | ((pt == bt) & (po < bo)))
+            bt = torch.where(better, pt, bt)
+            bo = torch.where(better, po, bo)
+            bfill = bfill + boh.to(torch.int32)
+    flat = (new_t, new_order, new_kind, new_payload, dropped)
+    if bucketed:
+        return BucketQueue(*flat, bt, bo, bfill)
+    return EventQueue(*flat)
 
 
-def push_many(q: EventQueue, pushes: list[Push]) -> EventQueue:
-    """Push up to len(pushes) events per host, in port order. On CUDA the
-    kernel writes the slab and `dropped` IN PLACE."""
-    if on_cpu(q.t):
-        return push_many_plain(q, pushes)
-    h, c = q.t.shape
-    p = q.payload.shape[2]
+def _launch_push(q, pushes: list[Push]):
+    """Launch K3/K7 over the pushes, MAX_PUSH_PORTS at a time: pushing A
+    then B gives the slab, drops and caches that pushing A + B in one pass
+    does (each push's rank and free count shift by A's landed pushes
+    alike)."""
+    if not pushes:
+        raise ValueError("push_many needs at least one push port")
+    for i in range(0, len(pushes), MAX_PUSH_PORTS):
+        _launch_push_ports(q, pushes[i : i + MAX_PUSH_PORTS])
+    return q
+
+
+def _launch_push_ports(q, pushes: list[Push]):
+    bucketed = isinstance(q, BucketQueue)
+    h, c, p = _check_slab(q)
     n = len(pushes)
-    if not 0 < n <= 8:
-        raise ValueError(f"push_many takes 1 to 8 push ports, got {n}")
-    check(q.t, torch.int64, (h, c), "t")
-    check(q.order, torch.int64, (h, c), "order")
-    check(q.kind, torch.int32, (h, c), "kind")
-    check(q.payload, torch.int32, (h, c, p), "payload")
-    check(q.dropped, torch.int64, (h,), "dropped")
+    if not 0 < n <= MAX_PUSH_PORTS:
+        raise ValueError(f"push_many takes 1 to {MAX_PUSH_PORTS} push ports, got {n}")
+    if c > 32 * 32:
+        raise ValueError(f"push_many: capacity {c} exceeds the kernel's 1024 slots")
     mask = torch.stack([x.mask for x in pushes]).contiguous()
     pt = torch.stack([x.t for x in pushes]).contiguous()
     po = torch.stack([x.order for x in pushes]).contiguous()
@@ -249,19 +369,272 @@ def push_many(q: EventQueue, pushes: list[Push]) -> EventQueue:
     check(pt, torch.int64, (n, h), "push t")
     check(po, torch.int64, (n, h), "push order")
     check(pp, torch.int32, (n, h, p), "push payload")
-    _push_many_k(
-        ptr(q.t), ptr(q.order), ptr(q.kind), ptr(q.payload), ptr(q.dropped),
-        ptr(mask), ptr(pt), ptr(po), ptr(pk), ptr(pp), h, c, p, n,
-    )
+    if all(x.reserve is None for x in pushes):
+        res = None
+        res_ptr = ctypes.c_void_p(None)
+    else:
+        zero = torch.zeros((h,), dtype=torch.int32, device=q.t.device)
+        res = torch.stack([zero if x.reserve is None else x.reserve.to(torch.int32)
+                           for x in pushes]).contiguous()
+        check(res, torch.int32, (n, h), "push reserve")
+        res_ptr = ptr(res)
+    slab = (ptr(q.t), ptr(q.order), ptr(q.kind), ptr(q.payload), ptr(q.dropped))
+    fields = (ptr(mask), ptr(pt), ptr(po), ptr(pk), ptr(pp), res_ptr)
+    if bucketed:
+        b = _check_caches(q)
+        _bq_push_many_k(*slab, ptr(q.bt), ptr(q.bo), ptr(q.bfill), *fields, h, c, p, n, b)
+    else:
+        _push_many_k(*slab, *fields, h, c, p, n)
     return q
+
+
+def push_many(q: EventQueue, pushes: list[Push]) -> EventQueue:
+    """Push up to len(pushes) events per host, in port order. On CUDA the
+    kernel writes the slab and `dropped` IN PLACE."""
+    if on_cpu(q.t):
+        return push_many_plain(q, pushes)
+    return _launch_push(q, pushes)
 
 
 def push_one(q: EventQueue, mask, t, order, kind, payload) -> EventQueue:
     return push_many(q, [Push(mask, t, order, kind, payload)])
 
 
+def bq_push_many(q: BucketQueue, pushes: list[Push]) -> BucketQueue:
+    """`push_many` over the bucketed queue: the same slots, drops and slab
+    as the flat op, plus the block-cache update. In place on CUDA."""
+    if on_cpu(q.t):
+        return push_many_plain(q, pushes)
+    return _launch_push(q, pushes)
+
+
+# --------------------------------------------------------------------------
+# K5 queue_pop_k
+# --------------------------------------------------------------------------
+
+_pop_k_k = CudaKernel(
+    "queue", "queue_pop_k",
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4,
+)
+
+
+def pop_k_plain(q, limit: int, k: int) -> PoppedK:
+    """k successive (time, order, slot) selections over the slots not yet
+    taken, then row gathers for kind and payload. Live keys are unique, so
+    on active columns this is the reference's `pop_k` under either of its
+    formulations; the slot index only orders the empty sentinels."""
+    qf = as_flat(q)
+    h, c = qf.t.shape
+    k = min(k, c)
+    cols = torch.arange(c, device=qf.t.device)[None, :]
+    taken = torch.zeros((h, c), dtype=torch.bool, device=qf.t.device)
+    t_cols, o_cols, i_cols = [], [], []
+    for _ in range(k):
+        wt = torch.where(taken, TIME_MAX, qf.t)
+        wo = torch.where(taken, ORDER_MAX, qf.order)
+        tmin = wt.min(dim=1).values
+        at_t = (wt == tmin[:, None]) & ~taken
+        omin = torch.where(at_t, wo, ORDER_MAX).min(dim=1).values
+        idx = (at_t & (wo == omin[:, None])).to(torch.int8).argmax(dim=1)
+        taken = taken | (cols == idx[:, None])
+        t_cols.append(tmin)
+        o_cols.append(omin)
+        i_cols.append(idx)
+    ev_t = torch.stack(t_cols, dim=1)
+    ev_o = torch.stack(o_cols, dim=1)
+    idx = torch.stack(i_cols, dim=1)
+    active = ev_t < limit
+    hh = torch.arange(h, device=qf.t.device)[:, None]
+    return PoppedK(
+        t=torch.where(active, ev_t, TIME_MAX),
+        order=torch.where(active, ev_o, ORDER_MAX),
+        kind=torch.where(active, qf.kind[hh, idx], 0),
+        payload=torch.where(active[:, :, None], qf.payload[hh, idx], 0),
+        active=active,
+        idx=idx.to(torch.int32),
+    )
+
+
+def pop_k(q, limit: int, k: int) -> PoppedK:
+    """PEEK each host's k earliest events strictly before `limit` (an int),
+    on either queue type. Column j equals the j-th successive pop_min.
+    Nothing is written to the queue."""
+    if on_cpu(q.t):
+        return pop_k_plain(q, limit, k)
+    h, c, p = _check_slab(as_flat(q))
+    k = min(k, c)
+    if not 0 < k <= MAX_BATCH or c > 32 * 32:
+        raise ValueError(f"pop_k: k={k} must be in 1..{MAX_BATCH} and capacity {c} <= 1024")
+    dev = q.t.device
+    out = PoppedK(
+        t=torch.empty((h, k), dtype=torch.int64, device=dev),
+        order=torch.empty((h, k), dtype=torch.int64, device=dev),
+        kind=torch.empty((h, k), dtype=torch.int32, device=dev),
+        payload=torch.empty((h, k, p), dtype=torch.int32, device=dev),
+        active=torch.empty((h, k), dtype=torch.bool, device=dev),
+        idx=torch.empty((h, k), dtype=torch.int32, device=dev),
+    )
+    _pop_k_k(
+        ptr(q.t), ptr(q.order), ptr(q.kind), ptr(q.payload), int(limit),
+        *(ptr(x) for x in out), h, c, p, k,
+    )
+    return out
+
+
+# --------------------------------------------------------------------------
+# K6 queue_clear_popped
+# --------------------------------------------------------------------------
+
+_clear_popped_k = CudaKernel(
+    "queue", "queue_clear_popped",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4,
+)
+
+
+def _block_lexmin(t: torch.Tensor, order: torch.Tensor, nb: int):
+    h, c = t.shape
+    t3 = t.reshape(h, nb, c // nb)
+    bt = t3.min(dim=2).values
+    bo = torch.where(t3 == bt[:, :, None], order.reshape(h, nb, c // nb), ORDER_MAX)
+    return bt, bo.min(dim=2).values
+
+
+def clear_popped_plain(q, popped: PoppedK, m: torch.Tensor):
+    qf = as_flat(q)
+    h, c = qf.t.shape
+    k = popped.idx.shape[1]
+    take = popped.active & (torch.arange(k, device=qf.t.device)[None, :] < m[:, None])
+    cols = torch.arange(c, device=qf.t.device)[None, :]
+    clear = torch.zeros((h, c), dtype=torch.bool, device=qf.t.device)
+    for j in range(k):
+        clear = clear | (take[:, j, None] & (cols == popped.idx[:, j : j + 1]))
+    new_t = torch.where(clear, TIME_MAX, qf.t)
+    new_order = torch.where(clear, ORDER_MAX, qf.order)
+    if not isinstance(q, BucketQueue):
+        return q._replace(t=new_t, order=new_order)
+    nb = q.bt.shape[1]
+    cleared3 = clear.reshape(h, nb, c // nb)
+    touched = cleared3.any(dim=2)
+    nbt, nbo = _block_lexmin(new_t, new_order, nb)
+    return q._replace(
+        t=new_t,
+        order=new_order,
+        bt=torch.where(touched, nbt, q.bt),
+        bo=torch.where(touched, nbo, q.bo),
+        bfill=q.bfill - cleared3.sum(dim=2, dtype=torch.int32),
+    )
+
+
+def clear_popped(q, popped: PoppedK, m: torch.Tensor):
+    """Remove the first m[h] (i32[H]) events of a `pop_k` peek from the
+    slab; for a BucketQueue recompute the caches of the blocks that lost a
+    slot (untouched blocks keep theirs bit for bit). In place on CUDA."""
+    if on_cpu(q.t):
+        return clear_popped_plain(q, popped, m)
+    h, c, _ = _check_slab(as_flat(q))
+    k = popped.idx.shape[1]
+    if not 0 < k <= MAX_BATCH:
+        raise ValueError(f"clear_popped: batch width {k} must be in 1..{MAX_BATCH}")
+    check(popped.active, torch.bool, (h, k), "popped active")
+    check(popped.idx, torch.int32, (h, k), "popped idx")
+    check(m, torch.int32, (h,), "m")
+    if isinstance(q, BucketQueue):
+        b = _check_caches(q)
+        caches = (ptr(q.bt), ptr(q.bo), ptr(q.bfill))
+    else:
+        b = 0
+        caches = (ctypes.c_void_p(None),) * 3
+    _clear_popped_k(
+        ptr(q.t), ptr(q.order), *caches, ptr(popped.active), ptr(popped.idx), ptr(m),
+        h, c, k, b,
+    )
+    return q
+
+
+def bq_pop_min(q: BucketQueue, limit: int) -> tuple[BucketQueue, Event, torch.Tensor]:
+    """`pop_min` over the bucketed queue: the same event, slot clear and
+    `active` as the flat op, with the victim block's cache recomputed. It
+    is `pop_k` at k = 1 followed by `clear_popped` of the active hosts."""
+    popped = pop_k(q, limit, 1)
+    active = popped.active[:, 0]
+    return clear_popped(q, popped, active.to(torch.int32)), popped.event(0), active
+
+
+# --------------------------------------------------------------------------
+# K8 queue_block_minima
+# --------------------------------------------------------------------------
+
+_block_minima_k = CudaKernel(
+    "queue", "queue_block_minima",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3,
+)
+
+
+def block_minima_plain(t: torch.Tensor, order: torch.Tensor, num_blocks: int):
+    h, c = t.shape
+    bt, bo = _block_lexmin(t, order, num_blocks)
+    bfill = (t.reshape(h, num_blocks, c // num_blocks) != TIME_MAX).sum(dim=2, dtype=torch.int32)
+    return bt, bo, bfill
+
+
+def block_minima(t: torch.Tensor, order: torch.Tensor, num_blocks: int):
+    """(bt, bo, bfill) of every block, recomputed from the slab."""
+    if on_cpu(t):
+        return block_minima_plain(t, order, num_blocks)
+    h, c = t.shape
+    check(t, torch.int64, (h, c), "t")
+    check(order, torch.int64, (h, c), "order")
+    if num_blocks <= 0 or c % num_blocks:
+        raise ValueError(f"{num_blocks} blocks do not divide capacity {c}")
+    bt = torch.empty((h, num_blocks), dtype=torch.int64, device=t.device)
+    bo = torch.empty((h, num_blocks), dtype=torch.int64, device=t.device)
+    bfill = torch.empty((h, num_blocks), dtype=torch.int32, device=t.device)
+    _block_minima_k(ptr(t), ptr(order), ptr(bt), ptr(bo), ptr(bfill), h, c, c // num_blocks)
+    return bt, bo, bfill
+
+
+def bucket_rebuild(q, block: int) -> BucketQueue:
+    """Wrap a flat queue (or refresh a bucketed one) with freshly computed
+    block caches."""
+    q = as_flat(q)
+    c = q.t.shape[1]
+    if block <= 0 or c % block:
+        raise ValueError(f"block={block} must be positive and divide capacity {c}")
+    return BucketQueue(*q, *block_minima(q.t, q.order, c // block))
+
+
+def make_bucket_queue(num_hosts: int, capacity: int, block: int, device) -> BucketQueue:
+    return bucket_rebuild(make_queue(num_hosts, capacity, device), block)
+
+
+# ---- queue-kind dispatchers ------------------------------------------------
+
+
+def q_next_time(q) -> torch.Tensor:
+    return bq_next_time(q) if isinstance(q, BucketQueue) else next_time(q)
+
+
+def q_pop_min(q, limit: int):
+    return bq_pop_min(q, limit) if isinstance(q, BucketQueue) else pop_min(q, limit)
+
+
+def q_len(q) -> torch.Tensor:
+    """Per-host live-slot count; the bucketed queue sums its caches."""
+    if isinstance(q, BucketQueue):
+        return q.bfill.sum(dim=1, dtype=torch.int32)
+    return queue_len(q)
+
+
+def q_push_many(q, pushes: list[Push]):
+    return bq_push_many(q, pushes) if isinstance(q, BucketQueue) else push_many(q, pushes)
+
+
 KERNELS = {
     "queue_next_time": _next_time_k,
     "queue_pop_min": _pop_min_k,
     "queue_push_many": _push_many_k,
+    "queue_pop_k": _pop_k_k,
+    "queue_clear_popped": _clear_popped_k,
+    "queue_push_many_bucketed": _bq_push_many_k,
+    "queue_block_minima": _block_minima_k,
 }

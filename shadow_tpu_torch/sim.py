@@ -33,7 +33,7 @@ from shadow_tpu_torch.simtime import NS_PER_SEC
 
 MTU_BITS = 1500 * 8
 UNLIMITED_BW = 1 << 40  # token-bucket params for "no bandwidth configured"
-SUPPORTED_MODELS = ("phold", "udp_echo", "timer")
+SUPPORTED_MODELS = ("phold", "udp_echo", "timer", "tgen_tcp")
 
 
 @dataclasses.dataclass
@@ -150,6 +150,7 @@ class Simulation:
         ex = cfg.experimental
         num_hosts = len(self.hosts)
         qcap, send_budget, rpc = ex.resolve_shapes(num_hosts)
+        ex.check_queue_block(qcap)
         self.engine_cfg = EngineConfig(
             num_hosts=num_hosts,
             stop_time=cfg.general.stop_time,
@@ -160,10 +161,12 @@ class Simulation:
             use_dynamic_runahead=ex.use_dynamic_runahead,
             use_codel=ex.use_codel,
             queue_capacity=qcap,
+            queue_block=ex.event_queue_block,
             sends_per_host_round=send_budget,
             max_round_inserts=ex.max_round_inserts or qcap,
             rounds_per_chunk=rpc,
             microstep_limit=ex.microstep_limit,
+            microstep_events=ex.microstep_events,
             shaping=any(h.bw_up_bits > 0 or h.bw_down_bits > 0 for h in self.hosts),
             cheap_shed=ex.overflow_shed == "append",
         )
@@ -276,6 +279,8 @@ class Simulation:
             "queue_overflow_dropped": int(self.state.queue.dropped.sum()),
             "packets_budget_dropped": int(s["pkts_budget_dropped"].sum()),
             "outbox_overflow_dropped": int(s["ob_dropped"].sum()),
+            "bucket_cache_rebuilds": int(s["bq_rebuilds"].sum()),
+            "popk_deferred": int(s["popk_deferred"].sum()),
             "queue_occupancy_hwm": int(s["q_occ_hwm"].max()),
             "outbox_send_hwm": int(s["outbox_hwm"].max()),
             "monotonic_violations": int(s["monotonic_violations"].sum()),

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K4 against their plain PyTorch versions, on the
+"""The port's CUDA kernels K1-K8 against their plain PyTorch versions, on the
 card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -109,3 +109,64 @@ def test_merge_kernel_matches_plain(dev, fill, n_valid, hot, shed_urgency):
         want = pmerge.merge_flat_events_plain(clone(q), *rows, max_inserts,
                                               shed_urgency=shed_urgency)
         assert_all_equal(got, want)
+
+
+def bucketed(q: pev.EventQueue, block: int) -> pev.BucketQueue:
+    return pev.BucketQueue(*q, *pev.block_minima_plain(q.t, q.order, q.t.shape[1] // block))
+
+
+def pushes_with_reserve(r, n_ports: int, dev, h: int = H, reserve_hi: int = 4):
+    return [pev.Push(*(torch.as_tensor(a, device=dev) for a in (
+        r.random(h) < 0.7,
+        r.integers(0, 8, h) * 1000 + 500,
+        (1 << 62) | (np.arange(h, dtype=np.int64) << 40) | r.integers(0, 1 << 30, h),
+        r.integers(0, 1 << 18, h).astype(np.int32),
+        r.integers(-(1 << 31), 1 << 31, (h, P)).astype(np.int32),
+        r.integers(0, reserve_hi, h).astype(np.int32),
+    ))) for _ in range(n_ports)]
+
+
+def wide_slab(seed: int, cap: int, dev) -> pev.EventQueue:
+    """A [H, cap] slab (rows empty to full) for the kernels' loops over
+    capacities past one warp."""
+    r = np.random.default_rng(seed)
+    fill = r.integers(0, cap + 1, H)
+    fill[:3] = (0, cap, cap - 1)
+    t = np.full((H, cap), TIME_MAX, np.int64)
+    order = np.full((H, cap), pev.ORDER_MAX, np.int64)
+    live = r.random((H, cap)).argsort(axis=1) < fill[:, None]
+    n = int(live.sum())
+    t[live] = r.integers(0, 6, n) * 1000
+    order[live] = (np.nonzero(live)[0].astype(np.int64) << 40) | r.permutation(n)
+    return pev.EventQueue(*(torch.as_tensor(a, device=dev) for a in (
+        t, order, r.integers(0, 9, (H, cap)).astype(np.int32),
+        r.integers(0, 9, (H, cap, P)).astype(np.int32), np.zeros(H, np.int64))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,block", [(C, 4), (28, 7), (64, 8), (128, 64)])
+@pytest.mark.parametrize("fill", FILLS)
+def test_batch_and_bucket_kernels_match_plain(dev, fill, cap, block):
+    """K5 pop_k, K6 clear_popped (flat and bucketed), K7 bq_push_many, K8
+    block_minima and K3 with reserves (past 32 ports too, where the wrapper
+    launches in chunks)."""
+    q = slab(11, fill, dev) if cap == C else wide_slab(11 + cap, cap, dev)
+    r = np.random.default_rng(cap + block)
+    for x, y in zip(pev.block_minima(q.t, q.order, cap // block),
+                    pev.block_minima_plain(q.t, q.order, cap // block)):
+        assert torch.equal(x, y)
+    for k in (1, 4, min(cap, 32)):
+        for limit in (2500, TIME_MAX):
+            got = pev.pop_k(q, limit, k)
+            assert_all_equal(got, pev.pop_k_plain(q, limit, k))
+            m = torch.minimum(torch.as_tensor(r.integers(0, k + 1, H).astype(np.int32), device=dev),
+                              got.active.sum(dim=1, dtype=torch.int32))
+            for queue in (clone(q), bucketed(clone(q), block)):
+                want = pev.clear_popped_plain(type(queue)(*(x.clone() for x in queue)), got, m)
+                assert_all_equal(pev.clear_popped(queue, got, m), want)
+    for n_ports in (1, 12, 40):
+        pushes = pushes_with_reserve(r, n_ports, dev)
+        assert_all_equal(pev.push_many(clone(q), pushes), pev.push_many_plain(clone(q), pushes))
+        bq = bucketed(clone(q), block)
+        want = pev.push_many_plain(type(bq)(*(x.clone() for x in bq)), pushes)
+        assert_all_equal(pev.bq_push_many(bq, pushes), want)

@@ -79,6 +79,8 @@ def test_yaml_run_matches_jax():
     assert prep["device"] == "cpu" and prep["host_syncs"] > prep["rounds"]
     assert prep["kernel_launches"] == {
         "queue_next_time": 0, "queue_pop_min": 0, "queue_push_many": 0, "merge_insert": 0,
+        "queue_pop_k": 0, "queue_clear_popped": 0, "queue_push_many_bucketed": 0,
+        "queue_block_minima": 0,
     }  # the CPU path runs the plain versions, never a kernel
 
 
@@ -94,10 +96,13 @@ def test_anchor_shapes_resolve_like_jax():
     assert ExperimentalOptions.from_dict(kw).resolve_shapes(10_000) == (64, 12, 16)
 
 
+# knobs the port does not run yet, and (event_queue_block, microstep_events)
+# values the JAX package rejects too: a block that does not divide the
+# capacity (12 here), and K < 1
 UNSUPPORTED = {
     "world": "general: {parallelism: 2}",
-    "event_queue_block": "experimental: {event_queue_block: 8}",
-    "microstep_events": "experimental: {microstep_events: 4}",
+    "event_queue_block": "experimental: {event_queue_block: 5}",
+    "microstep_events": "experimental: {microstep_events: 0}",
     "merge_gears": "experimental: {merge_gears: auto}",
     "timer_wheel": "experimental: {timer_wheel: 16}",
     "merge_scatter": "experimental: {merge_scatter: true}",
@@ -131,12 +136,35 @@ def test_unsupported_knob_raises(knob):
 
 @pytest.mark.parametrize("override", [
     {"general.parallelism": "4"},
-    {"experimental.microstep_events": "2"},
+    {"experimental.microstep_events": "0"},
     {"experimental.merge_gears": "auto"},
 ])
 def test_unsupported_cli_override_raises(override):
     with pytest.raises(ConfigError):
         merge_cli_overrides(load_config(YAML, is_text=True), override)
+
+
+def test_cli_override_queue_knobs_resolve_like_jax():
+    """`--experimental.microstep_events=2` and a dividing
+    `--experimental.event_queue_block` are accepted and resolve to the same
+    engine config as in the JAX package; a block that does not divide the
+    auto-sized capacity (64) is refused when the simulation is built."""
+    from shadow_tpu.config.options import merge_cli_overrides as jax_merge
+
+    over = {"experimental.microstep_events": "2", "experimental.event_queue_block": "4"}
+    cfg = merge_cli_overrides(load_config(YAML, is_text=True), over)
+    jcfg = jax_merge(jax_load_config(YAML, is_text=True), over)
+    assert (cfg.experimental.microstep_events, cfg.experimental.event_queue_block) == (2, 4)
+    psim = Simulation(cfg, device="cpu")
+    jsim = JaxSimulation(jcfg, world=1)
+    for f in ("queue_capacity", "queue_block", "microstep_events", "effective_microstep_events",
+              "effective_microstep_limit"):
+        assert getattr(psim.engine_cfg, f) == getattr(jsim.engine_cfg, f), f
+    assert type(psim.state.queue).__name__ == "BucketQueue"
+    auto = load_config(YAML.replace("event_queue_capacity: 12, ", ""), is_text=True)
+    with pytest.raises(ConfigError, match="event_queue_block"):
+        Simulation(merge_cli_overrides(auto, {"experimental.event_queue_block": "7"}),
+                   device="cpu")
 
 
 def test_unsupported_model_raises():
