@@ -126,8 +126,6 @@ class NetworkOptions:
 # value that means "off" (a config may spell the default explicitly)
 _EXPERIMENTAL_OFF = {
     "merge_gears": 0,
-    "timer_wheel": 0,
-    "timer_wheel_block": 0,
     "merge_scatter": False,
     "merge_rows": 0,
     "cpu_delay": 0,
@@ -153,6 +151,11 @@ class ExperimentalOptions:
     microstep_limit: int = 0
     # events folded per host per microstep (K >= 1)
     microstep_events: int = 1
+    # timer wheel: slots per host for the model's timer events (0 = off;
+    # needs microstep_events = 1) and slots per block of its caches (0 =
+    # auto, a divisor near sqrt)
+    timer_wheel: int = 0
+    timer_wheel_block: int = 0
 
     def validate(self) -> None:
         """The JAX package's checks of the queue-shape knobs; the block's
@@ -169,6 +172,25 @@ class ExperimentalOptions:
             )
         if self.event_queue_capacity:
             self.check_queue_block(self.event_queue_capacity)
+        if self.timer_wheel < 0:
+            raise ConfigError(
+                f"experimental.timer_wheel must be >= 0 (0 = off), got {self.timer_wheel}"
+            )
+        if self.timer_wheel_block < 0 or (
+            self.timer_wheel and self.timer_wheel_block
+            and self.timer_wheel % self.timer_wheel_block
+        ):
+            raise ConfigError(
+                f"experimental.timer_wheel_block={self.timer_wheel_block} must be 0 "
+                f"(auto) or divide timer_wheel={self.timer_wheel} evenly"
+            )
+        if self.timer_wheel and self.microstep_events > 1:
+            raise ConfigError(
+                f"unsupported knob pair: experimental.timer_wheel={self.timer_wheel} x "
+                f"experimental.microstep_events={self.microstep_events} (the wheel's pop "
+                f"merges one wheel candidate against the queue head per microstep); run "
+                f"the wheel with microstep_events=1 or keep it off"
+            )
 
     def check_queue_block(self, capacity: int) -> None:
         if self.event_queue_block and capacity % self.event_queue_block:
@@ -234,6 +256,8 @@ class ExperimentalOptions:
             "rounds_per_chunk",
             "microstep_limit",
             "microstep_events",
+            "timer_wheel",
+            "timer_wheel_block",
         ):
             if f in d:
                 setattr(e, f, int(d.pop(f)))

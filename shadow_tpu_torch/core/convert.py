@@ -7,7 +7,8 @@ port's `(params, state)` on the requested device; uint64 lanes (RNG state,
 digests) are reinterpreted bit for bit as int64, and uint32 lanes (tgen's
 reassembly bitmap) are widened to int64 holding 0..2^32-1. A flat queue
 comes across as `EventQueue`, a bucketed one (with its bt/bo/bfill caches)
-as `BucketQueue`. `engine_config_from` maps a
+as `BucketQueue`, and a timer wheel (with its `wheel_spilled` and
+`wheel_occ_hwm` stats lanes) as the port's wheel. `engine_config_from` maps a
 JAX `EngineConfig` onto the port's, refusing any knob the port does not run.
 `to_numpy` flattens either package's state into {"queue.t": array, ...} for a
 field-by-field comparison. Nothing here imports JAX: the inputs are read by
@@ -45,7 +46,6 @@ _OFF_FIELDS = {
     "pressure_abort": False,
     "netobs": False,
     "integrity": False,
-    "wheel_slots": 0,
     "merge_scatter": False,
     "merge_rows": 0,
     "cpu_delay_ns": 0,
@@ -73,6 +73,14 @@ def _t(a, device) -> torch.Tensor:
     elif a.dtype == np.uint32:
         a = a.astype(np.int64)
     return torch.from_numpy(np.array(a)).to(device)
+
+
+def _opt(a, device):
+    return None if a is None else _t(a, device)
+
+
+def _bq(q, device) -> BucketQueue:
+    return BucketQueue(*(_t(getattr(q, f), device) for f in BucketQueue._fields))
 
 
 def _tree(x, device):
@@ -105,11 +113,12 @@ def state_from_jax_numpy(sim_state, model_state=None, *, device) -> SimState:
     """The port's SimState from the JAX package's numpy `SimState`;
     `model_state` defaults to `sim_state.model`."""
     s = sim_state
-    qtype = BucketQueue if hasattr(s.queue, "bt") else EventQueue
+    queue = (_bq(s.queue, device) if hasattr(s.queue, "bt")
+             else EventQueue(*(_t(getattr(s.queue, f), device) for f in EventQueue._fields)))
     return SimState(
         now=int(s.now),
         done=bool(s.done),
-        queue=qtype(*(_t(getattr(s.queue, f), device) for f in qtype._fields)),
+        queue=queue,
         rng=RngState(_t(s.rng.s, device)),
         seq=_t(s.seq, device),
         sent_round=_t(s.sent_round, device),
@@ -119,7 +128,8 @@ def state_from_jax_numpy(sim_state, model_state=None, *, device) -> SimState:
         min_used_lat=_t(s.min_used_lat, device),
         model=_tree(s.model if model_state is None else model_state, device),
         outbox=Outbox(*(_t(getattr(s.outbox, f), device) for f in Outbox._fields)),
-        stats=Stats(*(_t(getattr(s.stats, f), device) for f in Stats._fields)),
+        stats=Stats(*(_opt(getattr(s.stats, f, None), device) for f in Stats._fields)),
+        wheel=None if getattr(s, "wheel", None) is None else _bq(s.wheel, device),
     )
 
 
@@ -143,7 +153,9 @@ def _np(v: Any) -> np.ndarray:
 
 def to_numpy(state) -> dict[str, np.ndarray]:
     """Flatten a port SimState — or a JAX SimState already fetched to numpy —
-    into {"field.path": numpy array} over the fields this slice carries."""
+    into {"field.path": numpy array} over the fields this slice carries
+    (lanes that are None, such as the wheel's when it is off, are left
+    out)."""
     out: dict[str, np.ndarray] = {
         "now": np.int64(int(state.now)),
         "done": np.bool_(bool(state.done)),
@@ -161,9 +173,13 @@ def to_numpy(state) -> dict[str, np.ndarray]:
         "outbox": (state.outbox, Outbox._fields),
         "stats": (state.stats, Stats._fields),
     }
+    if getattr(state, "wheel", None) is not None:
+        groups["wheel"] = (state.wheel, BucketQueue._fields)
     for g, (obj, fields) in groups.items():
         for f in fields:
-            out[f"{g}.{f}"] = _np(getattr(obj, f))
+            v = getattr(obj, f, None)
+            if v is not None:
+                out[f"{g}.{f}"] = _np(v)
     for k, v in state.model.items():
         out[f"model.{k}"] = _np(v)
     return out

@@ -7,11 +7,11 @@ One round advances every host through the safe window [now, window_end):
      slab or the bucketed queue's block caches);
   2. window_end = min(gmin + runahead, stop_time);
   3. microsteps, while any host has an event before window_end: every host
-     pops its earliest event (K2; K5 + K6 on the bucketed queue), one
-     vectorized model handler runs for all hosts, packet arrivals pass
-     ingress shaping (CoDel + downlink token bucket), sends pass egress
-     shaping (budget, uplink bucket, loss/jitter draws, routing) into the
-     [H, B] outbox, local pushes land in the queue (K3; K7 bucketed);
+     pops its earliest event (K2; K5 + K6 on the bucketed queue), packet
+     arrivals pass ingress shaping (CoDel + downlink token bucket, K10), one
+     vectorized model handler runs for all hosts, sends pass egress shaping
+     (budget, uplink bucket, loss/jitter draws, routing, K11) into the
+     [H, B] outbox (K9), local pushes land in the queue (K3; K7 bucketed);
   4. exchange: the outbox merges into the destination queues (K4), and a
      bucketed queue's block caches are rebuilt (K8).
 
@@ -21,8 +21,15 @@ push of this microstep would pop before the next one, clears the executed
 prefix (K6) and applies all pushes in one pass (K3/K7), each holding back a
 reserve so that drops equal the one-event microstep's.
 
+With the timer wheel (`wheel_slots` S > 0, K = 1) the model's timer events
+live in a second bucketed slab, [H, S] (ops/wheel.py): the microstep pops
+the (time, order) minimum of queue and wheel, timer pushes go to the wheel
+while it has room and spill to the queue when it does not, and the wheel's
+heads fold into every next-event minimum. Dispatch order, digests, events
+and drops equal the wheel-off path's.
+
 The slice is the JAX package's single-device path: flat or bucketed queue,
-K >= 1, world 1. `lax.while_loop` becomes a Python loop; each loop
+K >= 1, the timer wheel, world 1. `lax.while_loop` becomes a Python loop; each loop
 condition is one device-to-host read, counted in `Engine.host_syncs`. The
 window itself is computed on the device and read back with the `done` flag
 in the same read.
@@ -45,22 +52,13 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from shadow_tpu_torch.models.base import (
-    KIND_INGRESS_DONE,
-    KIND_MASK,
-    KIND_PKT,
-    PAYLOAD_SIZE_WORD,
-    HandlerCtx,
+from shadow_tpu_torch.ops.chain import (
+    event_egress,
+    event_ingress,
+    outbox_append_multi,
 )
-from shadow_tpu_torch.net import (
-    CodelState,
-    TBParams,
-    TBState,
-    codel_init,
-    codel_on_packet,
-    tb_conforming_remove,
-    tb_init,
-)
+from shadow_tpu_torch.models.base import KIND_MASK, KIND_PKT, HandlerCtx
+from shadow_tpu_torch.net import CodelState, TBParams, TBState, codel_init, tb_init
 from shadow_tpu_torch.ops.events import (
     _LOCAL_SHIFT,
     _SRC_SHIFT,
@@ -68,28 +66,33 @@ from shadow_tpu_torch.ops.events import (
     ORDER_MAX,
     SEQ_MASK,
     BucketQueue,
+    Event,
     EventQueue,
     Push,
     as_flat,
     bucket_rebuild,
     check_order_limits,
     clear_popped,
-    pack_order,
     pop_k,
+    q_head,
     q_len,
     q_next_time,
     q_pop_min,
     q_push_many,
-    unpack_order_src,
 )
 from shadow_tpu_torch.ops.merge import merge_flat_events
-from shadow_tpu_torch.ops.rng import RngState, rng_init, rng_uniform, u64
+from shadow_tpu_torch.ops.rng import RngState, rng_init, u64
+from shadow_tpu_torch.ops.wheel import (
+    TimerWheel,
+    resolve_wheel_block,
+    wheel_free,
+    wheel_next_time,
+    wheel_pop_min,
+    wheel_push_many,
+)
 from shadow_tpu_torch.simtime import TIME_MAX
 
-_FNV_PRIME = u64(1099511628211)
 _FNV_OFFSET = u64(0xCBF29CE484222325)
-_MIX1 = u64(0x9E3779B97F4A7C15)
-_MIX2 = u64(0xC2B2AE3D27D4EB4F)
 
 
 class Outbox(NamedTuple):
@@ -122,6 +125,11 @@ class Stats(NamedTuple):
     outbox_hwm: torch.Tensor  # i64[1]
     digest: torch.Tensor  # i64[H] (uint64 FNV fold, bit pattern)
     rounds: torch.Tensor  # i64[]
+    # timer-wheel lanes, None unless the wheel is on: timer pushes spilled
+    # to the queue because the wheel was full (never a loss), and the
+    # per-host wheel-occupancy high-water
+    wheel_spilled: Any = None  # i64[H] | None
+    wheel_occ_hwm: Any = None  # i64[H] | None
 
 
 class SimState(NamedTuple):
@@ -138,6 +146,7 @@ class SimState(NamedTuple):
     model: Any
     outbox: Outbox
     stats: Stats
+    wheel: Any = None  # TimerWheel | None (the [H, S] timer slab)
 
 
 class EngineParams(NamedTuple):
@@ -183,6 +192,10 @@ class EngineConfig:
     rounds_per_chunk: int = 64
     # host->node map is contiguous uniform blocks (node = host // g)
     hosts_per_node: int = 0
+    # timer wheel: slots per host (0 = off) and slots per block of its
+    # caches (0 = auto, ops/wheel.py resolve_wheel_block)
+    wheel_slots: int = 0
+    wheel_block: int = 0
 
     def __post_init__(self):
         check_order_limits(self.num_hosts)
@@ -195,6 +208,26 @@ class EngineConfig:
             )
         if self.microstep_events < 1:
             raise ValueError(f"microstep_events={self.microstep_events} must be >= 1")
+        if self.wheel_slots < 0:
+            raise ValueError(f"wheel_slots={self.wheel_slots} must be >= 0 (0 = off)")
+        if self.wheel_block < 0 or (
+            self.wheel_slots and self.wheel_block and self.wheel_slots % self.wheel_block
+        ):
+            raise ValueError(
+                f"wheel_block={self.wheel_block} must be 0 (auto) or divide "
+                f"wheel_slots={self.wheel_slots} evenly"
+            )
+        if self.wheel_slots and self.microstep_events > 1:
+            raise ValueError(
+                f"unsupported knob pair: wheel_slots={self.wheel_slots} x "
+                f"microstep_events={self.microstep_events} (the wheel's pop merges one "
+                f"wheel candidate against the queue head per microstep; run the wheel "
+                f"at microstep_events=1)"
+            )
+
+    @property
+    def wheel_active(self) -> bool:
+        return self.wheel_slots > 0
 
     @property
     def effective_microstep_limit(self) -> int:
@@ -208,15 +241,6 @@ class EngineConfig:
     def effective_microstep_events(self) -> int:
         """K clamped to the queue capacity."""
         return min(self.microstep_events, self.queue_capacity)
-
-
-def digest_update(digest, active, t, kind, order):
-    """One FNV-1a-style fold of (t, kind, order) into each active host's
-    digest, in uint64 arithmetic carried as int64."""
-    x = t * _MIX1
-    x = x ^ (kind.to(torch.int64) * _MIX2)
-    x = x ^ order
-    return torch.where(active, (digest ^ x) * _FNV_PRIME, digest)
 
 
 def _init_stats(cfg: EngineConfig, device) -> Stats:
@@ -235,6 +259,8 @@ def _init_stats(cfg: EngineConfig, device) -> Stats:
         bq_rebuilds=z1(), popk_deferred=z1(), q_occ_hwm=zi(), outbox_hwm=z1(),
         digest=torch.full((h,), _FNV_OFFSET, dtype=torch.int64, device=device),
         rounds=torch.zeros((), dtype=torch.int64, device=device),
+        wheel_spilled=zi() if cfg.wheel_active else None,
+        wheel_occ_hwm=zi() if cfg.wheel_active else None,
     )
 
 
@@ -250,61 +276,48 @@ def make_empty_outbox(num_hosts: int, send_budget: int, device) -> Outbox:
     )
 
 
-def seed_queue(cfg: EngineConfig, initial_events, device):
+def seed_queue(cfg: EngineConfig, initial_events, device, timer_kinds: tuple = ()):
     """The t=0 queue from (host_id, t_ns, kind, payload) events (bucketed
-    when `queue_block`), and the per-host seq counters advanced past
-    them."""
+    when `queue_block`), the t=0 timer wheel (None unless the wheel is on:
+    seeded events of a kind in `timer_kinds` land in the wheel while it has
+    room, the rest in the queue), and the per-host seq counters advanced
+    past them in event-list order wherever each one lands."""
     h, c = cfg.num_hosts, cfg.queue_capacity
-    t = np.full((h, c), TIME_MAX, np.int64)
-    order = np.full((h, c), ORDER_MAX, np.int64)
-    kind = np.zeros((h, c), np.int32)
-    payload = np.zeros((h, c, EVENT_PAYLOAD_WORDS), np.int32)
-    fill = np.zeros((h,), np.int32)
+    s = cfg.wheel_slots if timer_kinds else 0
+    kinds = set(timer_kinds)
+
+    def planes(width):
+        return {"t": np.full((h, width), TIME_MAX, np.int64),
+                "order": np.full((h, width), ORDER_MAX, np.int64),
+                "kind": np.zeros((h, width), np.int32),
+                "payload": np.zeros((h, width, EVENT_PAYLOAD_WORDS), np.int32),
+                "fill": np.zeros((h,), np.int32)}
+
+    q, w = planes(c), planes(s)
     seq = np.zeros((h,), np.int64)
     for host, t_ns, k, pl in initial_events:
-        slot = fill[host]
-        if slot >= c:
-            raise ValueError(f"host {host}: {slot + 1} initial events exceed queue capacity {c}")
-        t[host, slot] = t_ns
-        order[host, slot] = (1 << _LOCAL_SHIFT) | (host << _SRC_SHIFT) | (int(seq[host]) & SEQ_MASK)
-        kind[host, slot] = k
-        payload[host, slot, : len(pl)] = pl
+        okey = (1 << _LOCAL_SHIFT) | (host << _SRC_SHIFT) | (int(seq[host]) & SEQ_MASK)
         seq[host] += 1
-        fill[host] += 1
-    queue = EventQueue(
-        t=torch.as_tensor(t, device=device),
-        order=torch.as_tensor(order, device=device),
-        kind=torch.as_tensor(kind, device=device),
-        payload=torch.as_tensor(payload, device=device),
-        dropped=torch.zeros((h,), dtype=torch.int64, device=device),
-    )
+        dest = w if s and k in kinds and w["fill"][host] < s else q
+        slot = dest["fill"][host]
+        if dest is q and slot >= c:
+            raise ValueError(f"host {host}: {slot + 1} initial events exceed queue capacity {c}")
+        dest["t"][host, slot] = t_ns
+        dest["order"][host, slot] = okey
+        dest["kind"][host, slot] = k
+        dest["payload"][host, slot, : len(pl)] = pl
+        dest["fill"][host] += 1
+
+    def flat(p):
+        return EventQueue(*(torch.as_tensor(p[f], device=device)
+                            for f in ("t", "order", "kind", "payload")),
+                          dropped=torch.zeros((h,), dtype=torch.int64, device=device))
+
+    queue = flat(q)
     if cfg.queue_block:
         queue = bucket_rebuild(queue, cfg.queue_block)
-    return queue, torch.as_tensor(seq, device=device)
-
-
-def outbox_append_multi(ob: Outbox, entries) -> tuple[Outbox, torch.Tensor]:
-    """Write every entry (mask, col, dst, t, order, kind, payload) into its
-    host's lane at column `col` (one-hot writes); col >= B is counted lost."""
-    h, b = ob.t.shape
-    cols = torch.arange(b, dtype=torch.int32, device=ob.t.device)[None, :]
-    dst_n, t_n, order_n, kind_n, payload_n = ob.dst, ob.t, ob.order, ob.kind, ob.payload
-    lost = torch.zeros((h,), dtype=torch.int64, device=ob.t.device)
-    total = torch.zeros((h,), dtype=torch.int32, device=ob.t.device)
-    for mask, col, dst, t, order, kind, payload in entries:
-        oh = mask[:, None] & (cols == col[:, None])
-        dst_n = torch.where(oh, dst.to(torch.int32)[:, None], dst_n)
-        t_n = torch.where(oh, t[:, None], t_n)
-        order_n = torch.where(oh, order[:, None], order_n)
-        kind_n = torch.where(oh, kind.to(torch.int32)[:, None], kind_n)
-        payload_n = torch.where(oh[:, :, None], payload.to(torch.int32)[:, None, :], payload_n)
-        lost = lost + (mask & (col >= b))
-        total = total + mask
-    return (
-        Outbox(dst_n, t_n, order_n, kind_n, payload_n,
-               ob.count + total.sum(dtype=torch.int32)[None]),
-        lost.sum(),
-    )
+    wheel = bucket_rebuild(flat(w), resolve_wheel_block(s, cfg.wheel_block)) if s else None
+    return queue, wheel, torch.as_tensor(seq, device=device)
 
 
 class _EvCarry(NamedTuple):
@@ -337,6 +350,12 @@ class Engine:
     loop conditions cost."""
 
     def __init__(self, cfg: EngineConfig, model, device):
+        if cfg.wheel_active and not tuple(getattr(model, "timer_kinds", ())):
+            raise ValueError(
+                f"timer wheel enabled (wheel_slots={cfg.wheel_slots}) but model "
+                f"{getattr(model, 'name', model)!r} declares no timer_kinds: nothing "
+                f"would ever route to the wheel"
+            )
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
@@ -364,7 +383,9 @@ class Engine:
                 loss_rows=params.loss[node].contiguous(),
                 jit_rows=params.jitter_ns[node].contiguous(),
             )
-        queue, seq = seed_queue(cfg, initial_events, dev)
+        queue, wheel, seq = seed_queue(
+            cfg, initial_events, dev, tuple(getattr(self.model, "timer_kinds", ()))
+        )
         h = cfg.num_hosts
         state = SimState(
             now=0,
@@ -380,6 +401,7 @@ class Engine:
             model=model_state,
             outbox=make_empty_outbox(h, cfg.sends_per_host_round, dev),
             stats=_init_stats(cfg, dev),
+            wheel=wheel,
         )
         return state, params
 
@@ -392,10 +414,19 @@ class Engine:
             st = self.round_step(st, params)
         return st
 
+    @staticmethod
+    def next_times(st: SimState) -> torch.Tensor:
+        """Per-host next event time: the queue's head, and the wheel's where
+        there is one (a due timer is as executable as a due queue event)."""
+        nt = q_next_time(st.queue)
+        if st.wheel is not None:
+            nt = torch.minimum(nt, wheel_next_time(st.wheel))
+        return nt
+
     def compute_window(self, st: SimState) -> tuple[int, bool]:
         """Barrier + window: (window_end, done), one device-to-host read."""
         cfg = self.cfg
-        gmin = q_next_time(st.queue).min()
+        gmin = self.next_times(st).min()
         done = gmin >= cfg.stop_time
         gmin_safe = torch.clamp_max(gmin, cfg.stop_time)
         if cfg.use_dynamic_runahead:
@@ -420,7 +451,7 @@ class Engine:
             # max, read in the same device-to-host read as the loop test
             valve = torch.zeros((cfg.num_hosts,), dtype=torch.int64, device=self.device)
             while True:
-                pending = (q_next_time(st.queue) < window_end).any().to(torch.int64)
+                pending = (self.next_times(st) < window_end).any().to(torch.int64)
                 go, vmax = torch.stack([pending, valve.max()]).tolist()
                 self.host_syncs += 1
                 if not go or vmax >= limit:
@@ -430,7 +461,7 @@ class Engine:
                 steps += 1
         else:
             while steps < limit:
-                pending = bool((q_next_time(st.queue) < window_end).any())
+                pending = bool((self.next_times(st) < window_end).any())
                 self.host_syncs += 1
                 if not pending:
                     break
@@ -447,19 +478,68 @@ class Engine:
             q_occ_hwm=torch.maximum(s.q_occ_hwm, occ),
             outbox_hwm=torch.maximum(s.outbox_hwm, ob_hwm[None]),
         )
+        if st_x.wheel is not None:
+            # the exchange never touches the wheel: the post-exchange sample
+            # is the round's post-push peak
+            stats = stats._replace(wheel_occ_hwm=torch.maximum(
+                stats.wheel_occ_hwm, q_len(st_x.wheel).to(torch.int64)))
         return st_x._replace(
             now=st.now if done else window_end, done=done, stats=stats
         )
 
     def microstep(self, st: SimState, params: EngineParams, window_end: int) -> SimState:
         """The one-event microstep: pop, execute, push, append."""
-        queue, ev, active = q_pop_min(st.queue, window_end)
-        c, push_list, entries, used_lats = self.event_body(
+        wheel = st.wheel
+        if wheel is None:
+            queue, ev, active = q_pop_min(st.queue, window_end)
+        else:
+            queue, wheel, ev, active = pop_min_merged(st.queue, wheel, window_end)
+        c, push_list, entries, used_min = self.event_body(
             _ev_carry_of(st), params, window_end, ev, active,
         )
+        if wheel is not None and push_list:
+            push_list, push_w, spilled = self._route_timer_pushes(wheel, push_list)
+            if push_w:
+                wheel = wheel_push_many(wheel, push_w)
+            c = c._replace(stats=c.stats._replace(
+                wheel_spilled=c.stats.wheel_spilled + spilled))
         if push_list:
             queue = q_push_many(queue, push_list)
-        return self._finish_microstep(st, c, queue, entries, used_lats)
+        st = self._finish_microstep(st, c, queue, [entries] if entries is not None else [],
+                                    [used_min] if used_min is not None else [])
+        return st if wheel is None else st._replace(wheel=wheel)
+
+    def _route_timer_pushes(self, wheel: TimerWheel, push_list: list[Push]):
+        """Split a microstep's pushes into queue-bound and wheel-bound ones.
+        A push goes to the wheel iff it is a model timer event (no packet
+        flag, its kind in the model's `timer_kinds`) and the wheel still has
+        a free slot after this microstep's earlier wheel pushes; a timer
+        that finds the wheel full spills to the queue and is counted. The
+        ingress requeue (a packet) and push ports outside the model's
+        `timer_push_ports` are known never to carry a timer and skip the
+        test. Returns (queue pushes, wheel pushes, spilled i64[H])."""
+        model = self.model
+        n_req = 1 if self.cfg.shaping else 0
+        tports = getattr(model, "timer_push_ports", None)
+        timer_kinds = tuple(model.timer_kinds)
+        free = wheel_free(wheel)
+        taken = torch.zeros_like(free)
+        spilled = torch.zeros(free.shape, dtype=torch.int64, device=free.device)
+        push_q, push_w = [], []
+        for i, push in enumerate(push_list):
+            if i < n_req or (tports is not None and (i - n_req) not in tports):
+                push_q.append(push)
+                continue
+            kind = push.kind.to(torch.int32)
+            is_kind = functools.reduce(
+                torch.logical_or, [(kind & KIND_MASK) == k for k in timer_kinds])
+            is_timer = push.mask & ((kind & KIND_PKT) == 0) & is_kind
+            fits = is_timer & (taken < free)
+            taken = taken + fits.to(torch.int32)
+            spilled = spilled + (is_timer & ~fits)
+            push_w.append(push._replace(mask=fits))
+            push_q.append(push._replace(mask=push.mask & ~fits))
+        return push_q, push_w, spilled
 
     def microstep_k(self, st: SimState, params: EngineParams, window_end: int):
         """The K-way microstep: peek each host's K earliest in-window events
@@ -484,13 +564,13 @@ class Engine:
         deferred = torch.zeros((h,), dtype=torch.bool, device=dev)
         pm_t = torch.full((h,), TIME_MAX, dtype=torch.int64, device=dev)
         pm_o = torch.full((h,), ORDER_MAX, dtype=torch.int64, device=dev)
-        cons_ks, push_lists, entries, used_lats = [], [], [], []
+        cons_ks, push_lists, entries, used_mins = [], [], [], []
         for j in range(popped.t.shape[1]):
             ev = popped.event(j)
             if j > 0:
                 deferred = deferred | _lex_less(pm_t, pm_o, ev.t, ev.order)
             cons_j = popped.active[:, j] & ~deferred
-            c, push_list, ents, lats = self.event_body(c, params, window_end, ev, cons_j)
+            c, push_list, ents, used_min = self.event_body(c, params, window_end, ev, cons_j)
             # an event's own pushes cannot defer it: fold them in after
             for push in push_list:
                 better = push.mask & _lex_less(push.t, push.order, pm_t, pm_o)
@@ -498,8 +578,9 @@ class Engine:
                 pm_o = torch.where(better, push.order, pm_o)
             cons_ks.append(cons_j.to(torch.int32))
             push_lists.append(push_list)
-            entries += ents
-            used_lats += lats
+            if ents is not None:
+                entries.append(ents)
+                used_mins.append(used_min)
         m = functools.reduce(torch.add, cons_ks)
         queue = clear_popped(st.queue, popped, m)
         all_pushes = []
@@ -513,17 +594,19 @@ class Engine:
         c = c._replace(stats=c.stats._replace(
             popk_deferred=c.stats.popk_deferred + n_deferred
         ))
-        return self._finish_microstep(st, c, queue, entries, used_lats), m
+        return self._finish_microstep(st, c, queue, entries, used_mins), m
 
-    def _finish_microstep(self, st: SimState, c: "_EvCarry", queue, entries, used_lats):
-        """Apply the microstep's outbox appends, fold the used-latency
-        lookahead, and reassemble the state."""
+    def _finish_microstep(self, st: SimState, c: "_EvCarry", queue, entries, used_mins):
+        """Apply the microstep's outbox appends (its events' entry stacks in
+        one K9 pass), fold the used-latency lookahead, and reassemble the
+        state."""
         outbox, min_used = st.outbox, st.min_used_lat
         stats = c.stats
         if entries:
-            outbox, n_lost = outbox_append_multi(outbox, entries)
-            min_used = torch.minimum(min_used, torch.stack([u.min() for u in used_lats]).min())
-            stats = stats._replace(ob_dropped=stats.ob_dropped + n_lost)
+            outbox, ob_dropped = outbox_append_multi(outbox, entries, stats.ob_dropped)
+            used = used_mins[0] if len(used_mins) == 1 else torch.stack(used_mins)
+            min_used = torch.minimum(min_used, used.min())
+            stats = stats._replace(ob_dropped=ob_dropped)
         return st._replace(
             queue=queue, rng=c.rng, seq=c.seq, sent_round=c.sent_round,
             tb_egress=c.tb_egress, tb_ingress=c.tb_ingress, codel=c.codel,
@@ -531,159 +614,37 @@ class Engine:
         )
 
     def event_body(self, c: _EvCarry, params: EngineParams, window_end: int, ev, active):
-        """Execute one event per active host: digest, ingress shaping, model
-        dispatch, egress staging. Returns (carry', pushes, outbox entries,
-        used latencies)."""
-        cfg, model, host_gid = self.cfg, self.model, self._host_gid
-        stats = c.stats
-        stats = stats._replace(
-            events=stats.events + active,
-            digest=digest_update(stats.digest, active, ev.t, ev.kind, ev.order),
-        )
-        is_pkt = (ev.kind & KIND_PKT) != 0
-
-        if cfg.shaping:
-            needs_ingress = active & is_pkt & ((ev.kind & KIND_INGRESS_DONE) == 0)
-            size_bits = ev.payload[:, PAYLOAD_SIZE_WORD].to(torch.int64) * 8
-            _, depart_probe = tb_conforming_remove(
-                c.tb_ingress, params.in_tb, cfg.tb_interval_ns, ev.t, size_bits,
-                torch.zeros_like(needs_ingress),
-            )
-            sojourn = depart_probe - ev.t
-            if cfg.use_codel:
-                codel, codel_drop = codel_on_packet(c.codel, ev.t, sojourn, needs_ingress)
-            else:
-                codel, codel_drop = c.codel, torch.zeros_like(needs_ingress)
-            tb_in, depart = tb_conforming_remove(
-                c.tb_ingress, params.in_tb, cfg.tb_interval_ns, ev.t, size_bits,
-                needs_ingress & ~codel_drop,
-            )
-            delay = needs_ingress & ~codel_drop & (depart > ev.t)
-            # the bucket-delayed packet goes back into the queue past shaping;
-            # it is the FIRST push of the microstep (slot order is part of
-            # the contract)
-            requeue = Push(delay, depart, ev.order, ev.kind | KIND_INGRESS_DONE, ev.payload)
-            stats = stats._replace(pkts_codel_dropped=stats.pkts_codel_dropped + codel_drop)
-            dispatch = active & ~(needs_ingress & (codel_drop | delay))
-        else:
-            codel, tb_in = c.codel, c.tb_ingress
-            requeue = None
-            dispatch = active
-
-        stats = stats._replace(pkts_delivered=stats.pkts_delivered + (dispatch & is_pkt))
-        out = model.handle(HandlerCtx(
+        """Execute one event per active host: ingress (digest, shaping,
+        dispatch; K10), the model's handler, egress (pushes and sends; K11).
+        Returns (carry', pushes, outbox entry stack | None, per-host
+        used-latency minimum | None)."""
+        cfg = self.cfg
+        c, ing = event_ingress(c, params, cfg, ev, active)
+        out = self.model.handle(HandlerCtx(
             t=ev.t,
             window_end=window_end,
-            kind=ev.kind & KIND_MASK,
+            kind=ing.kind,
             payload=ev.payload,
-            active=dispatch,
-            is_packet=is_pkt,
-            src=unpack_order_src(ev.order),
-            host_id=host_gid,
+            active=ing.dispatch,
+            is_packet=ing.is_pkt,
+            src=ing.src,
+            host_id=self._host_gid,
             state=c.model,
             params=params.model,
             rng=c.rng,
         ))
-        rng, seq, sent_round, tb_eg = out.rng, c.seq, c.sent_round, c.tb_egress
-
-        push_list = [requeue] if requeue is not None else []
-        for p in out.pushes:
-            mask = p.mask & dispatch
-            stats = stats._replace(
-                monotonic_violations=stats.monotonic_violations + (mask & (p.t < ev.t))
-            )
-            push_list.append(Push(
-                mask, torch.maximum(p.t, ev.t), pack_order(1, host_gid, seq),
-                p.kind.to(torch.int32) & KIND_MASK, p.payload.to(torch.int32),
-            ))
-            seq = seq + mask
-
-        # sends: each port may carry a burst of up to count_max segments to
-        # one destination, sharing the route lookup; each segment has its
-        # own budget slot, bandwidth charge, loss draw and order key
-        entries, used_lats = [], []
-        for s in out.sends:
-            mask0 = s.mask & dispatch
-            # gate on count is None: count=None with count_max > 1 is legal,
-            # and an explicit count of 0 suppresses the send
-            if s.count is None:
-                counts = mask0.to(torch.int32)
-            else:
-                counts = torch.where(mask0, s.count.to(torch.int32), 0)
-            sz = s.size_bytes.to(torch.int32)
-            bad_dst = mask0 & ((s.dst < 0) | (s.dst >= cfg.num_hosts))
-            dst = torch.clamp(s.dst, 0, cfg.num_hosts - 1)
-            lat, lossp, jit = self._route(params, dst)
-            lat_bound0 = lat - jit if cfg.use_jitter else lat
-            port_kind = s.kind.to(torch.int32) | KIND_PKT
-            for j in range(s.count_max):
-                mask = mask0 & (counts > j)
-                over_budget = sent_round >= cfg.sends_per_host_round
-                if cfg.shaping:
-                    tb_eg, eg_depart = tb_conforming_remove(
-                        tb_eg, params.eg_tb, cfg.tb_interval_ns, ev.t,
-                        sz.to(torch.int64) * 8, mask & ~over_budget,
-                    )
-                else:
-                    eg_depart = ev.t
-                lat_j = lat
-                if cfg.use_jitter:
-                    rng, uj = rng_uniform(rng, mask)
-                    lat_j = lat + ((uj * 2.0 - 1.0) * jit.to(torch.float32)).to(torch.int64)
-                unreachable = mask & ((lat_bound0 < 0) | bad_dst)
-                rng, u = rng_uniform(rng, mask)
-                lost = mask & (u < lossp) & (ev.t >= cfg.bootstrap_end_time)
-                send_ok = mask & ~lost & ~unreachable & ~over_budget
-                budget_dropped = mask & ~lost & ~unreachable & over_budget
-                ob_col = sent_round
-                sent_round = sent_round + send_ok.to(torch.int32)
-                arrive = torch.clamp_min(eg_depart + torch.clamp_min(lat_j, 0), window_end)
-                order = pack_order(0, host_gid, seq)
-                seq = seq + mask
-                payload = s.payload.to(torch.int32)
-                if j > 0 and s.payload_inc is not None:
-                    payload = payload + j * s.payload_inc.to(torch.int32)
-                payload = payload.clone()
-                payload[:, PAYLOAD_SIZE_WORD] = sz
-                entries.append((send_ok, ob_col, dst, arrive, order, port_kind, payload))
-                used_lats.append(torch.where(send_ok, lat_bound0, TIME_MAX))
-                stats = stats._replace(
-                    pkts_sent=stats.pkts_sent + mask,
-                    pkts_lost=stats.pkts_lost + lost,
-                    pkts_unreachable=stats.pkts_unreachable + unreachable,
-                    pkts_budget_dropped=stats.pkts_budget_dropped + budget_dropped,
-                )
-        carry = _EvCarry(stats, rng, seq, sent_round, tb_eg, tb_in, codel, out.state)
-        return carry, push_list, entries, used_lats
-
-    def _route(self, params: EngineParams, dst: torch.Tensor):
-        """(latency, loss, jitter) from each sender to `dst`, in the three
-        forms of the reference: a constant for single-node graphs, a row
-        lookup (affine or node_of destination node) when the per-host rows
-        exist, else a 2-D table gather."""
-        cfg = self.cfg
-        h = dst.shape[0]
-        if tuple(params.lat_ns.shape) == (1, 1):
-            return (params.lat_ns[0, 0].expand(h), params.loss[0, 0].expand(h),
-                    params.jitter_ns[0, 0].expand(h))
-        if cfg.hosts_per_node > 0:
-            dst_node = torch.div(dst, cfg.hosts_per_node, rounding_mode="floor")
-            src_node = torch.div(self._host_gid, cfg.hosts_per_node, rounding_mode="floor")
-        else:
-            dst_node = params.node_of[dst].to(torch.int64)
-            src_node = params.node_of.to(torch.int64)
-        if params.lat_rows is not None:
-            col = dst_node[:, None]
-            return (params.lat_rows.gather(1, col)[:, 0], params.loss_rows.gather(1, col)[:, 0],
-                    params.jit_rows.gather(1, col)[:, 0])
-        return (params.lat_ns[src_node, dst_node], params.loss[src_node, dst_node],
-                params.jitter_ns[src_node, dst_node])
+        c = c._replace(model=out.state, rng=out.rng)
+        c, pushes, entries, used_min = event_egress(
+            c, params, cfg, ev.t, ing.dispatch, window_end, out)
+        push_list = ([ing.requeue] if ing.requeue is not None else []) + pushes
+        return c, push_list, entries, used_min
 
     def exchange(self, st: SimState) -> SimState:
         """World-1 exchange: merge the outbox, host-major, into the queues;
         a bucketed queue then gets its block caches rebuilt (counted in
         rounds that sent anything, as the reference counts them — its
-        skipped rebuild of an unchanged slab gives the same caches)."""
+        skipped rebuild of an unchanged slab gives the same caches). The
+        timer wheel is not touched."""
         cfg, ob = self.cfg, st.outbox
         dst_f = ob.dst.reshape(-1)
         t_f = ob.t.reshape(-1)
@@ -703,3 +664,27 @@ class Engine:
             outbox=make_empty_outbox(cfg.num_hosts, cfg.sends_per_host_round, ob.t.device),
             sent_round=torch.zeros_like(st.sent_round),
         )
+
+
+def pop_min_merged(queue, wheel: TimerWheel, limit: int):
+    """Pop each host's earliest event from queue and wheel under the
+    (time, order) key: compare the two heads, then each structure pops with
+    the limit masked to the hosts it won (an [H] limit, 0 where it lost),
+    so exactly one event pops per active host — the one the wheel-off path
+    would pop from its single queue. Live keys never tie; the all-empty tie
+    on the sentinels goes to the wheel, whose pop then finds nothing.
+    Returns (queue', wheel', event, active)."""
+    qt, qo = q_head(queue)
+    wt, wo = q_head(wheel)
+    q_wins = _lex_less(qt, qo, wt, wo)
+    zero = torch.zeros_like(qt)
+    lim = torch.full_like(qt, limit)
+    queue, ev_q, act_q = q_pop_min(queue, torch.where(q_wins, lim, zero))
+    wheel, ev_w, act_w = wheel_pop_min(wheel, torch.where(q_wins, zero, lim))
+    ev = Event(
+        t=torch.where(act_w, ev_w.t, ev_q.t),
+        order=torch.where(act_w, ev_w.order, ev_q.order),
+        kind=torch.where(act_w, ev_w.kind, ev_q.kind),
+        payload=torch.where(act_w[:, None], ev_w.payload, ev_q.payload),
+    )
+    return queue, wheel, ev, act_q | act_w

@@ -13,6 +13,9 @@
 //                                                    bucketed: victim-block recompute)
 //   K7  shadow_tpu/ops/events.py:616 bq_push_many   (K3 plus the block-cache update)
 //   K8  shadow_tpu/ops/events.py:460 block_minima   (wholesale cache rebuild)
+//   K12 shadow_tpu/ops/wheel.py:123 wheel_cancel    (masked order-key compare over
+//                                                    the timer wheel's slab + victim-
+//                                                    block recompute)
 //
 // Layout: one [H, C] slab per field, row-major; t/order int64, kind int32,
 // payload int32[P] per slot. Empty slots hold (TIME_MAX, ORDER_MAX). The
@@ -223,11 +226,13 @@ __global__ void push_many_kernel(long long* __restrict__ t, long long* __restric
 // K5: peek each host's K earliest events: round j takes the lexicographic
 // (t, order, slot) minimum over the slots not taken by rounds < j (live keys
 // are unique; the slot index only orders the empty sentinels). Column j is
-// active iff its time is below `limit` (a prefix: times ascend). Nothing is
+// active iff its time is below the host's limit (`limits[h]`, or the scalar
+// `limit` where `limits` is null; a prefix: times ascend). Nothing is
 // written to the slab. Bit k of `taken` marks this lane's slot in chunk k.
 __global__ void pop_k_kernel(const long long* __restrict__ t, const long long* __restrict__ order,
                              const int* __restrict__ kind, const int* __restrict__ payload,
-                             long long limit, long long* __restrict__ out_t,
+                             long long limit, const long long* __restrict__ limits,
+                             long long* __restrict__ out_t,
                              long long* __restrict__ out_order, int* __restrict__ out_kind,
                              int* __restrict__ out_payload, bool* __restrict__ out_active,
                              int* __restrict__ out_idx, int H, int C, int P, int K) {
@@ -235,6 +240,7 @@ __global__ void pop_k_kernel(const long long* __restrict__ t, const long long* _
   const int h = host_of_warp();
   if (h >= H) return;
   const long long base = (long long)h * C;
+  const long long lim = limits ? limits[h] : limit;
   unsigned taken = 0;
   for (int j = 0; j < K; ++j) {
     long long bt = kTimeMax, bo = kOrderMax;
@@ -254,7 +260,7 @@ __global__ void pop_k_kernel(const long long* __restrict__ t, const long long* _
     }
     // K <= C, so an untaken slot always exists and bi is a real slot
     if ((bi & (kWarp - 1)) == lane) taken |= 1u << (bi / kWarp);
-    const bool act = bt < limit;
+    const bool act = bt < lim;
     const long long o = (long long)h * K + j;
     if (lane < P) out_payload[o * P + lane] = act ? payload[(base + bi) * P + lane] : 0;
     if (lane == 0) {
@@ -293,6 +299,58 @@ __global__ void clear_popped_kernel(long long* __restrict__ t, long long* __rest
   for (unsigned tb = touched; tb; tb &= tb - 1) {
     const int j = __ffs(tb) - 1;
     const int lost = __popc(__ballot_sync(kFull, take && c / B == j));
+    long long mt = kTimeMax, mo = kOrderMax;
+    for (int s = lane; s < B; s += kWarp) {
+      const long long vt = t[base + j * B + s], vo = order[base + j * B + s];
+      if (lex_less(vt, vo, mt, mo)) { mt = vt; mo = vo; }
+    }
+    warp_lexmin(mt, mo);
+    if (lane == 0) {
+      const long long bi = (long long)h * NB + j;
+      bt[bi] = mt;
+      bo[bi] = mo;
+      bfill[bi] -= lost;
+    }
+  }
+}
+
+// K12: cancel the live slot whose order key equals key[h], for each masked
+// host (keys are unique, so at most one slot matches; a miss changes
+// nothing). Hit slots are cleared to the empty sentinel; each block that
+// lost a slot gets its (bt, bo) recomputed from its B slots and its bfill
+// reduced by the slots it lost. found[h] = any hit. Bit k of `hits` marks
+// this lane's slot in chunk k.
+__global__ void wheel_cancel_kernel(long long* __restrict__ t, long long* __restrict__ order,
+                                    long long* __restrict__ bt, long long* __restrict__ bo,
+                                    int* __restrict__ bfill, const bool* __restrict__ mask,
+                                    const long long* __restrict__ key, bool* __restrict__ found,
+                                    int H, int C, int B) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int h = host_of_warp();
+  if (h >= H) return;
+  const long long base = (long long)h * C;
+  const bool m = mask[h];
+  const long long kh = key[h];
+  unsigned hits = 0, touched = 0;
+  for (int c0 = 0, k = 0; c0 < C; c0 += kWarp, ++k) {
+    const int c = c0 + lane;
+    if (m && c < C && order[base + c] == kh && t[base + c] != kTimeMax) {
+      t[base + c] = kTimeMax;
+      order[base + c] = kOrderMax;
+      hits |= 1u << k;
+      touched |= 1u << (c / B);
+    }
+  }
+  touched = __reduce_or_sync(kFull, touched);
+  if (lane == 0) found[h] = touched != 0;
+  if (!touched) return;
+  __syncwarp();  // the clears are visible to every lane of the warp
+  const int NB = C / B;
+  for (unsigned tb = touched; tb; tb &= tb - 1) {
+    const int j = __ffs(tb) - 1;
+    int lost = 0;
+    for (unsigned w = hits; w; w &= w - 1) lost += ((__ffs(w) - 1) * kWarp + lane) / B == j;
+    lost = __reduce_add_sync(kFull, lost);
     long long mt = kTimeMax, mo = kOrderMax;
     for (int s = lane; s < B; s += kWarp) {
       const long long vt = t[base + j * B + s], vo = order[base + j * B + s];
@@ -418,14 +476,14 @@ int queue_push_many_bucketed(long long* t, long long* order, int* kind, int* pay
 }
 
 int queue_pop_k(const long long* t, const long long* order, const int* kind, const int* payload,
-                long long limit, long long* out_t, long long* out_order, int* out_kind,
+                long long limit, const long long* limits, long long* out_t, long long* out_order, int* out_kind,
                 int* out_payload, bool* out_active, int* out_idx, int H, int C, int P, int K,
                 void* stream) {
   if (P > kWarp || K > kWarp || K > C || C > kWarp * kWarp) return (int)cudaErrorInvalidValue;
   if (H > 0 && K > 0)
     pop_k_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
-        t, order, kind, payload, limit, out_t, out_order, out_kind, out_payload, out_active,
-        out_idx, H, C, P, K);
+        t, order, kind, payload, limit, limits, out_t, out_order, out_kind, out_payload,
+        out_active, out_idx, H, C, P, K);
   return (int)cudaGetLastError();
 }
 
@@ -442,6 +500,16 @@ int queue_clear_popped(long long* t, long long* order, long long* bt, long long*
       clear_popped_kernel<true><<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
           t, order, bt, bo, bfill, active, idx, m, H, C, K, B);
   }
+  return (int)cudaGetLastError();
+}
+
+int queue_wheel_cancel(long long* t, long long* order, long long* bt, long long* bo, int* bfill,
+                       const bool* mask, const long long* key, bool* found, int H, int C, int B,
+                       void* stream) {
+  if (C > kWarp * kWarp || bad_block(C, B)) return (int)cudaErrorInvalidValue;
+  if (H > 0)
+    wheel_cancel_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
+        t, order, bt, bo, bfill, mask, key, found, H, C, B);
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,8 @@ def _unpack_t(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 @register_model
 class UdpEchoModel:
     name = "udp_echo"
+    # the kinds the timer wheel takes (ops/wheel.py)
+    timer_kinds = (KIND_TICK,)
 
     def build(self, hosts, seed, device):
         h = len(hosts)

@@ -106,6 +106,8 @@ def exp_delay(u: torch.Tensor, mean_ns: torch.Tensor) -> torch.Tensor:
 @register_model
 class PholdModel:
     name = "phold"
+    # the kinds the timer wheel takes (ops/wheel.py)
+    timer_kinds = (KIND_JOB,)
 
     def build(self, hosts, seed, device):
         h = len(hosts)

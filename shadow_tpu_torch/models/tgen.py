@@ -97,6 +97,9 @@ class TgenTcpModel:
     name = "tgen_tcp"
     wire_kind = KIND_SEG
     timer_kinds = (KIND_RTO, KIND_DELACK)
+    # only push port B (timer chain, tick, delayed ACK) can carry a timer
+    # kind: the wheel's router skips port A (always KIND_TX)
+    timer_push_ports = (1,)
     flow_ledger = True  # handle() emits FlowDone records at FIN-ACK
 
     def build(self, hosts, seed, device):

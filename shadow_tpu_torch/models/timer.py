@@ -16,6 +16,8 @@ KIND_FIRE = 0
 @register_model
 class TimerModel:
     name = "timer"
+    # the kinds the timer wheel takes (ops/wheel.py)
+    timer_kinds = (KIND_FIRE,)
 
     def build(self, hosts, seed, device):
         h = len(hosts)

@@ -1,0 +1,512 @@
+"""The per-event chain of a microstep (B5) and the outbox append (B4): port
+of shadow_tpu/core/engine.py `_event_body` and `_outbox_append_multi`.
+
+One executed event per host runs in three steps:
+
+  1. ingress (`event_ingress`, K10): events and the digest fold; for a
+     packet that has not passed shaping, CoDel at the router queue and the
+     downlink token bucket — a CoDel drop is counted, a bucket delay
+     requeues the packet past shaping; what remains is dispatched;
+  2. the model's handler (plain PyTorch, the model's own code);
+  3. egress (`event_egress`, K11): the model's local pushes get their
+     order keys; every send port and burst segment passes the send budget,
+     the uplink token bucket, the jitter and loss draws and the route
+     lookup, and lands as one row of the [E, H] entry stack.
+
+`outbox_append_multi` (K9) then writes the stack into the [H, B] outbox.
+
+This module holds the hand-written CUDA kernels (csrc/event.cu) and their
+plain PyTorch versions beside them. As in ops/events.py, each public
+function dispatches on where its tensors live: CPU tensors run the plain
+version, CUDA tensors launch the kernel; there is no fallback. On CUDA the
+kernels update the carry's lanes (stats, RNG, token buckets, CoDel, seq,
+send cursor) and the outbox IN PLACE: a carry is consumed by the step that
+takes it. The plain versions are functional.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, NamedTuple
+
+import torch
+
+from shadow_tpu_torch.models.base import (
+    KIND_INGRESS_DONE,
+    KIND_MASK,
+    KIND_PKT,
+    PAYLOAD_SIZE_WORD,
+)
+from shadow_tpu_torch.net import codel_on_packet, tb_conforming_remove
+from shadow_tpu_torch.ops.cuda_build import CudaKernel, check, on_cpu, ptr
+from shadow_tpu_torch.ops.events import Push, pack_order, unpack_order_src
+from shadow_tpu_torch.ops.rng import rng_uniform, u64
+from shadow_tpu_torch.simtime import TIME_MAX
+
+_FNV_PRIME = u64(1099511628211)
+_MIX1 = u64(0x9E3779B97F4A7C15)
+_MIX2 = u64(0xC2B2AE3D27D4EB4F)
+MAX_PUSH_PORTS = 8  # model push ports per event (K11 limit)
+MAX_SEND_PORTS = 8  # model send ports per event (K11 limit)
+
+
+class EntryStack(NamedTuple):
+    """One event's outbox entries, a row per send segment: [E, H] per
+    field (payload [E, H, P]); row e of host h goes to outbox column
+    col[e, h] where mask[e, h]."""
+
+    mask: torch.Tensor  # bool[E, H]
+    col: torch.Tensor  # i32[E, H]
+    dst: torch.Tensor  # i32[E, H]
+    t: torch.Tensor  # i64[E, H] arrival time
+    order: torch.Tensor  # i64[E, H]
+    kind: torch.Tensor  # i32[E, H]
+    payload: torch.Tensor  # i32[E, H, P]
+
+
+class Ingress(NamedTuple):
+    """What the handler and egress read from the ingress step (all [H])."""
+
+    dispatch: torch.Tensor  # bool: the host's handler runs this event
+    is_pkt: torch.Tensor  # bool
+    kind: torch.Tensor  # i32 model kind (engine flags stripped)
+    src: torch.Tensor  # i64 sending host (valid for packets)
+    requeue: Any  # Push | None: bucket-delayed packets, past shaping
+
+
+def digest_update(digest, active, t, kind, order):
+    """One FNV-1a-style fold of (t, kind, order) into each active host's
+    digest, in uint64 arithmetic carried as int64."""
+    x = t * _MIX1
+    x = x ^ (kind.to(torch.int64) * _MIX2)
+    x = x ^ order
+    return torch.where(active, (digest ^ x) * _FNV_PRIME, digest)
+
+
+def _arg_block(vals: list[int]):
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _p(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+_ARGS = [ctypes.POINTER(ctypes.c_longlong)]
+
+
+# --------------------------------------------------------------------------
+# K9 outbox_append
+# --------------------------------------------------------------------------
+
+_outbox_append_k = CudaKernel("event", "event_outbox_append", _ARGS)
+_MAX_STACKS = 16  # entry stacks per K9 launch (csrc/event.cu kMaxStacks)
+
+
+def outbox_append_multi_plain(ob, stacks, ob_dropped: torch.Tensor):
+    """The reference's chained one-hot writes, one entry row at a time, over
+    a microstep's entry stacks (one per event, in event order); a row with
+    col >= B is counted lost. Returns (outbox', ob_dropped')."""
+    h, b = ob.t.shape
+    cols = torch.arange(b, dtype=torch.int32, device=ob.t.device)[None, :]
+    dst_n, t_n, order_n, kind_n, payload_n = ob.dst, ob.t, ob.order, ob.kind, ob.payload
+    lost = torch.zeros((h,), dtype=torch.int64, device=ob.t.device)
+    total = torch.zeros((h,), dtype=torch.int32, device=ob.t.device)
+    for entries in stacks:
+        for e in range(entries.mask.shape[0]):
+            mask, col, dst, t, order, kind, payload = (x[e] for x in entries)
+            oh = mask[:, None] & (cols == col[:, None])
+            dst_n = torch.where(oh, dst.to(torch.int32)[:, None], dst_n)
+            t_n = torch.where(oh, t[:, None], t_n)
+            order_n = torch.where(oh, order[:, None], order_n)
+            kind_n = torch.where(oh, kind.to(torch.int32)[:, None], kind_n)
+            payload_n = torch.where(oh[:, :, None], payload.to(torch.int32)[:, None, :],
+                                    payload_n)
+            lost = lost + (mask & (col >= b))
+            total = total + mask
+    return (
+        type(ob)(dst_n, t_n, order_n, kind_n, payload_n,
+                 ob.count + total.sum(dtype=torch.int32)[None]),
+        ob_dropped + lost.sum(),
+    )
+
+
+_STACK_DTYPES = (torch.bool, torch.int32, torch.int32, torch.int64, torch.int64, torch.int32,
+                 torch.int32)
+
+
+def outbox_append_multi(ob, stacks, ob_dropped: torch.Tensor):
+    """Write a microstep's entry stacks (one per event, in event order) into
+    the hosts' outbox columns: one K9 launch on CUDA (one per 16 stacks), in
+    place on the outbox, its count and `ob_dropped`."""
+    if on_cpu(ob.t):
+        return outbox_append_multi_plain(ob, stacks, ob_dropped)
+    h, b = ob.t.shape
+    p = ob.payload.shape[2]
+    check(ob.dst, torch.int32, (h, b), "outbox dst")
+    check(ob.t, torch.int64, (h, b), "outbox t")
+    check(ob.order, torch.int64, (h, b), "outbox order")
+    check(ob.kind, torch.int32, (h, b), "outbox kind")
+    check(ob.payload, torch.int32, (h, b, p), "outbox payload")
+    check(ob.count, torch.int32, (1,), "outbox count")
+    check(ob_dropped, torch.int64, (1,), "ob_dropped")
+    head = [h, b, p, *(_p(x) for x in ob), _p(ob_dropped)]
+    for i in range(0, len(stacks), _MAX_STACKS):
+        chunk = stacks[i : i + _MAX_STACKS]
+        args = [*head, len(chunk)]
+        for entries in chunk:
+            e = entries.mask.shape[0]
+            for x, dt in zip(entries, _STACK_DTYPES):
+                check(x, dt, (e, h, p) if x.dim() == 3 else (e, h), "entry stack")
+            args += [e, *(_p(x) for x in entries)]
+        _outbox_append_k(_arg_block(args))
+    return ob, ob_dropped
+
+
+# --------------------------------------------------------------------------
+# K10 event_ingress
+# --------------------------------------------------------------------------
+
+_ingress_k = CudaKernel("event", "event_ingress", _ARGS)
+
+
+def event_ingress_plain(c, params, cfg, ev, active):
+    """Digest, ingress shaping and dispatch for one event per active host.
+    Returns (carry', Ingress)."""
+    stats = c.stats
+    stats = stats._replace(
+        events=stats.events + active,
+        digest=digest_update(stats.digest, active, ev.t, ev.kind, ev.order),
+    )
+    is_pkt = (ev.kind & KIND_PKT) != 0
+    codel, tb_in, requeue, dispatch = c.codel, c.tb_ingress, None, active
+    if cfg.shaping:
+        needs_ingress = active & is_pkt & ((ev.kind & KIND_INGRESS_DONE) == 0)
+        size_bits = ev.payload[:, PAYLOAD_SIZE_WORD].to(torch.int64) * 8
+        _, depart_probe = tb_conforming_remove(
+            c.tb_ingress, params.in_tb, cfg.tb_interval_ns, ev.t, size_bits,
+            torch.zeros_like(needs_ingress),
+        )
+        sojourn = depart_probe - ev.t
+        if cfg.use_codel:
+            codel, codel_drop = codel_on_packet(c.codel, ev.t, sojourn, needs_ingress)
+        else:
+            codel_drop = torch.zeros_like(needs_ingress)
+        tb_in, depart = tb_conforming_remove(
+            c.tb_ingress, params.in_tb, cfg.tb_interval_ns, ev.t, size_bits,
+            needs_ingress & ~codel_drop,
+        )
+        delay = needs_ingress & ~codel_drop & (depart > ev.t)
+        # the bucket-delayed packet goes back into the queue past shaping;
+        # it is the FIRST push of the event (slot order is part of the
+        # contract)
+        requeue = Push(delay, depart, ev.order, ev.kind | KIND_INGRESS_DONE, ev.payload)
+        stats = stats._replace(pkts_codel_dropped=stats.pkts_codel_dropped + codel_drop)
+        dispatch = active & ~(needs_ingress & (codel_drop | delay))
+    stats = stats._replace(pkts_delivered=stats.pkts_delivered + (dispatch & is_pkt))
+    ing = Ingress(dispatch, is_pkt, ev.kind & KIND_MASK, unpack_order_src(ev.order), requeue)
+    return c._replace(stats=stats, tb_ingress=tb_in, codel=codel), ing
+
+
+def _event_stride(ev, h: int, p: int) -> int:
+    """Host stride of an event's [H] lanes: 1 for a popped event, K for a
+    column of the K-way peek; payload rows must be contiguous words."""
+    es = ev.t.stride(0) if h > 1 else 1
+    for x, dt, name in ((ev.t, torch.int64, "t"), (ev.order, torch.int64, "order"),
+                        (ev.kind, torch.int32, "kind")):
+        if not x.is_cuda or x.dtype != dt or tuple(x.shape) != (h,):
+            raise ValueError(f"event {name}: expected a CUDA {dt} [{h}] tensor")
+        if h > 1 and x.stride(0) != es:
+            raise ValueError(f"event {name}: host stride {x.stride(0)}, expected {es}")
+    pl = ev.payload
+    if not pl.is_cuda or pl.dtype != torch.int32 or tuple(pl.shape) != (h, p):
+        raise ValueError(f"event payload: expected a CUDA int32 [{h}, {p}] tensor")
+    if (h > 1 and pl.stride(0) != es * p) or (p > 1 and pl.stride(1) != 1):
+        raise ValueError(f"event payload: strides {pl.stride()}, expected ({es * p}, 1)")
+    return es
+
+
+def event_ingress(c, params, cfg, ev, active):
+    """`event_ingress_plain` as one kernel (K10) on CUDA, updating the
+    carry's events, digest, CoDel, downlink bucket, codel-dropped and
+    delivered lanes in place."""
+    if on_cpu(ev.t):
+        return event_ingress_plain(c, params, cfg, ev, active)
+    h = active.shape[0]
+    p = ev.payload.shape[1]
+    es = _event_stride(ev, h, p)
+    dev = ev.t.device
+    s, tb, cd = c.stats, c.tb_ingress, c.codel
+    check(active, torch.bool, (h,), "active")
+    for x, dt, name in (
+        (s.events, torch.int64, "events"), (s.digest, torch.int64, "digest"),
+        (s.pkts_codel_dropped, torch.int64, "pkts_codel_dropped"),
+        (s.pkts_delivered, torch.int64, "pkts_delivered"),
+        (tb.tokens, torch.int64, "tb tokens"), (tb.last_itv, torch.int64, "tb last_itv"),
+        (params.in_tb.capacity, torch.int64, "tb capacity"),
+        (params.in_tb.refill, torch.int64, "tb refill"),
+        (cd.first_above, torch.int64, "codel first_above"),
+        (cd.drop_next, torch.int64, "codel drop_next"),
+        (cd.count, torch.int32, "codel count"), (cd.dropping, torch.bool, "codel dropping"),
+    ):
+        check(x, dt, (h,), name)
+    ing = Ingress(
+        dispatch=torch.empty((h,), dtype=torch.bool, device=dev),
+        is_pkt=torch.empty((h,), dtype=torch.bool, device=dev),
+        kind=torch.empty((h,), dtype=torch.int32, device=dev),
+        src=torch.empty((h,), dtype=torch.int64, device=dev),
+        requeue=Push(
+            torch.empty((h,), dtype=torch.bool, device=dev),
+            torch.empty((h,), dtype=torch.int64, device=dev),
+            ev.order,
+            torch.empty((h,), dtype=torch.int32, device=dev),
+            ev.payload,
+        ) if cfg.shaping else None,
+    )
+    rq = ing.requeue
+    _ingress_k(_arg_block([
+        h, p, es, int(cfg.shaping), int(cfg.use_codel), int(cfg.tb_interval_ns),
+        _p(ev.t), _p(ev.order), _p(ev.kind), _p(ev.payload), _p(active),
+        _p(s.events), _p(s.digest), _p(s.pkts_codel_dropped), _p(s.pkts_delivered),
+        _p(tb.tokens), _p(tb.last_itv), _p(params.in_tb.capacity), _p(params.in_tb.refill),
+        _p(cd.first_above), _p(cd.drop_next), _p(cd.count), _p(cd.dropping),
+        _p(ing.dispatch), _p(ing.is_pkt), _p(ing.kind), _p(ing.src),
+        _p(rq and rq.mask), _p(rq and rq.t), _p(rq and rq.kind),
+    ]))
+    return c, ing
+
+
+# --------------------------------------------------------------------------
+# K11 event_egress
+# --------------------------------------------------------------------------
+
+_egress_k = CudaKernel("event", "event_egress", _ARGS)
+
+
+def route_plain(params, cfg, host_gid: torch.Tensor, dst: torch.Tensor):
+    """(latency, loss, jitter) from each sender to `dst`, in the three
+    forms of the reference: a constant for single-node graphs, a row
+    lookup (affine or node_of destination node) when the per-host rows
+    exist, else a 2-D table gather."""
+    h = dst.shape[0]
+    if tuple(params.lat_ns.shape) == (1, 1):
+        return (params.lat_ns[0, 0].expand(h), params.loss[0, 0].expand(h),
+                params.jitter_ns[0, 0].expand(h))
+    if cfg.hosts_per_node > 0:
+        dst_node = torch.div(dst, cfg.hosts_per_node, rounding_mode="floor")
+        src_node = torch.div(host_gid, cfg.hosts_per_node, rounding_mode="floor")
+    else:
+        dst_node = params.node_of[dst].to(torch.int64)
+        src_node = params.node_of.to(torch.int64)
+    if params.lat_rows is not None:
+        col = dst_node[:, None]
+        return (params.lat_rows.gather(1, col)[:, 0], params.loss_rows.gather(1, col)[:, 0],
+                params.jit_rows.gather(1, col)[:, 0])
+    return (params.lat_ns[src_node, dst_node], params.loss[src_node, dst_node],
+            params.jitter_ns[src_node, dst_node])
+
+
+def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out):
+    """The model's pushes and sends for one event per dispatched host.
+    `c.rng` is the handler's RNG state. Returns (carry', pushes, entries,
+    used_min): `entries` is None when the model has no send port;
+    `used_min[h]` is the least pre-jitter latency among the host's sends
+    that landed (TIME_MAX where none), None without send ports."""
+    h = dispatch.shape[0]
+    host_gid = torch.arange(h, dtype=torch.int64, device=dispatch.device)
+    stats, rng, seq, sent_round, tb_eg = c.stats, c.rng, c.seq, c.sent_round, c.tb_egress
+    pushes = []
+    for p in out.pushes:
+        mask = p.mask & dispatch
+        stats = stats._replace(
+            monotonic_violations=stats.monotonic_violations + (mask & (p.t < ev_t))
+        )
+        pushes.append(Push(
+            mask, torch.maximum(p.t, ev_t), pack_order(1, host_gid, seq),
+            p.kind.to(torch.int32) & KIND_MASK, p.payload.to(torch.int32),
+        ))
+        seq = seq + mask
+
+    # sends: each port may carry a burst of up to count_max segments to one
+    # destination, sharing the route lookup; each segment has its own
+    # budget slot, bandwidth charge, loss draw and order key
+    rows, used = [], []
+    for s in out.sends:
+        mask0 = s.mask & dispatch
+        # gate on count is None: count=None with count_max > 1 is legal,
+        # and an explicit count of 0 suppresses the send
+        if s.count is None:
+            counts = mask0.to(torch.int32)
+        else:
+            counts = torch.where(mask0, s.count.to(torch.int32), 0)
+        sz = s.size_bytes.to(torch.int32)
+        bad_dst = mask0 & ((s.dst < 0) | (s.dst >= cfg.num_hosts))
+        dst = torch.clamp(s.dst, 0, cfg.num_hosts - 1)
+        lat, lossp, jit = route_plain(params, cfg, host_gid, dst)
+        lat_bound0 = lat - jit if cfg.use_jitter else lat
+        port_kind = s.kind.to(torch.int32) | KIND_PKT
+        for j in range(s.count_max):
+            mask = mask0 & (counts > j)
+            over_budget = sent_round >= cfg.sends_per_host_round
+            if cfg.shaping:
+                tb_eg, eg_depart = tb_conforming_remove(
+                    tb_eg, params.eg_tb, cfg.tb_interval_ns, ev_t,
+                    sz.to(torch.int64) * 8, mask & ~over_budget,
+                )
+            else:
+                eg_depart = ev_t
+            lat_j = lat
+            if cfg.use_jitter:
+                rng, uj = rng_uniform(rng, mask)
+                lat_j = lat + ((uj * 2.0 - 1.0) * jit.to(torch.float32)).to(torch.int64)
+            unreachable = mask & ((lat_bound0 < 0) | bad_dst)
+            rng, u = rng_uniform(rng, mask)
+            lost = mask & (u < lossp) & (ev_t >= cfg.bootstrap_end_time)
+            send_ok = mask & ~lost & ~unreachable & ~over_budget
+            budget_dropped = mask & ~lost & ~unreachable & over_budget
+            ob_col = sent_round
+            sent_round = sent_round + send_ok.to(torch.int32)
+            arrive = torch.clamp_min(eg_depart + torch.clamp_min(lat_j, 0), window_end)
+            order = pack_order(0, host_gid, seq)
+            seq = seq + mask
+            payload = s.payload.to(torch.int32)
+            if j > 0 and s.payload_inc is not None:
+                payload = payload + j * s.payload_inc.to(torch.int32)
+            payload = payload.clone()
+            payload[:, PAYLOAD_SIZE_WORD] = sz
+            rows.append((send_ok, ob_col, dst.to(torch.int32), arrive, order, port_kind, payload))
+            used.append(torch.where(send_ok, lat_bound0, TIME_MAX))
+            stats = stats._replace(
+                pkts_sent=stats.pkts_sent + mask,
+                pkts_lost=stats.pkts_lost + lost,
+                pkts_unreachable=stats.pkts_unreachable + unreachable,
+                pkts_budget_dropped=stats.pkts_budget_dropped + budget_dropped,
+            )
+    entries = EntryStack(*(torch.stack(f) for f in zip(*rows))) if rows else None
+    used_min = torch.stack(used).min(dim=0).values if used else None
+    carry = c._replace(stats=stats, rng=rng, seq=seq, sent_round=sent_round, tb_egress=tb_eg)
+    return carry, pushes, entries, used_min
+
+
+def _route_args(params, cfg) -> list[int]:
+    """(mode, hosts_per_node, n_nodes, node_of, lat, loss, jit) for K11."""
+    if tuple(params.lat_ns.shape) == (1, 1):
+        mode, tables = 0, (params.lat_ns, params.loss, params.jitter_ns)
+    elif params.lat_rows is not None:
+        mode, tables = 1, (params.lat_rows, params.loss_rows, params.jit_rows)
+    else:
+        mode, tables = 2, (params.lat_ns, params.loss, params.jitter_ns)
+    rows, n = tables[0].shape
+    for x, dt, name in zip(tables, (torch.int64, torch.float32, torch.int64),
+                           ("latency", "loss", "jitter")):
+        check(x, dt, (rows, n), f"route {name}")
+    check(params.node_of, torch.int32, (cfg.num_hosts,), "node_of")
+    return [mode, cfg.hosts_per_node, n, _p(params.node_of), *(_p(x) for x in tables)]
+
+
+def _lane(x: torch.Tensor, dt: torch.dtype, h: int, keep: list) -> tuple[int, int]:
+    """(pointer, host stride) of a model port's [H] field, as the handler
+    made it: a column of the K-way peek or a broadcast is passed with its
+    stride, not copied. A field of another dtype is converted (a copy, kept
+    alive in `keep`); the port's models emit the kernel's dtypes."""
+    if x.dtype != dt:
+        x = x.to(dt)
+        keep.append(x)
+    if not x.is_cuda or x.shape != (h,):
+        raise ValueError(f"port field: expected a CUDA [{h}] tensor, got {x.device} "
+                         f"{tuple(x.shape)}")
+    return x.data_ptr(), x.stride(0)
+
+
+def _rows(x: torch.Tensor, h: int, p: int, keep: list) -> tuple[int, int]:
+    """(pointer, row stride) of a port's i32[H, P] payload field; its words
+    must be contiguous, else it is copied."""
+    if x.dtype != torch.int32 or (p > 1 and x.stride(1) != 1):
+        x = x.to(torch.int32).contiguous()
+        keep.append(x)
+    if not x.is_cuda or x.shape != (h, p):
+        raise ValueError(f"port payload: expected a CUDA [{h}, {p}] tensor, got {x.device} "
+                         f"{tuple(x.shape)}")
+    return x.data_ptr(), x.stride(0)
+
+
+def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out):
+    """`event_egress_plain` as one kernel (K11) on CUDA, updating the
+    carry's seq, send cursor, RNG, uplink bucket and packet-counter lanes in
+    place; the pushes' mask/t/order/kind, the entry stack and `used_min`
+    are the kernel's outputs."""
+    if on_cpu(ev_t):
+        return event_egress_plain(c, params, cfg, ev_t, dispatch, window_end, out)
+    h = dispatch.shape[0]
+    n_push, n_send = len(out.pushes), len(out.sends)
+    if n_push > MAX_PUSH_PORTS or n_send > MAX_SEND_PORTS:
+        raise ValueError(
+            f"event_egress: {n_push} push / {n_send} send ports exceed the kernel's "
+            f"{MAX_PUSH_PORTS} / {MAX_SEND_PORTS}"
+        )
+    if not (n_push or n_send):
+        return c, [], None, None
+    dev = ev_t.device
+    es = ev_t.stride(0) if h > 1 else 1
+    if not ev_t.is_cuda or ev_t.dtype != torch.int64 or tuple(ev_t.shape) != (h,):
+        raise ValueError(f"event t: expected a CUDA int64 [{h}] tensor")
+    check(dispatch, torch.bool, (h,), "dispatch")
+    s = c.stats
+    for x, dt, name in (
+        (c.seq, torch.int64, "seq"), (c.sent_round, torch.int32, "sent_round"),
+        (c.tb_egress.tokens, torch.int64, "tb tokens"),
+        (c.tb_egress.last_itv, torch.int64, "tb last_itv"),
+        (params.eg_tb.capacity, torch.int64, "tb capacity"),
+        (params.eg_tb.refill, torch.int64, "tb refill"),
+        (s.pkts_sent, torch.int64, "pkts_sent"), (s.pkts_lost, torch.int64, "pkts_lost"),
+        (s.pkts_unreachable, torch.int64, "pkts_unreachable"),
+        (s.pkts_budget_dropped, torch.int64, "pkts_budget_dropped"),
+        (s.monotonic_violations, torch.int64, "monotonic_violations"),
+    ):
+        check(x, dt, (h,), name)
+    check(c.rng.s, torch.int64, (h, 4), "rng")
+    keep = []  # converted port fields, alive until the launch returns
+    push_args = []
+    for p in out.pushes:
+        push_args += [*_lane(p.mask, torch.bool, h, keep), *_lane(p.t, torch.int64, h, keep),
+                      *_lane(p.kind, torch.int32, h, keep)]
+    op = [torch.empty((n_push, h), dtype=dt, device=dev)
+          for dt in (torch.bool, torch.int64, torch.int64, torch.int32)] if n_push else [None] * 4
+    n_words = None
+    send_args = []
+    for sp in out.sends:
+        n_words = sp.payload.shape[1]
+        send_args += [
+            int(sp.count_max), *_lane(sp.mask, torch.bool, h, keep),
+            *_lane(sp.dst, torch.int64, h, keep), *_lane(sp.size_bytes, torch.int32, h, keep),
+            *_lane(sp.kind, torch.int32, h, keep), *_rows(sp.payload, h, n_words, keep),
+            *((0, 0) if sp.count is None else _lane(sp.count, torch.int32, h, keep)),
+            *((0, 0) if sp.payload_inc is None else _rows(sp.payload_inc, h, n_words, keep)),
+        ]
+    e = sum(int(sp.count_max) for sp in out.sends)
+    entries = EntryStack(*(torch.empty((e, h), dtype=dt, device=dev) for dt in (
+        torch.bool, torch.int32, torch.int32, torch.int64, torch.int64, torch.int32)),
+        torch.empty((e, h, n_words), dtype=torch.int32, device=dev)) if e else None
+    used_min = torch.empty((h,), dtype=torch.int64, device=dev) if n_send else None
+    route = _route_args(params, cfg)
+    _egress_k(_arg_block([
+        h, n_words or 1, es, cfg.sends_per_host_round, int(cfg.shaping), int(cfg.use_jitter),
+        *route[:3], int(window_end), cfg.bootstrap_end_time, cfg.tb_interval_ns,
+        _p(ev_t), _p(dispatch), *route[3:],
+        _p(params.eg_tb.capacity), _p(params.eg_tb.refill),
+        _p(c.seq), _p(c.sent_round), _p(c.rng.s), _p(c.tb_egress.tokens),
+        _p(c.tb_egress.last_itv), _p(s.pkts_sent), _p(s.pkts_lost), _p(s.pkts_unreachable),
+        _p(s.pkts_budget_dropped), _p(s.monotonic_violations),
+        n_push, *push_args, *(_p(x) for x in op),
+        n_send, *send_args, *(_p(x) for x in (entries or [None] * 7)), _p(used_min),
+    ]))
+    del keep
+    pushes = [Push(op[0][i], op[1][i], op[2][i], op[3][i], p.payload.to(torch.int32))
+              for i, p in enumerate(out.pushes)]
+    return c, pushes, entries, used_min
+
+
+KERNELS = {
+    "outbox_append": _outbox_append_k,
+    "event_ingress": _ingress_k,
+    "event_egress": _egress_k,
+}

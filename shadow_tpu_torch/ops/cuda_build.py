@@ -3,7 +3,12 @@
 Each source compiles with `nvcc` into its own shared library with a plain C
 interface, loaded with `ctypes` — no PyTorch headers, so a build takes
 seconds. Libraries land in `shadow_tpu_torch/_build/` (ignored by git) and
-are rebuilt whenever the source's content hash changes. Nothing is built
+are rebuilt whenever the content hash of the source, the shared headers
+(`csrc/*.cuh`) or the flags changes. The event kernels do float32/float64
+arithmetic that must round exactly as the plain versions do, so every
+source is built with `--fmad=false` (no contraction into fused
+multiply-adds; the integer kernels do not care) and never with
+`--use_fast_math`. Nothing is built
 when a module is imported: the first launch builds, or `build_all()` builds
 every source at once (one `nvcc` process per source, all started together).
 
@@ -17,6 +22,7 @@ main path really went through.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -28,10 +34,10 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("queue", "merge")
+SOURCES = ("queue", "merge", "event")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false",
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -50,9 +56,11 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str):

@@ -20,7 +20,8 @@ This module holds the queue's hand-written CUDA kernels (csrc/queue.cu):
                          out and cleared in place
   K3 `queue_push_many`   the k-th firing push lands in the k-th free slot,
                          each push holding back its reserve
-  K5 `queue_pop_k`       peek each host's K earliest in-window events
+  K5 `queue_pop_k`       peek each host's K earliest events below a limit
+                         (one scalar, or one per host)
   K6 `queue_clear_popped`  clear the executed prefix of a peek (and the
                          victim blocks' caches)
   K7 `queue_push_many_bucketed`  K3 plus the block-cache update
@@ -257,16 +258,22 @@ def pop_min_plain(q: EventQueue, limit: int) -> tuple[EventQueue, Event, torch.T
     )
 
 
-def pop_min(q: EventQueue, limit: int) -> tuple[EventQueue, Event, torch.Tensor]:
-    """Pop each host's earliest event strictly before `limit` (an int).
+def pop_min(q: EventQueue, limit) -> tuple[EventQueue, Event, torch.Tensor]:
+    """Pop each host's earliest event strictly before `limit` (an int, or
+    an i64[H] tensor of per-host limits).
 
     Returns (queue', event, active[H]). Inactive hosts get a dummy event
     (t=TIME_MAX, order=ORDER_MAX, kind 0, payload 0). On CUDA the kernel
     clears the popped slot's time and order IN PLACE, so the returned queue
     shares (and the input queue sees) the updated planes; kind and payload
-    stay as they were, exactly as in the reference."""
+    stay as they were, exactly as in the reference. With per-host limits it
+    runs as K5 at k = 1 and K6 (the same event and clear)."""
     if on_cpu(q.t):
         return pop_min_plain(q, limit)
+    if isinstance(limit, torch.Tensor):
+        popped = pop_k(q, limit, 1)
+        active = popped.active[:, 0]
+        return clear_popped(q, popped, active.to(torch.int32)), popped.event(0), active
     h, c, p = _check_slab(q)
     dev = q.t.device
     ev = Event(
@@ -414,11 +421,11 @@ def bq_push_many(q: BucketQueue, pushes: list[Push]) -> BucketQueue:
 
 _pop_k_k = CudaKernel(
     "queue", "queue_pop_k",
-    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4,
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4,
 )
 
 
-def pop_k_plain(q, limit: int, k: int) -> PoppedK:
+def pop_k_plain(q, limit, k: int) -> PoppedK:
     """k successive (time, order, slot) selections over the slots not yet
     taken, then row gathers for kind and payload. Live keys are unique, so
     on active columns this is the reference's `pop_k` under either of its
@@ -443,7 +450,7 @@ def pop_k_plain(q, limit: int, k: int) -> PoppedK:
     ev_t = torch.stack(t_cols, dim=1)
     ev_o = torch.stack(o_cols, dim=1)
     idx = torch.stack(i_cols, dim=1)
-    active = ev_t < limit
+    active = ev_t < (limit[:, None] if isinstance(limit, torch.Tensor) else limit)
     hh = torch.arange(h, device=qf.t.device)[:, None]
     return PoppedK(
         t=torch.where(active, ev_t, TIME_MAX),
@@ -455,10 +462,10 @@ def pop_k_plain(q, limit: int, k: int) -> PoppedK:
     )
 
 
-def pop_k(q, limit: int, k: int) -> PoppedK:
-    """PEEK each host's k earliest events strictly before `limit` (an int),
-    on either queue type. Column j equals the j-th successive pop_min.
-    Nothing is written to the queue."""
+def pop_k(q, limit, k: int) -> PoppedK:
+    """PEEK each host's k earliest events strictly before `limit` (an int,
+    or an i64[H] tensor of per-host limits), on either queue type. Column j
+    equals the j-th successive pop_min. Nothing is written to the queue."""
     if on_cpu(q.t):
         return pop_k_plain(q, limit, k)
     h, c, p = _check_slab(as_flat(q))
@@ -474,8 +481,13 @@ def pop_k(q, limit: int, k: int) -> PoppedK:
         active=torch.empty((h, k), dtype=torch.bool, device=dev),
         idx=torch.empty((h, k), dtype=torch.int32, device=dev),
     )
+    if isinstance(limit, torch.Tensor):
+        check(limit, torch.int64, (h,), "limit")
+        scalar, limits = 0, ptr(limit)
+    else:
+        scalar, limits = int(limit), ctypes.c_void_p(None)
     _pop_k_k(
-        ptr(q.t), ptr(q.order), ptr(q.kind), ptr(q.payload), int(limit),
+        ptr(q.t), ptr(q.order), ptr(q.kind), ptr(q.payload), scalar, limits,
         *(ptr(x) for x in out), h, c, p, k,
     )
     return out
@@ -551,10 +563,11 @@ def clear_popped(q, popped: PoppedK, m: torch.Tensor):
     return q
 
 
-def bq_pop_min(q: BucketQueue, limit: int) -> tuple[BucketQueue, Event, torch.Tensor]:
-    """`pop_min` over the bucketed queue: the same event, slot clear and
-    `active` as the flat op, with the victim block's cache recomputed. It
-    is `pop_k` at k = 1 followed by `clear_popped` of the active hosts."""
+def bq_pop_min(q: BucketQueue, limit) -> tuple[BucketQueue, Event, torch.Tensor]:
+    """`pop_min` over the bucketed queue (limit: an int or i64[H]): the
+    same event, slot clear and `active` as the flat op, with the victim
+    block's cache recomputed. It is `pop_k` at k = 1 followed by
+    `clear_popped` of the active hosts."""
     popped = pop_k(q, limit, 1)
     active = popped.active[:, 0]
     return clear_popped(q, popped, active.to(torch.int32)), popped.event(0), active
@@ -614,8 +627,20 @@ def q_next_time(q) -> torch.Tensor:
     return bq_next_time(q) if isinstance(q, BucketQueue) else next_time(q)
 
 
-def q_pop_min(q, limit: int):
+def q_pop_min(q, limit):
     return bq_pop_min(q, limit) if isinstance(q, BucketQueue) else pop_min(q, limit)
+
+
+def q_head(q) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-host head key: the (time, order) pair `q_pop_min` would pop next,
+    (TIME_MAX, ORDER_MAX) where the queue is empty. A bucketed queue reads
+    its [H, C/B] caches (each block's `bo` is the order at its minimum
+    time, so the least `bo` among blocks at the least time is the head's);
+    a flat queue reads the slab."""
+    t, o = (q.bt, q.bo) if isinstance(q, BucketQueue) else (q.t, q.order)
+    tmin = t.min(dim=1).values
+    omin = torch.where(t == tmin[:, None], o, ORDER_MAX).min(dim=1).values
+    return tmin, omin
 
 
 def q_len(q) -> torch.Tensor:

@@ -151,6 +151,14 @@ class Simulation:
         num_hosts = len(self.hosts)
         qcap, send_budget, rpc = ex.resolve_shapes(num_hosts)
         ex.check_queue_block(qcap)
+        # the timer wheel: a model with no timer kinds fails here, at
+        # config time, not when the engine is built
+        if ex.timer_wheel and not tuple(getattr(self.model, "timer_kinds", ())):
+            raise ConfigError(
+                f"experimental.timer_wheel: model {self.model.name!r} declares no "
+                f"timer_kinds — nothing would route to the wheel; drop the knob or "
+                f"use a model with timers"
+            )
         self.engine_cfg = EngineConfig(
             num_hosts=num_hosts,
             stop_time=cfg.general.stop_time,
@@ -169,6 +177,8 @@ class Simulation:
             microstep_events=ex.microstep_events,
             shaping=any(h.bw_up_bits > 0 or h.bw_down_bits > 0 for h in self.hosts),
             cheap_shed=ex.overflow_shed == "append",
+            wheel_slots=ex.timer_wheel,
+            wheel_block=ex.timer_wheel_block,
         )
         self.engine = Engine(self.engine_cfg, self.model, self.device)
         self._build_state()
@@ -260,7 +270,24 @@ class Simulation:
         return self.state.stats.digest.cpu().numpy().view(np.uint64)
 
     def stats_report(self) -> dict:
-        s = {k: v.cpu().numpy() for k, v in self.state.stats._asdict().items()}
+        report = self._base_report()
+        if self.engine_cfg.wheel_active:
+            # occupancy high-water and spills: the slot-sizing signal; the
+            # wheel's own drop lane is zero by construction (spills route
+            # around a full wheel)
+            s, w = self.state.stats, self.state.wheel
+            report["wheel"] = {
+                "slots": self.engine_cfg.wheel_slots,
+                "block": w.block,
+                "occupancy_hwm": int(s.wheel_occ_hwm.max()),
+                "spilled": int(s.wheel_spilled.sum()),
+                "dropped": int(w.dropped.sum()),
+            }
+        return report
+
+    def _base_report(self) -> dict:
+        s = {k: v.cpu().numpy() for k, v in self.state.stats._asdict().items()
+             if v is not None}
         wall = getattr(self, "_wall_seconds", None)
         sim_s = self.state.now / NS_PER_SEC
         digest = int(np.bitwise_xor.reduce(self.host_digests()))

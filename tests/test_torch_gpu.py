@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1-K8 against their plain PyTorch versions, on the
-card. Marked `gpu`; without a CUDA device each test skips.
+"""The port's CUDA kernels K1-K12 against their plain PyTorch versions, on
+the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
 
@@ -9,17 +9,25 @@ Run on a machine with a card, from the repository root:
 may lack; this file imports neither JAX nor the JAX package.)
 
 Small numpy-seeded slabs: empty, sparse, mixed, nearly full and full queues,
-heavy time ties, merge segments past the insert cap. Tolerance: exact
-equality — every output is an integer. chip_smoke.py repeats the check at
-the main path's shapes.
+heavy time ties, merge segments past the insert cap; for the per-event chain
+(K9-K11) the random carries, events and handler outputs of
+`shadow_tpu_torch.testing.chain_case`, with port fields as the models hand
+them over (columns of the K-way peek, broadcasts) and K9 taking several
+events' entry stacks at once. Tolerance: exact equality — every output is an
+integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
+repeats the check at the main path's shapes.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from shadow_tpu_torch.core.engine import make_empty_outbox
+from shadow_tpu_torch.ops import chain as pchain
 from shadow_tpu_torch.ops import events as pev
 from shadow_tpu_torch.ops import merge as pmerge
+from shadow_tpu_torch.ops import wheel as pwheel
+from shadow_tpu_torch.testing import chain_case, clone_carry, flat_tensors
 
 H, C, P = 24, 16, 4
 TIME_MAX = (1 << 63) - 1
@@ -170,3 +178,144 @@ def test_batch_and_bucket_kernels_match_plain(dev, fill, cap, block):
         bq = bucketed(clone(q), block)
         want = pev.push_many_plain(type(bq)(*(x.clone() for x in bq)), pushes)
         assert_all_equal(pev.bq_push_many(bq, pushes), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,block", [(C, 4), (4, 2), (14, 7)])
+@pytest.mark.parametrize("fill", FILLS)
+def test_per_host_limit_pop_matches_plain(dev, fill, cap, block):
+    """K5 with an i64[H] limit (the wheel's merged pop), on both queue
+    types, and the flat pop_min that runs as K5 + K6 under one."""
+    q = slab(13, fill, dev) if cap == C else wide_slab(13 + cap, cap, dev)
+    r = np.random.default_rng(cap)
+    limits = torch.as_tensor(np.where(r.random(H) < 0.3, 0, r.integers(0, 7, H) * 1000),
+                             device=dev)
+    for k in (1, min(cap, 4)):
+        assert_all_equal(pev.pop_k(q, limits, k), pev.pop_k_plain(q, limits, k))
+    got = pev.pop_min(clone(q), limits)
+    want = pev.pop_min_plain(clone(q), limits)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    bq = bucketed(clone(q), block)
+    got = pev.bq_pop_min(type(bq)(*(x.clone() for x in bq)), limits)
+    want = pev.bq_pop_min(type(bq)(*(x.cpu() for x in bq)), limits.cpu())
+    assert_all_equal(flat_tensors(got), [x.to(dev) for x in flat_tensors(want)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slots,block", [(4, 2), (8, 4), (64, 8)])
+@pytest.mark.parametrize("fill", FILLS)
+def test_wheel_cancel_matches_plain(dev, fill, slots, block):
+    """K12: hits, misses on live keys of other hosts, stale keys, masked-off
+    hosts, full blocks."""
+    q = slab(17, fill, dev) if slots == C else wide_slab(17 + slots, slots, dev)
+    w = bucketed(q, block)
+    r = np.random.default_rng(slots)
+    live = (w.t != TIME_MAX).cpu().numpy()
+    keys = np.full(H, -5, np.int64)
+    order = w.order.cpu().numpy()
+    for i in range(H):
+        cols = np.nonzero(live[i])[0]
+        if len(cols) and r.random() < 0.7:
+            keys[i] = order[i, r.choice(cols)]
+        elif r.random() < 0.5:
+            keys[i] = order[(i + 1) % H, 0]  # another host's key: a miss
+    mask = torch.as_tensor(r.random(H) < 0.8, device=dev)
+    keys = torch.as_tensor(keys, device=dev)
+    want = pwheel.wheel_cancel_plain(type(w)(*(x.clone() for x in w)), mask, keys)
+    got = pwheel.wheel_cancel(w, mask, keys)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+
+
+CHAIN_CASES = {
+    "anchor": dict(n_push=1, sends=((1, False, False),), route="const"),
+    "cfg6": dict(n_push=2, sends=((2, True, True),), route="affine", stride=4),
+    "echo_jitter": dict(n_push=1, sends=((1, False, False), (1, False, False)),
+                        route="node_of", jitter=True),
+    "bursts_table": dict(n_push=3, sends=((1, False, False), (3, True, True), (2, False, True)),
+                         route="table", jitter=True, budget=3),
+    "unshaped": dict(n_push=2, sends=((2, True, False),), route="const", shaping=False),
+    "strided_fields": dict(n_push=2, sends=((1, False, False), (2, True, True)),
+                           route="affine", stride=3),
+}
+
+
+def strided(out, h: int):
+    """The handler output with its port fields laid out as the models hand
+    them over: [H] lanes as columns of a [H, 3] plane, a payload as rows of
+    a wider plane, a broadcast size, and an int64 kind (converted)."""
+    def col(x):
+        wide = torch.zeros((h, 3) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        wide[:, 1] = x
+        return wide[:, 1]
+
+    pushes = tuple(p._replace(t=col(p.t), mask=col(p.mask), kind=p.kind.to(torch.int64))
+                   for p in out.pushes)
+    sends = tuple(sp._replace(dst=col(sp.dst), payload=col(sp.payload),
+                              size_bytes=sp.size_bytes[:1].expand(h),
+                              count=None if sp.count is None else col(sp.count))
+                  for sp in out.sends)
+    return out._replace(pushes=pushes, sends=sends)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", list(CHAIN_CASES))
+def test_chain_kernels_match_plain(dev, name, seed):
+    """K10 event_ingress, K11 event_egress and K9 outbox_append against
+    their plain versions on the same card inputs (carries cloned: the
+    kernels update them in place)."""
+    case = chain_case(seed, 150, dev, **CHAIN_CASES[name])
+    cfg, params, ev, active = case["cfg"], case["params"], case["ev"], case["active"]
+    c_k, ing_k = pchain.event_ingress(clone_carry(case["carry"]), params, cfg, ev, active)
+    c_p, ing_p = pchain.event_ingress_plain(clone_carry(case["carry"]), params, cfg, ev, active)
+    assert_all_equal(flat_tensors([c_k, ing_k]), flat_tensors([c_p, ing_p]))
+
+    out, dispatch, we = case["out"], case["dispatch"], case["window_end"]
+    if name == "strided_fields":
+        out = strided(out, 150)
+        assert not out.pushes[0].t.is_contiguous()
+    got = pchain.event_egress(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we, out)
+    want = pchain.event_egress_plain(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we,
+                                     out)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+
+    # K9 on a microstep's entry stacks (three events, the carry threaded
+    # through egress), with some columns moved past the outbox width
+    # (counted lost) and an outbox already part filled
+    b = cfg.sends_per_host_round
+    stacks, cc = [], clone_carry(case["carry"])
+    for _ in range(3):
+        cc, _, entries, _ = pchain.event_egress_plain(cc, params, cfg, ev.t, dispatch, we, out)
+        stacks.append(entries._replace(
+            col=torch.where(entries.col % 5 == 0, entries.col + b, entries.col)))
+    ob = make_empty_outbox(150, b, dev)
+    filled = torch.as_tensor(np.random.default_rng(seed).random((150, b)) < 0.3, device=dev)
+    ob = ob._replace(t=torch.where(filled, 7, ob.t))
+    lost0 = torch.tensor([3], dtype=torch.int64, device=dev)
+    got = pchain.outbox_append_multi(type(ob)(*(x.clone() for x in ob)), stacks, lost0.clone())
+    want = pchain.outbox_append_multi_plain(ob, stacks, lost0)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    assert int(want[1]) > 3  # columns past the budget were counted lost
+
+
+@pytest.mark.gpu
+def test_outbox_append_chunks_past_16_stacks(dev):
+    """K9 over more entry stacks than one launch takes (the wrapper
+    launches per 16): the same outbox and loss count as the plain version,
+    and one launch per chunk."""
+    case = chain_case(5, 150, dev, **CHAIN_CASES["cfg6"])
+    cfg, params, ev = case["cfg"], case["params"], case["ev"]
+    stacks, cc = [], clone_carry(case["carry"])
+    for _ in range(20):
+        cc, _, entries, _ = pchain.event_egress_plain(cc, params, cfg, ev.t, case["dispatch"],
+                                                      case["window_end"], case["out"])
+        stacks.append(entries._replace(col=torch.where(entries.col % 3 == 0, entries.col + 8,
+                                                       entries.col)))
+    ob = make_empty_outbox(150, cfg.sends_per_host_round, dev)
+    lost0 = torch.zeros((1,), dtype=torch.int64, device=dev)
+    before = pchain.KERNELS["outbox_append"].launches
+    got = pchain.outbox_append_multi(type(ob)(*(x.clone() for x in ob)), stacks, lost0.clone())
+    assert pchain.KERNELS["outbox_append"].launches - before == 2
+    want = pchain.outbox_append_multi_plain(ob, stacks, lost0)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    assert int(want[1]) > 0  # columns past the budget were counted lost

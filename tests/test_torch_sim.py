@@ -80,7 +80,8 @@ def test_yaml_run_matches_jax():
     assert prep["kernel_launches"] == {
         "queue_next_time": 0, "queue_pop_min": 0, "queue_push_many": 0, "merge_insert": 0,
         "queue_pop_k": 0, "queue_clear_popped": 0, "queue_push_many_bucketed": 0,
-        "queue_block_minima": 0,
+        "queue_block_minima": 0, "outbox_append": 0, "event_ingress": 0, "event_egress": 0,
+        "wheel_cancel": 0,
     }  # the CPU path runs the plain versions, never a kernel
 
 
@@ -96,15 +97,15 @@ def test_anchor_shapes_resolve_like_jax():
     assert ExperimentalOptions.from_dict(kw).resolve_shapes(10_000) == (64, 12, 16)
 
 
-# knobs the port does not run yet, and (event_queue_block, microstep_events)
-# values the JAX package rejects too: a block that does not divide the
-# capacity (12 here), and K < 1
+# knobs the port does not run yet, and (event_queue_block, microstep_events,
+# timer_wheel) values the JAX package rejects too: a block that does not
+# divide the capacity (12 here), K < 1, and the wheel with K > 1
 UNSUPPORTED = {
     "world": "general: {parallelism: 2}",
     "event_queue_block": "experimental: {event_queue_block: 5}",
     "microstep_events": "experimental: {microstep_events: 0}",
     "merge_gears": "experimental: {merge_gears: auto}",
-    "timer_wheel": "experimental: {timer_wheel: 16}",
+    "timer_wheel": "experimental: {timer_wheel: 16, microstep_events: 4}",
     "merge_scatter": "experimental: {merge_scatter: true}",
     "merge_rows": "experimental: {merge_rows: 1000}",
     "cpu_delay": "experimental: {cpu_delay: 1}",
@@ -167,6 +168,40 @@ def test_cli_override_queue_knobs_resolve_like_jax():
                    device="cpu")
 
 
+def test_timer_wheel_accepted_and_matches_jax():
+    """experimental.timer_wheel runs in the port (phold's jobs are its
+    timers) and gives the JAX report, wheel block included."""
+    text = YAML.replace("sends_per_host_round: 3}",
+                        "sends_per_host_round: 3, timer_wheel: 2}")
+    jrep = JaxSimulation(jax_load_config(text, is_text=True), world=1).run(progress=False)
+    psim = Simulation(load_config(text, is_text=True), device="cpu")
+    prep = psim.run(progress=False)
+    assert psim.engine_cfg.wheel_slots == 2 and psim.state.wheel is not None
+    keys = SHARED_KEYS + ("wheel",)
+    assert {k: prep[k] for k in keys} == {k: jrep[k] for k in keys}
+    assert prep["wheel"]["occupancy_hwm"] > 0
+
+
+def test_timer_wheel_rejects_kway_and_models_without_timers(monkeypatch):
+    from shadow_tpu_torch.core.engine import Engine, EngineConfig
+    from shadow_tpu_torch.models.phold import PholdModel
+
+    text = YAML.replace("sends_per_host_round: 3}", "sends_per_host_round: 3, timer_wheel: 4}")
+    with pytest.raises(ConfigError, match="microstep_events"):
+        load_config(text.replace("timer_wheel: 4", "timer_wheel: 4, microstep_events: 2"),
+                    is_text=True)
+    with pytest.raises(ValueError, match="microstep_events"):
+        EngineConfig(num_hosts=4, stop_time=1, wheel_slots=4, microstep_events=2)
+    with pytest.raises(ConfigError, match="timer_wheel_block"):
+        load_config(text.replace("timer_wheel: 4", "timer_wheel: 4, timer_wheel_block: 3"),
+                    is_text=True)
+    monkeypatch.setattr(PholdModel, "timer_kinds", ())
+    with pytest.raises(ConfigError, match="timer_kinds"):
+        Simulation(load_config(text, is_text=True), device="cpu")
+    with pytest.raises(ValueError, match="timer_kinds"):
+        Engine(EngineConfig(num_hosts=4, stop_time=1, wheel_slots=4), PholdModel(), "cpu")
+
+
 def test_unsupported_model_raises():
     cfg = load_config(YAML.replace("model: phold", "model: gossip"), is_text=True)
     with pytest.raises(ConfigError, match="gossip"):
@@ -183,7 +218,8 @@ def test_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
     path = tmp_path / "c.yaml"
     path.write_text(YAML)
     assert port_main([str(path)]) == 1
-    assert port_main([str(path), "--experimental.timer_wheel=8", "--device", "cpu"]) == 2
+    assert port_main([str(path), "--experimental.timer_wheel=8",
+                      "--experimental.microstep_events=2", "--device", "cpu"]) == 2
 
 
 def test_cli_writes_sim_stats(tmp_path):
