@@ -62,11 +62,37 @@ line reports it):
      rider, which must reproduce the JAX package's digest, events, drop
      counters, tgen report, microsteps and wheel block;
  14. config 11 small (128 hosts) as configured, with one wheel slot
-     (timers spill) and on a lossy torus: card == CPU.
+     (timers spill) and on a lossy torus: card == CPU;
+ 15. the exchange merges on a gear-sliced outbox: K4 with a column limit
+     and K13 (merge_scatter) against their plain versions at bench config
+     2's shape (H = 10,000, C = 16, a [10,000, 6] outbox read through 1, 3
+     and 6 columns) and the anchor's (C = 64, a 12-wide outbox through 3
+     and 12), on loads that fit, one destination past the insert cap,
+     nearly full queues (K13's K4 branch) and a round with no sends, in
+     both shed modes; exact equality, with the timings of phase 2;
+ 16. the anchor as configured: tools/bench_scale.py leg_config(10000, 1, 4)
+     without only its observability rider, so merge gears are on; it must
+     give the anchor's digest and events and the JAX gears block;
+ 17. the 40k-host world-1 scaling leg (leg_config(40000, 1, 2), the same
+     cut): digest, events and gears block of the JAX package;
+ 18. bench config 2 at full width (10,000 PHOLD hosts, 100 per node on
+     the 10x10 torus at 50 ms, capacity 16, send budget 6, 512 rounds per
+     chunk, merge gears auto) cut to 60 simulated seconds (three chunks):
+     the JAX package's report, gears block included; then again with
+     merge_scatter on, which must give the same report through K13;
+ 19. bench config 5 at full width as configured: 1,000,000 timer hosts for
+     30 simulated seconds, shapes auto-sized (capacity 4, budget 1, 8
+     rounds per chunk), so the gear ladder is empty and gears turn
+     themselves off: the JAX package's digest, events and drops, the wall
+     time and the card's peak allocated memory;
+ 20. config 2 small and config 5 small as configured, config 2 small with
+     the gear controller started at its lowest gear (forced replays) and
+     config 2 small with merge_scatter on a lossy torus at capacity 4 (some
+     rounds take K13's K4 branch): card == CPU, gears blocks included.
 
-The phases run in the order 1-3, 7, 11, 12, 4-6, 8-10, 13, 14, so that
-every kernel's bound is counted before the profiles (5, 9) hold the
-kernels' in-path device times against it. A profiler reading below the
+The phases run in the order 1-3, 7, 11, 12, 15, 4-6, 8-10, 13, 14, 16-20,
+so that every kernel's bound is counted before the profiles (5, 9) hold
+the kernels' in-path device times against it. A profiler reading below the
 kernel's bound (the least time the card needs for the work) is a
 misattributed trace: the kernel phases then take the queued timing, the
 profiles report no time for that kernel.
@@ -146,6 +172,60 @@ CFG11_REF = {
         "payload_bytes_received": 8_728_931_200,
     },
     "wheel": {"slots": 4, "block": 2, "occupancy_hwm": 2, "spilled": 0, "dropped": 0},
+}
+# the scaling legs with their merge gears: the JAX package's gears blocks
+# for the anchor (BENCH_r07_scale.json, the 10k x world-1 row) and the
+# 40k-host world-1 leg (same file)
+ANCHOR_GEARS = {"ladder": [1, 3, 6, 12], "chunks_per_gear": {"6": 3, "12": 3}, "replays": 0}
+SCALE40K_REF = {
+    "determinism_digest": "c2510c8c586dc77b", "events_processed": 1_395_073,
+    "gears": {"ladder": [1, 3, 6, 12], "chunks_per_gear": {"12": 3}, "replays": 0},
+}
+# bench config 2 at full width cut to CFG2_STOP (three 512-round chunks):
+# the JAX package's report on the CPU (the same with merge_scatter on). Its
+# three chunks stay at the top gear: the 512-round high-water is 5 of 6
+CFG2_STOP = "60 s"
+CFG2_REF = {
+    "determinism_digest": "1bfd7953b4bb5c1e",
+    "events_processed": 5_342_188,
+    "rounds": 1200,
+    "microsteps": 6435,
+    "packets_sent": 2_676_641,
+    "packets_delivered": 2_665_547,
+    "packets_lost": 0,
+    "packets_unreachable": 0,
+    "packets_codel_dropped": 0,
+    "queue_overflow_dropped": 0,
+    "packets_budget_dropped": 0,
+    "outbox_overflow_dropped": 0,
+    "queue_occupancy_hwm": 12,
+    "outbox_send_hwm": 5,
+    "monotonic_violations": 0,
+    "bucket_cache_rebuilds": 0,
+    "popk_deferred": 0,
+    "model_report": {"total_events": 5_342_188, "min": 419, "max": 654},
+    "gears": {"ladder": [1, 3, 6], "chunks_per_gear": {"6": 3}, "replays": 0},
+}
+# bench config 5 at full width as configured: the JAX package's report on
+# the CPU (no gears block: a send budget of 1 leaves no ladder)
+CFG5_REF = {
+    "determinism_digest": "1754800000000000",
+    "events_processed": 30_000_000,
+    "rounds": 30,
+    "microsteps": 30,
+    "simulated_seconds": 29.05,
+    "packets_sent": 0,
+    "packets_delivered": 0,
+    "packets_lost": 0,
+    "packets_unreachable": 0,
+    "packets_codel_dropped": 0,
+    "queue_overflow_dropped": 0,
+    "packets_budget_dropped": 0,
+    "outbox_overflow_dropped": 0,
+    "queue_occupancy_hwm": 1,
+    "outbox_send_hwm": 0,
+    "monotonic_violations": 0,
+    "model_report": {"total_fires": 30_000_000, "min_fires": 30, "max_fires": 30},
 }
 # config 6's queue shapes: hosts, slots, block, K, push ports of a K = 4
 # tgen microstep (ingress requeue + the model's two pushes, per event)
@@ -244,18 +324,63 @@ def cfg11_config(small: bool, stop: str, wheel: int = 4, loss: float = 0.0) -> d
     return c
 
 
-def anchor_config() -> dict:
+def anchor_config(gears: bool = False, hosts: int = 10_000, stop_s: int = 4) -> dict:
     """The full-width anchor: the JAX repo's 10k-host x 1-device PHOLD
     scaling leg (tools/bench_scale.py leg_config(10000, 1, 4)) without its
-    digest-neutral gears and observability riders."""
+    observability rider, and unless `gears` without its merge gears too
+    (both digest-neutral); `hosts` and `stop_s` give the other world-1
+    legs (leg_config(hosts, 1, stop_s))."""
+    ex = {"rounds_per_chunk": 16, "sends_per_host_round": 12}
+    if gears:
+        ex["merge_gears"] = "auto"
     return {
-        "general": {"stop_time": "4 s", "seed": 1, "heartbeat_interval": "1 s"},
+        "general": {"stop_time": f"{stop_s} s", "seed": 1, "heartbeat_interval": "1 s"},
         "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
-        "experimental": {"rounds_per_chunk": 16, "sends_per_host_round": 12},
-        "hosts": {"node": {"count": 10_000, "network_node_id": 0, "processes": [{
+        "experimental": ex,
+        "hosts": {"node": {"count": hosts, "network_node_id": 0, "processes": [{
             "model": "phold",
             "model_args": {"population": 2, "mean_delay": "200 ms", "size_bytes": 64},
         }]}},
+    }
+
+
+def cfg2_config(small: bool, stop: str = "120 s", scatter: bool = False, loss: float = 0.0,
+                cap: int = 16) -> dict:
+    """bench.py baseline_config(2, small): PHOLD on the 10x10 torus at 50 ms
+    (4x4 small), 100 hosts per node (8 small), capacity 16, send budget 6,
+    512 rounds per chunk, merge gears auto; `stop` for its 120 s, and the
+    scatter merge, a lossy torus or another capacity where asked."""
+    side = 4 if small else 10
+    per_node = 8 if small else 100
+    gml = torus_gml(side, lat_ms=50)
+    if loss:
+        gml = gml.replace('latency "50 ms" ]', f'latency "50 ms" packet_loss {loss} ]')
+    ex = {"event_queue_capacity": cap, "sends_per_host_round": 6, "rounds_per_chunk": 512,
+          "merge_gears": "auto"}
+    if scatter:
+        ex["merge_scatter"] = True
+    return {
+        "general": {"stop_time": stop, "seed": 1},
+        "network": {"graph": {"type": "gml", "inline": gml}},
+        "experimental": ex,
+        "hosts": {f"n{i:03d}": {"count": per_node, "network_node_id": i, "processes": [{
+            "model": "phold",
+            "model_args": {"population": 2, "mean_delay": "200 ms", "size_bytes": 64},
+        }]} for i in range(side * side)},
+    }
+
+
+def cfg5_config(small: bool) -> dict:
+    """bench.py baseline_config(5, small) as configured: timer hosts (4,096
+    ticking every 100 ms small; 1,000,000 every second), 30 simulated
+    seconds, shapes auto-sized, merge gears auto."""
+    return {
+        "general": {"stop_time": "30 s", "seed": 1},
+        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "experimental": {"merge_gears": "auto"},
+        "hosts": {"t": {"count": 4096 if small else 1_000_000, "network_node_id": 0,
+                        "processes": [{"model": "timer", "model_args": {
+                            "interval": "100 ms" if small else "1 s"}}]}},
     }
 
 
@@ -709,6 +834,82 @@ def phase_kernels_cfg6(dev) -> dict[str, dict]:
     return results
 
 
+def phase_kernels_merge(dev) -> dict[str, dict]:
+    """K4 with a column limit and K13 against their plain versions on the
+    queues and [H, B] outboxes of `shadow_tpu_torch.testing.merge_case`, at
+    config 2's shape (C = 16, B = 6, columns 1, 3, 6) and the anchor's (C =
+    64, B = 12, columns 3, 12), every load, both shed modes; the insert cap
+    is the capacity, as on both paths. Exact equality. Timings: K13 on the
+    `fit` load at config 2's full width (its fast path, the path's common
+    case), K4 through 3 of the 6 columns (a gear below the top)."""
+    from shadow_tpu_torch.ops import merge
+    from shadow_tpu_torch.ops.events import EventQueue
+    from shadow_tpu_torch.testing import MERGE_LOADS, merge_case, merge_fits
+
+    shapes = {"cfg2": (H, 16, 6, (1, 3, 6)), "anchor": (H, C, B, (3, 12))}
+    kernels = {"merge_insert": (merge.merge_flat_events, merge.merge_flat_events_plain),
+               "merge_scatter": (merge.merge_scatter_free, merge.merge_scatter_free_plain)}
+    err = {k: 0.0 for k in kernels}
+    branches = {"fast": 0, "k4": 0}
+
+    def on_dev(arrays):
+        return [torch.as_tensor(a, device=dev) for a in arrays]
+
+    seed = 500
+    for shape, (h, cap, b, gcs) in shapes.items():
+        for gc in gcs:
+            for load in MERGE_LOADS:
+                seed += 1
+                q, ob = merge_case(seed, h, cap, b, gc, load)
+                branches["fast" if merge_fits(q, ob, gc, cap) else "k4"] += 1
+                rows = on_dev(ob)
+                for urgency in (True, False):
+                    for name, (fn, plain) in kernels.items():
+                        got = fn(EventQueue(*on_dev(q)), *rows, None, cap, urgency, cols=gc)
+                        want = plain(EventQueue(*on_dev(q)), *rows, None, cap, urgency, cols=gc)
+                        err[name] = max(err[name], check_equal(
+                            f"{name}/{shape}/cols={gc}/{load}/urgency={urgency}",
+                            list(got), list(want)))
+    if not (branches["fast"] and branches["k4"]):
+        raise AssertionError(f"K13 check: a branch went untested: {branches}")
+
+    def bytes_needed(q, ob, gc, cap, scatter):
+        """The row columns' dst and t; the valid rows' order, kind and
+        payload; the time plane of the hosts that get rows; one slot per
+        inserted row; dropped read and written where rows shed."""
+        dst, t = ob[0][:, :gc].reshape(-1), ob[1][:, :gc].reshape(-1)
+        h = q[0].shape[0]
+        ok = (t != TIME_MAX) & (dst >= 0) & (dst < h)
+        seg = np.bincount(dst[ok], minlength=h)
+        room = np.minimum((q[0] == TIME_MAX).sum(axis=1), cap)
+        ins = seg if scatter else np.minimum(seg, room)
+        n_valid = int(ok.sum())
+        return ((dst.size * (4 + 8) + n_valid * (8 + 4 + 4 * P) + int((seg > 0).sum()) * cap * 8
+                 + int(ins.sum()) * (8 + 8 + 4 + 4 * P) + int((seg > ins).sum()) * 16),
+                dst.size + n_valid)
+
+    results = {}
+    for name, gc, load, scatter in (("merge_scatter", 6, "fit", True),
+                                    ("merge_insert_cols", 3, "fit", False)):
+        q, ob = merge_case(42, H, 16, 6, gc, load)
+        rows = on_dev(ob)
+        fn, plain = kernels["merge_scatter" if scatter else "merge_insert"]
+        r = kernel_ms("merge_scatter" if scatter else "merge_insert",
+                      lambda qq: fn(qq, *rows, None, 16, True, cols=gc),
+                      lambda: (EventQueue(*on_dev(q)),))
+        r["plain_ms"] = time_ms(lambda qq: plain(qq, *rows, None, 16, True, cols=gc),
+                                lambda: (EventQueue(*on_dev(q)),))
+        r["bound"] = bound(*bytes_needed(q, ob, gc, 16, scatter))
+        r["library_ms"] = None
+        r["library_why"] = "no single PyTorch call computes the merge"
+        r["shape"] = {"hosts": H, "capacity": 16, "outbox": [H, 6], "cols": gc, "load": load}
+        r["max_abs_err"] = err["merge_scatter" if scatter else "merge_insert"]
+        settle(name, r, r["bound"][0])
+        results[name] = r
+    results["merge_scatter"]["branches_checked"] = branches
+    return results
+
+
 def io_bytes(reads=(), writes=(), inplace=()) -> int:
     """Bytes a function must move: each input read once, each output
     written once, and each in-place lane read and written where it changed
@@ -961,6 +1162,8 @@ KERNEL_SYMBOLS = {
     "queue_pop_min": ("pop_min_kernel",),
     "queue_push_many": ("push_many_kernel<false>",),
     "merge_insert": ("histogram_kernel", "scan_kernel", "scatter_kernel", "insert_kernel"),
+    "merge_scatter": ("histogram_kernel", "scan_kernel", "scatter_kernel", "fits_kernel",
+                      "insert_kernel"),
     "queue_pop_k": ("pop_k_kernel",),
     "queue_clear_popped": ("clear_popped_kernel",),
     "queue_push_many_bucketed": ("push_many_kernel<true>",),
@@ -1117,25 +1320,40 @@ def cfg11_small_configs() -> dict[str, dict]:
     }
 
 
-def run_config(cfg_dict: dict, device) -> dict:
+def gear_small_configs() -> dict[str, tuple[dict, dict]]:
+    """(config, run arguments): config 2 small (cut to 30 simulated seconds
+    where a variant needs only two chunks) and config 5 small as
+    configured, config 2 small with the controller started at gear 1, and
+    config 2 small with the scatter merge on a 2%-loss torus at capacity 4."""
+    return {
+        "cfg2_small": (cfg2_config(True), {}),
+        "cfg5_small": (cfg5_config(True), {}),
+        "cfg2_small_from_gear1": (cfg2_config(True, "30 s"), {"start_gear": 1}),
+        "cfg2_small_scatter_lossy_cap4": (cfg2_config(True, "30 s", scatter=True, loss=0.02,
+                                                      cap=4), {}),
+    }
+
+
+def run_config(cfg_dict: dict, device, **run_kw) -> dict:
     from shadow_tpu_torch.config.options import ConfigOptions
     from shadow_tpu_torch.sim import Simulation
 
     sim = Simulation(ConfigOptions.from_dict(cfg_dict), device=device)
-    return sim.run(progress=False)
+    return sim.run(progress=False, **run_kw)
 
 
 def card_vs_cpu(phase: str, configs: dict, keys: tuple) -> dict:
-    """Run each config on the card and on the CPU (one intra-op thread:
-    tiny tensors); their reports must agree on `keys`. Returns the card's
-    reports."""
+    """Run each config (a dict, or (dict, run arguments)) on the card and on
+    the CPU (one intra-op thread: tiny tensors); their reports must agree
+    on `keys`. Returns the card's reports."""
     out = {}
     prev_threads = torch.get_num_threads()
     for name, cfg in configs.items():
-        a = run_config(cfg, None)
+        cfg, run_kw = cfg if isinstance(cfg, tuple) else (cfg, {})
+        a = run_config(cfg, None, **run_kw)
         torch.set_num_threads(1)
         try:
-            b = run_config(cfg, "cpu")
+            b = run_config(cfg, "cpu", **run_kw)
         finally:
             torch.set_num_threads(prev_threads)
         same = {k: a.get(k) == b.get(k) for k in keys}
@@ -1146,26 +1364,32 @@ def card_vs_cpu(phase: str, configs: dict, keys: tuple) -> dict:
     return out
 
 
-def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple) -> dict:
+def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple) -> tuple[dict, dict]:
     """One full-width leg with every launch counter set to 0 just before
     and read just after: the report must equal the JAX constants `ref` and
-    every kernel of `path` must have launched. Returns the counts."""
+    every kernel of `path` must have launched. Prints the run loop's wall
+    (`wall_seconds`), the wall with the build (`build_and_run_seconds`) and
+    the card's peak allocated memory. Returns (counts, report)."""
     from shadow_tpu_torch.ops import KERNELS
 
     for k in KERNELS.values():
         k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
     report = run_config(cfg_dict, None)
+    total = time.monotonic() - t0
     launches = {k: v.launches for k, v in KERNELS.items()}
-    emit(name, **{k: report[k] for k in (*ref, "rounds", "microsteps")},
-         wall_seconds=report["wall_seconds"],
+    emit(name, **{k: report.get(k) for k in (*ref, "rounds", "microsteps", "gears")},
+         wall_seconds=report["wall_seconds"], build_and_run_seconds=total,
          sim_wall_ratio=report["sim_wall_ratio"], host_syncs=report["host_syncs"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches)
-    diff = {k: (report[k], v) for k, v in ref.items() if report[k] != v}
+    diff = {k: (report.get(k), v) for k, v in ref.items() if report.get(k) != v}
     if diff:
         raise AssertionError(f"{name}: differs from the JAX reference (port, JAX): {diff}")
     if not all(launches[k] for k in path):
         raise AssertionError(f"{name}: a kernel of the path never launched: {launches}")
-    return launches
+    return launches, report
 
 
 CHAIN_PATH = ("outbox_append", "event_ingress", "event_egress")
@@ -1176,13 +1400,21 @@ TGEN_PATH = ("queue_next_time", "merge_insert", "queue_pop_k", "queue_clear_popp
 # the wheel path: the queue's and the wheel's pops are K5 (per-host
 # limits) + K6, both slabs' pushes K7, next times K1 on the block caches
 CFG11_PATH = TGEN_PATH
+# config 2 is the anchor's kernels on the torus; with merge_scatter K13
+# merges instead of K4. Config 5's timers never send: no merge, no append
+CFG2_PATH = ANCHOR_PATH
+CFG2_SCATTER_PATH = tuple("merge_scatter" if k == "merge_insert" else k for k in ANCHOR_PATH)
+CFG5_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "event_ingress",
+             "event_egress")
 SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
+           "merge_scatter": "shadow_tpu_torch/csrc/merge.cu",
            **{k: "shadow_tpu_torch/csrc/event.cu" for k in CHAIN_PATH}}
 REPLACES = {
     "queue_next_time": "shadow_tpu/ops/events.py:129",
     "queue_pop_min": "shadow_tpu/ops/events.py:138",
     "queue_push_many": "shadow_tpu/ops/events.py:342",
     "merge_insert": "shadow_tpu/ops/merge.py:240",
+    "merge_scatter": "shadow_tpu/ops/merge.py:312",
     "queue_pop_k": "shadow_tpu/ops/events.py:201",
     "queue_clear_popped": "shadow_tpu/ops/events.py:290",
     "queue_push_many_bucketed": "shadow_tpu/ops/events.py:616",
@@ -1200,6 +1432,7 @@ PORTED_FOR = {
     **{k: "tgen" for k in ("queue_pop_k", "queue_clear_popped", "queue_push_many_bucketed",
                            "queue_block_minima", *CHAIN_PATH)},
     "wheel_cancel": "cfg11",
+    "merge_scatter": "cfg2_scatter",
 }
 
 
@@ -1257,6 +1490,12 @@ def main() -> int:
     if law["card_vs_cpu_mismatches"] or law["card_vs_python_mismatches"]:
         raise AssertionError(f"CoDel control law differs: {law}")
 
+    mres = phase_kernels_merge(dev)
+    emit("kernels_merge_vs_plain", ok=True, exact=True,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in mres.items()})
+    kres["merge_insert"]["gear_width_timing"] = mres.pop("merge_insert_cols")
+    kres.update(mres)
+
     # least device time per call at each path's shapes: the kernel phases'
     # bounds; K1 and K4 on the tgen path (block caches, 24-wide outbox) get
     # the bytes every call reads whatever the data (the caches' time plane
@@ -1268,7 +1507,7 @@ def main() -> int:
     tgen_floors["merge_insert"] = bound(H6 * 24, 0)[0]
 
     launches = {"anchor": run_leg("anchor", anchor_config(), {
-        "determinism_digest": ANCHOR_DIGEST, "events_processed": ANCHOR_EVENTS}, ANCHOR_PATH)}
+        "determinism_digest": ANCHOR_DIGEST, "events_processed": ANCHOR_EVENTS}, ANCHOR_PATH)[0]}
 
     emit("anchor_profile", **phase_profile(anchor_config(), anchor_floors))
 
@@ -1277,7 +1516,7 @@ def main() -> int:
             "rounds", "microsteps")
     card_vs_cpu("small_config", small_configs(), keys)
 
-    launches["tgen"] = run_leg("tgen", tgen_config(False, TGEN_STOP), TGEN_REF, TGEN_PATH)
+    launches["tgen"] = run_leg("tgen", tgen_config(False, TGEN_STOP), TGEN_REF, TGEN_PATH)[0]
 
     emit("tgen_profile", **phase_profile(tgen_config(False, TGEN_STOP, rounds_per_chunk=8),
                                          tgen_floors))
@@ -1290,13 +1529,39 @@ def main() -> int:
     if not small["tight_k4_cap9_block3"]["queue_overflow_dropped"]:
         raise AssertionError("tight_k4_cap9_block3: no queue overflow drop was exercised")
 
-    launches["cfg11"] = run_leg("cfg11", cfg11_config(False, CFG11_STOP), CFG11_REF, CFG11_PATH)
+    launches["cfg11"] = run_leg("cfg11", cfg11_config(False, CFG11_STOP), CFG11_REF,
+                                CFG11_PATH)[0]
 
     small = card_vs_cpu("cfg11_small", cfg11_small_configs(), keys + ("wheel",))
     if not small["wheel1_spill"]["wheel"]["spilled"]:
         raise AssertionError("wheel1_spill: no timer spilled to the queue")
     if not small["lossy_wheel4"]["model_report"]["retransmits"]:
         raise AssertionError("lossy_wheel4: no retransmit was exercised")
+
+    # the merge gears and the scatter merge on the configured workloads
+    launches["anchor_geared"] = run_leg("anchor_geared", anchor_config(gears=True), {
+        "determinism_digest": ANCHOR_DIGEST, "events_processed": ANCHOR_EVENTS,
+        "gears": ANCHOR_GEARS}, ANCHOR_PATH)[0]
+    launches["scale40k"] = run_leg("scale40k", anchor_config(gears=True, hosts=40_000, stop_s=2),
+                                   SCALE40K_REF, ANCHOR_PATH)[0]
+    launches["cfg2"], rep2 = run_leg("cfg2", cfg2_config(False, CFG2_STOP), CFG2_REF, CFG2_PATH)
+    launches["cfg2_scatter"], rep2s = run_leg(
+        "cfg2_scatter", cfg2_config(False, CFG2_STOP, scatter=True), CFG2_REF, CFG2_SCATTER_PATH)
+    skip = ("wall_seconds", "sim_wall_ratio", "host_syncs", "kernel_launches")
+    diff = [k for k in rep2 if k not in skip and rep2[k] != rep2s.get(k)]
+    if diff or launches["cfg2_scatter"]["merge_insert"]:
+        raise AssertionError(f"cfg2 with merge_scatter: report differs on {diff} or K4 launched")
+    launches["cfg5"], rep5 = run_leg("cfg5", cfg5_config(False), CFG5_REF, CFG5_PATH)
+    if "gears" in rep5:
+        raise AssertionError("cfg5: a gears block where the JAX report has none")
+
+    small = card_vs_cpu("gears_small", gear_small_configs(), keys + ("outbox_send_hwm", "gears"))
+    if not small["cfg2_small_from_gear1"]["gears"]["replays"]:
+        raise AssertionError("cfg2_small_from_gear1: no chunk shed and replayed")
+    if not small["cfg5_small"]["gears"]["chunks_per_gear"].get("1"):
+        raise AssertionError("cfg5_small: the controller never settled at the bottom gear")
+    if not small["cfg2_small_scatter_lossy_cap4"]["queue_overflow_dropped"]:
+        raise AssertionError("cfg2_small_scatter_lossy_cap4: no round took K13's K4 branch")
     emit("total", seconds=round(time.monotonic() - t_start, 3))
 
     table = []

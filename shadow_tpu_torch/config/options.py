@@ -8,18 +8,21 @@ does not implement yet raises `ConfigError` naming the knob — a config is
 never silently run with a plane switched off:
 
   - `general.parallelism > 1` (world > 1);
-  - `experimental.merge_gears`, `timer_wheel`, `merge_scatter`,
-    `merge_rows > 0`, `cpu_delay > 0`, `scheduler: cpu-reference`;
+  - `experimental.merge_rows > 0`, `cpu_delay > 0`, `scheduler:
+    cpu-reference`;
   - any non-empty `faults`, `fluid`, `pressure`, `integrity` or `campaign`
     block, and any enabled `observability` knob (`trace`, `network`, ...);
   - `pcap_enabled`, managed processes (`path:`), and models other than
     phold, udp_echo, timer and tgen_tcp (checked when the simulation is
     built).
 
-`experimental.event_queue_block` (the bucketed queue) and
-`microstep_events` (K events per host per microstep) are accepted with the
-JAX package's validation: the block is >= 0 and divides the queue capacity,
-and K >= 1.
+`experimental.event_queue_block` (the bucketed queue),
+`microstep_events` (K events per host per microstep), `timer_wheel`,
+`merge_gears` (off | auto | an int | a list of ints: the exchange's column
+widths, resolved against the send budget by `core/gears.py`) and
+`merge_scatter` (the sort-free exchange merge) are accepted with the JAX
+package's validation: the block is >= 0 and divides the queue capacity,
+K >= 1, and the gears' list entries are positive ints.
 
 `ExperimentalOptions.resolve_shapes` is the JAX package's auto-sizing rule,
 copied verbatim, so both packages resolve a config to the same queue
@@ -125,8 +128,6 @@ class NetworkOptions:
 # experimental knobs of the JAX engine that this port rejects, with the
 # value that means "off" (a config may spell the default explicitly)
 _EXPERIMENTAL_OFF = {
-    "merge_gears": 0,
-    "merge_scatter": False,
     "merge_rows": 0,
     "cpu_delay": 0,
     "scheduler": "tpu",
@@ -156,6 +157,12 @@ class ExperimentalOptions:
     # auto, a divisor near sqrt)
     timer_wheel: int = 0
     timer_wheel_block: int = 0
+    # merge gears: 0 = off, "auto", or explicit widths (an int or a list
+    # of ints); the ladder resolves against the send budget at build time
+    merge_gears: Any = 0
+    # the sort-free exchange merge (its fast path when every destination's
+    # rows fit; the sort merge's result otherwise)
+    merge_scatter: bool = False
 
     def validate(self) -> None:
         """The JAX package's checks of the queue-shape knobs; the block's
@@ -184,6 +191,7 @@ class ExperimentalOptions:
                 f"experimental.timer_wheel_block={self.timer_wheel_block} must be 0 "
                 f"(auto) or divide timer_wheel={self.timer_wheel} evenly"
             )
+        self.merge_gears = parse_merge_gears(self.merge_gears)
         if self.timer_wheel and self.microstep_events > 1:
             raise ConfigError(
                 f"unsupported knob pair: experimental.timer_wheel={self.timer_wheel} x "
@@ -222,8 +230,6 @@ class ExperimentalOptions:
                 v = d.pop(knob)
                 if knob == "cpu_delay":
                     v = parse_time_ns(v, TimeUnit.MS)
-                if knob == "merge_gears" and isinstance(v, str) and v.lower() == "off":
-                    v = 0
                 if v != off:
                     raise _unsupported(f"experimental.{knob}={v!r}")
         # the exchange kind only matters across devices; world 1 always
@@ -245,7 +251,9 @@ class ExperimentalOptions:
                 f"experimental.overflow_shed must be urgency|append, "
                 f"got {e.overflow_shed!r}"
             )
-        for f in ("use_dynamic_runahead", "use_codel"):
+        if "merge_gears" in d:
+            e.merge_gears = d.pop("merge_gears")
+        for f in ("use_dynamic_runahead", "use_codel", "merge_scatter"):
             if f in d:
                 setattr(e, f, bool(d.pop(f)))
         for f in (
@@ -265,6 +273,29 @@ class ExperimentalOptions:
             raise ConfigError(f"unknown experimental options: {sorted(d)}")
         e.validate()
         return e
+
+
+def parse_merge_gears(mg: Any) -> Any:
+    """Shape-check `experimental.merge_gears` as the JAX package does:
+    "off"/0/None/False -> 0, "auto"/True -> "auto", an int or a list of
+    positive ints as given (range-checked against the send budget when the
+    ladder is resolved, `core.gears.resolve_gear_ladder`)."""
+    if isinstance(mg, str):
+        if mg.lower() not in ("auto", "off"):
+            raise ConfigError(
+                f"experimental.merge_gears must be off|auto|int|[ints], got {mg!r}"
+            )
+        return 0 if mg.lower() == "off" else "auto"
+    if isinstance(mg, list):
+        if not all(isinstance(g, int) and g > 0 for g in mg):
+            raise ConfigError(
+                f"experimental.merge_gears list entries must be positive ints, got {mg!r}"
+            )
+    elif mg is not None and not isinstance(mg, (int, bool)):
+        raise ConfigError(
+            f"experimental.merge_gears must be off|auto|int|[ints], got {mg!r}"
+        )
+    return mg or 0
 
 
 def _reject_block(name: str, d: Any) -> None:
@@ -460,6 +491,8 @@ def merge_cli_overrides(cfg: ConfigOptions, overrides: dict[str, str]) -> Config
                 val = parse_time_ns(val, TimeUnit.MS)
             elif leaf.startswith("bandwidth_"):
                 val = parse_bits_per_sec(val)
+            elif leaf == "merge_gears":
+                pass  # polymorphic (off|auto|int|[ints]); validate() checks it
             elif isinstance(cur, bool):
                 val = bool(val)
             elif isinstance(cur, int):

@@ -9,7 +9,8 @@ reassembly bitmap) are widened to int64 holding 0..2^32-1. A flat queue
 comes across as `EventQueue`, a bucketed one (with its bt/bo/bfill caches)
 as `BucketQueue`, and a timer wheel (with its `wheel_spilled` and
 `wheel_occ_hwm` stats lanes) as the port's wheel. `engine_config_from` maps a
-JAX `EngineConfig` onto the port's, refusing any knob the port does not run.
+JAX `EngineConfig` onto the port's (merge gear and scatter merge included),
+refusing any knob the port does not run.
 `to_numpy` flattens either package's state into {"queue.t": array, ...} for a
 field-by-field comparison. Nothing here imports JAX: the inputs are read by
 attribute name only.
@@ -39,14 +40,12 @@ from shadow_tpu_torch.ops.rng import RngState
 # value
 _OFF_FIELDS = {
     "world": 1,
-    "gear_cols": 0,
     "trace_rounds": 0,
     "fault_crash_windows": 0,
     "fault_loss_windows": 0,
     "pressure_abort": False,
     "netobs": False,
     "integrity": False,
-    "merge_scatter": False,
     "merge_rows": 0,
     "cpu_delay_ns": 0,
     "fluid_classes": 0,

@@ -12,8 +12,10 @@ One round advances every host through the safe window [now, window_end):
      vectorized model handler runs for all hosts, sends pass egress shaping
      (budget, uplink bucket, loss/jitter draws, routing, K11) into the
      [H, B] outbox (K9), local pushes land in the queue (K3; K7 bucketed);
-  4. exchange: the outbox merges into the destination queues (K4), and a
-     bucketed queue's block caches are rebuilt (K8).
+  4. exchange: the outbox merges into the destination queues (K4, or K13
+     with `merge_scatter`), and a bucketed queue's block caches are rebuilt
+     (K8). A round known to have sent nothing skips both, as the JAX
+     package's `has_sends` cond does.
 
 With `microstep_events` K > 1 a microstep peeks each host's K earliest
 in-window events (K5), runs them through the handler in turn as long as no
@@ -28,11 +30,19 @@ while it has room and spill to the queue when it does not, and the wheel's
 heads fold into every next-event minimum. Dispatch order, digests, events
 and drops equal the wheel-off path's.
 
+With a merge gear (`gear_cols` g, `Engine.run_chunk_gear`) the exchange
+reads only the first g columns of each host's outbox row, in place. Sends
+beyond them are counted exactly into `stats.gear_shed`, and the chunk stops
+before its next round (`Simulation.run` replays it at a wider gear from a
+pre-chunk snapshot, core/gears.py); the shed test rides in the window's
+device-to-host read, so a round gains no sync.
+
 The slice is the JAX package's single-device path: flat or bucketed queue,
-K >= 1, the timer wheel, world 1. `lax.while_loop` becomes a Python loop; each loop
-condition is one device-to-host read, counted in `Engine.host_syncs`. The
-window itself is computed on the device and read back with the `done` flag
-in the same read.
+K >= 1, the timer wheel, merge gears, the scatter merge, world 1.
+`lax.while_loop` becomes a Python loop; each loop condition is one
+device-to-host read, counted in `Engine.host_syncs`. The window itself is
+computed on the device and read back with the `done` flag in the same
+read.
 
 Determinism: pops follow the packed (time, order) key; RNG lanes advance
 only under masks; the merge orders rows by (dst, time, order). Per-host
@@ -80,7 +90,7 @@ from shadow_tpu_torch.ops.events import (
     q_pop_min,
     q_push_many,
 )
-from shadow_tpu_torch.ops.merge import merge_flat_events
+from shadow_tpu_torch.ops.merge import gear_shed_count, merge_flat_events, merge_scatter_free
 from shadow_tpu_torch.ops.rng import RngState, rng_init, u64
 from shadow_tpu_torch.ops.wheel import (
     TimerWheel,
@@ -125,6 +135,9 @@ class Stats(NamedTuple):
     outbox_hwm: torch.Tensor  # i64[1]
     digest: torch.Tensor  # i64[H] (uint64 FNV fold, bit pattern)
     rounds: torch.Tensor  # i64[]
+    # cumulative sends beyond the active merge gear's columns; an accepted
+    # chunk never adds to it (a shedding chunk is replayed wider)
+    gear_shed: Any = None  # i64[1]
     # timer-wheel lanes, None unless the wheel is on: timer pushes spilled
     # to the queue because the wheel was full (never a loss), and the
     # per-host wheel-occupancy high-water
@@ -196,6 +209,12 @@ class EngineConfig:
     # caches (0 = auto, ops/wheel.py resolve_wheel_block)
     wheel_slots: int = 0
     wheel_block: int = 0
+    # active merge gear: the exchange reads the first gear_cols outbox
+    # columns (0 = full width). The simulation's config keeps 0; the gear
+    # programs run under a copy (Engine.run_chunk_gear).
+    gear_cols: int = 0
+    # the sort-free exchange merge (ops/merge.py merge_scatter_free, K13)
+    merge_scatter: bool = False
 
     def __post_init__(self):
         check_order_limits(self.num_hosts)
@@ -217,6 +236,11 @@ class EngineConfig:
                 f"wheel_block={self.wheel_block} must be 0 (auto) or divide "
                 f"wheel_slots={self.wheel_slots} evenly"
             )
+        if self.gear_cols < 0 or self.gear_cols > self.sends_per_host_round:
+            raise ValueError(
+                f"gear_cols={self.gear_cols} must be in "
+                f"[0, sends_per_host_round={self.sends_per_host_round}]"
+            )
         if self.wheel_slots and self.microstep_events > 1:
             raise ValueError(
                 f"unsupported knob pair: wheel_slots={self.wheel_slots} x "
@@ -228,6 +252,21 @@ class EngineConfig:
     @property
     def wheel_active(self) -> bool:
         return self.wheel_slots > 0
+
+    @property
+    def gear_active(self) -> bool:
+        """A merge gear narrower than the send budget: the sliced exchange
+        and the gear-abort chunk test are on."""
+        return 0 < self.gear_cols < self.sends_per_host_round
+
+    @property
+    def effective_rounds_per_chunk(self) -> int:
+        """The chunk's round bound: `rounds_per_chunk`, clamped to the
+        microstep valve above 2^19 hosts as the JAX package clamps it (the
+        bound changes how rounds group into chunks, never a result)."""
+        if self.num_hosts <= 1 << 19:
+            return self.rounds_per_chunk
+        return min(self.rounds_per_chunk, max(self.effective_microstep_limit, 1))
 
     @property
     def effective_microstep_limit(self) -> int:
@@ -259,6 +298,7 @@ def _init_stats(cfg: EngineConfig, device) -> Stats:
         bq_rebuilds=z1(), popk_deferred=z1(), q_occ_hwm=zi(), outbox_hwm=z1(),
         digest=torch.full((h,), _FNV_OFFSET, dtype=torch.int64, device=device),
         rounds=torch.zeros((), dtype=torch.int64, device=device),
+        gear_shed=z1(),
         wheel_spilled=zi() if cfg.wheel_active else None,
         wheel_occ_hwm=zi() if cfg.wheel_active else None,
     )
@@ -408,11 +448,32 @@ class Engine:
     # ---- the round loop ------------------------------------------------------
 
     def run_chunk(self, st: SimState, params: EngineParams) -> SimState:
-        for _ in range(self.cfg.rounds_per_chunk):
+        """Up to `effective_rounds_per_chunk` rounds. Under a merge gear the
+        chunk stops before the first round that follows a shed (the JAX
+        chunk loop's gear abort)."""
+        cfg = self.cfg
+        shed0 = st.stats.gear_shed.clone() if cfg.gear_active else None
+        for _ in range(cfg.effective_rounds_per_chunk):
             if st.done:
                 break
-            st = self.round_step(st, params)
+            window_end, done, shed = self.compute_window(st, shed0)
+            if shed:
+                break
+            st = self.window_step(st, params, window_end, done)
         return st
+
+    def run_chunk_gear(self, st: SimState, params: EngineParams, gear_cols: int) -> SimState:
+        """One chunk at merge gear `gear_cols` (the exchange reads that many
+        outbox columns); 0 or the full send budget is the full-width
+        chunk. State shapes are the same at every gear."""
+        if gear_cols <= 0 or gear_cols >= self.cfg.sends_per_host_round:
+            return self.run_chunk(st, params)
+        base = self.cfg
+        self.cfg = dataclasses.replace(base, gear_cols=gear_cols)
+        try:
+            return self.run_chunk(st, params)
+        finally:
+            self.cfg = base
 
     @staticmethod
     def next_times(st: SimState) -> torch.Tensor:
@@ -423,8 +484,10 @@ class Engine:
             nt = torch.minimum(nt, wheel_next_time(st.wheel))
         return nt
 
-    def compute_window(self, st: SimState) -> tuple[int, bool]:
-        """Barrier + window: (window_end, done), one device-to-host read."""
+    def compute_window(self, st: SimState, shed0=None) -> tuple[int, bool, bool]:
+        """Barrier + window: (window_end, done, shed), one device-to-host
+        read. `shed` is whether `stats.gear_shed` grew past `shed0` (the
+        chunk-entry value; False without one)."""
         cfg = self.cfg
         gmin = self.next_times(st).min()
         done = gmin >= cfg.stop_time
@@ -434,41 +497,51 @@ class Engine:
         else:
             runahead = max(cfg.runahead_floor, cfg.static_min_latency, 1)
         window_end = torch.clamp_max(gmin_safe + runahead, cfg.stop_time)
-        we, dn = torch.stack([window_end, done.to(torch.int64)]).tolist()
+        lanes = [window_end, done.to(torch.int64)]
+        if shed0 is not None:
+            lanes.append((st.stats.gear_shed[0] > shed0[0]).to(torch.int64))
+        vals = torch.stack(lanes).tolist()
         self.host_syncs += 1
-        return int(we), bool(dn)
+        return int(vals[0]), bool(vals[1]), shed0 is not None and bool(vals[2])
 
     def round_step(self, st: SimState, params: EngineParams) -> SimState:
-        window_end, done = self.compute_window(st)
+        window_end, done, _ = self.compute_window(st)
         return self.window_step(st, params, window_end, done)
 
     def window_step(self, st: SimState, params: EngineParams, window_end: int, done: bool) -> SimState:
         cfg = self.cfg
         limit = cfg.effective_microstep_limit
         steps = 0
+        # whether the round staged any send, read with the loop test that
+        # ends the microsteps (unknown, so merged, when the valve ends them)
+        has_sends = True
         if cfg.effective_microstep_events > 1:
             # the valve is a per-host executed-event vector bounded by its
             # max, read in the same device-to-host read as the loop test
             valve = torch.zeros((cfg.num_hosts,), dtype=torch.int64, device=self.device)
             while True:
                 pending = (self.next_times(st) < window_end).any().to(torch.int64)
-                go, vmax = torch.stack([pending, valve.max()]).tolist()
+                go, vmax, sent = torch.stack(
+                    [pending, valve.max(), st.outbox.count[0].to(torch.int64)]).tolist()
                 self.host_syncs += 1
                 if not go or vmax >= limit:
+                    has_sends = sent > 0
                     break
                 st, executed = self.microstep_k(st, params, window_end)
                 valve = valve + executed
                 steps += 1
         else:
             while steps < limit:
-                pending = bool((self.next_times(st) < window_end).any())
+                pending = (self.next_times(st) < window_end).any().to(torch.int64)
+                go, sent = torch.stack([pending, st.outbox.count[0].to(torch.int64)]).tolist()
                 self.host_syncs += 1
-                if not pending:
+                if not go:
+                    has_sends = sent > 0
                     break
                 st = self.microstep(st, params, window_end)
                 steps += 1
         st_m = st
-        st_x = self.exchange(st_m)
+        st_x = self.exchange(st_m, has_sends)
         occ = q_len(st_x.queue).to(torch.int64)
         ob_hwm = st_m.sent_round.max().to(torch.int64)
         s = st_x.stats
@@ -639,25 +712,30 @@ class Engine:
         push_list = ([ing.requeue] if ing.requeue is not None else []) + pushes
         return c, push_list, entries, used_min
 
-    def exchange(self, st: SimState) -> SimState:
-        """World-1 exchange: merge the outbox, host-major, into the queues;
-        a bucketed queue then gets its block caches rebuilt (counted in
-        rounds that sent anything, as the reference counts them — its
-        skipped rebuild of an unchanged slab gives the same caches). The
-        timer wheel is not touched."""
+    def exchange(self, st: SimState, has_sends: bool = True) -> SimState:
+        """World-1 exchange: merge the outbox, host-major, into the queues
+        (K4, or K13 with `merge_scatter`; under a merge gear only its first
+        `gear_cols` columns, read in place, with the sends beyond them
+        counted into `stats.gear_shed`); a bucketed queue then gets its
+        block caches rebuilt (counted in rounds that sent anything, as the
+        reference counts them). With `has_sends` False (the round staged
+        nothing) the merge and the rebuild are skipped: they would not
+        change the queue. The timer wheel is not touched."""
         cfg, ob = self.cfg, st.outbox
-        dst_f = ob.dst.reshape(-1)
-        t_f = ob.t.reshape(-1)
-        valid = (t_f != TIME_MAX) & (dst_f >= 0) & (dst_f < cfg.num_hosts)
-        queue = merge_flat_events(
-            as_flat(st.queue), dst_f, t_f, ob.order.reshape(-1), ob.kind.reshape(-1),
-            ob.payload.reshape(-1, ob.payload.shape[-1]), valid,
-            cfg.max_round_inserts, shed_urgency=not cfg.cheap_shed,
-        )
-        stats = st.stats
-        if isinstance(st.queue, BucketQueue):
-            queue = bucket_rebuild(queue, st.queue.block)
-            stats = stats._replace(bq_rebuilds=stats.bq_rebuilds + (ob.count > 0))
+        queue, stats = st.queue, st.stats
+        gc = cfg.gear_cols if cfg.gear_active else 0
+        if gc:
+            stats = stats._replace(
+                gear_shed=stats.gear_shed + gear_shed_count(st.sent_round, gc))
+        if has_sends:
+            merge = merge_scatter_free if cfg.merge_scatter else merge_flat_events
+            queue = merge(
+                as_flat(st.queue), ob.dst, ob.t, ob.order, ob.kind, ob.payload, None,
+                cfg.max_round_inserts, shed_urgency=not cfg.cheap_shed, cols=gc,
+            )
+            if isinstance(st.queue, BucketQueue):
+                queue = bucket_rebuild(queue, st.queue.block)
+                stats = stats._replace(bq_rebuilds=stats.bq_rebuilds + (ob.count > 0))
         return st._replace(
             queue=queue,
             stats=stats,

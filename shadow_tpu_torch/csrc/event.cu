@@ -386,7 +386,7 @@ __global__ void event_egress_kernel(const EgressArgs a) {
   a.pkts_unreachable[h] = wadd(a.pkts_unreachable[h], n_unreach);
   a.pkts_budget[h] = wadd(a.pkts_budget[h], n_budget);
   a.mono[h] = wadd(a.mono[h], n_mono);
-  a.used_min[h] = umin;
+  if (a.used_min != nullptr) a.used_min[h] = umin;  // null: the model has no send port
 }
 
 }  // namespace

@@ -4,9 +4,15 @@ of the single-device subset of shadow_tpu/sim.py).
 `Simulation(cfg, device=None)` runs on the CUDA device unless the caller
 passes `device="cpu"`; without a GPU it raises. The report has the JAX
 report's keys for every counter this slice has (including
-`determinism_digest`, the XOR of the per-host digests as %016x), plus the
-port's own `device`, `host_syncs` and `kernel_launches` (per kernel, this
-run).
+`determinism_digest`, the XOR of the per-host digests as %016x, and the
+`gears` block on merge-gear runs), plus the port's own `device`,
+`host_syncs` and `kernel_launches` (per kernel, this run).
+
+With `experimental.merge_gears` the run loop dispatches every chunk at the
+gear the controller picked (core/gears.py `run_adaptive_chunk`: snapshot,
+run, and on a shed restore and replay wider), and the heartbeat carries
+`gear=<g>`. Snapshots are taken only below the top gear; a gear-free run
+dispatches `Engine.run_chunk` as before.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import yaml
 from shadow_tpu_torch import resolve_device
 from shadow_tpu_torch.config.options import ConfigError, ConfigOptions
 from shadow_tpu_torch.core.engine import Engine, EngineConfig, EngineParams
+from shadow_tpu_torch.core.gears import GearController, resolve_gear_ladder, run_adaptive_chunk
 from shadow_tpu_torch.models import get_model
 from shadow_tpu_torch.net import TBParams
 from shadow_tpu_torch.net.graph import IpAssignment, NetworkGraph, load_graph
@@ -110,9 +117,12 @@ def tb_params(bws: np.ndarray, interval_ns: int, device) -> TBParams:
 
 
 def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
-                   rounds: int, q_hwm: int, host_syncs: int) -> str:
-    """The `[heartbeat]` progress line, in the JAX package's base format
-    (ici_bytes is 0 on one device) plus the port's host-sync count."""
+                   rounds: int, q_hwm: int, host_syncs: int, gear: int | None = None) -> str:
+    """The `[heartbeat]` progress line, in the JAX package's format (ici_bytes
+    is 0 on one device; `gear=` only on merge-gear runs, where the JAX
+    package puts it after `faults=` and before `cap=`) plus the port's
+    host-sync count."""
+    gear_f = f"gear={gear} " if gear is not None else ""
     return (
         f"[heartbeat] sim_time={now_ns / NS_PER_SEC:.3f}s "
         f"wall={wall:.2f}s events={events} "
@@ -120,6 +130,7 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
         f"msteps/round={microsteps / max(rounds, 1):.1f} "
         f"ev/mstep={events / max(microsteps, 1):.2f} "
         f"ici_bytes=0 q_hwm={q_hwm} "
+        f"{gear_f}"
         f"syncs={host_syncs} "
         f"ratio={now_ns / NS_PER_SEC / max(wall, 1e-9):.2f}x"
     )
@@ -179,7 +190,16 @@ class Simulation:
             cheap_shed=ex.overflow_shed == "append",
             wheel_slots=ex.timer_wheel,
             wheel_block=ex.timer_wheel_block,
+            merge_scatter=bool(ex.merge_scatter),
         )
+        # merge gears: the ladder resolved against the (auto-sized) send
+        # budget; [] = off (a budget of 1 leaves no narrower width)
+        try:
+            self._gear_ladder = resolve_gear_ladder(ex.merge_gears, send_budget)
+        except ValueError as e:
+            raise ConfigError(f"experimental.merge_gears: {e}") from e
+        self._gearctl: GearController | None = None  # one per run()
+        self._ob_hwm_run = 0  # run-wide outbox high-water of a geared run
         self.engine = Engine(self.engine_cfg, self.model, self.device)
         self._build_state()
 
@@ -221,8 +241,13 @@ class Simulation:
         )
         self.engine_cfg = self.engine.cfg  # init_state may resolve affine routing
 
-    def run(self, *, progress: bool | None = None, log=sys.stderr) -> dict:
-        """Drive chunks until done; returns the stats report."""
+    def run(self, *, progress: bool | None = None, log=sys.stderr,
+            start_gear: int | None = None) -> dict:
+        """Drive chunks until done; returns the stats report. `start_gear`
+        (merge-gear runs) is the first chunk's gear instead of the ladder's
+        top, where the JAX package starts: a lower start makes early chunks
+        shed and replay, a drill of the replay path that changes no
+        result."""
         cfg = self.cfg
         show_progress = cfg.general.progress if progress is None else progress
         hb_ns = cfg.general.heartbeat_interval
@@ -233,8 +258,21 @@ class Simulation:
             torch.cuda.synchronize(self.device)
         t0 = time.monotonic()
         chunks = 0
+        gearctl = GearController(self._gear_ladder) if self._gear_ladder else None
+        if gearctl is not None and start_gear is not None:
+            if start_gear not in gearctl.ladder:
+                raise ValueError(f"start_gear={start_gear} is not on the ladder {gearctl.ladder}")
+            gearctl.gear = start_gear
+        self._gearctl = gearctl
+        self._ob_hwm_run = 0
+        gear = None
         while not self.state.done:
-            self.state = self.engine.run_chunk(self.state, self.params)
+            if gearctl is not None:
+                self.state, gear, hwm = run_adaptive_chunk(
+                    gearctl, self.engine, self.state, self.params)
+                self._ob_hwm_run = max(self._ob_hwm_run, hwm)
+            else:
+                self.state = self.engine.run_chunk(self.state, self.params)
             chunks += 1
             now_ns = self.state.now
             if hb_ns and now_ns >= next_hb:
@@ -247,7 +285,7 @@ class Simulation:
                 print(
                     heartbeat_line(
                         now_ns, time.monotonic() - t0, events, microsteps, rounds,
-                        q_hwm, self.engine.host_syncs - syncs0,
+                        q_hwm, self.engine.host_syncs - syncs0, gear,
                     ),
                     file=log,
                 )
@@ -283,6 +321,8 @@ class Simulation:
                 "spilled": int(s.wheel_spilled.sum()),
                 "dropped": int(w.dropped.sum()),
             }
+        if self._gearctl is not None:
+            report["gears"] = self._gearctl.report()
         return report
 
     def _base_report(self) -> dict:
@@ -309,7 +349,9 @@ class Simulation:
             "bucket_cache_rebuilds": int(s["bq_rebuilds"].sum()),
             "popk_deferred": int(s["popk_deferred"].sum()),
             "queue_occupancy_hwm": int(s["q_occ_hwm"].max()),
-            "outbox_send_hwm": int(s["outbox_hwm"].max()),
+            # a geared run resets the device lane every chunk: fold in the
+            # run-wide maximum kept here
+            "outbox_send_hwm": max(int(s["outbox_hwm"].max()), self._ob_hwm_run),
             "monotonic_violations": int(s["monotonic_violations"].sum()),
             "determinism_digest": f"{digest:016x}",
             "model_report": self.model.report(

@@ -1,10 +1,10 @@
-"""Seeded inputs and helpers for checking the per-event chain kernels
-(K9-K11) against their plain versions: `chain_case` builds one event per
-host through ingress, a synthetic handler output and egress; `clone_carry`
-deep-copies a carry (the kernels update carries in place);
+"""Seeded inputs and helpers for checking kernels against their plain
+versions: `chain_case` builds one event per host through ingress, a
+synthetic handler output and egress (K9-K11); `merge_case` builds a queue
+and a round's [H, B] outbox for the exchange merges (K4, K13);
+`clone_carry` deep-copies a carry (the kernels update carries in place);
 `flat_tensors` lists a nested tuple's tensors for comparison. Used by
-chip_smoke.py and tests/test_torch_gpu.py; nothing on the simulation path
-imports it."""
+chip_smoke.py and the tests; nothing on the simulation path imports it."""
 
 from __future__ import annotations
 
@@ -150,3 +150,59 @@ def flat_tensors(x) -> list:
     if isinstance(x, torch.Tensor):
         return [x]
     return [t for v in x for t in flat_tensors(v)]
+
+
+MERGE_LOADS = ("fit", "hot", "full", "empty")
+
+
+def merge_case(seed: int, h: int, cap: int, b: int, gc: int, load: str, p: int = 4):
+    """numpy (queue planes (t, order, kind, payload, dropped), outbox planes
+    (dst, t, order, kind, payload)) for one exchange merge: host h staged
+    sent[h] <= gc sends in outbox columns 0..sent[h]-1 (so a gear of gc
+    columns sheds nothing), about 5% of them to out-of-range destinations.
+    Loads: `fit` — sparse queues and sends, every destination's rows fit
+    (the scatter merge's fast path), with hosts 0 and 1 both sending to host
+    7, the lower row the more urgent (so the fast path and the sort place
+    them in different slots); `hot` — half the hosts send every row to host
+    3, past the insert cap; `full` — queues with 0-1 free slots; `empty` —
+    no sends at all."""
+    r = np.random.default_rng(seed)
+    fill = (cap - r.integers(0, 2, h)) if load == "full" else r.integers(0, cap // 2, h)
+    qt = np.full((h, cap), TIME_MAX, np.int64)
+    qo = np.full((h, cap), np.iinfo(np.int64).max, np.int64)
+    live = r.random((h, cap)).argsort(axis=1) < fill[:, None]
+    n = int(live.sum())
+    qt[live] = r.integers(0, 50, n) * 1_000_000
+    qo[live] = (np.nonzero(live)[0].astype(np.int64) << 40) | np.arange(n)
+    queue = (qt, qo, r.integers(0, 1 << 18, (h, cap)).astype(np.int32),
+             r.integers(-(1 << 31), 1 << 31, (h, cap, p)).astype(np.int32),
+             r.integers(0, 5, h).astype(np.int64))
+
+    sent = np.zeros(h, np.int64) if load == "empty" else r.integers(0, gc + 1, h)
+    if load == "fit":
+        sent = sent * (r.random(h) < 0.3)
+        sent[:2] = np.maximum(sent[:2], 1)
+    col = np.arange(b)[None, :]
+    dst = r.integers(0, h, (h, b)).astype(np.int32)
+    if load == "hot":
+        dst[: h // 2, :] = 3
+    dst[r.random((h, b)) < 0.05] = h + 2  # out of range: never inserted
+    t = r.integers(50, 90, (h, b)) * 1_000_000
+    if load == "fit":
+        dst[:2, 0] = 7
+        t[:2, 0] = (40_000_000, 45_000_000)
+    t = np.where(col < sent[:, None], t, TIME_MAX).astype(np.int64)
+    order = (np.arange(h)[:, None].astype(np.int64) << 40) | (col + 64 * np.arange(h)[:, None])
+    outbox = (dst, t, order.astype(np.int64), r.integers(0, 1 << 18, (h, b)).astype(np.int32),
+              r.integers(-(1 << 31), 1 << 31, (h, b, p)).astype(np.int32))
+    return queue, outbox
+
+
+def merge_fits(queue, outbox, gc: int, r_cap: int) -> bool:
+    """Whether every destination's valid rows among the first gc columns
+    fit min(its free slots, r_cap): the scatter merge's fast path."""
+    h = queue[0].shape[0]
+    dst, t = outbox[0][:, :gc].reshape(-1), outbox[1][:, :gc].reshape(-1)
+    ok = (t != TIME_MAX) & (dst >= 0) & (dst < h)
+    cnt = np.bincount(dst[ok], minlength=h)
+    return bool((cnt <= np.minimum((queue[0] == TIME_MAX).sum(axis=1), r_cap)).all())

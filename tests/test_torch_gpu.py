@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K12 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K13 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -13,7 +13,11 @@ heavy time ties, merge segments past the insert cap; for the per-event chain
 (K9-K11) the random carries, events and handler outputs of
 `shadow_tpu_torch.testing.chain_case`, with port fields as the models hand
 them over (columns of the K-way peek, broadcasts) and K9 taking several
-events' entry stacks at once. Tolerance: exact equality — every output is an
+events' entry stacks at once; for the exchange merges (K4, K13) the queues
+and [H, B] outboxes of `shadow_tpu_torch.testing.merge_case` read through a
+column limit. A geared run on the card (where the kernels write the state
+in place) checks that a snapshot survives the chunk and repeated restores.
+Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
 repeats the check at the main path's shapes.
 """
@@ -27,7 +31,14 @@ from shadow_tpu_torch.ops import chain as pchain
 from shadow_tpu_torch.ops import events as pev
 from shadow_tpu_torch.ops import merge as pmerge
 from shadow_tpu_torch.ops import wheel as pwheel
-from shadow_tpu_torch.testing import chain_case, clone_carry, flat_tensors
+from shadow_tpu_torch.testing import (
+    MERGE_LOADS,
+    chain_case,
+    clone_carry,
+    flat_tensors,
+    merge_case,
+    merge_fits,
+)
 
 H, C, P = 24, 16, 4
 TIME_MAX = (1 << 63) - 1
@@ -299,6 +310,22 @@ def test_chain_kernels_match_plain(dev, name, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+def test_egress_without_send_ports_matches_plain(dev, seed):
+    """A model with pushes only (the timer model's handler): K11 gets no
+    send port, no entry stack and no used-latency lane, and equals its plain
+    version."""
+    case = chain_case(seed, 150, dev, n_push=1, sends=(), route="const")
+    cfg, params, ev = case["cfg"], case["params"], case["ev"]
+    out, dispatch, we = case["out"], case["dispatch"], case["window_end"]
+    got = pchain.event_egress(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we, out)
+    want = pchain.event_egress_plain(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we,
+                                     out)
+    assert got[2] is None and got[3] is None and want[2] is None
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+
+
+@pytest.mark.gpu
 def test_outbox_append_chunks_past_16_stacks(dev):
     """K9 over more entry stacks than one launch takes (the wrapper
     launches per 16): the same outbox and loss count as the plain version,
@@ -319,3 +346,62 @@ def test_outbox_append_chunks_past_16_stacks(dev):
     want = pchain.outbox_append_multi_plain(ob, stacks, lost0)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
     assert int(want[1]) > 0  # columns past the budget were counted lost
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("urgency", [True, False], ids=["urgency", "append"])
+@pytest.mark.parametrize("gc", [1, 3, 6])
+@pytest.mark.parametrize("load", MERGE_LOADS)
+def test_merge_kernels_on_sliced_outbox_match_plain(dev, load, gc, urgency):
+    """K4 and K13 read the first gc columns of a [48, 6] outbox in place:
+    the same queue planes and drops as their plain versions, and one K13
+    launch per call whichever branch it takes."""
+    q, ob = merge_case(31 + gc, 48, 8, 6, gc, load)
+    rows = [torch.as_tensor(a, device=dev) for a in ob]
+    for r_cap in (8, 5):
+        for fn, plain in ((pmerge.merge_flat_events, pmerge.merge_flat_events_plain),
+                          (pmerge.merge_scatter_free, pmerge.merge_scatter_free_plain)):
+            queue = pev.EventQueue(*(torch.as_tensor(a, device=dev) for a in q))
+            before = pmerge.KERNELS["merge_scatter"].launches
+            got = fn(clone(queue), *rows, None, r_cap, urgency, cols=gc)
+            want = plain(clone(queue), *rows, None, r_cap, urgency, cols=gc)
+            assert_all_equal(got, want)
+            assert pmerge.KERNELS["merge_scatter"].launches - before == (
+                fn is pmerge.merge_scatter_free)
+    assert merge_fits(q, ob, gc, 5) == (load in ("fit", "empty"))
+
+
+@pytest.mark.gpu
+def test_snapshot_survives_in_place_kernels_on_the_card(dev):
+    """A chunk on the card writes the queue, outbox and carry lanes in place:
+    the snapshot taken before it is intact afterwards, and two replays from
+    it give the same state."""
+    import yaml
+
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.core.checkpoint import restore_snapshot, snapshot_state
+    from shadow_tpu_torch.core.convert import to_numpy
+    from shadow_tpu_torch.sim import Simulation
+
+    cfg = yaml.safe_load("""
+general: {stop_time: 2 s, seed: 3}
+network: {graph: {type: 1_gbit_switch}}
+experimental: {event_queue_capacity: 8, sends_per_host_round: 6, rounds_per_chunk: 4,
+               merge_gears: auto}
+hosts:
+  h:
+    count: 40
+    processes: [{model: phold, model_args: {population: 3, mean_delay: 30 ms}}]
+""")
+    sim = Simulation(ConfigOptions.from_dict(cfg), device=dev)
+    eng, par = sim.engine, sim.params
+    st = eng.run_chunk(sim.state, par)
+    snap = snapshot_state(st)
+    ref = to_numpy(snap)
+    eng.run_chunk_gear(st, par, 1)  # consumes st in place
+    a = eng.run_chunk_gear(restore_snapshot(snap), par, 3)
+    b = eng.run_chunk_gear(restore_snapshot(snap), par, 3)
+    got = to_numpy(snap)
+    assert all(np.array_equal(got[k], ref[k]) for k in ref)
+    ta, tb = to_numpy(a), to_numpy(b)
+    assert all(np.array_equal(ta[k], tb[k]) for k in ta)

@@ -81,7 +81,7 @@ def test_yaml_run_matches_jax():
         "queue_next_time": 0, "queue_pop_min": 0, "queue_push_many": 0, "merge_insert": 0,
         "queue_pop_k": 0, "queue_clear_popped": 0, "queue_push_many_bucketed": 0,
         "queue_block_minima": 0, "outbox_append": 0, "event_ingress": 0, "event_egress": 0,
-        "wheel_cancel": 0,
+        "wheel_cancel": 0, "merge_scatter": 0,
     }  # the CPU path runs the plain versions, never a kernel
 
 
@@ -98,15 +98,17 @@ def test_anchor_shapes_resolve_like_jax():
 
 
 # knobs the port does not run yet, and (event_queue_block, microstep_events,
-# timer_wheel) values the JAX package rejects too: a block that does not
-# divide the capacity (12 here), K < 1, and the wheel with K > 1
+# timer_wheel, merge_gears, merge_scatter) values the JAX package rejects
+# too: a block that does not divide the capacity (12 here), K < 1, the wheel
+# with K > 1, a gear of width 0; the scatter merge under a merge-row bound
+# (merge_rows > 0 stays unsupported)
 UNSUPPORTED = {
     "world": "general: {parallelism: 2}",
     "event_queue_block": "experimental: {event_queue_block: 5}",
     "microstep_events": "experimental: {microstep_events: 0}",
-    "merge_gears": "experimental: {merge_gears: auto}",
+    "merge_gears": "experimental: {merge_gears: [0]}",
     "timer_wheel": "experimental: {timer_wheel: 16, microstep_events: 4}",
-    "merge_scatter": "experimental: {merge_scatter: true}",
+    "merge_scatter": "experimental: {merge_scatter: true, merge_rows: 64}",
     "merge_rows": "experimental: {merge_rows: 1000}",
     "cpu_delay": "experimental: {cpu_delay: 1}",
     "faults": "faults: {crashes: [{host: a1, at: 1 s}]}",
@@ -138,7 +140,7 @@ def test_unsupported_knob_raises(knob):
 @pytest.mark.parametrize("override", [
     {"general.parallelism": "4"},
     {"experimental.microstep_events": "0"},
-    {"experimental.merge_gears": "auto"},
+    {"experimental.merge_gears": "fast"},
 ])
 def test_unsupported_cli_override_raises(override):
     with pytest.raises(ConfigError):
