@@ -41,7 +41,7 @@ line reports it):
      force drops; exact equality, with the same timings as phase 2;
   8. the second main path: bench config 6 (10,000 tgen-TCP hosts on the
      10x10 torus at 50 ms, K = 4, bucketed queue of 28 slots in blocks of
-     7, 24 sends per host per round) cut to 10 simulated seconds, which must
+     7, 24 sends per host per round) cut to 5 simulated seconds, which must
      reproduce the JAX package's digest, event count, drop counters and
      tgen report for that depth, with every kernel of the path launched;
   9. where its time goes: one steady 8-round chunk, profiled as in phase 5;
@@ -77,7 +77,7 @@ line reports it):
      cut): digest, events and gears block of the JAX package;
  18. bench config 2 at full width (10,000 PHOLD hosts, 100 per node on
      the 10x10 torus at 50 ms, capacity 16, send budget 6, 512 rounds per
-     chunk, merge gears auto) cut to 60 simulated seconds (three chunks):
+     chunk, merge gears auto) cut to 30 simulated seconds (two chunks):
      the JAX package's report, gears block included; then again with
      merge_scatter on, which must give the same report through K13;
  19. bench config 5 at full width as configured: 1,000,000 timer hosts for
@@ -88,11 +88,32 @@ line reports it):
  20. config 2 small and config 5 small as configured, config 2 small with
      the gear controller started at its lowest gear (forced replays) and
      config 2 small with merge_scatter on a lossy torus at capacity 4 (some
-     rounds take K13's K4 branch): card == CPU, gears blocks included.
+     rounds take K13's K4 branch): card == CPU, gears blocks included;
+ 21. the fluid plane's kernels K14 (foreground bytes per link), K15 (the
+     rate ODE step) and K16 (per-host coupling), and K11 with the fluid
+     lanes, against their plain versions at bench config 12's shapes
+     (H = 10,000, N = 100 links, K = 4 classes, a [10,000, 24] outbox) and
+     a stress shape (K = 64, N = 1,024, zero-demand and past-window
+     classes, links over capacity), each also with an empty window, on the
+     done-round and with an irregular host -> link map; exact equality,
+     float64 and float32 compared by bits, with the timings of phase 2 and
+     an int64 `index_add_` as K14's library yardstick;
+ 22. bench config 12 at full width (config 6 plus four background crowd
+     classes on the fluid plane) without its network-observatory rider,
+     cut to 10 simulated seconds: the JAX package's report (digest, events,
+     drops, tgen report, microsteps at K = 4, the fluid block), the final
+     float64 rates bit for bit, and every kernel of the path launched,
+     K14-K16 included;
+ 23. config 12 small (128 hosts, 4x4 torus) cut to 9 sim-s as configured,
+     with loss_max 0.3 (the counter draw) and with merge gears started at
+     the lowest gear (replays across the fluid state), and cut to 4 sim-s
+     with every class's window past the horizon (whose report must equal
+     phase 10's fluid-off k4_block7 run): card == CPU, fluid and gears
+     blocks included.
 
-The phases run in the order 1-3, 7, 11, 12, 15, 4-6, 8-10, 13, 14, 16-20,
-so that every kernel's bound is counted before the profiles (5, 9) hold
-the kernels' in-path device times against it. A profiler reading below the
+The phases run in the order 1-3, 7, 11, 12, 15, 21, 4-6, 8-10, 13, 14,
+16-20, 22, 23, so that every kernel's bound is counted before the profiles
+(5, 9) hold the kernels' in-path device times against it. A profiler reading below the
 kernel's bound (the least time the card needs for the work) is a
 misattributed trace: the kernel phases then take the queued timing, the
 profiles report no time for that kernel.
@@ -103,6 +124,7 @@ The last lines are the kernel table (one JSON object), the card's
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -116,14 +138,16 @@ ANCHOR_DIGEST = "d6c9a273e3a92bb7"
 ANCHOR_EVENTS = 668_614
 # bench config 6 at full width cut to TGEN_STOP: the JAX package's report on
 # the CPU (digests, events, drops and the tgen report do not depend on K or
-# the queue layout; microsteps and popk_deferred are those of K = 4)
-TGEN_STOP = "10 s"
+# the queue layout; microsteps and popk_deferred are those of K = 4). 10
+# sim-s until phase 22 joined the script: config 12 runs the same
+# foreground to 10 sim-s
+TGEN_STOP = "5 s"
 TGEN_REF = {
-    "determinism_digest": "048dd065b5674234",
-    "events_processed": 18_793_550,
-    "rounds": 200,
-    "packets_sent": 13_462_070,
-    "packets_delivered": 13_382_220,
+    "determinism_digest": "29120f20c1c8381c",
+    "events_processed": 8_923_980,
+    "rounds": 100,
+    "packets_sent": 6_378_430,
+    "packets_delivered": 6_338_550,
     "packets_lost": 0,
     "packets_unreachable": 0,
     "packets_codel_dropped": 0,
@@ -133,14 +157,14 @@ TGEN_REF = {
     "queue_occupancy_hwm": 25,
     "outbox_send_hwm": 24,
     "monotonic_violations": 0,
-    "bucket_cache_rebuilds": 199,
-    "microsteps": 1406,
-    "popk_deferred": 4322,
+    "bucket_cache_rebuilds": 99,
+    "microsteps": 587,
+    "popk_deferred": 1151,
     "model_report": {
-        "flows_completed": 79_740, "flows_expected": 640_000,
-        "data_segments_sent": 8_748_800, "retransmits": 0, "fast_retransmits": 0,
-        "timeouts": 110, "dup_segments": 0, "mean_fct_ms": 1101.755706044645,
-        "payload_bytes_received": 12_772_780_800,
+        "flows_completed": 39_930, "flows_expected": 640_000,
+        "data_segments_sent": 4_132_480, "retransmits": 0, "fast_retransmits": 0,
+        "timeouts": 30, "dup_segments": 0, "mean_fct_ms": 1101.0768845479588,
+        "payload_bytes_received": 6_033_362_400,
     },
 }
 # bench config 11 (config 6 with the timer wheel: 4 slots in blocks of 2,
@@ -181,17 +205,18 @@ SCALE40K_REF = {
     "determinism_digest": "c2510c8c586dc77b", "events_processed": 1_395_073,
     "gears": {"ladder": [1, 3, 6, 12], "chunks_per_gear": {"12": 3}, "replays": 0},
 }
-# bench config 2 at full width cut to CFG2_STOP (three 512-round chunks):
-# the JAX package's report on the CPU (the same with merge_scatter on). Its
-# three chunks stay at the top gear: the 512-round high-water is 5 of 6
-CFG2_STOP = "60 s"
+# bench config 2 at full width cut to CFG2_STOP (600 rounds: chunks of 512
+# and 88): the JAX package's report on the CPU (the same with merge_scatter
+# on). Both chunks stay at the top gear: the 512-round high-water is 5 of 6
+# (60 sim-s until phase 22 joined the script)
+CFG2_STOP = "30 s"
 CFG2_REF = {
-    "determinism_digest": "1bfd7953b4bb5c1e",
-    "events_processed": 5_342_188,
-    "rounds": 1200,
-    "microsteps": 6435,
-    "packets_sent": 2_676_641,
-    "packets_delivered": 2_665_547,
+    "determinism_digest": "9c7d37b4eb59bd5f",
+    "events_processed": 2_677_755,
+    "rounds": 600,
+    "microsteps": 3221,
+    "packets_sent": 1_344_477,
+    "packets_delivered": 1_333_278,
     "packets_lost": 0,
     "packets_unreachable": 0,
     "packets_codel_dropped": 0,
@@ -203,8 +228,8 @@ CFG2_REF = {
     "monotonic_violations": 0,
     "bucket_cache_rebuilds": 0,
     "popk_deferred": 0,
-    "model_report": {"total_events": 5_342_188, "min": 419, "max": 654},
-    "gears": {"ladder": [1, 3, 6], "chunks_per_gear": {"6": 3}, "replays": 0},
+    "model_report": {"total_events": 2_677_755, "min": 184, "max": 362},
+    "gears": {"ladder": [1, 3, 6], "chunks_per_gear": {"6": 2}, "replays": 0},
 }
 # bench config 5 at full width as configured: the JAX package's report on
 # the CPU (no gears block: a send budget of 1 leaves no ladder)
@@ -227,6 +252,52 @@ CFG5_REF = {
     "monotonic_violations": 0,
     "model_report": {"total_fires": 30_000_000, "min_fires": 30, "max_fires": 30},
 }
+# bench config 12 (config 6 plus the fluid crowd) at full width cut to
+# CFG12_STOP, without its network-observatory rider: the JAX package's
+# report on the CPU at K = 4 (the K = 1 report differs only in microsteps
+# and popk_deferred), and the final rates' float64 bits
+CFG12_STOP = "10 s"
+CFG12_REF = {
+    "determinism_digest": "6dff193320167834",
+    "events_processed": 18_698_173,
+    "rounds": 200,
+    "microsteps": 1720,
+    "packets_sent": 13_390_425,
+    "packets_delivered": 13_311_449,
+    "packets_lost": 0,
+    "packets_unreachable": 0,
+    "packets_codel_dropped": 0,
+    "queue_overflow_dropped": 0,
+    "packets_budget_dropped": 0,
+    "outbox_overflow_dropped": 0,
+    "queue_occupancy_hwm": 26,
+    "outbox_send_hwm": 24,
+    "monotonic_violations": 0,
+    "bucket_cache_rebuilds": 199,
+    "popk_deferred": 10_429,
+    "model_report": {
+        "flows_completed": 79_446, "flows_expected": 640_000,
+        "data_segments_sent": 8_702_372, "retransmits": 0, "fast_retransmits": 0,
+        "timeouts": 110, "dup_segments": 0, "mean_fct_ms": 1106.5468123001788,
+        "payload_bytes_received": 12_702_324_120,
+    },
+    "fluid": {
+        "classes": 4, "links": 100, "bg_bytes": 1_110_975_040, "bg_dropped": 1_514_024_958,
+        "delivered_share": 0.4232,
+        "link_util_final": [3.0, 0.7594, 0.76, 0.8074, 0.0185, 0.7546, 0.007, 0.0051, 0.0051,
+                            0.0068]
+        + 8 * [0.0068, 0.0051, 0.0051, 0.0051, 0.0051, 0.0051, 0.0051, 0.0051, 0.0051, 0.0068]
+        + [0.0068, 0.0051, 0.0051, 0.0051, 0.0051, 0.0051, 0.0051, 0.0051, 0.0051, 0.0049],
+        "link_util_max": 3.0, "loss_max": 0.0, "latency_factor_max": 1.5,
+    },
+}
+CFG12_FINAL = {
+    "rates_hex": 4 * ["0x1.dcd2cc0000000p+25"],
+    "link_util_sha256": "225d6f56870b856450ae04ceb15eb8deccbe9a0f325514879cf28c4af85a3b9f",
+}
+CFG12_SMALL_CUT = "9 s"
+# config 12's fluid shapes: links (the torus's nodes) and classes
+N12, K12 = 100, 4
 # config 6's queue shapes: hosts, slots, block, K, push ports of a K = 4
 # tgen microstep (ingress requeue + the model's two pushes, per event)
 H6, C6, BLK6, K6, NP6 = 10_000, 28, 7, 4, 12
@@ -262,8 +333,13 @@ graph [
 """
 
 
+T_START = time.monotonic()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase line, with the script's elapsed seconds (`t`)."""
+    print(json.dumps({"phase": phase, **kw, "t": round(time.monotonic() - T_START, 1)}),
+          flush=True)
 
 
 def torus_gml(side: int, lat_ms: int = 10) -> str:
@@ -321,6 +397,30 @@ def cfg11_config(small: bool, stop: str, wheel: int = 4, loss: float = 0.0) -> d
     wheel, capacity 14 in blocks of 7, K = 1, and `stop` for its 120 s."""
     c = tgen_config(small, stop, k=1, block=7, cap=14, loss=loss)
     c["experimental"]["timer_wheel"] = wheel
+    return c
+
+
+def cfg12_config(small: bool, stop: str, *, loss_max: float | None = None,
+                 zero_demand: bool = False, gears: bool = False) -> dict:
+    """bench.py baseline_config(12, small) as built off the CPU (K = 4),
+    without its `observability: {network: true}` rider (digest-neutral,
+    PERF.md section 4): config 6 at 128 rounds per chunk plus four
+    background crowd classes, 1,500 Mbit each from zones 1, 2, 3 and 5 to
+    zone 0 on 2 Gbit links from 5, 6, 7 and 8 s, latency factor up to 1.5
+    from utilization 0.5; `stop` for its 120 s. `loss_max` turns the loss
+    coupling on, `zero_demand` moves every window past the horizon, `gears`
+    turns merge gears (auto) on."""
+    c = tgen_config(small, stop, rounds_per_chunk=128)
+    c["fluid"] = {
+        "link_capacity": "2 Gbit", "latency_factor_max": 1.5, "util_threshold": 0.5,
+        "classes": [{"name": f"crowd{i}", "src_zone": z, "dst_zone": 0, "rate": "1500 Mbit",
+                     "start": "1000 s" if zero_demand else f"{5 + i} s"}
+                    for i, z in enumerate((1, 2, 3, 5))],
+    }
+    if loss_max is not None:
+        c["fluid"]["loss_max"] = loss_max
+    if gears:
+        c["experimental"]["merge_gears"] = "auto"
     return c
 
 
@@ -546,6 +646,14 @@ def check_equal(name: str, got, want) -> float:
     for i, (x, y) in enumerate(zip(got, want)):
         if x.shape != y.shape or not torch.equal(x, y):
             raise AssertionError(f"{name}: output {i} differs from the plain version")
+    return max_abs_err(got, want)
+
+
+def check_bits(name: str, got, want) -> float:
+    """`check_equal` with every float compared by its bits."""
+    def b(x):
+        return x.view({torch.float64: torch.int64, torch.float32: torch.int32}.get(x.dtype, x.dtype))
+    check_equal(name, [b(x) for x in got], [b(x) for x in want])
     return max_abs_err(got, want)
 
 
@@ -1093,6 +1201,128 @@ def phase_kernels_chain(dev) -> dict[str, dict]:
     return results
 
 
+def phase_kernels_fluid(dev) -> dict[str, dict]:
+    """K14-K16 and fluid-on K11 against their plain versions at config 12's
+    shapes (H = 10,000 hosts, 100 per link on N = 100 links, K = 4 classes,
+    a [10,000, 24] outbox) and a stress shape (K = 64, N = 1,024), each on
+    seeded inputs with zero-demand and past-window classes and links over
+    capacity, and again with an empty window, on the done-round and with an
+    irregular host -> link map. Exact equality, floats by bits. Timings at
+    config 12's shape."""
+    from shadow_tpu_torch.net import fluid as fl
+    from shadow_tpu_torch.ops import chain
+    from shadow_tpu_torch.testing import clone_carry, flat_tensors, fluid_case
+
+    names = ("fluid_fg_link_bytes", "fluid_advance", "fluid_host_effects", "event_egress")
+    err = dict.fromkeys(names, 0.0)
+    variants = ((1, {}), (2, {"dt_zero": True}), (3, {"done": True}), (4, {"affine": False}))
+    for shape, (n, k) in {"cfg12": (N12, K12), "stress": (1024, 64)}.items():
+        for seed, kw in variants:
+            c = fluid_case(seed, H, n, k, dev, **kw)
+            cfg, fp, st, nof = c["cfg"], c["fp"], c["st"], c["node_of"]
+            ob = (c["ob_dst"], c["ob_t"], c["ob_payload"])
+            tag = f"{shape}/{seed}"
+            err["fluid_fg_link_bytes"] = max(err["fluid_fg_link_bytes"], check_equal(
+                f"K14/{tag}", [fl.fluid_fg_link_bytes(cfg, *ob, nof)],
+                [fl.fluid_fg_link_bytes_plain(cfg, *ob, nof)]))
+            args = (c["fg"], c["now"], c["window_end"], c["done"])
+            got = fl.fluid_advance(cfg, fp, clone_carry(st), *args, c["bg_bytes"].clone(),
+                                   c["bg_dropped"].clone())
+            want = fl.fluid_advance_plain(cfg, fp, st, *args, c["bg_bytes"], c["bg_dropped"])
+            err["fluid_advance"] = max(err["fluid_advance"], check_bits(
+                f"K15/{tag}", flat_tensors(got), flat_tensors(want)))
+            nodes = fl.host_nodes(cfg, nof, cfg.num_hosts)
+            err["fluid_host_effects"] = max(err["fluid_host_effects"], check_bits(
+                f"K16/{tag}", list(fl.fluid_host_effects(cfg, fp, st, nof)),
+                list(fl.fluid_host_effects_plain(cfg, fp, st, nodes))))
+            if shape == "cfg12" and seed in (1, 4):
+                ch = c["chain"]
+                eargs = (ch["params"], ch["cfg"], ch["ev"].t, ch["dispatch"], ch["window_end"],
+                         ch["out"], ch["fluid_fx"])
+                err["event_egress"] = max(err["event_egress"], check_equal(
+                    f"K11-fluid/{tag}", flat_tensors(chain.event_egress(
+                        clone_carry(ch["carry"]), *eargs)),
+                    flat_tensors(chain.event_egress_plain(clone_carry(ch["carry"]), *eargs))))
+            if shape == "cfg12" and seed == 1:
+                keep = (c, cfg, fp, st, nof, ob, nodes)
+    torch.cuda.synchronize()
+
+    # timings on config 12's shape, seed 1
+    c, cfg, fp, st, nof, ob, nodes = keep
+    results = {}
+    t = ob[1]
+    n_valid = int((t != TIME_MAX).sum())
+    # the time plane; each valid row's destination and size word; the [N] sums
+    r14 = kernel_ms("fluid_fg_link_bytes", lambda: fl.fluid_fg_link_bytes(cfg, *ob, nof))
+    r14["plain_ms"] = time_ms(lambda: fl.fluid_fg_link_bytes_plain(cfg, *ob, nof))
+    valid = t != TIME_MAX
+    size = torch.where(valid, ob[2][:, :, 0].to(torch.int64), 0).reshape(-1)
+    src_l = torch.clamp(nodes, 0, N12 - 1)[:, None].expand(-1, t.shape[1]).reshape(-1)
+    dst_h = torch.clamp(ob[0].reshape(-1).to(torch.int64), 0, H - 1)
+    dst_l = torch.clamp(torch.div(dst_h, cfg.hosts_per_node, rounding_mode="floor"), 0, N12 - 1)
+    idx, vals = torch.cat([src_l, dst_l]), torch.cat([size, size])
+    r14["library_ms"] = time_ms(
+        lambda: torch.zeros((N12,), dtype=torch.int64, device=dev).index_add_(0, idx, vals))
+    r14["library_call"] = "torch.zeros(N).index_add_ over the (link, size) pairs, int64"
+    r14["bound"] = bound(t.numel() * 8 + n_valid * 8 + N12 * 8, 2 * n_valid)
+    results["fluid_fg_link_bytes"] = r14
+
+    args = (c["fg"], c["now"], c["window_end"], False)
+
+    def adv_setup():
+        return clone_carry(st), c["bg_bytes"].clone(), c["bg_dropped"].clone()
+
+    r15 = kernel_ms("fluid_advance", lambda s_, a_, b_: fl.fluid_advance(
+        cfg, fp, s_, *args, a_, b_), adv_setup)
+    r15["plain_ms"] = time_ms(lambda s_, a_, b_: fl.fluid_advance_plain(
+        cfg, fp, s_, *args, a_, b_), adv_setup)
+    r15["library_ms"] = None
+    r15["library_why"] = "no single PyTorch call computes the step"
+    # the schedule and rates read, capacity and foreground bytes read, rates
+    # and utilization written, two counters; about 10 float64 operations per
+    # (class, link) pair for the link loads and shares
+    r15["bound"] = bound(K12 * (4 + 4 + 8 + 8 + 8 + 8 + 8) + N12 * (8 + 8 + 8) + 2 * 16,
+                         10 * K12 * N12)
+    results["fluid_advance"] = r15
+
+    r16 = kernel_ms("fluid_host_effects", lambda: fl.fluid_host_effects(cfg, fp, st, nof))
+    r16["plain_ms"] = time_ms(lambda: fl.fluid_host_effects_plain(cfg, fp, st, nodes))
+    r16["library_ms"] = None
+    r16["library_why"] = "no single PyTorch call computes the coupling"
+    # classes and utilization read, loss f32 and latency i64 written per host
+    r16["bound"] = bound(K12 * (4 + 4 + 8) + N12 * 8 + H * (4 + 8), H * (3 * K12 + 8))
+    results["fluid_host_effects"] = r16
+
+    ch = c["chain"]
+    eargs = (ch["params"], ch["cfg"], ch["ev"].t, ch["dispatch"], ch["window_end"], ch["out"],
+             ch["fluid_fx"])
+    r11 = kernel_ms("event_egress", lambda cc: chain.event_egress(cc, *eargs),
+                    lambda: (clone_carry(ch["carry"]),))
+    # the same case without the fluid lanes: what they cost K11
+    r11["fluid_off_ms"] = kernel_ms(
+        "event_egress", lambda cc: chain.event_egress(cc, *eargs[:-1]),
+        lambda: (clone_carry(ch["carry"]),))["ms"]
+    r11["plain_ms"] = time_ms(lambda cc: chain.event_egress_plain(cc, *eargs),
+                              lambda: (clone_carry(ch["carry"]),))
+    egr = chain.event_egress_plain(clone_carry(ch["carry"]), *eargs)
+    out, c0, c2 = ch["out"], ch["carry"], egr[0]
+    r11["bound"] = bound(io_bytes(
+        reads=[ch["ev"].t, ch["dispatch"], ch["params"].eg_tb.capacity,
+               ch["params"].eg_tb.refill, *ch["fluid_fx"],
+               *[x for p in out.pushes for x in (p.mask, p.t, p.kind)],
+               *[x for sp in out.sends for x in (sp.mask, sp.dst, sp.size_bytes, sp.kind,
+                                                 sp.payload, sp.count, sp.payload_inc)]],
+        writes=[*[x for p in egr[1] for x in p[:4]], *egr[2], egr[3]],
+        inplace=list(zip(flat_tensors([c0.stats, c0.rng, c0.seq, c0.sent_round, c0.tb_egress]),
+                         flat_tensors([c2.stats, c2.rng, c2.seq, c2.sent_round,
+                                       c2.tb_egress])))) + len(out.sends) * H * 20, 700 * H)
+    results["event_egress_fluid"] = r11
+    for name, r in results.items():
+        settle(name, r, r["bound"][0])
+        r["max_abs_err"] = err["event_egress" if name == "event_egress_fluid" else name]
+    return results
+
+
 def phase_codel_law(dev) -> dict:
     """The CoDel control law through K10 over every count 1..10^6: one host
     per count, each dropping with count - 1 drops and due, its packet
@@ -1172,6 +1402,9 @@ KERNEL_SYMBOLS = {
     "event_ingress": ("event_ingress_kernel",),
     "event_egress": ("event_egress_kernel",),
     "wheel_cancel": ("wheel_cancel_kernel",),
+    "fluid_fg_link_bytes": ("fg_link_bytes_kernel",),
+    "fluid_advance": ("fluid_advance_kernel",),
+    "fluid_host_effects": ("fluid_host_effects_kernel",),
 }
 # the microstep's per-event steps, marked as profiler ranges in phases 5 and 9
 RANGES = ("ingress", "handler", "egress", "outbox_append")
@@ -1195,8 +1428,7 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
 
     import shadow_tpu_torch.core.engine as engine_mod
     from shadow_tpu_torch.config.options import ConfigOptions
-    from shadow_tpu_torch.ops import KERNELS
-    from shadow_tpu_torch.sim import Simulation
+    from shadow_tpu_torch.sim import KERNELS, Simulation
 
     def ranged(name, fn):
         def wrapped(*a, **kw):
@@ -1334,6 +1566,35 @@ def gear_small_configs() -> dict[str, tuple[dict, dict]]:
     }
 
 
+def cfg12_small_configs() -> dict[str, dict | tuple[dict, dict]]:
+    """Config 12 small (bench.py baseline_config(12, small=True), 128 hosts
+    on the 4x4 torus, without the rider) cut to CFG12_SMALL_CUT, after all
+    four crowd windows have opened (5-8 s): as configured, with the loss
+    coupling at 0.3, and with merge gears started at the lowest gear of the
+    auto ladder [3, 6, 12, 24]; and with every class's window past the
+    horizon, cut to phase 10's 4 s so that its report can be held to the
+    fluid-off k4_block7 run there (the same foreground; rounds per chunk
+    change no result)."""
+    return {
+        "as_configured": cfg12_config(True, CFG12_SMALL_CUT),
+        "loss_0.3": cfg12_config(True, CFG12_SMALL_CUT, loss_max=0.3),
+        "zero_demand": cfg12_config(True, "4 s", zero_demand=True),
+        "gears_from_lowest": (cfg12_config(True, CFG12_SMALL_CUT, gears=True),
+                              {"start_gear": 3}),
+    }
+
+
+def fluid_final(sim) -> dict:
+    """The fluid state at the end of a run: each rate's float64 bits (hex)
+    and a SHA-256 of the link utilizations' little-endian float64 bytes."""
+    st = sim.state.fluid
+    return {
+        "rates_hex": [float(x).hex() for x in st.rates.cpu().tolist()],
+        "link_util_sha256": hashlib.sha256(
+            st.link_util.cpu().numpy().astype("<f8").tobytes()).hexdigest(),
+    }
+
+
 def run_config(cfg_dict: dict, device, **run_kw) -> dict:
     from shadow_tpu_torch.config.options import ConfigOptions
     from shadow_tpu_torch.sim import Simulation
@@ -1364,19 +1625,23 @@ def card_vs_cpu(phase: str, configs: dict, keys: tuple) -> dict:
     return out
 
 
-def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple) -> tuple[dict, dict]:
+def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple,
+            final=None) -> tuple[dict, dict]:
     """One full-width leg with every launch counter set to 0 just before
-    and read just after: the report must equal the JAX constants `ref` and
-    every kernel of `path` must have launched. Prints the run loop's wall
+    and read just after: the report must equal the JAX constants `ref`,
+    `final(sim)` (where given) must equal its JAX constants, and every
+    kernel of `path` must have launched. Prints the run loop's wall
     (`wall_seconds`), the wall with the build (`build_and_run_seconds`) and
     the card's peak allocated memory. Returns (counts, report)."""
-    from shadow_tpu_torch.ops import KERNELS
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.sim import KERNELS, Simulation
 
     for k in KERNELS.values():
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    report = run_config(cfg_dict, None)
+    sim = Simulation(ConfigOptions.from_dict(cfg_dict))
+    report = sim.run(progress=False)
     total = time.monotonic() - t0
     launches = {k: v.launches for k, v in KERNELS.items()}
     emit(name, **{k: report.get(k) for k in (*ref, "rounds", "microsteps", "gears")},
@@ -1385,6 +1650,11 @@ def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple) -> tuple[dict, di
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          launches=launches)
     diff = {k: (report.get(k), v) for k, v in ref.items() if report.get(k) != v}
+    if final is not None:
+        got, want = final[0](sim), final[1]
+        emit(f"{name}_final_state", **got, equal_to_jax=got == want)
+        if got != want:
+            diff["final_state"] = (got, want)
     if diff:
         raise AssertionError(f"{name}: differs from the JAX reference (port, JAX): {diff}")
     if not all(launches[k] for k in path):
@@ -1406,9 +1676,14 @@ CFG2_PATH = ANCHOR_PATH
 CFG2_SCATTER_PATH = tuple("merge_scatter" if k == "merge_insert" else k for k in ANCHOR_PATH)
 CFG5_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "event_ingress",
              "event_egress")
+# config 12 is config 6's path plus the fluid plane's three kernels, each
+# once per round
+FLUID_PATH = ("fluid_fg_link_bytes", "fluid_advance", "fluid_host_effects")
+CFG12_PATH = TGEN_PATH + FLUID_PATH
 SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
            "merge_scatter": "shadow_tpu_torch/csrc/merge.cu",
-           **{k: "shadow_tpu_torch/csrc/event.cu" for k in CHAIN_PATH}}
+           **{k: "shadow_tpu_torch/csrc/event.cu" for k in CHAIN_PATH},
+           **{k: "shadow_tpu_torch/csrc/fluid.cu" for k in FLUID_PATH}}
 REPLACES = {
     "queue_next_time": "shadow_tpu/ops/events.py:129",
     "queue_pop_min": "shadow_tpu/ops/events.py:138",
@@ -1423,6 +1698,9 @@ REPLACES = {
     "event_ingress": "shadow_tpu/core/engine.py:2280",
     "event_egress": "shadow_tpu/core/engine.py:2415",
     "wheel_cancel": "shadow_tpu/ops/wheel.py:123",
+    "fluid_fg_link_bytes": "shadow_tpu/core/engine.py:2202",
+    "fluid_advance": "shadow_tpu/net/fluid.py:222",
+    "fluid_host_effects": "shadow_tpu/net/fluid.py:270",
 }
 # the path whose run each kernel's `launches` is read from: the one it was
 # ported for (wheel_cancel has no engine caller, in either package)
@@ -1433,6 +1711,7 @@ PORTED_FOR = {
                            "queue_block_minima", *CHAIN_PATH)},
     "wheel_cancel": "cfg11",
     "merge_scatter": "cfg2_scatter",
+    **{k: "cfg12" for k in FLUID_PATH},
 }
 
 
@@ -1496,6 +1775,14 @@ def main() -> int:
     kres["merge_insert"]["gear_width_timing"] = mres.pop("merge_insert_cols")
     kres.update(mres)
 
+    fres = phase_kernels_fluid(dev)
+    emit("kernels_fluid_vs_plain", ok=True, exact=True,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in fres.items()})
+    egf = fres.pop("event_egress_fluid")
+    egf["bound_ms"] = egf.pop("bound")[0]
+    kres["event_egress"]["fluid_on"] = egf
+    kres.update(fres)
+
     # least device time per call at each path's shapes: the kernel phases'
     # bounds; K1 and K4 on the tgen path (block caches, 24-wide outbox) get
     # the bytes every call reads whatever the data (the caches' time plane
@@ -1522,11 +1809,11 @@ def main() -> int:
                                          tgen_floors))
 
     keys += ("bucket_cache_rebuilds", "popk_deferred", "model_report")
-    small = card_vs_cpu("tgen_small", tgen_small_configs(), keys)
-    if not (small["lossy_k4_block7"]["packets_lost"]
-            and small["lossy_k4_block7"]["model_report"]["retransmits"]):
+    tgen_small = card_vs_cpu("tgen_small", tgen_small_configs(), keys)
+    if not (tgen_small["lossy_k4_block7"]["packets_lost"]
+            and tgen_small["lossy_k4_block7"]["model_report"]["retransmits"]):
         raise AssertionError("lossy_k4_block7: no loss or retransmit was exercised")
-    if not small["tight_k4_cap9_block3"]["queue_overflow_dropped"]:
+    if not tgen_small["tight_k4_cap9_block3"]["queue_overflow_dropped"]:
         raise AssertionError("tight_k4_cap9_block3: no queue overflow drop was exercised")
 
     launches["cfg11"] = run_leg("cfg11", cfg11_config(False, CFG11_STOP), CFG11_REF,
@@ -1562,6 +1849,23 @@ def main() -> int:
         raise AssertionError("cfg5_small: the controller never settled at the bottom gear")
     if not small["cfg2_small_scatter_lossy_cap4"]["queue_overflow_dropped"]:
         raise AssertionError("cfg2_small_scatter_lossy_cap4: no round took K13's K4 branch")
+
+    # the fluid plane on bench config 12
+    launches["cfg12"], rep12 = run_leg("cfg12", cfg12_config(False, CFG12_STOP), CFG12_REF,
+                                       CFG12_PATH, final=(fluid_final, CFG12_FINAL))
+    emit("cfg12_launches_per_round",
+         **{k: launches["cfg12"][k] / rep12["rounds"] for k in CFG12_PATH})
+    small12 = card_vs_cpu("cfg12_small", cfg12_small_configs(),
+                          keys + ("outbox_send_hwm", "fluid", "gears"))
+    off, zero = tgen_small["k4_block7"], small12["zero_demand"]
+    emit("cfg12_small_zero_demand_vs_fluid_off", fluid_off=off["determinism_digest"],
+         zero_demand=zero["determinism_digest"])
+    if any(off[k] != zero[k] for k in keys) or zero["fluid"]["bg_bytes"]:
+        raise AssertionError("cfg12 small: the zero-demand fluid run differs from fluid-off")
+    if not small12["loss_0.3"]["packets_lost"] > small12["as_configured"]["packets_lost"]:
+        raise AssertionError("cfg12 small loss_max 0.3: the fluid loss draw dropped nothing")
+    if not small12["gears_from_lowest"]["gears"]["replays"]:
+        raise AssertionError("cfg12 small from the lowest gear: no chunk shed and replayed")
     emit("total", seconds=round(time.monotonic() - t_start, 3))
 
     table = []
@@ -1576,6 +1880,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"],
+            **({"fluid_on": {k: r["fluid_on"][k] for k in ("ms", "call_ms", "plain_ms",
+                                                            "bound_ms")}}
+               if "fluid_on" in r else {}),
         })
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

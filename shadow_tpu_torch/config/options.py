@@ -10,8 +10,8 @@ never silently run with a plane switched off:
   - `general.parallelism > 1` (world > 1);
   - `experimental.merge_rows > 0`, `cpu_delay > 0`, `scheduler:
     cpu-reference`;
-  - any non-empty `faults`, `fluid`, `pressure`, `integrity` or `campaign`
-    block, and any enabled `observability` knob (`trace`, `network`, ...);
+  - any non-empty `faults`, `pressure`, `integrity` or `campaign` block,
+    and any enabled `observability` knob (`trace`, `network`, ...);
   - `pcap_enabled`, managed processes (`path:`), and models other than
     phold, udp_echo, timer and tgen_tcp (checked when the simulation is
     built).
@@ -22,7 +22,9 @@ never silently run with a plane switched off:
 widths, resolved against the send budget by `core/gears.py`) and
 `merge_scatter` (the sort-free exchange merge) are accepted with the JAX
 package's validation: the block is >= 0 and divides the queue capacity,
-K >= 1, and the gears' list entries are positive ints.
+K >= 1, and the gears' list entries are positive ints. The `fluid` block
+(background traffic classes, net/fluid.py) is parsed and validated as the
+JAX package's `FluidOptions`, error texts included.
 
 `ExperimentalOptions.resolve_shapes` is the JAX package's auto-sizing rule,
 copied verbatim, so both packages resolve a config to the same queue
@@ -298,6 +300,120 @@ def parse_merge_gears(mg: Any) -> Any:
     return mg or 0
 
 
+@dataclass
+class FluidClassOptions:
+    """One background traffic class of the fluid plane (net/fluid.py):
+    an aggregate src-zone -> dst-zone demand active over [start, end).
+    Zones are graph node ids; the class occupies both zones' access
+    links."""
+
+    src_zone: int = 0
+    dst_zone: int = 0
+    rate: int = 0  # offered demand while active, bits/sec
+    start: int = 0  # ns
+    end: int = 0  # ns; 0 = the simulation horizon
+
+    @staticmethod
+    def from_dict(d: dict[str, Any]) -> "FluidClassOptions":
+        d = dict(d)
+        if "rate" not in d:
+            raise ConfigError("fluid.classes entries need a rate")
+        d.pop("name", None)  # labels are allowed, purely documentary
+        c = FluidClassOptions(
+            src_zone=int(d.pop("src_zone", 0)),
+            dst_zone=int(d.pop("dst_zone", 0)),
+            rate=parse_bits_per_sec(d.pop("rate")),
+            start=parse_time_ns(d.pop("start", 0), TimeUnit.SEC),
+            end=parse_time_ns(d.pop("end", 0), TimeUnit.SEC),
+        )
+        if c.rate <= 0:
+            raise ConfigError(
+                f"fluid.classes: rate must be > 0, got {c.rate}"
+            )
+        if c.end and c.end <= c.start:
+            raise ConfigError(
+                f"fluid.classes: end {c.end} <= start {c.start}"
+            )
+        if d:
+            raise ConfigError(f"unknown fluid class options: {sorted(d)}")
+        return c
+
+
+@dataclass
+class FluidOptions:
+    """The fluid traffic plane (net/fluid.py): background-flow rate ODEs
+    advanced once per round, coupled to the packet engine — background
+    utilization inflates foreground latency (>= 1.0x) and optionally
+    loss, while measured foreground bytes subtract from fluid capacity.
+    With no classes the engine runs no fluid code."""
+
+    # per-link (graph-node access aggregate) capacity, bits/sec
+    link_capacity: int = parse_bits_per_sec("1 Gbit")
+    # rate-relaxation time constant of the forward-Euler ODE (ns)
+    tau: int = parse_time_ns("50 ms")
+    # offered utilization where coupling starts ramping (RED min-th)
+    util_threshold: float = 0.7
+    # extra foreground loss probability at full overload (0 = coupling
+    # is latency-only)
+    loss_max: float = 0.0
+    # foreground latency multiplier at full overload; >= 1.0 (inflation
+    # only — deflation would break the conservative-lookahead bound)
+    latency_factor_max: float = 2.0
+    seed: int | None = None  # None = general.seed (the loss-draw hash)
+    classes: list[FluidClassOptions] = field(default_factory=list)
+
+    @property
+    def active(self) -> bool:
+        return bool(self.classes)
+
+    @staticmethod
+    def from_dict(d: dict[str, Any] | None) -> "FluidOptions":
+        d = dict(d or {})
+        seed = d.pop("seed", None)
+        f = FluidOptions(
+            link_capacity=parse_bits_per_sec(
+                d.pop("link_capacity", "1 Gbit")
+            ),
+            tau=parse_time_ns(d.pop("tau", "50 ms"), TimeUnit.MS),
+            util_threshold=float(d.pop("util_threshold", 0.7)),
+            loss_max=float(d.pop("loss_max", 0.0)),
+            latency_factor_max=float(d.pop("latency_factor_max", 2.0)),
+            seed=int(seed) if seed is not None else None,
+            classes=[
+                FluidClassOptions.from_dict(c)
+                for c in d.pop("classes", []) or []
+            ],
+        )
+        f.validate()
+        if d:
+            raise ConfigError(f"unknown fluid options: {sorted(d)}")
+        return f
+
+    def validate(self) -> None:
+        """The JAX package's range checks (re-run after CLI overrides)."""
+        if self.link_capacity <= 0:
+            raise ConfigError(
+                f"fluid.link_capacity must be > 0, got {self.link_capacity}"
+            )
+        if self.tau <= 0:
+            raise ConfigError(f"fluid.tau must be > 0, got {self.tau}")
+        if not 0.0 <= self.util_threshold < 1.0:
+            raise ConfigError(
+                f"fluid.util_threshold must be in [0, 1), "
+                f"got {self.util_threshold}"
+            )
+        if not 0.0 <= self.loss_max <= 1.0:
+            raise ConfigError(
+                f"fluid.loss_max must be in [0, 1], got {self.loss_max}"
+            )
+        if self.latency_factor_max < 1.0:
+            raise ConfigError(
+                f"fluid.latency_factor_max must be >= 1.0 (got "
+                f"{self.latency_factor_max}; deflation would shrink latency "
+                f"below the conservative-lookahead bound)"
+            )
+
+
 def _reject_block(name: str, d: Any) -> None:
     """Optional planes of the JAX package: an absent or empty block is the
     plane switched off; anything else names what the port cannot run."""
@@ -402,15 +518,16 @@ class ConfigOptions:
     experimental: ExperimentalOptions = field(default_factory=ExperimentalOptions)
     host_option_defaults: HostDefaultOptions = field(default_factory=HostDefaultOptions)
     hosts: list[HostOptions] = field(default_factory=list)
+    fluid: FluidOptions = field(default_factory=FluidOptions)
 
     @staticmethod
     def from_dict(d: dict[str, Any]) -> "ConfigOptions":
         d = dict(d)
         if "general" not in d:
             raise ConfigError("`general` section is required")
-        for block in ("faults", "fluid", "pressure", "integrity", "campaign",
-                      "observability"):
+        for block in ("faults", "pressure", "integrity", "campaign", "observability"):
             _reject_block(block, d.pop(block, None))
+        fluid = FluidOptions.from_dict(d.pop("fluid", None))
         defaults = HostDefaultOptions.from_dict(d.pop("host_option_defaults", None))
         hosts: list[HostOptions] = []
         for name, hd in (d.pop("hosts", {}) or {}).items():
@@ -429,6 +546,7 @@ class ConfigOptions:
             experimental=ExperimentalOptions.from_dict(d.pop("experimental", None)),
             host_option_defaults=defaults,
             hosts=hosts,
+            fluid=fluid,
         )
         if d:
             raise ConfigError(f"unknown top-level sections: {sorted(d)}")
@@ -444,6 +562,7 @@ class ConfigOptions:
         if self.host_option_defaults.pcap_enabled:
             raise _unsupported("pcap_enabled")
         self.experimental.validate()
+        self.fluid.validate()
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
@@ -489,8 +608,10 @@ def merge_cli_overrides(cfg: ConfigOptions, overrides: dict[str, str]) -> Config
                 val = parse_time_ns(val, TimeUnit.SEC)
             elif leaf == "runahead":
                 val = parse_time_ns(val, TimeUnit.MS)
-            elif leaf.startswith("bandwidth_"):
+            elif leaf.startswith("bandwidth_") or leaf == "link_capacity":
                 val = parse_bits_per_sec(val)
+            elif leaf == "tau":
+                val = parse_time_ns(val, TimeUnit.MS)
             elif leaf == "merge_gears":
                 pass  # polymorphic (off|auto|int|[ints]); validate() checks it
             elif isinstance(cur, bool):

@@ -7,7 +7,10 @@ tensors IN PLACE on CUDA (K3-K13). A snapshot that shared storage with the
 live state would be overwritten by the very chunk it is meant to undo, so a
 snapshot is a deep copy of every tensor: queue and wheel planes and caches,
 outbox, RNG lanes, token buckets, CoDel, seq, `sent_round`,
-`min_used_lat`, every stats lane and the model's state dict. Restoring
+`min_used_lat`, every stats lane (the fluid plane's byte counters too),
+the fluid plane's rates and link utilization (K15 writes them in place, so
+a replayed chunk restarts the ODE from the pre-chunk state and never
+advances it twice) and the model's state dict. Restoring
 copies again, so one snapshot survives any number of replays (a replay at
 a middle gear can shed again and need another restore).
 """

@@ -7,10 +7,12 @@ port's `(params, state)` on the requested device; uint64 lanes (RNG state,
 digests) are reinterpreted bit for bit as int64, and uint32 lanes (tgen's
 reassembly bitmap) are widened to int64 holding 0..2^32-1. A flat queue
 comes across as `EventQueue`, a bucketed one (with its bt/bo/bfill caches)
-as `BucketQueue`, and a timer wheel (with its `wheel_spilled` and
-`wheel_occ_hwm` stats lanes) as the port's wheel. `engine_config_from` maps a
-JAX `EngineConfig` onto the port's (merge gear and scatter merge included),
-refusing any knob the port does not run.
+as `BucketQueue`, a timer wheel (with its `wheel_spilled` and
+`wheel_occ_hwm` stats lanes) as the port's wheel, and the fluid plane's
+`FluidParams`, `FluidState` and `fl_bg_*` stats lanes as the port's.
+`engine_config_from` maps a JAX `EngineConfig` onto the port's (merge gear,
+scatter merge and fluid knobs included), refusing any knob the port does
+not run.
 `to_numpy` flattens either package's state into {"queue.t": array, ...} for a
 field-by-field comparison. Nothing here imports JAX: the inputs are read by
 attribute name only.
@@ -33,6 +35,7 @@ from shadow_tpu_torch.core.engine import (
     Stats,
 )
 from shadow_tpu_torch.net import CodelState, TBParams, TBState
+from shadow_tpu_torch.net.fluid import FluidParams, FluidState
 from shadow_tpu_torch.ops.events import BucketQueue, EventQueue
 from shadow_tpu_torch.ops.rng import RngState
 
@@ -48,7 +51,6 @@ _OFF_FIELDS = {
     "integrity": False,
     "merge_rows": 0,
     "cpu_delay_ns": 0,
-    "fluid_classes": 0,
 }
 
 
@@ -105,6 +107,8 @@ def params_from_jax_numpy(engine_params, model_params=None, *, device) -> Engine
         lat_rows=_tree(p.lat_rows, device),
         loss_rows=_tree(p.loss_rows, device),
         jit_rows=_tree(p.jit_rows, device),
+        fluid=(None if getattr(p, "fluid", None) is None
+               else FluidParams(*(_t(getattr(p.fluid, f), device) for f in FluidParams._fields))),
     )
 
 
@@ -129,6 +133,8 @@ def state_from_jax_numpy(sim_state, model_state=None, *, device) -> SimState:
         outbox=Outbox(*(_t(getattr(s.outbox, f), device) for f in Outbox._fields)),
         stats=Stats(*(_opt(getattr(s.stats, f, None), device) for f in Stats._fields)),
         wheel=None if getattr(s, "wheel", None) is None else _bq(s.wheel, device),
+        fluid=(None if getattr(s, "fluid", None) is None
+               else FluidState(*(_t(getattr(s.fluid, f), device) for f in FluidState._fields))),
     )
 
 
@@ -174,6 +180,8 @@ def to_numpy(state) -> dict[str, np.ndarray]:
     }
     if getattr(state, "wheel", None) is not None:
         groups["wheel"] = (state.wheel, BucketQueue._fields)
+    if getattr(state, "fluid", None) is not None:
+        groups["fluid"] = (state.fluid, FluidState._fields)
     for g, (obj, fields) in groups.items():
         for f in fields:
             v = getattr(obj, f, None)

@@ -30,6 +30,14 @@ while it has room and spill to the queue when it does not, and the wheel's
 heads fold into every next-event minimum. Dispatch order, digests, events
 and drops equal the wheel-off path's.
 
+With the fluid plane (`fluid_classes` K > 0, net/fluid.py) each round
+first computes every host's extra loss and latency multiplier from the
+previous round's background state (K16), which egress (K11) applies to
+every send of the round; after the microsteps the outbox's foreground
+bytes are folded per link (K14) and the rate ODE takes one step over the
+committed window (K15), before the exchange clears the outbox. The
+done-round holds the fluid state.
+
 With a merge gear (`gear_cols` g, `Engine.run_chunk_gear`) the exchange
 reads only the first g columns of each host's outbox row, in place. Sends
 beyond them are counted exactly into `stats.gear_shed`, and the chunk stops
@@ -38,7 +46,8 @@ pre-chunk snapshot, core/gears.py); the shed test rides in the window's
 device-to-host read, so a round gains no sync.
 
 The slice is the JAX package's single-device path: flat or bucketed queue,
-K >= 1, the timer wheel, merge gears, the scatter merge, world 1.
+K >= 1, the timer wheel, merge gears, the scatter merge, the fluid plane,
+world 1.
 `lax.while_loop` becomes a Python loop; each loop condition is one
 device-to-host read, counted in `Engine.host_syncs`. The window itself is
 computed on the device and read back with the `done` flag in the same
@@ -69,6 +78,14 @@ from shadow_tpu_torch.ops.chain import (
 )
 from shadow_tpu_torch.models.base import KIND_MASK, KIND_PKT, HandlerCtx
 from shadow_tpu_torch.net import CodelState, TBParams, TBState, codel_init, tb_init
+from shadow_tpu_torch.net.fluid import (
+    LAT_SCALE,
+    check_class_count,
+    fluid_advance,
+    fluid_fg_link_bytes,
+    fluid_host_effects,
+    make_fluid_state,
+)
 from shadow_tpu_torch.ops.events import (
     _LOCAL_SHIFT,
     _SRC_SHIFT,
@@ -143,6 +160,10 @@ class Stats(NamedTuple):
     # per-host wheel-occupancy high-water
     wheel_spilled: Any = None  # i64[H] | None
     wheel_occ_hwm: Any = None  # i64[H] | None
+    # fluid-plane byte counters, None unless the plane is on: background
+    # bytes carried and dropped at congestion
+    fl_bg_bytes: Any = None  # i64[] | None
+    fl_bg_dropped: Any = None  # i64[] | None
 
 
 class SimState(NamedTuple):
@@ -160,6 +181,7 @@ class SimState(NamedTuple):
     outbox: Outbox
     stats: Stats
     wheel: Any = None  # TimerWheel | None (the [H, S] timer slab)
+    fluid: Any = None  # FluidState | None (the fluid plane's rates and link_util)
 
 
 class EngineParams(NamedTuple):
@@ -175,6 +197,7 @@ class EngineParams(NamedTuple):
     lat_rows: Any = None  # i64[H, N] | None
     loss_rows: Any = None  # f32[H, N] | None
     jit_rows: Any = None  # i64[H, N] | None
+    fluid: Any = None  # FluidParams | None (net/fluid.py compile_fluid)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,6 +238,15 @@ class EngineConfig:
     gear_cols: int = 0
     # the sort-free exchange merge (ops/merge.py merge_scatter_free, K13)
     merge_scatter: bool = False
+    # fluid traffic plane (net/fluid.py; 0 classes = off): the arrays live
+    # in EngineParams.fluid, these are its dims and coupling knobs
+    fluid_classes: int = 0  # K background traffic classes
+    fluid_links: int = 0  # N links (graph nodes) the ODE state covers
+    fluid_tau_ns: int = 50_000_000  # rate-relaxation time constant
+    fluid_util_threshold: float = 0.7  # coupling ramp start
+    fluid_loss_max: float = 0.0  # extra loss probability at full overload
+    fluid_lat_max_x1000: int = 2000  # latency multiplier cap (x1000)
+    fluid_seed: int = 1  # the counter-based loss draw's seed
 
     def __post_init__(self):
         check_order_limits(self.num_hosts)
@@ -241,6 +273,31 @@ class EngineConfig:
                 f"gear_cols={self.gear_cols} must be in "
                 f"[0, sends_per_host_round={self.sends_per_host_round}]"
             )
+        if self.fluid_classes < 0 or self.fluid_links < 0:
+            raise ValueError(
+                f"fluid dims must be >= 0, got classes={self.fluid_classes} "
+                f"links={self.fluid_links}"
+            )
+        if self.fluid_classes and self.fluid_links < 1:
+            raise ValueError(
+                "fluid_classes > 0 requires fluid_links >= 1 (the ODE needs at least "
+                "one link to cover)"
+            )
+        if self.fluid_classes:
+            check_class_count(self.fluid_classes)
+            if self.fluid_tau_ns <= 0:
+                raise ValueError(f"fluid_tau_ns must be > 0, got {self.fluid_tau_ns}")
+            if not 0.0 <= self.fluid_util_threshold < 1.0:
+                raise ValueError(
+                    f"fluid_util_threshold must be in [0, 1), got {self.fluid_util_threshold}"
+                )
+            if not 0.0 <= self.fluid_loss_max <= 1.0:
+                raise ValueError(f"fluid_loss_max must be in [0, 1], got {self.fluid_loss_max}")
+            if self.fluid_lat_max_x1000 < LAT_SCALE:
+                raise ValueError(
+                    f"fluid_lat_max_x1000 must be >= 1000 (inflation only: the "
+                    f"conservative-lookahead bound), got {self.fluid_lat_max_x1000}"
+                )
         if self.wheel_slots and self.microstep_events > 1:
             raise ValueError(
                 f"unsupported knob pair: wheel_slots={self.wheel_slots} x "
@@ -252,6 +309,10 @@ class EngineConfig:
     @property
     def wheel_active(self) -> bool:
         return self.wheel_slots > 0
+
+    @property
+    def fluid_active(self) -> bool:
+        return self.fluid_classes > 0
 
     @property
     def gear_active(self) -> bool:
@@ -301,6 +362,10 @@ def _init_stats(cfg: EngineConfig, device) -> Stats:
         gear_shed=z1(),
         wheel_spilled=zi() if cfg.wheel_active else None,
         wheel_occ_hwm=zi() if cfg.wheel_active else None,
+        fl_bg_bytes=(torch.zeros((), dtype=torch.int64, device=device)
+                     if cfg.fluid_active else None),
+        fl_bg_dropped=(torch.zeros((), dtype=torch.int64, device=device)
+                       if cfg.fluid_active else None),
     )
 
 
@@ -408,6 +473,12 @@ class Engine:
         """(state, params): the t=0 state, and params with the per-host
         routing rows materialized for multi-node graphs."""
         cfg, dev = self.cfg, self.device
+        if (params.fluid is not None) != cfg.fluid_active:
+            raise ValueError(
+                "EngineParams.fluid must be provided iff the EngineConfig declares fluid "
+                "classes (fluid_classes > 0): build both from one FluidSchedule "
+                "(net/fluid.py compile_fluid)"
+            )
         n_nodes = params.lat_ns.shape[0]
         if n_nodes > 1:
             node_np = params.node_of.cpu().numpy()
@@ -442,6 +513,8 @@ class Engine:
             outbox=make_empty_outbox(h, cfg.sends_per_host_round, dev),
             stats=_init_stats(cfg, dev),
             wheel=wheel,
+            fluid=(make_fluid_state(cfg.fluid_classes, cfg.fluid_links, dev)
+                   if cfg.fluid_active else None),
         )
         return state, params
 
@@ -515,6 +588,11 @@ class Engine:
         # whether the round staged any send, read with the loop test that
         # ends the microsteps (unknown, so merged, when the valve ends them)
         has_sends = True
+        # the fluid coupling of this round, from the previous round's state
+        # (the done-round runs no microstep and holds the fluid state)
+        fx = None
+        if cfg.fluid_active and not done:
+            fx = fluid_host_effects(cfg, params.fluid, st.fluid, params.node_of)
         if cfg.effective_microstep_events > 1:
             # the valve is a per-host executed-event vector bounded by its
             # max, read in the same device-to-host read as the loop test
@@ -527,7 +605,7 @@ class Engine:
                 if not go or vmax >= limit:
                     has_sends = sent > 0
                     break
-                st, executed = self.microstep_k(st, params, window_end)
+                st, executed = self.microstep_k(st, params, window_end, fx)
                 valve = valve + executed
                 steps += 1
         else:
@@ -538,8 +616,18 @@ class Engine:
                 if not go:
                     has_sends = sent > 0
                     break
-                st = self.microstep(st, params, window_end)
+                st = self.microstep(st, params, window_end, fx)
                 steps += 1
+        if fx is not None:
+            # the packet -> fluid half: this round's outbox bytes per link,
+            # then one ODE step over the committed window (before the
+            # exchange clears the outbox)
+            fg = fluid_fg_link_bytes(cfg, st.outbox.dst, st.outbox.t, st.outbox.payload,
+                                     params.node_of)
+            s = st.stats
+            fl, bgb, bgd = fluid_advance(cfg, params.fluid, st.fluid, fg, st.now, window_end,
+                                         done, s.fl_bg_bytes, s.fl_bg_dropped)
+            st = st._replace(fluid=fl, stats=s._replace(fl_bg_bytes=bgb, fl_bg_dropped=bgd))
         st_m = st
         st_x = self.exchange(st_m, has_sends)
         occ = q_len(st_x.queue).to(torch.int64)
@@ -560,7 +648,8 @@ class Engine:
             now=st.now if done else window_end, done=done, stats=stats
         )
 
-    def microstep(self, st: SimState, params: EngineParams, window_end: int) -> SimState:
+    def microstep(self, st: SimState, params: EngineParams, window_end: int,
+                  fluid_fx=None) -> SimState:
         """The one-event microstep: pop, execute, push, append."""
         wheel = st.wheel
         if wheel is None:
@@ -568,7 +657,7 @@ class Engine:
         else:
             queue, wheel, ev, active = pop_min_merged(st.queue, wheel, window_end)
         c, push_list, entries, used_min = self.event_body(
-            _ev_carry_of(st), params, window_end, ev, active,
+            _ev_carry_of(st), params, window_end, ev, active, fluid_fx,
         )
         if wheel is not None and push_list:
             push_list, push_w, spilled = self._route_timer_pushes(wheel, push_list)
@@ -614,7 +703,7 @@ class Engine:
             push_q.append(push._replace(mask=push.mask & ~fits))
         return push_q, push_w, spilled
 
-    def microstep_k(self, st: SimState, params: EngineParams, window_end: int):
+    def microstep_k(self, st: SimState, params: EngineParams, window_end: int, fluid_fx=None):
         """The K-way microstep: peek each host's K earliest in-window events
         (K5), fold them through the handler in turn, clear the executed
         prefix (K6) and apply every push in one pass. Returns (state',
@@ -643,7 +732,8 @@ class Engine:
             if j > 0:
                 deferred = deferred | _lex_less(pm_t, pm_o, ev.t, ev.order)
             cons_j = popped.active[:, j] & ~deferred
-            c, push_list, ents, used_min = self.event_body(c, params, window_end, ev, cons_j)
+            c, push_list, ents, used_min = self.event_body(c, params, window_end, ev, cons_j,
+                                                           fluid_fx)
             # an event's own pushes cannot defer it: fold them in after
             for push in push_list:
                 better = push.mask & _lex_less(push.t, push.order, pm_t, pm_o)
@@ -686,11 +776,13 @@ class Engine:
             model=c.model, outbox=outbox, min_used_lat=min_used, stats=stats,
         )
 
-    def event_body(self, c: _EvCarry, params: EngineParams, window_end: int, ev, active):
+    def event_body(self, c: _EvCarry, params: EngineParams, window_end: int, ev, active,
+                   fluid_fx=None):
         """Execute one event per active host: ingress (digest, shaping,
-        dispatch; K10), the model's handler, egress (pushes and sends; K11).
-        Returns (carry', pushes, outbox entry stack | None, per-host
-        used-latency minimum | None)."""
+        dispatch; K10), the model's handler, egress (pushes and sends, with
+        the round's fluid coupling `fluid_fx`; K11). Returns (carry',
+        pushes, outbox entry stack | None, per-host used-latency minimum |
+        None)."""
         cfg = self.cfg
         c, ing = event_ingress(c, params, cfg, ev, active)
         out = self.model.handle(HandlerCtx(
@@ -708,7 +800,7 @@ class Engine:
         ))
         c = c._replace(model=out.state, rng=out.rng)
         c, pushes, entries, used_min = event_egress(
-            c, params, cfg, ev.t, ing.dispatch, window_end, out)
+            c, params, cfg, ev.t, ing.dispatch, window_end, out, fluid_fx)
         push_list = ([ing.requeue] if ing.requeue is not None else []) + pushes
         return c, push_list, entries, used_min
 

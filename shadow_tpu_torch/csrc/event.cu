@@ -11,7 +11,10 @@
 //       the model's local pushes (order keys, monotonic violations), then
 //       every send port and burst segment: route lookup, send budget,
 //       uplink token bucket, jitter and loss draws, outbox column and
-//       arrival time, the packet counters
+//       arrival time, the packet counters; with the fluid plane on
+//       (:2459-2470, :2577-2603, :2633-2638) the background latency
+//       inflation and, when its loss is on, the counter-hash loss draw
+//       (shadow_tpu/net/fluid.py:302 fluid_send_uniform)
 // with the device math of csrc/event_math.cuh (RNG, token bucket, CoDel,
 // FNV fold).
 //
@@ -235,6 +238,12 @@ struct EgressArgs {
   long long* pkts_unreachable;
   long long* pkts_budget;
   long long* mono;
+  // fluid coupling (bg_lat null: the plane is off): per-host extra loss and
+  // latency x1000 for this round; the draw runs only when fluid_draw is set
+  const float* bg_loss;
+  const long long* bg_lat;
+  unsigned long long fluid_seed;
+  int fluid_draw;
   // model pushes: inputs per port (host strides *_s), outputs [n_push, H]
   int n_push;
   const bool* pmask[kMaxPushPorts];
@@ -304,6 +313,11 @@ __global__ void event_egress_kernel(const EgressArgs a) {
   long long tokens = a.tb_tokens[h], itv = a.tb_itv[h];
   const long long cap = a.eg_cap[h], refill = a.eg_refill[h];
   long long n_sent = 0, n_lost = 0, n_unreach = 0, n_budget = 0, n_mono = 0;
+  const bool fluid = a.bg_lat != nullptr;
+  const float bg_loss = fluid ? a.bg_loss[h] : 0.0f;
+  const long long bg_lat = fluid ? a.bg_lat[h] : kLatScale;
+  // inflation honours bootstrap_end_time like the loss draws
+  const bool bg_inflate = fluid && bg_lat > kLatScale && t >= a.bootstrap_end;
 
   // ---- the model's local pushes
   for (int p = 0; p < a.n_push; ++p) {
@@ -352,8 +366,16 @@ __global__ void event_egress_kernel(const EgressArgs a) {
       const bool unreachable = mask && (lat_bound0 < 0 || bad_dst);
       const float u = rng_uniform(s, mask);
       const bool lost = mask && u < lossp && t >= a.bootstrap_end;
-      const bool send_ok = mask && !lost && !unreachable && !over;
-      const bool budget_dropped = mask && !lost && !unreachable && over;
+      // fluid congestion loss after the path draw (precedence: path loss >
+      // unreachable > fluid loss > budget), keyed on the pre-increment seq;
+      // then the inflation of the jittered latency
+      bool bglost = false;
+      if (fluid && a.fluid_draw)
+        bglost = mask && !lost && !unreachable && t >= a.bootstrap_end &&
+                 fluid_uniform(a.fluid_seed, h, seq) < bg_loss;
+      if (bg_inflate) lat_j = floordiv(wmul(lat_j, bg_lat), kLatScale);
+      const bool send_ok = mask && !lost && !unreachable && !over && !bglost;
+      const bool budget_dropped = mask && !lost && !unreachable && over && !bglost;
       const long long o = (long long)e * H + h;
       a.e_mask[o] = send_ok;
       a.e_col[o] = sent;
@@ -370,7 +392,7 @@ __global__ void event_egress_kernel(const EgressArgs a) {
       seq = wadd(seq, mask);
       if (send_ok) umin = imin(umin, lat_bound0);
       n_sent += mask;
-      n_lost += lost;
+      n_lost += lost || bglost;
       n_unreach += unreachable;
       n_budget += budget_dropped;
     }
@@ -495,6 +517,10 @@ int event_egress(const long long* args, void* stream) {
   a.pkts_unreachable = r.p<long long>();
   a.pkts_budget = r.p<long long>();
   a.mono = r.p<long long>();
+  a.bg_loss = r.p<const float>();
+  a.bg_lat = r.p<const long long>();
+  a.fluid_seed = (unsigned long long)r.v();
+  a.fluid_draw = (int)r.v();
   a.n_push = (int)r.v();
   if (a.n_push < 0 || a.n_push > kMaxPushPorts) return (int)cudaErrorInvalidValue;
   for (int p = 0; p < a.n_push; ++p) {

@@ -8,6 +8,8 @@
 //   codel_on_packet          shadow_tpu/net/codel.py:48,54
 //   digest_fold              shadow_tpu/core/engine.py:1086
 //   pack_order               shadow_tpu/ops/events.py pack_order
+//   splitmix64 /             shadow_tpu/ops/rng.py _splitmix64 and
+//   fluid_uniform            shadow_tpu/net/fluid.py:302 fluid_send_uniform
 //
 // Integer lanes wrap as two's complement, as int64 tensors do: every add,
 // subtract and multiply that can overflow goes through the unsigned helpers
@@ -43,6 +45,14 @@ constexpr i64 kCodelInterval = 100000000LL;  // 100 ms
 constexpr u64 kMix1 = 0x9E3779B97F4A7C15ULL;
 constexpr u64 kMix2 = 0xC2B2AE3D27D4EB4FULL;
 constexpr u64 kFnvPrime = 1099511628211ULL;
+
+// latency multipliers are parts per thousand (the fault and fluid planes)
+constexpr i64 kLatScale = 1000;
+constexpr u64 kGolden = 0x9E3779B97F4A7C15ULL;
+constexpr u64 kSm1 = 0xBF58476D1CE4E5B9ULL;
+constexpr u64 kSm2 = 0x94D049BB133111EBULL;
+constexpr u64 kHostStride = 0xD1342543DE82EF95ULL;
+constexpr u64 kCtrStride = 0xA0761D6478BD642FULL;
 
 __device__ __forceinline__ i64 wadd(i64 a, i64 b) { return (i64)((u64)a + (u64)b); }
 __device__ __forceinline__ i64 wsub(i64 a, i64 b) { return (i64)((u64)a - (u64)b); }
@@ -98,6 +108,24 @@ __device__ __forceinline__ u64 rng_next(u64 s[4], bool mask) {
 __device__ __forceinline__ float rng_uniform(u64 s[4], bool mask) {
   const u64 x = rng_next(s, mask);
   return __fmul_rn((float)(unsigned)(x >> 40), 1.0f / 16777216.0f);
+}
+
+// ---- the fluid plane's counter draw ----
+
+// splitmix64's output for state x (the state advances by kGolden first)
+__device__ __forceinline__ u64 splitmix64(u64 x) {
+  u64 z = x + kGolden;
+  z = (z ^ (z >> 30)) * kSm1;
+  z = (z ^ (z >> 27)) * kSm2;
+  return z ^ (z >> 31);
+}
+
+// float32 in [0, 1) keyed on (seed, host, emission counter): two splitmix64
+// rounds, the top 24 bits scaled by 2^-24 (exact)
+__device__ __forceinline__ float fluid_uniform(u64 seed, i64 host, i64 ctr) {
+  const u64 x = seed + (u64)host * kHostStride + (u64)ctr * kCtrStride;
+  const u64 u = splitmix64(splitmix64(x));
+  return __fmul_rn((float)(unsigned)(u >> 40), 1.0f / 16777216.0f);
 }
 
 // ---- token bucket: charge size_bits where mask; returns the departure ----

@@ -11,7 +11,11 @@ One executed event per host runs in three steps:
   3. egress (`event_egress`, K11): the model's local pushes get their
      order keys; every send port and burst segment passes the send budget,
      the uplink token bucket, the jitter and loss draws and the route
-     lookup, and lands as one row of the [E, H] entry stack.
+     lookup, and lands as one row of the [E, H] entry stack. With the fluid
+     plane on (net/fluid.py) the round's per-host `fluid_fx` = (extra loss,
+     latency x1000) adds a counter-hash loss draw (when `fluid_loss_max` >
+     0) and inflates the jittered latency; the lookahead keeps the
+     pre-inflation bound.
 
 `outbox_append_multi` (K9) then writes the stack into the [H, B] outbox.
 
@@ -26,7 +30,6 @@ takes it. The plain versions are functional.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Any, NamedTuple
 
 import torch
@@ -38,7 +41,7 @@ from shadow_tpu_torch.models.base import (
     PAYLOAD_SIZE_WORD,
 )
 from shadow_tpu_torch.net import codel_on_packet, tb_conforming_remove
-from shadow_tpu_torch.ops.cuda_build import CudaKernel, check, on_cpu, ptr
+from shadow_tpu_torch.ops.cuda_build import ARG_BLOCK, CudaKernel, addr, arg_block, check, on_cpu
 from shadow_tpu_torch.ops.events import Push, pack_order, unpack_order_src
 from shadow_tpu_torch.ops.rng import rng_uniform, u64
 from shadow_tpu_torch.simtime import TIME_MAX
@@ -83,22 +86,11 @@ def digest_update(digest, active, t, kind, order):
     return torch.where(active, (digest ^ x) * _FNV_PRIME, digest)
 
 
-def _arg_block(vals: list[int]):
-    return (ctypes.c_longlong * len(vals))(*vals)
-
-
-def _p(t: torch.Tensor | None) -> int:
-    return 0 if t is None else t.data_ptr()
-
-
-_ARGS = [ctypes.POINTER(ctypes.c_longlong)]
-
-
 # --------------------------------------------------------------------------
 # K9 outbox_append
 # --------------------------------------------------------------------------
 
-_outbox_append_k = CudaKernel("event", "event_outbox_append", _ARGS)
+_outbox_append_k = CudaKernel("event", "event_outbox_append", ARG_BLOCK)
 _MAX_STACKS = 16  # entry stacks per K9 launch (csrc/event.cu kMaxStacks)
 
 
@@ -149,7 +141,7 @@ def outbox_append_multi(ob, stacks, ob_dropped: torch.Tensor):
     check(ob.payload, torch.int32, (h, b, p), "outbox payload")
     check(ob.count, torch.int32, (1,), "outbox count")
     check(ob_dropped, torch.int64, (1,), "ob_dropped")
-    head = [h, b, p, *(_p(x) for x in ob), _p(ob_dropped)]
+    head = [h, b, p, *(addr(x) for x in ob), addr(ob_dropped)]
     for i in range(0, len(stacks), _MAX_STACKS):
         chunk = stacks[i : i + _MAX_STACKS]
         args = [*head, len(chunk)]
@@ -157,8 +149,8 @@ def outbox_append_multi(ob, stacks, ob_dropped: torch.Tensor):
             e = entries.mask.shape[0]
             for x, dt in zip(entries, _STACK_DTYPES):
                 check(x, dt, (e, h, p) if x.dim() == 3 else (e, h), "entry stack")
-            args += [e, *(_p(x) for x in entries)]
-        _outbox_append_k(_arg_block(args))
+            args += [e, *(addr(x) for x in entries)]
+        _outbox_append_k(arg_block(args))
     return ob, ob_dropped
 
 
@@ -166,7 +158,7 @@ def outbox_append_multi(ob, stacks, ob_dropped: torch.Tensor):
 # K10 event_ingress
 # --------------------------------------------------------------------------
 
-_ingress_k = CudaKernel("event", "event_ingress", _ARGS)
+_ingress_k = CudaKernel("event", "event_ingress", ARG_BLOCK)
 
 
 def event_ingress_plain(c, params, cfg, ev, active):
@@ -263,14 +255,14 @@ def event_ingress(c, params, cfg, ev, active):
         ) if cfg.shaping else None,
     )
     rq = ing.requeue
-    _ingress_k(_arg_block([
+    _ingress_k(arg_block([
         h, p, es, int(cfg.shaping), int(cfg.use_codel), int(cfg.tb_interval_ns),
-        _p(ev.t), _p(ev.order), _p(ev.kind), _p(ev.payload), _p(active),
-        _p(s.events), _p(s.digest), _p(s.pkts_codel_dropped), _p(s.pkts_delivered),
-        _p(tb.tokens), _p(tb.last_itv), _p(params.in_tb.capacity), _p(params.in_tb.refill),
-        _p(cd.first_above), _p(cd.drop_next), _p(cd.count), _p(cd.dropping),
-        _p(ing.dispatch), _p(ing.is_pkt), _p(ing.kind), _p(ing.src),
-        _p(rq and rq.mask), _p(rq and rq.t), _p(rq and rq.kind),
+        addr(ev.t), addr(ev.order), addr(ev.kind), addr(ev.payload), addr(active),
+        addr(s.events), addr(s.digest), addr(s.pkts_codel_dropped), addr(s.pkts_delivered),
+        addr(tb.tokens), addr(tb.last_itv), addr(params.in_tb.capacity), addr(params.in_tb.refill),
+        addr(cd.first_above), addr(cd.drop_next), addr(cd.count), addr(cd.dropping),
+        addr(ing.dispatch), addr(ing.is_pkt), addr(ing.kind), addr(ing.src),
+        addr(rq and rq.mask), addr(rq and rq.t), addr(rq and rq.kind),
     ]))
     return c, ing
 
@@ -279,7 +271,7 @@ def event_ingress(c, params, cfg, ev, active):
 # K11 event_egress
 # --------------------------------------------------------------------------
 
-_egress_k = CudaKernel("event", "event_egress", _ARGS)
+_egress_k = CudaKernel("event", "event_egress", ARG_BLOCK)
 
 
 def route_plain(params, cfg, host_gid: torch.Tensor, dst: torch.Tensor):
@@ -305,12 +297,16 @@ def route_plain(params, cfg, host_gid: torch.Tensor, dst: torch.Tensor):
             params.jitter_ns[src_node, dst_node])
 
 
-def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out):
+def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=None):
     """The model's pushes and sends for one event per dispatched host.
-    `c.rng` is the handler's RNG state. Returns (carry', pushes, entries,
-    used_min): `entries` is None when the model has no send port;
-    `used_min[h]` is the least pre-jitter latency among the host's sends
-    that landed (TIME_MAX where none), None without send ports."""
+    `c.rng` is the handler's RNG state; `fluid_fx` is the round's (bg_loss
+    f32[H], bg_lat i64[H]) when the fluid plane is on. Returns (carry',
+    pushes, entries, used_min): `entries` is None when the model has no
+    send port; `used_min[h]` is the least pre-jitter latency among the
+    host's sends that landed (TIME_MAX where none), None without send
+    ports."""
+    from shadow_tpu_torch.net.fluid import LAT_SCALE, fluid_send_uniform
+
     h = dispatch.shape[0]
     host_gid = torch.arange(h, dtype=torch.int64, device=dispatch.device)
     stats, rng, seq, sent_round, tb_eg = c.stats, c.rng, c.seq, c.sent_round, c.tb_egress
@@ -325,6 +321,11 @@ def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out):
             p.kind.to(torch.int32) & KIND_MASK, p.payload.to(torch.int32),
         ))
         seq = seq + mask
+
+    if fluid_fx is not None:
+        bg_loss, bg_lat = fluid_fx
+        # inflation honours bootstrap_end_time like the loss draws
+        bg_inflate = (bg_lat > LAT_SCALE) & (ev_t >= cfg.bootstrap_end_time)
 
     # sends: each port may carry a burst of up to count_max segments to one
     # destination, sharing the route lookup; each segment has its own
@@ -363,6 +364,20 @@ def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out):
             lost = mask & (u < lossp) & (ev_t >= cfg.bootstrap_end_time)
             send_ok = mask & ~lost & ~unreachable & ~over_budget
             budget_dropped = mask & ~lost & ~unreachable & over_budget
+            if fluid_fx is not None:
+                if cfg.fluid_loss_max > 0.0:
+                    # fluid loss after the path draw (precedence: path loss >
+                    # unreachable > fluid loss > budget), keyed on the
+                    # pre-increment seq; it never advances the RNG lanes
+                    ub = fluid_send_uniform(cfg.fluid_seed, host_gid, seq)
+                    bglost = (mask & ~lost & ~unreachable & (ub < bg_loss)
+                              & (ev_t >= cfg.bootstrap_end_time))
+                    send_ok = send_ok & ~bglost
+                    budget_dropped = budget_dropped & ~bglost
+                    lost = lost | bglost
+                lat_j = torch.where(
+                    bg_inflate, torch.div(lat_j * bg_lat, LAT_SCALE, rounding_mode="floor"),
+                    lat_j)
             ob_col = sent_round
             sent_round = sent_round + send_ok.to(torch.int32)
             arrive = torch.clamp_min(eg_depart + torch.clamp_min(lat_j, 0), window_end)
@@ -400,7 +415,7 @@ def _route_args(params, cfg) -> list[int]:
                            ("latency", "loss", "jitter")):
         check(x, dt, (rows, n), f"route {name}")
     check(params.node_of, torch.int32, (cfg.num_hosts,), "node_of")
-    return [mode, cfg.hosts_per_node, n, _p(params.node_of), *(_p(x) for x in tables)]
+    return [mode, cfg.hosts_per_node, n, addr(params.node_of), *(addr(x) for x in tables)]
 
 
 def _lane(x: torch.Tensor, dt: torch.dtype, h: int, keep: list) -> tuple[int, int]:
@@ -429,13 +444,13 @@ def _rows(x: torch.Tensor, h: int, p: int, keep: list) -> tuple[int, int]:
     return x.data_ptr(), x.stride(0)
 
 
-def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out):
+def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=None):
     """`event_egress_plain` as one kernel (K11) on CUDA, updating the
     carry's seq, send cursor, RNG, uplink bucket and packet-counter lanes in
     place; the pushes' mask/t/order/kind, the entry stack and `used_min`
     are the kernel's outputs."""
     if on_cpu(ev_t):
-        return event_egress_plain(c, params, cfg, ev_t, dispatch, window_end, out)
+        return event_egress_plain(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx)
     h = dispatch.shape[0]
     n_push, n_send = len(out.pushes), len(out.sends)
     if n_push > MAX_PUSH_PORTS or n_send > MAX_SEND_PORTS:
@@ -464,6 +479,11 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out):
     ):
         check(x, dt, (h,), name)
     check(c.rng.s, torch.int64, (h, 4), "rng")
+    bg_loss = bg_lat = None
+    if fluid_fx is not None:
+        bg_loss, bg_lat = fluid_fx
+        check(bg_loss, torch.float32, (h,), "fluid bg_loss")
+        check(bg_lat, torch.int64, (h,), "fluid bg_lat")
     keep = []  # converted port fields, alive until the launch returns
     push_args = []
     for p in out.pushes:
@@ -488,16 +508,18 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out):
         torch.empty((e, h, n_words), dtype=torch.int32, device=dev)) if e else None
     used_min = torch.empty((h,), dtype=torch.int64, device=dev) if n_send else None
     route = _route_args(params, cfg)
-    _egress_k(_arg_block([
+    _egress_k(arg_block([
         h, n_words or 1, es, cfg.sends_per_host_round, int(cfg.shaping), int(cfg.use_jitter),
         *route[:3], int(window_end), cfg.bootstrap_end_time, cfg.tb_interval_ns,
-        _p(ev_t), _p(dispatch), *route[3:],
-        _p(params.eg_tb.capacity), _p(params.eg_tb.refill),
-        _p(c.seq), _p(c.sent_round), _p(c.rng.s), _p(c.tb_egress.tokens),
-        _p(c.tb_egress.last_itv), _p(s.pkts_sent), _p(s.pkts_lost), _p(s.pkts_unreachable),
-        _p(s.pkts_budget_dropped), _p(s.monotonic_violations),
-        n_push, *push_args, *(_p(x) for x in op),
-        n_send, *send_args, *(_p(x) for x in (entries or [None] * 7)), _p(used_min),
+        addr(ev_t), addr(dispatch), *route[3:],
+        addr(params.eg_tb.capacity), addr(params.eg_tb.refill),
+        addr(c.seq), addr(c.sent_round), addr(c.rng.s), addr(c.tb_egress.tokens),
+        addr(c.tb_egress.last_itv), addr(s.pkts_sent), addr(s.pkts_lost), addr(s.pkts_unreachable),
+        addr(s.pkts_budget_dropped), addr(s.monotonic_violations),
+        addr(bg_loss), addr(bg_lat), u64(cfg.fluid_seed) if bg_lat is not None else 0,
+        int(bg_lat is not None and cfg.fluid_loss_max > 0.0),
+        n_push, *push_args, *(addr(x) for x in op),
+        n_send, *send_args, *(addr(x) for x in (entries or [None] * 7)), addr(used_min),
     ]))
     del keep
     pushes = [Push(op[0][i], op[1][i], op[2][i], op[3][i], p.payload.to(torch.int32))

@@ -34,7 +34,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("queue", "merge", "event")
+SOURCES = ("queue", "merge", "event", "fluid")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false",
@@ -111,6 +111,21 @@ def _stream() -> ctypes.c_void_p:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+# the argtypes of an entry point that takes one int64 argument block: its
+# pointers and scalars in a fixed order, built by `arg_block`
+ARG_BLOCK = [ctypes.POINTER(ctypes.c_longlong)]
+
+
+def arg_block(vals: list[int]):
+    """An int64 argument block (pointers as `addr`, scalars as ints)."""
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def addr(t: torch.Tensor | None) -> int:
+    """A tensor's device address for an argument block; 0 for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def on_cpu(t: torch.Tensor) -> bool:

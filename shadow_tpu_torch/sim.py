@@ -13,6 +13,11 @@ gear the controller picked (core/gears.py `run_adaptive_chunk`: snapshot,
 run, and on a shed restore and replay wider), and the heartbeat carries
 `gear=<g>`. Snapshots are taken only below the top gear; a gear-free run
 dispatches `Engine.run_chunk` as before.
+
+A `fluid:` block compiles onto the graph's nodes (net/fluid.py
+`compile_fluid`, zones resolved through `NetworkGraph.node_index`, the loss
+draw's seed defaulting to `general.seed`); the report gains the JAX
+package's `fluid{}` block and the heartbeat `bg=<bytes>/<dropped>`.
 """
 
 from __future__ import annotations
@@ -34,13 +39,17 @@ from shadow_tpu_torch.core.engine import Engine, EngineConfig, EngineParams
 from shadow_tpu_torch.core.gears import GearController, resolve_gear_ladder, run_adaptive_chunk
 from shadow_tpu_torch.models import get_model
 from shadow_tpu_torch.net import TBParams
+from shadow_tpu_torch.net.fluid import INACTIVE_SCHEDULE, assemble_fluid_report, compile_fluid
+from shadow_tpu_torch.net.fluid import KERNELS as FLUID_KERNELS
 from shadow_tpu_torch.net.graph import IpAssignment, NetworkGraph, load_graph
-from shadow_tpu_torch.ops import KERNELS
+from shadow_tpu_torch.ops import KERNELS as OPS_KERNELS
 from shadow_tpu_torch.simtime import NS_PER_SEC
 
 MTU_BITS = 1500 * 8
 UNLIMITED_BW = 1 << 40  # token-bucket params for "no bandwidth configured"
 SUPPORTED_MODELS = ("phold", "udp_echo", "timer", "tgen_tcp")
+# every hand-written kernel's launch wrapper, by kernel name
+KERNELS = {**OPS_KERNELS, **FLUID_KERNELS}
 
 
 @dataclasses.dataclass
@@ -117,12 +126,14 @@ def tb_params(bws: np.ndarray, interval_ns: int, device) -> TBParams:
 
 
 def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
-                   rounds: int, q_hwm: int, host_syncs: int, gear: int | None = None) -> str:
+                   rounds: int, q_hwm: int, host_syncs: int, gear: int | None = None,
+                   bg: tuple[int, int] | None = None) -> str:
     """The `[heartbeat]` progress line, in the JAX package's format (ici_bytes
     is 0 on one device; `gear=` only on merge-gear runs, where the JAX
-    package puts it after `faults=` and before `cap=`) plus the port's
-    host-sync count."""
+    package puts it after `faults=` and before `cap=`; `bg=<bytes>/<dropped>`
+    only on fluid runs, after `gear=`) plus the port's host-sync count."""
     gear_f = f"gear={gear} " if gear is not None else ""
+    bg_f = f"bg={bg[0]}/{bg[1]} " if bg is not None else ""
     return (
         f"[heartbeat] sim_time={now_ns / NS_PER_SEC:.3f}s "
         f"wall={wall:.2f}s events={events} "
@@ -131,6 +142,7 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
         f"ev/mstep={events / max(microsteps, 1):.2f} "
         f"ici_bytes=0 q_hwm={q_hwm} "
         f"{gear_f}"
+        f"{bg_f}"
         f"syncs={host_syncs} "
         f"ratio={now_ns / NS_PER_SEC / max(wall, 1e-9):.2f}x"
     )
@@ -160,6 +172,18 @@ class Simulation:
         self.model = get_model(name)()
         ex = cfg.experimental
         num_hosts = len(self.hosts)
+        # fluid traffic plane: the background classes on the graph's nodes
+        # (zone ids are GML node ids, resolved as the hosts' are)
+        try:
+            self._fluid_sched = (
+                compile_fluid(cfg.fluid, num_links=self.graph.num_nodes,
+                              default_seed=cfg.general.seed, zone_of=self.graph.node_index,
+                              device=self.device)
+                if cfg.fluid.active else INACTIVE_SCHEDULE
+            )
+        except (ValueError, KeyError) as e:
+            raise ConfigError(f"fluid: {e}") from e
+        fl = self._fluid_sched
         qcap, send_budget, rpc = ex.resolve_shapes(num_hosts)
         ex.check_queue_block(qcap)
         # the timer wheel: a model with no timer kinds fails here, at
@@ -191,6 +215,13 @@ class Simulation:
             wheel_slots=ex.timer_wheel,
             wheel_block=ex.timer_wheel_block,
             merge_scatter=bool(ex.merge_scatter),
+            fluid_classes=fl.classes,
+            fluid_links=fl.links,
+            fluid_tau_ns=fl.tau_ns,
+            fluid_util_threshold=fl.util_threshold,
+            fluid_loss_max=fl.loss_max,
+            fluid_lat_max_x1000=fl.lat_max_x1000,
+            fluid_seed=fl.seed,
         )
         # merge gears: the ladder resolved against the (auto-sized) send
         # budget; [] = off (a budget of 1 leaves no narrower width)
@@ -235,6 +266,7 @@ class Simulation:
             eg_tb=tb_params(bw_up, ecfg.tb_interval_ns, dev),
             in_tb=tb_params(bw_down, ecfg.tb_interval_ns, dev),
             model=mparams,
+            fluid=self._fluid_sched.params,
         )
         self.state, self.params = self.engine.init_state(
             params, mstate, events, seed=self.cfg.general.seed
@@ -277,15 +309,17 @@ class Simulation:
             now_ns = self.state.now
             if hb_ns and now_ns >= next_hb:
                 s = self.state.stats
-                # one device-to-host read for the four counters
-                events, microsteps, rounds, q_hwm = torch.stack([
-                    s.events.sum(), s.microsteps.sum(), s.rounds, s.q_occ_hwm.max(),
-                ]).tolist()
+                lanes = [s.events.sum(), s.microsteps.sum(), s.rounds, s.q_occ_hwm.max()]
+                if s.fl_bg_bytes is not None:
+                    lanes += [s.fl_bg_bytes, s.fl_bg_dropped]
+                # one device-to-host read for the counters
+                vals = torch.stack(lanes).tolist()
                 self.engine.host_syncs += 1
                 print(
                     heartbeat_line(
-                        now_ns, time.monotonic() - t0, events, microsteps, rounds,
-                        q_hwm, self.engine.host_syncs - syncs0, gear,
+                        now_ns, time.monotonic() - t0, *vals[:4],
+                        self.engine.host_syncs - syncs0, gear,
+                        tuple(vals[4:]) if len(vals) > 4 else None,
                     ),
                     file=log,
                 )
@@ -323,6 +357,9 @@ class Simulation:
             }
         if self._gearctl is not None:
             report["gears"] = self._gearctl.report()
+        if self.engine_cfg.fluid_active:
+            report["fluid"] = assemble_fluid_report(
+                stats=self.state.stats, fluid_state=self.state.fluid, cfg=self.engine_cfg)
         return report
 
     def _base_report(self) -> dict:

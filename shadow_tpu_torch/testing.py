@@ -2,6 +2,7 @@
 versions: `chain_case` builds one event per host through ingress, a
 synthetic handler output and egress (K9-K11); `merge_case` builds a queue
 and a round's [H, B] outbox for the exchange merges (K4, K13);
+`fluid_case` builds the fluid plane's inputs (K14-K16, fluid-on K11);
 `clone_carry` deep-copies a carry (the kernels update carries in place);
 `flat_tensors` lists a nested tuple's tensors for comparison. Used by
 chip_smoke.py and the tests; nothing on the simulation path imports it."""
@@ -206,3 +207,71 @@ def merge_fits(queue, outbox, gc: int, r_cap: int) -> bool:
     ok = (t != TIME_MAX) & (dst >= 0) & (dst < h)
     cnt = np.bincount(dst[ok], minlength=h)
     return bool((cnt <= np.minimum((queue[0] == TIME_MAX).sum(axis=1), r_cap)).all())
+
+
+def fluid_case(seed: int, h: int, n_links: int, k_classes: int, dev, *, b: int = 24,
+               affine: bool = True, dt_zero: bool = False, done: bool = False,
+               loss_max: float = 0.3) -> dict:
+    """Random inputs of the fluid plane: a config with `k_classes` classes
+    on `n_links` links (some classes on one link at both ends, some with
+    zero demand or a window already past, links over capacity), a state of
+    rates and utilizations, a round's [H, b] outbox with empty rows and
+    out-of-range destinations, the host -> link map (affine, or an
+    irregular `node_of`), the round's window (`dt_zero`: an empty one), and
+    for fluid-on K11 a `chain_case` with per-host coupling factors
+    (`fluid_fx`, some hosts at exactly 1.0x). Returns a dict of them."""
+    import dataclasses
+
+    from shadow_tpu_torch.core.engine import EngineConfig
+    from shadow_tpu_torch.net.fluid import FluidParams, FluidState
+
+    r = np.random.default_rng(seed)
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    k, n = k_classes, n_links
+    g = -(-h // n) if affine else 0
+    node_of = (np.minimum(np.arange(h) // max(g, 1), n - 1) if affine
+               else r.integers(0, n, h)).astype(np.int32)
+    cfg = EngineConfig(
+        num_hosts=h, stop_time=60 * 10**9, sends_per_host_round=b, hosts_per_node=g,
+        fluid_classes=k, fluid_links=n, fluid_tau_ns=int(r.integers(1, 200)) * 1_000_000,
+        fluid_util_threshold=float(r.choice([0.0, 0.5, 0.7, r.random() * 0.95])),
+        fluid_loss_max=loss_max, fluid_lat_max_x1000=int(r.integers(1000, 3000)),
+        fluid_seed=int(r.integers(0, 1 << 62)),
+    )
+    now = int(r.integers(1, 20)) * 1_000_000_000
+    window_end = now if dt_zero else now + int(r.integers(1, 80_000_000))
+    src = r.integers(0, n, k)
+    dst = np.where(r.random(k) < 0.25, src, r.integers(0, n, k))
+    demand = r.random(k) * 10.0 ** r.integers(5, 9, k)
+    demand[r.random(k) < 0.15] = 0.0
+    ws = now - r.integers(-2, 5, k) * 1_000_000_000  # some windows not yet open
+    we = np.where(r.random(k) < 0.2, ws + 1, TIME_MAX)  # some already past
+    capacity = r.random(n) * 10.0 ** r.integers(6, 9, n)
+    capacity[r.random(n) < 0.2] *= 1e-3  # links far over capacity
+    fp = FluidParams(T(src.astype(np.int32)), T(dst.astype(np.int32)), T(demand),
+                     T(ws.astype(np.int64)), T(we.astype(np.int64)), T(capacity))
+    rates = r.random(k) * 10.0 ** r.integers(4, 9, k)
+    rates[r.random(k) < 0.2] = 0.0
+    st = FluidState(T(rates), T(r.random(n) * 3.0))
+    valid = r.random((h, b)) < 0.5
+    ob_t = np.where(valid, now + r.integers(0, 10**8, (h, b)), TIME_MAX).astype(np.int64)
+    ob_dst = r.integers(-2, h + 2, (h, b)).astype(np.int32)
+    ob_payload = r.integers(-(1 << 31), 1 << 31, (h, b, 4)).astype(np.int32)
+    ob_payload[:, :, 0] = r.integers(40, 1_500, (h, b))
+    fg = r.integers(0, 10**7, n)
+    fg[r.random(n) < 0.3] = 0
+    chain = chain_case(seed, h, dev, n_push=2, sends=((2, True, True), (1, False, False)),
+                       route="affine" if affine else "node_of", n_nodes=n, budget=b)
+    loss = np.where(r.random(h) < 0.3, 0.0, r.random(h) * loss_max).astype(np.float32)
+    lat = np.where(r.random(h) < 0.3, 1000, r.integers(1000, 3000, h)).astype(np.int64)
+    chain["cfg"] = dataclasses.replace(chain["cfg"], fluid_classes=k, fluid_links=n,
+                                       fluid_loss_max=loss_max, fluid_seed=cfg.fluid_seed)
+    chain["fluid_fx"] = (T(loss), T(lat))
+    return dict(cfg=cfg, fp=fp, st=st, node_of=T(node_of), ob_dst=T(ob_dst), ob_t=T(ob_t),
+                ob_payload=T(ob_payload), fg=T(fg.astype(np.int64)), now=now,
+                window_end=window_end, done=done,
+                bg_bytes=torch.tensor(int(r.integers(0, 1 << 40)), device=dev),
+                bg_dropped=torch.tensor(int(r.integers(0, 1 << 40)), device=dev), chain=chain)

@@ -64,6 +64,21 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module")
+def jax_geared():
+    """`_jax_geared` computed once per (case, knobs) in this module and
+    shared by the tests that read it (the port never writes JAX arrays)."""
+    cache = {}
+
+    def get(case, **kw):
+        key = (case, tuple(sorted(kw.items())))
+        if key not in cache:
+            cache[key] = _jax_geared(case, **kw)
+        return cache[key]
+
+    return get
+
+
 def _jax_geared(case, **kw):
     """The JAX package's geared run from the lowest gear: final state and
     gears report."""
@@ -76,6 +91,12 @@ def _jax_geared(case, **kw):
     while not bool(st.done):
         st, _, _ = jax_run_adaptive(ctl, st, lambda s, g: eng.run_chunk_gear(s, par, g))
     return eng.cfg, params, st, ctl.report()
+
+
+def _knobs(k, qb):
+    """build_sim's knobs of a matrix point (the default K = 1 flat queue is
+    the phold-k1-flat point)."""
+    return {"queue_block": qb, "microstep_events": k}
 
 
 def _port(jcfg, case, raw_params):
@@ -106,8 +127,8 @@ def _identical(a, b, skip=()):
 @pytest.mark.parametrize("qb", [0, 8], ids=["flat", "bucketed"])
 @pytest.mark.parametrize("k", [1, 4], ids=["k1", "k4"])
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_geared_run_matches_full_width_and_jax(case, k, qb):
-    jcfg, raw, jst, jrep = _jax_geared(case, queue_block=qb, microstep_events=k)
+def test_geared_run_matches_full_width_and_jax(case, k, qb, jax_geared):
+    jcfg, raw, jst, jrep = jax_geared(case, **_knobs(k, qb))
     eng, st, par = _port(jcfg, case, raw)
     st0 = snapshot_state(st)
     geared, ctl = _port_geared(eng, st, par)
@@ -124,11 +145,11 @@ def test_geared_run_matches_full_width_and_jax(case, k, qb):
     assert int(full.stats.outbox_hwm.max()) >= 2  # multi-send rounds: sheds at gear 1
 
 
-def test_snapshot_survives_in_place_writes_and_repeated_restores():
+def test_snapshot_survives_in_place_writes_and_repeated_restores(jax_geared):
     """The kernels write the state in place on the card: a snapshot must
     share no storage with the live state, and each restore must be a fresh
     copy (a second replay needs the snapshot intact)."""
-    jcfg, raw, _, _ = _jax_geared("phold")
+    jcfg, raw, _, _ = jax_geared("phold", **_knobs(1, 0))
     eng, st, par = _port(jcfg, "phold", raw)
     st = eng.run_chunk(st, par)
     snap = snapshot_state(st)
@@ -217,10 +238,10 @@ def test_gear_controller_policy():
     assert a.report() == b.report()
 
 
-def test_adaptive_chunk_skips_controller_on_zero_round_window():
+def test_adaptive_chunk_skips_controller_on_zero_round_window(jax_geared):
     """A dispatch that retired no round (given `rounds0`) does not feed the
     controller; one that did, does."""
-    jcfg, raw, _, _ = _jax_geared("phold")
+    jcfg, raw, _, _ = jax_geared("phold", **_knobs(1, 0))
     eng, st, par = _port(jcfg, "phold", raw)
 
     class Idle:  # an engine whose chunk retires nothing

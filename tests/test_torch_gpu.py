@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K13 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K16 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -17,6 +17,10 @@ events' entry stacks at once; for the exchange merges (K4, K13) the queues
 and [H, B] outboxes of `shadow_tpu_torch.testing.merge_case` read through a
 column limit. A geared run on the card (where the kernels write the state
 in place) checks that a snapshot survives the chunk and repeated restores.
+The fluid plane's kernels (K14-K16) and fluid-on K11 take the random
+inputs of `shadow_tpu_torch.testing.fluid_case` (class counts up to 64,
+both host -> link maps, an empty window, the done-round); their float64
+outputs are compared bit for bit.
 Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
 repeats the check at the main path's shapes.
@@ -27,6 +31,7 @@ import pytest
 import torch
 
 from shadow_tpu_torch.core.engine import make_empty_outbox
+from shadow_tpu_torch.net import fluid as pfl
 from shadow_tpu_torch.ops import chain as pchain
 from shadow_tpu_torch.ops import events as pev
 from shadow_tpu_torch.ops import merge as pmerge
@@ -36,6 +41,7 @@ from shadow_tpu_torch.testing import (
     chain_case,
     clone_carry,
     flat_tensors,
+    fluid_case,
     merge_case,
     merge_fits,
 )
@@ -405,3 +411,60 @@ hosts:
     assert all(np.array_equal(got[k], ref[k]) for k in ref)
     ta, tb = to_numpy(a), to_numpy(b)
     assert all(np.array_equal(ta[k], tb[k]) for k in ta)
+
+
+def bits(xs) -> list:
+    """Tensors with every float viewed as the integer of its bits."""
+    out = []
+    for x in xs:
+        if x.dtype == torch.float64:
+            x = x.view(torch.int64)
+        elif x.dtype == torch.float32:
+            x = x.view(torch.int32)
+        out.append(x)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,affine,dt_zero,done", [
+    (4, 100, True, False, False),
+    (1, 3, False, False, False),
+    (27, 16, True, False, False),
+    (33, 256, False, False, False),
+    (64, 1024, True, False, False),
+    (64, 40, True, True, False),
+    (5, 9, False, False, True),
+])
+def test_fluid_kernels_match_plain(dev, k, n, affine, dt_zero, done):
+    c = fluid_case(k * 100 + n, 64, n, k, dev, affine=affine, dt_zero=dt_zero, done=done)
+    cfg, fp, st = c["cfg"], c["fp"], c["st"]
+    ob = (c["ob_dst"], c["ob_t"], c["ob_payload"])
+    got = pfl.fluid_fg_link_bytes(cfg, *ob, c["node_of"])
+    want = pfl.fluid_fg_link_bytes_plain(cfg, *ob, c["node_of"])
+    assert_all_equal([got], [want])
+    args = (c["fg"], c["now"], c["window_end"], done)
+    got = pfl.fluid_advance(cfg, fp, clone_carry(st), *args, c["bg_bytes"].clone(),
+                            c["bg_dropped"].clone())
+    want = pfl.fluid_advance_plain(cfg, fp, st, *args, c["bg_bytes"], c["bg_dropped"])
+    assert_all_equal(bits(flat_tensors(got)), bits(flat_tensors(want)))
+    nodes = pfl.host_nodes(cfg, c["node_of"], cfg.num_hosts)
+    got = pfl.fluid_host_effects(cfg, fp, st, c["node_of"])
+    want = pfl.fluid_host_effects_plain(cfg, fp, st, nodes)
+    assert_all_equal(bits(got), bits(want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss_max", [0.0, 0.3])
+@pytest.mark.parametrize("affine", [True, False], ids=["affine", "node_of"])
+def test_fluid_egress_matches_plain(dev, affine, loss_max):
+    """K11 with the fluid lanes: the counter draw (loss_max > 0) and the
+    latency inflation, against the plain egress."""
+    case = fluid_case(7, 64, 6, 4, dev, affine=affine, loss_max=loss_max)["chain"]
+    cfg, params, e, c0 = case["cfg"], case["params"], case["ev"], case["carry"]
+    args = (params, cfg, e.t, case["dispatch"], case["window_end"], case["out"],
+            case["fluid_fx"])
+    got = pchain.event_egress(clone_carry(c0), *args)
+    want = pchain.event_egress_plain(clone_carry(c0), *args)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    torch.cuda.synchronize()

@@ -81,7 +81,8 @@ def test_yaml_run_matches_jax():
         "queue_next_time": 0, "queue_pop_min": 0, "queue_push_many": 0, "merge_insert": 0,
         "queue_pop_k": 0, "queue_clear_popped": 0, "queue_push_many_bucketed": 0,
         "queue_block_minima": 0, "outbox_append": 0, "event_ingress": 0, "event_egress": 0,
-        "wheel_cancel": 0, "merge_scatter": 0,
+        "wheel_cancel": 0, "merge_scatter": 0, "fluid_fg_link_bytes": 0, "fluid_advance": 0,
+        "fluid_host_effects": 0,
     }  # the CPU path runs the plain versions, never a kernel
 
 
@@ -98,10 +99,11 @@ def test_anchor_shapes_resolve_like_jax():
 
 
 # knobs the port does not run yet, and (event_queue_block, microstep_events,
-# timer_wheel, merge_gears, merge_scatter) values the JAX package rejects
-# too: a block that does not divide the capacity (12 here), K < 1, the wheel
-# with K > 1, a gear of width 0; the scatter merge under a merge-row bound
-# (merge_rows > 0 stays unsupported)
+# timer_wheel, merge_gears, merge_scatter, fluid) values the JAX package
+# rejects too: a block that does not divide the capacity (12 here), K < 1,
+# the wheel with K > 1, a gear of width 0; the scatter merge under a
+# merge-row bound (merge_rows > 0 stays unsupported); a fluid latency
+# factor below 1.0
 UNSUPPORTED = {
     "world": "general: {parallelism: 2}",
     "event_queue_block": "experimental: {event_queue_block: 5}",
@@ -112,7 +114,7 @@ UNSUPPORTED = {
     "merge_rows": "experimental: {merge_rows: 1000}",
     "cpu_delay": "experimental: {cpu_delay: 1}",
     "faults": "faults: {crashes: [{host: a1, at: 1 s}]}",
-    "fluid": "fluid: {classes: []}",
+    "fluid": "fluid: {latency_factor_max: 0.5}",
     "pressure": "pressure: {policy: escalate}",
     "integrity": "integrity: {enabled: true}",
     "observability_trace": "observability: {trace: true}",
