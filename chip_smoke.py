@@ -19,20 +19,24 @@ line reports it):
      (CUDA events around back-to-back calls, launch overhead included), its
      plain version's device time and a library yardstick where one exists;
   3. PHOLD's float32 log on the card against the CPU over all 2^24 inputs
-     the model can draw (exact equality);
+     the model can draw, and the same inputs through K18's own exponential
+     draw (`exp_delay_kernel`) against the plain `exp_delay` on the CPU, at
+     a mean of 2^47 ns (where each delay holds every bit of the log) and at
+     100 ms (exact equality);
   4. the full-width main path: 10,000 PHOLD hosts for 4 simulated seconds
      (queue capacity 64, send budget 12, one device) through
      `shadow_tpu_torch.sim.Simulation`, which must reproduce the JAX
      reference's determinism digest d6c9a273e3a92bb7 and 668,614 events with
-     every kernel of its path (K1-K4, K9-K11) launched;
+     every kernel of its path (K1-K4, K9-K11, K18) launched, K18 as often as
+     K10 (one handler launch per event);
   5. where the anchor's time goes: one steady 16-round chunk under
      torch.profiler, with the per-event chain's ingress (K10), the model's
-     handler, egress (K11) and the outbox append (K9) as ranges (device
-     busy share, launches per microstep, each range's device time and
-     launches, the port's kernels, top device ops);
+     handler (its kernel), egress (K11) and the outbox append (K9) as ranges
+     (device busy share, launches per microstep, each range's device time
+     and launches, the port's kernels, top device ops);
   6. small configs (udp_echo with a server overflowing its queue, PHOLD on
      a two-node graph with loss and jitter): the card's report must equal
-     the CPU path's;
+     the CPU path's, with the echo run's K19 launched as often as K10;
   7. kernels K5-K8 (pop_k, clear_popped, the bucketed push, block_minima)
      and K3 with push reserves against their plain versions at bench
      config 6's shapes (H = 10,000, C = 28, block 7, K = 4, P = 4, the 12
@@ -43,7 +47,8 @@ line reports it):
      10x10 torus at 50 ms, K = 4, bucketed queue of 28 slots in blocks of
      7, 24 sends per host per round) cut to 5 simulated seconds, which must
      reproduce the JAX package's digest, event count, drop counters and
-     tgen report for that depth, with every kernel of the path launched;
+     tgen report for that depth, with every kernel of the path launched (K17
+     as often as K10);
   9. where its time goes: one steady 8-round chunk, profiled as in phase 5;
  10. config 6 small (128 hosts on a 4x4 torus) for K in {1, 4} x {flat,
      bucketed}, a lossy torus and a tight capacity: card == CPU;
@@ -53,7 +58,9 @@ line reports it):
      out-of-range destinations, hosts past the send budget, burst ports,
      the event a column of the K-way peek), and K12 (wheel_cancel) and K5
      with per-host limits at config 11's [10,000, 4] wheel and 14-slot
-     queue; exact equality, with the timings of phase 2;
+     queue; exact equality, with the timings of phase 2, and the timings
+     of the wheel slab's own ops there (K1 on its block caches, the timer
+     push through K7, the pop through K5 + K6);
  12. the CoDel control law through K10 over every count 1..10^6, card
      against the CPU and against the law computed in Python (exact);
  13. the third path: bench config 11 (config 6 with the timer wheel, 4
@@ -109,9 +116,20 @@ line reports it):
      the lowest gear (replays across the fluid state), and cut to 4 sim-s
      with every class's window past the horizon (whose report must equal
      phase 10's fluid-off k4_block7 run): card == CPU, fluid and gears
-     blocks included.
+     blocks included;
+ 24. the model handlers' kernels K17 (tgen_handle), K18 (phold_handle), K19
+     (echo_handle) and K20 (timer_handle) against their plain versions
+     (`handle_plain`) at full width — tgen-TCP at config 6's shape (H =
+     10,000, the event a column of the K = 4 peek), PHOLD and udp_echo at
+     the anchor's, the timer at config 5's 10^6 hosts — on
+     `shadow_tpu_torch.testing.handler_case` inputs, flat and as a K = 4
+     column, over three chained calls; exact equality, dtypes included,
+     with the timings of phase 2 and, as the yardstick, the same plain
+     handler replayed from a CUDA graph on static inputs.
 
-The phases run in the order 1-3, 7, 11, 12, 15, 21, 4-6, 8-10, 13, 14,
+Every leg checks that its model's handler kernel launched exactly as
+often as K10 (one launch per event_body call), and no other handler.
+The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 4-6, 8-10, 13, 14,
 16-20, 22, 23, so that every kernel's bound is counted before the profiles
 (5, 9) hold the kernels' in-path device times against it. A profiler reading below the
 kernel's bound (the least time the card needs for the work) is a
@@ -1198,6 +1216,46 @@ def phase_kernels_chain(dev) -> dict[str, dict]:
     )
     settle("queue_pop_k/limits", results["queue_pop_k_limits"],
            results["queue_pop_k_limits"]["bound_ms"])
+
+    # the wheel slab's own ops on config 11's path, at its [10,000, 4] shape
+    # in blocks of 2: next time from the block caches (K1), the timer push
+    # (K7, one port: tgen's port B), the pop (K5 with per-host limits + K6)
+    wp = [ev.Push(mask, key + 7_000_000, key | (1 << 62),
+                  torch.full((H,), 3, dtype=torch.int32, device=dev),
+                  torch.zeros((H, P), dtype=torch.int32, device=dev))]
+    fired = int(mask.sum())
+    n_recv_free = int((mask & ((w.t != TIME_MAX).sum(dim=1) < 4)).sum())
+    slab = {
+        "next_time": dict(
+            **kernel_ms("queue_next_time", lambda: wh.wheel_next_time(w)),
+            plain_ms=time_ms(lambda: ev.next_time_plain(w.bt)),
+            bound_ms=bound(H * 2 * 8 + H * 8, H * 2)[0]),
+        "push": dict(
+            **kernel_ms("queue_push_many_bucketed", lambda ww: wh.wheel_push_many(ww, wp),
+                        lambda: (clone_q(w),)),
+            plain_ms=time_ms(lambda ww: ev.push_many_plain(ww, wp), lambda: (clone_q(w),)),
+            # the mask; each fired push's fields; the receiving hosts' time
+            # planes; one slot and its block cache written per landed push
+            bound_ms=bound(H + fired * (8 + 8 + 4 + 4 * P) + fired * 4 * 8
+                           + n_recv_free * (8 + 8 + 4 + 4 * P + 20), fired * 4)[0]),
+    }
+    dev_ms, call_ms, queued = device_ms(lambda ww: wh.wheel_pop_min(ww, lim),
+                                        lambda: (clone_q(w),),
+                                        symbols=("pop_k_kernel", "clear_popped_kernel"))
+    n_act = int(pk.active.sum())
+    slab["pop"] = {
+        "ms": dev_ms if dev_ms is not None else queued, "call_ms": call_ms,
+        "queued_ms": queued,
+        "ms_source": "profiler" if dev_ms is not None else "queued_events",
+        "plain_ms": time_ms(lambda ww: ev.pop_k_plain(ww, lim, 1), lambda: (clone_q(w),)),
+        # the caches' and slab's time planes, the limits, the popped events
+        # read and written, their slots and block caches rewritten
+        "bound_ms": bound(H * 4 * 8 + H * 8 + n_act * (4 + 4 * P + 16 + 20)
+                          + H * (8 + 8 + 4 + 4 * P + 1), H * 4)[0],
+    }
+    for k, r in slab.items():
+        settle(f"wheel_slab/{k}", r, r["bound_ms"])
+    results["wheel_slab"] = slab
     return results
 
 
@@ -1323,6 +1381,108 @@ def phase_kernels_fluid(dev) -> dict[str, dict]:
     return results
 
 
+# the handler kernels: each one's model and the shape it is timed at
+# (hosts, event stride: the K-way peek's K on config 6's path)
+HANDLERS = {
+    "tgen_handle": ("tgen_tcp", H6, K6),
+    "phold_handle": ("phold", H, 1),
+    "echo_handle": ("udp_echo", H, 1),
+    "timer_handle": ("timer", 1_000_000, 1),
+}
+# integer and float operations per host of each handler (its statements,
+# counted from csrc/models.cu: the bound's operation side)
+HANDLER_OPS = {"tgen_handle": 600, "phold_handle": 160, "echo_handle": 30, "timer_handle": 6}
+# the port fields each kernel writes (the others are the event's, the
+# params' or cached constants)
+HANDLER_WRITES = {
+    "tgen_handle": ("push0.mask", "push1.mask", "push1.t", "push1.kind", "send0.mask",
+                    "send0.dst", "send0.size_bytes", "send0.payload", "send0.count"),
+    "phold_handle": ("push0.mask", "push0.t", "send0.mask", "send0.dst"),
+    "echo_handle": ("push0.mask", "push0.t", "send0.payload", "send1.mask"),
+    "timer_handle": ("push0.mask", "push0.t"),
+}
+
+
+def graph_of(fn):
+    """`fn` (no arguments) captured into a CUDA graph on static inputs,
+    after warm-up calls on a side stream; returns the graph."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    torch.cuda.synchronize()
+    return g
+
+
+def phase_kernels_handlers(dev) -> dict[str, dict]:
+    """K17-K20 against their plain versions (`handle_plain`) at full width:
+    tgen-TCP at config 6's shape (H = 10,000, the event a column of the K
+    = 4 peek), PHOLD and udp_echo at the anchor's (H = 10,000), the timer at
+    config 5's (H = 10^6); `shadow_tpu_torch.testing.handler_case` inputs,
+    two seeds, each also as a K = 4 column, and three chained calls on one
+    state. Exact equality, dtypes included. Timings as phase 2's, and as the
+    library yardstick the same plain handler replayed from a CUDA graph
+    (static inputs), since no single PyTorch call computes a handler."""
+    from shadow_tpu_torch.testing import (
+        clone_ctx,
+        handler_case,
+        handler_diff,
+        handler_steps,
+        handler_tensors,
+    )
+
+    results = {}
+    for name, (model, h, k) in HANDLERS.items():
+        n_checked, err = 0, 0.0
+        for seed in (1, 2):
+            for stride in (1, K6):
+                for step, (got, want) in enumerate(handler_steps(model, seed, h, dev,
+                                                                 stride=stride)):
+                    diff = handler_diff(got, want)
+                    if diff:
+                        raise AssertionError(f"{name}/{seed}/{stride}/{step}: {diff} differ "
+                                             "from the plain version")
+                    a, b = handler_tensors(got), handler_tensors(want)
+                    err = max(err, max_abs_err([a[x] for x in b], list(b.values())))
+                    n_checked += 1
+        case = handler_case(model, 3, h, dev, stride=k)
+        m, ctx = case["model"], case["ctx"]
+        r = kernel_ms(name, lambda c: m.handle(c), lambda: (clone_ctx(ctx),))
+        r["plain_ms"] = time_ms(lambda c: m.handle_plain(c), lambda: (clone_ctx(ctx),))
+        g = graph_of(lambda: m.handle_plain(ctx))
+        r["library_ms"] = time_ms(g.replay)
+        r["library_call"] = "torch.cuda.CUDAGraph replay of handle_plain (static inputs)"
+        r["shape"] = [h, k]
+        r["checked_calls"] = n_checked
+        # the context lanes the kernel reads (tgen: every lane and the four
+        # payload words; echo: its two time words), params and state read,
+        # the outputs the kernel writes, each state lane written where it
+        # changed
+        want = handler_tensors(m.handle_plain(ctx))
+        state0 = {f"state.{key}": v for key, v in ctx.state.items()}
+        if model == "phold":
+            state0["rng"] = ctx.rng.s
+        reads = [ctx.t, ctx.kind, ctx.active, *(ctx.params[p] for p, _ in m.kernel_params),
+                 *state0.values()]
+        if model == "tgen_tcp":
+            reads += [ctx.payload, ctx.is_packet, ctx.src, ctx.host_id]
+        elif model == "udp_echo":
+            reads += [ctx.payload[:, 1:3]]
+        changed = sum(int((v != want[key]).sum()) * v.element_size()
+                      for key, v in state0.items())
+        r["bound"] = bound(io_bytes(reads=reads, writes=[want[key] for key in HANDLER_WRITES[name]])
+                           + changed, HANDLER_OPS[name] * h)
+        r["max_abs_err"] = err
+        settle(name, r, r["bound"][0])
+        results[name] = r
+    return results
+
+
 def phase_codel_law(dev) -> dict:
     """The CoDel control law through K10 over every count 1..10^6: one host
     per count, each dropping with count - 1 drops and due, its packet
@@ -1377,14 +1537,27 @@ def phase_codel_law(dev) -> dict:
             "card_vs_python_mismatches": int((gpu != want).sum())}
 
 
-def phase_log(dev) -> int:
-    from shadow_tpu_torch.models.phold import log_f32
+def phase_log(dev) -> dict:
+    """PHOLD's float32 log over all 2^24 inputs the model can draw: the
+    plain `log_f32` on the card against the CPU, and K18's own `exp_delay`
+    (`exp_delay_kernel`) against the plain `exp_delay` on the CPU at a mean
+    of 2^47 ns (x * 2^47 is exact and integral: each delay holds every bit
+    of the log) and at the anchor's 100 ms. Mismatch counts."""
+    from shadow_tpu_torch.models.phold import exp_delay, exp_delay_kernel, log_f32
 
-    u = torch.arange(1 << 24, dtype=torch.int64).to(torch.float32) * (1.0 / (1 << 24))
+    n = 1 << 24
+    u = torch.arange(n, dtype=torch.int64).to(torch.float32) * (1.0 / n)
     x = torch.maximum(1.0 - u, torch.tensor(1e-7, dtype=torch.float32))
     cpu = log_f32(x)
     gpu = log_f32(x.to(dev)).cpu()
-    return int((cpu.view(torch.int32) != gpu.view(torch.int32)).sum())
+    out = {"log_f32_card_vs_cpu": int((cpu.view(torch.int32) != gpu.view(torch.int32)).sum())}
+    ud = u.to(dev)
+    for mean in (1 << 47, 100_000_000):
+        want = exp_delay(u, torch.full((1,), mean, dtype=torch.int64).expand(n))
+        got = exp_delay_kernel(ud, torch.full((1,), mean, dtype=torch.int64, device=dev)
+                               .expand(n)).cpu()
+        out[f"k18_exp_delay_mean_{mean}_vs_cpu"] = int((got != want).sum())
+    return out
 
 
 KERNEL_SYMBOLS = {
@@ -1405,6 +1578,10 @@ KERNEL_SYMBOLS = {
     "fluid_fg_link_bytes": ("fg_link_bytes_kernel",),
     "fluid_advance": ("fluid_advance_kernel",),
     "fluid_host_effects": ("fluid_host_effects_kernel",),
+    "tgen_handle": ("tgen_handle_kernel",),
+    "phold_handle": ("phold_handle_kernel",),
+    "echo_handle": ("echo_handle_kernel",),
+    "timer_handle": ("timer_handle_kernel",),
 }
 # the microstep's per-event steps, marked as profiler ranges in phases 5 and 9
 RANGES = ("ingress", "handler", "egress", "outbox_append")
@@ -1414,10 +1591,11 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
     """Where a leg's time goes: three unprofiled chunks (the first carries
     first-use costs; the third is timed), then one chunk under
     torch.profiler with the per-event chain's three steps — ingress (K10),
-    the model's handler (plain PyTorch), egress (K11) — and the outbox
-    append (K9) marked as ranges: device busy share, launches per
-    microstep, each range's device time and launches per microstep, the
-    port's kernels by name, and the top device ops.
+    the model's handler (its kernel, K17-K20), egress (K11) — and the
+    outbox append (K9) marked as ranges: device busy share, launches per
+    microstep, each range's device time and launches per microstep (the
+    handler's should be one launch per event), the port's kernels by name,
+    and the top device ops.
 
     Each port kernel's device time per wrapper call inside the path is
     held against `floors[name]`, its least time per call at this path's
@@ -1493,8 +1671,8 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
     # the trace does not tie a ctypes launch to the range around it: each
     # range gets its own kernel's launches and device time by name, plus
     # the PyTorch kernels of the ops inside it
-    own = {"ingress": "event_ingress", "egress": "event_egress",
-           "outbox_append": "outbox_append"}
+    own = {"ingress": "event_ingress", "handler": HANDLER_OF[eng.model.name],
+           "egress": "event_egress", "outbox_append": "outbox_append"}
     ranges = {}
     for name in RANGES:
         evs = [e for e in prof.events() if e.name == name]
@@ -1629,8 +1807,9 @@ def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple,
             final=None) -> tuple[dict, dict]:
     """One full-width leg with every launch counter set to 0 just before
     and read just after: the report must equal the JAX constants `ref`,
-    `final(sim)` (where given) must equal its JAX constants, and every
-    kernel of `path` must have launched. Prints the run loop's wall
+    `final(sim)` (where given) must equal its JAX constants, every kernel
+    of `path` must have launched, and the model's handler kernel exactly as
+    often as the ingress kernel. Prints the run loop's wall
     (`wall_seconds`), the wall with the build (`build_and_run_seconds`) and
     the card's peak allocated memory. Returns (counts, report)."""
     from shadow_tpu_torch.config.options import ConfigOptions
@@ -1659,14 +1838,27 @@ def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple,
         raise AssertionError(f"{name}: differs from the JAX reference (port, JAX): {diff}")
     if not all(launches[k] for k in path):
         raise AssertionError(f"{name}: a kernel of the path never launched: {launches}")
+    check_handler_launches(name, launches)
     return launches, report
 
 
+def check_handler_launches(name: str, launches: dict) -> None:
+    """One handler kernel launch per event_body call: on a run, the
+    model's handler kernel launched as often as the ingress kernel, and no
+    other handler kernel launched."""
+    ran = {k: launches[k] for k in HANDLER_OF.values() if launches[k]}
+    if len(ran) != 1 or next(iter(ran.values())) != launches["event_ingress"]:
+        raise AssertionError(f"{name}: handler launches {ran} against "
+                             f"{launches['event_ingress']} ingress launches")
+
+
 CHAIN_PATH = ("outbox_append", "event_ingress", "event_egress")
+# each model's handler kernel, run once per event_body call
+HANDLER_OF = {model: name for name, (model, _, _) in HANDLERS.items()}
 ANCHOR_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "merge_insert",
-               *CHAIN_PATH)
+               *CHAIN_PATH, "phold_handle")
 TGEN_PATH = ("queue_next_time", "merge_insert", "queue_pop_k", "queue_clear_popped",
-             "queue_push_many_bucketed", "queue_block_minima", *CHAIN_PATH)
+             "queue_push_many_bucketed", "queue_block_minima", *CHAIN_PATH, "tgen_handle")
 # the wheel path: the queue's and the wheel's pops are K5 (per-host
 # limits) + K6, both slabs' pushes K7, next times K1 on the block caches
 CFG11_PATH = TGEN_PATH
@@ -1675,7 +1867,7 @@ CFG11_PATH = TGEN_PATH
 CFG2_PATH = ANCHOR_PATH
 CFG2_SCATTER_PATH = tuple("merge_scatter" if k == "merge_insert" else k for k in ANCHOR_PATH)
 CFG5_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "event_ingress",
-             "event_egress")
+             "event_egress", "timer_handle")
 # config 12 is config 6's path plus the fluid plane's three kernels, each
 # once per round
 FLUID_PATH = ("fluid_fg_link_bytes", "fluid_advance", "fluid_host_effects")
@@ -1683,7 +1875,8 @@ CFG12_PATH = TGEN_PATH + FLUID_PATH
 SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
            "merge_scatter": "shadow_tpu_torch/csrc/merge.cu",
            **{k: "shadow_tpu_torch/csrc/event.cu" for k in CHAIN_PATH},
-           **{k: "shadow_tpu_torch/csrc/fluid.cu" for k in FLUID_PATH}}
+           **{k: "shadow_tpu_torch/csrc/fluid.cu" for k in FLUID_PATH},
+           **{k: "shadow_tpu_torch/csrc/models.cu" for k in HANDLER_OF.values()}}
 REPLACES = {
     "queue_next_time": "shadow_tpu/ops/events.py:129",
     "queue_pop_min": "shadow_tpu/ops/events.py:138",
@@ -1701,6 +1894,10 @@ REPLACES = {
     "fluid_fg_link_bytes": "shadow_tpu/core/engine.py:2202",
     "fluid_advance": "shadow_tpu/net/fluid.py:222",
     "fluid_host_effects": "shadow_tpu/net/fluid.py:270",
+    "tgen_handle": "shadow_tpu/models/tgen.py:250",
+    "phold_handle": "shadow_tpu/models/phold.py:65",
+    "echo_handle": "shadow_tpu/models/echo.py:104",
+    "timer_handle": "shadow_tpu/models/timer.py:41",
 }
 # the path whose run each kernel's `launches` is read from: the one it was
 # ported for (wheel_cancel has no engine caller, in either package)
@@ -1712,6 +1909,10 @@ PORTED_FOR = {
     "wheel_cancel": "cfg11",
     "merge_scatter": "cfg2_scatter",
     **{k: "cfg12" for k in FLUID_PATH},
+    "tgen_handle": "tgen",
+    "phold_handle": "anchor",
+    "echo_handle": "echo_overflow",  # udp_echo runs in phase 6's small config only
+    "timer_handle": "cfg5",
 }
 
 
@@ -1747,8 +1948,8 @@ def main() -> int:
 
     mism = phase_log(dev)
     emit("phold_log", mismatches=mism, inputs=1 << 24)
-    if mism:
-        raise AssertionError(f"PHOLD log: {mism} of 2^24 inputs differ between card and CPU")
+    if any(mism.values()):
+        raise AssertionError(f"PHOLD log: inputs of 2^24 differ from the CPU: {mism}")
 
     # the kernel phases 7, 11 and 12 run before the legs: the profiles (5,
     # 9) hold their in-path readings against the bounds these phases count
@@ -1762,7 +1963,9 @@ def main() -> int:
     emit("kernels_chain_wheel_vs_plain", ok=True, exact=True,
          **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in cres.items()})
     kres["queue_pop_k"]["per_host_limits"] = cres.pop("queue_pop_k_limits")
+    slab = cres.pop("wheel_slab")
     kres.update(cres)
+    kres["wheel_cancel"]["wheel_slab"] = slab
 
     law = phase_codel_law(dev)
     emit("codel_law", **law)
@@ -1783,6 +1986,11 @@ def main() -> int:
     kres["event_egress"]["fluid_on"] = egf
     kres.update(fres)
 
+    hres = phase_kernels_handlers(dev)
+    emit("kernels_handlers_vs_plain", ok=True, exact=True,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in hres.items()})
+    kres.update(hres)
+
     # least device time per call at each path's shapes: the kernel phases'
     # bounds; K1 and K4 on the tgen path (block caches, 24-wide outbox) get
     # the bytes every call reads whatever the data (the caches' time plane
@@ -1801,7 +2009,9 @@ def main() -> int:
     keys = ("determinism_digest", "events_processed", "packets_sent", "packets_lost",
             "packets_codel_dropped", "queue_overflow_dropped", "packets_budget_dropped",
             "rounds", "microsteps")
-    card_vs_cpu("small_config", small_configs(), keys)
+    small = card_vs_cpu("small_config", small_configs(), keys)
+    launches["echo_overflow"] = small["echo_overflow"]["kernel_launches"]
+    check_handler_launches("echo_overflow", launches["echo_overflow"])
 
     launches["tgen"] = run_leg("tgen", tgen_config(False, TGEN_STOP), TGEN_REF, TGEN_PATH)[0]
 
@@ -1883,6 +2093,10 @@ def main() -> int:
             **({"fluid_on": {k: r["fluid_on"][k] for k in ("ms", "call_ms", "plain_ms",
                                                             "bound_ms")}}
                if "fluid_on" in r else {}),
+            **({"wheel_slab": {op: {k: v[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
+                               for op, v in r["wheel_slab"].items()}}
+               if "wheel_slab" in r else {}),
+            **({"library_call": r["library_call"]} if "library_call" in r else {}),
         })
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

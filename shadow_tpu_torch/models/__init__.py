@@ -1,6 +1,7 @@
 """Host application models, vectorized over all simulated hosts: `phold`,
 `udp_echo`, `timer` and `tgen_tcp`; config `processes: [{model: ...}]`
-resolves here."""
+resolves here. Each model's handler is a hand-written CUDA kernel
+(K17-K20, csrc/models.cu) beside its plain PyTorch version."""
 
 from shadow_tpu_torch.models.base import (
     MODEL_REGISTRY,
@@ -18,11 +19,15 @@ from shadow_tpu_torch.models import phold as _phold  # noqa: F401
 from shadow_tpu_torch.models import tgen as _tgen  # noqa: F401
 from shadow_tpu_torch.models import timer as _timer  # noqa: F401
 
+# every handler kernel's launch wrapper, by kernel name
+KERNELS = {**_tgen.KERNELS, **_phold.KERNELS, **_echo.KERNELS, **_timer.KERNELS}
+
 __all__ = [
     "MODEL_REGISTRY",
     "FlowDone",
     "HandlerCtx",
     "HandlerOut",
+    "KERNELS",
     "LocalPush",
     "Model",
     "PacketSend",

@@ -9,16 +9,34 @@ masks selecting who is active. Its contract is the JAX package's:
     (`HandlerOut.pushes` / `.sends`) are a fixed tuple per model.
 
 Model params and state are dicts of [H, ...] tensors on the run's device.
+
+Every model has two implementations of its handler, as every kernel of the
+port does: `handle_plain`, plain PyTorch (functional), and a hand-written
+CUDA kernel (csrc/models.cu, K17-K20). `handle` dispatches on where
+`ctx.t` lives: a CPU tensor runs `handle_plain`, a CUDA tensor launches the
+kernel, any other device is refused. There is no fallback: a kernel that
+fails to build or launch raises, and nothing on a CUDA path calls
+`handle_plain` (the tests and chip_smoke.py call it to compare). The
+kernels update the state dict's lanes and the RNG lanes IN PLACE, as the
+chain kernels update their carry lanes; the snapshot deep-copies them
+(core/checkpoint.py). Their argument block starts with the context's
+fields in the order `ctx_arg_block` gives; port fields that are constants
+(kinds, zero payloads) are cached read-only tensors (`const_lane`,
+`const_rows`), and a kernel's outputs are allocated per call, so a port
+field written for one column of a K-way microstep stays intact while the
+later columns run.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Protocol
+import functools
+from typing import TYPE_CHECKING, Any, NamedTuple, Protocol
 
 import torch
 
-from shadow_tpu_torch.ops.rng import RngState
+if TYPE_CHECKING:  # ops.chain imports this module's constants
+    from shadow_tpu_torch.ops.rng import RngState
 
 # Event-kind space: models use kinds 0..KIND_MASK; the engine owns flag bits.
 KIND_MASK = 0xFFFF
@@ -105,10 +123,72 @@ class Model(Protocol):
         ...
 
     def handle(self, ctx: HandlerCtx) -> HandlerOut:
+        """`handle_plain` on the CPU, the model's kernel on CUDA."""
+        ...
+
+    def handle_plain(self, ctx: HandlerCtx) -> HandlerOut:
         ...
 
     def report(self, state, hosts: list[dict]) -> dict:
         ...
+
+
+def ctx_arg_block(ctx: HandlerCtx) -> list[int]:
+    """The context's part of a handler kernel's argument block, in the
+    order csrc/models.cu `read_ctx` reads it: H, P, the event's host
+    stride, then the event time, payload, kind, active, is_packet, src and
+    host id. The time and payload may be a column of the K-way peek (host
+    stride es, payload rows es * P words apart); every other lane is
+    contiguous, as the ingress kernel writes it."""
+    from shadow_tpu_torch.ops.cuda_build import addr, check
+
+    h, p = ctx.payload.shape
+    es = ctx.t.stride(0) if h > 1 else 1
+    if not ctx.t.is_cuda or ctx.t.dtype != torch.int64 or tuple(ctx.t.shape) != (h,):
+        raise ValueError(f"handler t: expected a CUDA int64 [{h}] tensor")
+    pl = ctx.payload
+    if not pl.is_cuda or pl.dtype != torch.int32:
+        raise ValueError("handler payload: expected a CUDA int32 tensor")
+    if (h > 1 and pl.stride(0) != es * p) or (p > 1 and pl.stride(1) != 1):
+        raise ValueError(f"handler payload: strides {pl.stride()}, expected ({es * p}, 1)")
+    for x, dt, name in ((ctx.kind, torch.int32, "kind"), (ctx.active, torch.bool, "active"),
+                        (ctx.is_packet, torch.bool, "is_packet"), (ctx.src, torch.int64, "src"),
+                        (ctx.host_id, torch.int64, "host_id")):
+        check(x, dt, (h,), f"handler {name}")
+    return [h, p, es, addr(ctx.t), addr(pl), addr(ctx.kind), addr(ctx.active),
+            addr(ctx.is_packet), addr(ctx.src), addr(ctx.host_id)]
+
+
+def check_lanes(lanes: dict, spec: tuple, h: int, what: str) -> list[int]:
+    """Check each named [H] lane of `lanes` against its dtype in `spec`
+    ((name, dtype) pairs) and return their addresses in that order."""
+    from shadow_tpu_torch.ops.cuda_build import addr, check
+
+    for name, dt in spec:
+        check(lanes[name], dt, (h,), f"{what} {name}")
+    return [addr(lanes[name]) for name, _ in spec]
+
+
+@functools.lru_cache(maxsize=None)
+def _const(value: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.full((1,), value, dtype=dtype, device=device)
+
+
+def const_lane(value: int, dtype: torch.dtype, h: int, device) -> torch.Tensor:
+    """A read-only [H] port field holding `value` everywhere: a broadcast
+    view of one cached element (K11 reads it with host stride 0)."""
+    return _const(value, dtype, torch.device(device)).expand(h)
+
+
+@functools.lru_cache(maxsize=None)
+def const_rows(h: int, p: int, device, word: int = -1, value: int = 0) -> torch.Tensor:
+    """A read-only i32[H, P] payload, zeros but for `value` in word `word`
+    (none for -1), cached per device and shape. Nothing writes a push or
+    send payload in place."""
+    rows = torch.zeros((h, p), dtype=torch.int32, device=device)
+    if word >= 0:
+        rows[:, word] = value
+    return rows
 
 
 MODEL_REGISTRY: dict[str, type] = {}

@@ -3,6 +3,9 @@
 Clients send fixed-size requests to a peer server on a period; the server
 echoes the payload back; clients record RTTs from the send timestamp that
 rides in payload words 1-2. Integer-only.
+
+The handler is kernel K19 `echo_handle` (csrc/models.cu) on CUDA and
+`handle_plain` on the CPU (models/base.py).
 """
 
 from __future__ import annotations
@@ -16,8 +19,13 @@ from shadow_tpu_torch.models.base import (
     HandlerOut,
     LocalPush,
     PacketSend,
+    check_lanes,
+    const_lane,
+    const_rows,
+    ctx_arg_block,
     register_model,
 )
+from shadow_tpu_torch.ops.cuda_build import ARG_BLOCK, CudaKernel, addr, arg_block, on_cpu
 from shadow_tpu_torch.ops.events import EVENT_PAYLOAD_WORDS
 
 KIND_TICK = 0  # client send timer
@@ -26,6 +34,8 @@ KIND_RESP = 2  # response packet (client handles)
 
 ROLE_CLIENT = 0
 ROLE_SERVER = 1
+
+_handle_k = CudaKernel("models", "echo_handle", ARG_BLOCK)
 
 
 def _pack_t(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -44,6 +54,10 @@ class UdpEchoModel:
     name = "udp_echo"
     # the kinds the timer wheel takes (ops/wheel.py)
     timer_kinds = (KIND_TICK,)
+    # (name, dtype) of the params and state lanes the kernel reads, in its
+    # order
+    kernel_params = (("role", torch.int32), ("interval", torch.int64))
+    kernel_state = tuple((k, torch.int64) for k in ("sent", "rcvd", "rtt_sum", "rtt_max"))
 
     def build(self, hosts, seed, device):
         h = len(hosts)
@@ -85,6 +99,34 @@ class UdpEchoModel:
         return params, state, events
 
     def handle(self, ctx: HandlerCtx) -> HandlerOut:
+        """`handle_plain` as one kernel (K19) on CUDA, updating the counters
+        in place. The response port passes the event's source, size word
+        and payload through, as the plain version does."""
+        if on_cpu(ctx.t):
+            return self.handle_plain(ctx)
+        h, p = ctx.payload.shape
+        dev = ctx.t.device
+        if p < 3:
+            raise ValueError(f"udp_echo: {p} payload words, the send time needs 3")
+        args = [*ctx_arg_block(ctx),
+                *check_lanes(ctx.params, self.kernel_params, h, "udp_echo param"),
+                *check_lanes(ctx.state, self.kernel_state, h, "udp_echo state")]
+        tick = torch.empty((h,), dtype=torch.bool, device=dev)
+        push_t = torch.empty((h,), dtype=torch.int64, device=dev)
+        req_payload = torch.empty((h, p), dtype=torch.int32, device=dev)
+        req = torch.empty((h,), dtype=torch.bool, device=dev)
+        _handle_k(arg_block([*args, addr(tick), addr(push_t), addr(req_payload), addr(req)]))
+        send_req = PacketSend(mask=tick, dst=ctx.params["peer"], size_bytes=ctx.params["size"],
+                              kind=const_lane(KIND_REQ, torch.int32, h, dev), payload=req_payload)
+        push_tick = LocalPush(mask=tick, t=push_t, kind=const_lane(KIND_TICK, torch.int32, h, dev),
+                              payload=const_rows(h, p, dev))
+        send_resp = PacketSend(mask=req, dst=ctx.src, size_bytes=ctx.payload[:, 0],
+                               kind=const_lane(KIND_RESP, torch.int32, h, dev),
+                               payload=ctx.payload)
+        return HandlerOut(state=ctx.state, rng=ctx.rng, pushes=(push_tick,),
+                          sends=(send_req, send_resp))
+
+    def handle_plain(self, ctx: HandlerCtx) -> HandlerOut:
         h = ctx.kind.shape[0]
         dev = ctx.t.device
         is_client = ctx.params["role"] == ROLE_CLIENT
@@ -144,3 +186,6 @@ class UdpEchoModel:
             "mean_rtt_ms": float(rtt_sum[client].sum() / max(n_resp, 1) / 1e6),
             "max_rtt_ms": float(np.asarray(state["rtt_max"]).max() / 1e6),
         }
+
+
+KERNELS = {"echo_handle": _handle_k}

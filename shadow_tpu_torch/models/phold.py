@@ -14,6 +14,11 @@ float32(float64(a) * float64(b) + float64(c)); the product is exact in
 float64, and each PyTorch op rounds on its own, so the CPU and CUDA results
 are the same. tests/test_torch_phold_log.py checks all 2^24 inputs the model
 can draw against `jnp.log`.
+
+The handler is kernel K18 `phold_handle` (csrc/models.cu, with the same
+log as scalar code) on CUDA and `handle_plain` on the CPU
+(models/base.py); `exp_delay_kernel` runs the kernel's own `exp_delay` over
+a flat array, so its log can be checked on every input.
 """
 
 from __future__ import annotations
@@ -30,13 +35,21 @@ from shadow_tpu_torch.models.base import (
     HandlerOut,
     LocalPush,
     PacketSend,
+    check_lanes,
+    const_lane,
+    const_rows,
+    ctx_arg_block,
     register_model,
 )
+from shadow_tpu_torch.ops.cuda_build import ARG_BLOCK, CudaKernel, addr, arg_block, check, on_cpu
 from shadow_tpu_torch.ops.events import EVENT_PAYLOAD_WORDS
 from shadow_tpu_torch.ops.rng import rng_uniform
 
 KIND_JOB = 0  # a held message matures: pick a peer, send
 KIND_MSG = 1  # message arrives: hold it, then it matures
+
+_handle_k = CudaKernel("models", "phold_handle", ARG_BLOCK)
+_exp_delay_k = CudaKernel("models", "phold_exp_delay", ARG_BLOCK)
 
 _P = (
     7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
@@ -103,11 +116,28 @@ def exp_delay(u: torch.Tensor, mean_ns: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(d, 1_000)
 
 
+def exp_delay_kernel(u: torch.Tensor, mean_ns: torch.Tensor) -> torch.Tensor:
+    """`exp_delay` through K18's own device function, on CUDA: u f32[N],
+    mean_ns i64[N] (contiguous or a broadcast) -> delay i64[N]."""
+    n = u.shape[0]
+    check(u, torch.float32, (n,), "exp_delay u")
+    if not mean_ns.is_cuda or mean_ns.dtype != torch.int64 or tuple(mean_ns.shape) != (n,):
+        raise ValueError(f"exp_delay mean_ns: expected a CUDA int64 [{n}] tensor")
+    out = torch.empty((n,), dtype=torch.int64, device=u.device)
+    _exp_delay_k(arg_block([n, addr(u), addr(mean_ns), mean_ns.stride(0) if n > 1 else 0,
+                            addr(out)]))
+    return out
+
+
 @register_model
 class PholdModel:
     name = "phold"
     # the kinds the timer wheel takes (ops/wheel.py)
     timer_kinds = (KIND_JOB,)
+    # (name, dtype) of the params and state lanes the kernel reads, in its
+    # order (then the RNG lanes)
+    kernel_params = (("mean_delay", torch.int64), ("num_hosts", torch.int64))
+    kernel_state = (("handled", torch.int64),)
 
     def build(self, hosts, seed, device):
         h = len(hosts)
@@ -129,6 +159,26 @@ class PholdModel:
         return params, state, events
 
     def handle(self, ctx: HandlerCtx) -> HandlerOut:
+        """`handle_plain` as one kernel (K18) on CUDA, advancing the RNG
+        lanes and the handled count in place."""
+        if on_cpu(ctx.t):
+            return self.handle_plain(ctx)
+        h, p = ctx.payload.shape
+        dev = ctx.t.device
+        check(ctx.rng.s, torch.int64, (h, 4), "rng")
+        args = [*ctx_arg_block(ctx), *check_lanes(ctx.params, self.kernel_params, h, "phold param"),
+                *check_lanes(ctx.state, self.kernel_state, h, "phold state"), addr(ctx.rng.s)]
+        arrived, job = (torch.empty((h,), dtype=torch.bool, device=dev) for _ in range(2))
+        push_t, dst = (torch.empty((h,), dtype=torch.int64, device=dev) for _ in range(2))
+        _handle_k(arg_block([*args, addr(arrived), addr(push_t), addr(job), addr(dst)]))
+        zeros = const_rows(h, p, dev)
+        push = LocalPush(mask=arrived, t=push_t, kind=const_lane(KIND_JOB, torch.int32, h, dev),
+                         payload=zeros)
+        send = PacketSend(mask=job, dst=dst, size_bytes=ctx.params["size"],
+                          kind=const_lane(KIND_MSG, torch.int32, h, dev), payload=zeros)
+        return HandlerOut(state=ctx.state, rng=ctx.rng, pushes=(push,), sends=(send,))
+
+    def handle_plain(self, ctx: HandlerCtx) -> HandlerOut:
         h = ctx.kind.shape[0]
         dev = ctx.t.device
         job = ctx.active & (ctx.kind == KIND_JOB)
@@ -164,3 +214,6 @@ class PholdModel:
             "min": int(handled.min()),
             "max": int(handled.max()),
         }
+
+
+KERNELS = {"phold_handle": _handle_k}

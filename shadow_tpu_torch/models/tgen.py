@@ -20,6 +20,11 @@ counter is bit-identical. Two lanes need care in PyTorch:
     popcount is a SWAR bit count (`_popcount32`);
   - integer division: every `//` of the reference floors, and so does
     `torch.div(..., rounding_mode="floor")`.
+
+The handler is kernel K17 `tgen_handle` (csrc/models.cu) on CUDA and
+`handle_plain` on the CPU (models/base.py). The kernel path returns no
+`FlowDone` record: the port runs without the flow ledger, whose record
+lanes the observability slice will add to K17.
 """
 
 from __future__ import annotations
@@ -34,8 +39,13 @@ from shadow_tpu_torch.models.base import (
     HandlerOut,
     LocalPush,
     PacketSend,
+    check_lanes,
+    const_lane,
+    const_rows,
+    ctx_arg_block,
     register_model,
 )
+from shadow_tpu_torch.ops.cuda_build import ARG_BLOCK, CudaKernel, addr, arg_block, on_cpu
 from shadow_tpu_torch.ops.events import EVENT_PAYLOAD_WORDS
 from shadow_tpu_torch.simtime import TIME_MAX
 
@@ -69,6 +79,27 @@ HDR_BYTES = 40  # IP + TCP header burden
 _CWND_ONE = 1 << 10  # fixed-point unit: cwnd_x == cwnd << 10
 _U32 = 0xFFFFFFFF
 
+_handle_k = CudaKernel("models", "tgen_handle", ARG_BLOCK)
+_I32, _I64, _B = torch.int32, torch.int64, torch.bool
+# the params and state lanes in the order K17 reads them (csrc/models.cu
+# TgenArgs)
+_KERNEL_PARAMS = (
+    ("flow_segs", _I32), ("mss", _I32), ("flows", _I32), ("cwnd_init", _I32),
+    ("cwnd_cap", _I32), ("rto_init", _I64), ("rto_min", _I64), ("rto_max", _I64),
+    ("flow_gap", _I64), ("delack", _I64), ("num_hosts", _I32),
+)
+_KERNEL_STATE = (
+    ("c_state", _I32), ("c_phase", _I32), ("c_peer", _I32), ("snd_una", _I32),
+    ("snd_nxt", _I32), ("cwnd_x", _I32), ("ssth_x", _I32), ("dup", _I32), ("recover", _I32),
+    ("srtt", _I64), ("rttvar", _I64), ("rto", _I64), ("rtt_seq", _I32), ("rtt_t0", _I64),
+    ("deadline", _I64), ("timer_alive", _B), ("tx_alive", _B), ("flow_t0", _I64),
+    ("sv_state", _I32), ("sv_peer", _I32), ("sv_phase", _I32), ("rcv_nxt", _I32),
+    ("sv_bm", _I64), ("da_pend", _B), ("da_t", _I64), ("da_alive", _B),
+    ("d_sent", _I64), ("d_rtx", _I64), ("fast_rtx", _I64), ("timeouts", _I64),
+    ("flows_done", _I64), ("flow_rtx0", _I64), ("fct_sum", _I64), ("segs_rcvd", _I64),
+    ("dup_segs", _I64), ("bytes_rcvd", _I64), ("done_t", _I64),
+)
+
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
     """Set bits of each value of an int64 tensor holding 0..2^32-1."""
@@ -101,6 +132,10 @@ class TgenTcpModel:
     # kind: the wheel's router skips port A (always KIND_TX)
     timer_push_ports = (1,)
     flow_ledger = True  # handle() emits FlowDone records at FIN-ACK
+    # (name, dtype) of the params and state lanes the kernel reads, in its
+    # order
+    kernel_params = _KERNEL_PARAMS
+    kernel_state = _KERNEL_STATE
 
     def build(self, hosts, seed, device):
         h = len(hosts)
@@ -198,6 +233,36 @@ class TgenTcpModel:
     # ------------------------------------------------------------------ #
 
     def handle(self, ctx: HandlerCtx) -> HandlerOut:
+        """`handle_plain` as one kernel (K17) on CUDA, updating every state
+        lane in place; port A's time is the event time, and the send
+        port's kind and payload increment are constants."""
+        if on_cpu(ctx.t):
+            return self.handle_plain(ctx)
+        h, p = ctx.payload.shape
+        dev = ctx.t.device
+        if p <= PW_META:
+            raise ValueError(f"tgen_tcp: {p} payload words, the segment header needs 4")
+        args = [*ctx_arg_block(ctx), self.tx_batch,
+                *check_lanes(ctx.params, self.kernel_params, h, "tgen_tcp param"),
+                *check_lanes(ctx.state, self.kernel_state, h, "tgen_tcp state")]
+        pa_mask, pb_mask, s_mask = (torch.empty((h,), dtype=_B, device=dev) for _ in range(3))
+        pb_t, s_dst = (torch.empty((h,), dtype=_I64, device=dev) for _ in range(2))
+        pb_kind, s_size, s_count = (torch.empty((h,), dtype=_I32, device=dev) for _ in range(3))
+        s_payload = torch.empty((h, p), dtype=_I32, device=dev)
+        _handle_k(arg_block([*args, *(addr(x) for x in (
+            pa_mask, pb_mask, pb_t, pb_kind, s_mask, s_dst, s_size, s_payload, s_count))]))
+        zeros = const_rows(h, p, dev)
+        port_a = LocalPush(mask=pa_mask, t=ctx.t, kind=const_lane(KIND_TX, _I32, h, dev),
+                           payload=zeros)
+        port_b = LocalPush(mask=pb_mask, t=pb_t, kind=pb_kind, payload=zeros)
+        send = PacketSend(
+            mask=s_mask, dst=s_dst, size_bytes=s_size, kind=const_lane(KIND_SEG, _I32, h, dev),
+            payload=s_payload, count=s_count, payload_inc=const_rows(h, p, dev, PW_SEQ, 1),
+            count_max=self.tx_batch,
+        )
+        return HandlerOut(state=ctx.state, rng=ctx.rng, pushes=(port_a, port_b), sends=(send,))
+
+    def handle_plain(self, ctx: HandlerCtx) -> HandlerOut:
         h = ctx.kind.shape[0]
         dev = ctx.t.device
         st = dict(ctx.state)
@@ -355,7 +420,8 @@ class TgenTcpModel:
         phase1 = where(finack_in, my_phase + 1, my_phase)
         more = finack_in & (phase1 < p["flows"])
         st["c_phase"] = phase1
-        st["c_state"] = where(finack_in, where(more, CST_IDLE, CST_DONE), st["c_state"])
+        st["c_state"] = where(finack_in, where(more, CST_IDLE, CST_DONE).to(torch.int32),
+                              st["c_state"])
         st["flows_done"] = st["flows_done"] + finack_in
         st["fct_sum"] = st["fct_sum"] + where(finack_in, t - st["flow_t0"], 0)
         st["done_t"] = where(finack_in & ~more, t, st["done_t"])
@@ -533,3 +599,6 @@ class TgenTcpModel:
             "mean_fct_ms": (float(fct.sum()) / n / 1e6) if n else None,
             "payload_bytes_received": int(np.asarray(state["bytes_rcvd"]).sum()),
         }
+
+
+KERNELS = {"tgen_handle": _handle_k}

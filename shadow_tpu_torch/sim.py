@@ -37,6 +37,7 @@ from shadow_tpu_torch import resolve_device
 from shadow_tpu_torch.config.options import ConfigError, ConfigOptions
 from shadow_tpu_torch.core.engine import Engine, EngineConfig, EngineParams
 from shadow_tpu_torch.core.gears import GearController, resolve_gear_ladder, run_adaptive_chunk
+from shadow_tpu_torch.models import KERNELS as MODEL_KERNELS
 from shadow_tpu_torch.models import get_model
 from shadow_tpu_torch.net import TBParams
 from shadow_tpu_torch.net.fluid import INACTIVE_SCHEDULE, assemble_fluid_report, compile_fluid
@@ -49,7 +50,7 @@ MTU_BITS = 1500 * 8
 UNLIMITED_BW = 1 << 40  # token-bucket params for "no bandwidth configured"
 SUPPORTED_MODELS = ("phold", "udp_echo", "timer", "tgen_tcp")
 # every hand-written kernel's launch wrapper, by kernel name
-KERNELS = {**OPS_KERNELS, **FLUID_KERNELS}
+KERNELS = {**OPS_KERNELS, **FLUID_KERNELS, **MODEL_KERNELS}
 
 
 @dataclasses.dataclass

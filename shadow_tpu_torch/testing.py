@@ -3,11 +3,16 @@ versions: `chain_case` builds one event per host through ingress, a
 synthetic handler output and egress (K9-K11); `merge_case` builds a queue
 and a round's [H, B] outbox for the exchange merges (K4, K13);
 `fluid_case` builds the fluid plane's inputs (K14-K16, fluid-on K11);
-`clone_carry` deep-copies a carry (the kernels update carries in place);
-`flat_tensors` lists a nested tuple's tensors for comparison. Used by
-chip_smoke.py and the tests; nothing on the simulation path imports it."""
+`handler_case` builds a model handler's context (K17-K20), `clone_ctx`
+copies its state and RNG lanes and `handler_tensors` lists a handler's
+outputs; `clone_carry` deep-copies a carry (the kernels update carries in
+place); `flat_tensors` lists a nested tuple's tensors for comparison. Used
+by chip_smoke.py and the tests; nothing on the simulation path imports
+it."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -220,8 +225,6 @@ def fluid_case(seed: int, h: int, n_links: int, k_classes: int, dev, *, b: int =
     irregular `node_of`), the round's window (`dt_zero`: an empty one), and
     for fluid-on K11 a `chain_case` with per-host coupling factors
     (`fluid_fx`, some hosts at exactly 1.0x). Returns a dict of them."""
-    import dataclasses
-
     from shadow_tpu_torch.core.engine import EngineConfig
     from shadow_tpu_torch.net.fluid import FluidParams, FluidState
 
@@ -275,3 +278,302 @@ def fluid_case(seed: int, h: int, n_links: int, k_classes: int, dev, *, b: int =
                 window_end=window_end, done=done,
                 bg_bytes=torch.tensor(int(r.integers(0, 1 << 40)), device=dev),
                 bg_dropped=torch.tensor(int(r.integers(0, 1 << 40)), device=dev), chain=chain)
+
+
+HANDLER_MODELS = ("tgen_tcp", "phold", "udp_echo", "timer")
+# tgen-TCP hosts with a fixed scenario at the front of every case, so that
+# each case runs these branches whatever the seed: (event, what it drives)
+TGEN_FORCED = (
+    ("ack", "fast retransmit: third duplicate ACK outside recovery"),
+    ("rto", "timeout of an established flow with data in flight"),
+    ("finack", "flow complete"),
+    ("data", "duplicate segment below rcv_nxt"),
+    ("syn", "new connection, SYN-ACK out"),
+    ("tick", "flow start, SYN out"),
+    ("ack", "partial ACK in NewReno recovery"),
+    ("ack", "last data acknowledged, FIN out"),
+    ("data", "in-order segment held for the delayed ACK"),
+    ("data", "out-of-order segment, ACK out"),
+    ("fin", "FIN accepted, FIN-ACK out"),
+    ("tx", "TX continuation, DATA burst out"),
+    ("rto", "SYN timeout"),
+    ("synack", "SYN-ACK in, established"),
+    ("data", "in-order segment filling a full bitmap (a 33-segment advance)"),
+    ("data", "out-of-order segment at the window's edge (rel 32)"),
+    ("ack", "ACK of everything in flight, timer cleared"),
+)
+_TGEN_EVENTS = ("tick", "tx", "rto", "delack", "syn", "data", "fin", "synack", "ack", "finack")
+
+
+def _tgen_case(r, h: int, t: np.ndarray):
+    """tgen-TCP params, state and one coherent event per host: each host
+    draws an event type, and its lanes are drawn around it (a client in the
+    state the segment addresses, ACK words at, past and below snd_una,
+    sequence words in and out of the reassembly window, deadlines armed
+    and expired, bitmaps empty, full and with holes), with some segments
+    from the wrong peer or phase; the hosts of TGEN_FORCED come first."""
+    from shadow_tpu_torch.models.tgen import TgenTcpModel
+
+    if h < len(TGEN_FORCED):
+        raise ValueError(f"a tgen-TCP case needs at least {len(TGEN_FORCED)} hosts")
+    ms = 1_000_000
+    i32, i64 = np.int32, np.int64
+
+    def pick(p, a, b):
+        return np.where(r.random(h) < p, a, b)
+
+    flows = r.integers(1, 5, h).astype(i32)
+    seg_l = r.integers(4, 80, h).astype(i32)
+    params = {
+        "flow_segs": seg_l, "mss": r.choice([536, 1460, 9000], h).astype(i32), "flows": flows,
+        "cwnd_init": r.integers(1, 11, h).astype(i32),
+        "cwnd_cap": r.integers(1, 65, h).astype(i32),
+        "rto_init": (r.integers(200, 3_000, h) * ms).astype(i64),
+        "rto_min": (r.integers(1, 300, h) * ms).astype(i64),
+        "rto_max": (r.integers(1_000, 120_000, h) * ms).astype(i64),
+        "flow_gap": (r.integers(0, 100, h) * ms).astype(i64),
+        "delack": pick(0.3, 0, r.integers(1, 80, h) * ms).astype(i64),
+        "num_hosts": np.full(h, h, i32),
+    }
+    n = len(TGEN_FORCED)
+    ev = np.array([_TGEN_EVENTS.index(e) for e, _ in TGEN_FORCED]
+                  + list(r.integers(0, len(_TGEN_EVENTS), h - n)))
+    is_ev = {e: ev == i for i, e in enumerate(_TGEN_EVENTS)}
+    una = r.integers(0, 60, h)
+    c_state = r.integers(0, 5, h)
+    for e, cs in (("synack", 1), ("ack", 2), ("finack", 3), ("tx", 2), ("tick", 0)):
+        c_state = np.where(is_ev[e] & (r.random(h) < 0.8), cs, c_state)
+    c_state = np.where(is_ev["rto"] & (r.random(h) < 0.8), r.integers(1, 4, h), c_state)
+    sv_state = np.where(is_ev["data"] | is_ev["fin"], pick(0.85, 1, 0), r.integers(0, 2, h))
+    sv_state = np.where(is_ev["syn"], pick(0.6, 0, 1), sv_state)
+    bm = r.integers(0, 1 << 32, h, dtype=np.uint64)
+    bm = np.where(r.random(h) < 0.3, 0, bm)
+    bm = np.where(r.random(h) < 0.1, 0xFFFFFFFF, bm)
+    bm = np.where(r.random(h) < 0.15, (1 << r.integers(0, 33, h).astype(np.uint64)) - 1, bm)
+    state = {
+        "c_state": c_state, "c_phase": r.integers(0, 5, h), "c_peer": r.integers(0, h, h),
+        "snd_una": una, "snd_nxt": una + r.integers(0, 12, h),
+        "cwnd_x": pick(0.8, r.integers(1 << 10, 40 << 10, h), r.integers(-5, 1 << 10, h)),
+        "ssth_x": pick(0.5, 0x7FFFFFFF, r.integers(2 << 10, 40 << 10, h)),
+        "dup": r.integers(0, 4, h),
+        "recover": pick(0.5, -1, una + r.integers(0, 12, h)),
+        "srtt": pick(0.3, 0, r.integers(1, 500, h) * ms),
+        "rttvar": r.integers(0, 200, h) * ms,
+        "rto": r.integers(200, 4_000, h) * ms,
+        "rtt_seq": pick(0.4, -1, una + r.integers(-2, 8, h)),
+        "rtt_t0": t - r.integers(0, 500, h) * ms,
+        "deadline": pick(0.3, TIME_MAX, t + r.integers(-500, 500, h) * ms),
+        "timer_alive": r.random(h) < 0.5, "tx_alive": r.random(h) < 0.5,
+        "flow_t0": t - r.integers(0, 5_000, h) * ms,
+        "sv_state": sv_state, "sv_peer": r.integers(0, h, h), "sv_phase": r.integers(0, 5, h),
+        "rcv_nxt": r.integers(0, 80, h), "sv_bm": bm.astype(i64),
+        "da_pend": r.random(h) < 0.5,
+        "da_t": pick(0.3, TIME_MAX, t + r.integers(-50, 50, h) * ms),
+        "da_alive": r.random(h) < 0.5,
+        **{k: r.integers(0, 1 << 40, h) for k in (
+            "d_sent", "d_rtx", "fast_rtx", "timeouts", "flows_done", "flow_rtx0", "fct_sum",
+            "segs_rcvd", "dup_segs", "bytes_rcvd", "done_t")},
+    }
+    # the wrong peer or phase now and then
+    client = is_ev["synack"] | is_ev["ack"] | is_ev["finack"]
+    src = np.where(client, state["c_peer"], state["sv_peer"])
+    src = np.where(r.random(h) < 0.15, r.integers(0, h, h), src)
+    ph = np.where(client, state["c_phase"], state["sv_phase"])
+    ph = np.where(r.random(h) < 0.15, r.integers(0, 5, h), ph)
+    ack = np.select([r.random(h) < 0.4, r.random(h) < 0.7, r.random(h) < 0.5],
+                    [una, una + r.integers(1, 10, h), una - 1], state["recover"])
+    rel = np.select([r.random(h) < 0.35, r.random(h) < 0.6, r.random(h) < 0.5],
+                    [0, r.integers(1, 33, h), -r.integers(1, 4, h)], 33 + r.integers(0, 9, h))
+    w_seq = np.where(is_ev["data"], state["rcv_nxt"] + rel, r.integers(-5, 100, h))
+    w_seq = np.where(is_ev["fin"] & (r.random(h) < 0.7), state["rcv_nxt"], w_seq)
+    ftype = np.select([is_ev[e] for e in ("syn", "synack", "data", "ack", "fin", "finack")],
+                      [1, 2, 3, 4, 5, 6], 0)
+
+    # the forced scenarios, host by host
+    def put(i, **lanes):
+        for k, v in lanes.items():
+            tgt = {"src": src, "ph": ph, "ack": ack, "w_seq": w_seq}.get(k)
+            (state[k] if tgt is None else tgt)[i] = v
+
+    forced = [
+        dict(c_state=2, snd_nxt=una[0] + 5, dup=2, recover=-1, ack=una[0]),
+        dict(c_state=2, snd_nxt=una[1] + 3, deadline=t[1] - ms),
+        dict(c_state=3, c_phase=0),
+        dict(w_seq=state["rcv_nxt"][3] - 2),
+        dict(sv_state=0),
+        dict(c_state=0, c_phase=0),
+        dict(c_state=2, snd_nxt=una[6] + 10, recover=una[6] + 8, ack=una[6] + 3),
+        dict(c_state=2, snd_una=seg_l[7] - 2, snd_nxt=seg_l[7], recover=-1, ack=seg_l[7]),
+        dict(w_seq=state["rcv_nxt"][8], da_pend=False, sv_bm=0, delack=40 * ms),
+        dict(w_seq=state["rcv_nxt"][9] + 5),
+        dict(w_seq=state["rcv_nxt"][10]),
+        dict(c_state=2, snd_una=0, snd_nxt=0, cwnd_x=8 << 10),
+        dict(c_state=1, deadline=t[12] - ms),
+        dict(c_state=1),
+        dict(w_seq=state["rcv_nxt"][14], sv_bm=0xFFFFFFFF),
+        dict(w_seq=state["rcv_nxt"][15] + 32),
+        dict(c_state=2, snd_una=0, snd_nxt=4, recover=-1, ack=4),
+    ]
+    for i, lanes in enumerate(forced):
+        if "delack" in lanes:
+            params["delack"][i] = lanes.pop("delack")
+        put(i, **lanes)
+    for i in range(n):  # client events for the client's own peer and phase
+        if TGEN_FORCED[i][0] in ("ack", "synack", "finack"):
+            put(i, src=state["c_peer"][i], ph=state["c_phase"][i])
+        elif TGEN_FORCED[i][0] in ("data", "fin"):
+            put(i, src=state["sv_peer"][i], ph=state["sv_phase"][i], sv_state=1)
+    for i in (11, 16):  # room for a burst; an ACK short of the flow's end
+        params["flow_segs"][i] = max(params["flow_segs"][i], 8)
+    params["flows"][2] = max(params["flows"][2], 2)  # a next flow to start
+
+    np_dtype = {torch.int32: i32, torch.int64: i64, torch.bool: bool}
+    state = {k: state[k].astype(np_dtype[dt]) for k, dt in TgenTcpModel.kernel_state}
+    payload = np.stack([r.integers(40, 1_540, h), w_seq, ack, ftype | (ph << 8)], axis=1)
+    kind = np.select([ftype > 0] + [is_ev[e] for e in ("tick", "tx", "rto", "delack")],
+                     [1, 0, 2, 3, 4])
+    # past the forced hosts, a few unknown kinds and flipped packet flags
+    noise = (np.arange(h) >= n) & (r.random(h) < 0.05)
+    kind = np.where(noise & (r.random(h) < 0.5), 7, kind)
+    return params, state, kind, (ftype > 0) ^ noise, src, payload
+
+
+def handler_case(model: str, seed: int, h: int, dev, *, stride: int = 1) -> dict:
+    """Random inputs of one handler call per host, for K17-K20 and their
+    plain versions: a model (`model` is its config name), its params and
+    state, RNG lanes, and an event per host with the engine's lanes (time,
+    kind, payload, dispatch, is_packet, source, host id), some hosts not
+    dispatched and some at TIME_MAX. PHOLD draws means down to 1 us (the
+    1 us floor) and destinations over varied host counts; udp_echo mixes
+    roles, kinds and response send times, and their first three hosts
+    handle each of the model's kinds; tgen-TCP draws coherent connections
+    (`_tgen_case`). `stride` > 1 makes the event time and payload a column
+    of a K-way peek. Returns dict(model=the port's model, ctx=HandlerCtx on
+    `dev`, np=the same inputs as numpy)."""
+    from shadow_tpu_torch.models import get_model
+    from shadow_tpu_torch.models.base import HandlerCtx
+    from shadow_tpu_torch.ops.rng import RngState
+
+    r = np.random.default_rng(seed)
+    ms = 1_000_000
+    t = r.integers(1_000, 60_000, h) * ms + r.integers(0, ms, h)
+    active = r.random(h) < 0.85
+    n_forced = len(TGEN_FORCED) if model == "tgen_tcp" else 3
+    active[:n_forced] = True
+    t = np.where(~active & (r.random(h) < 0.5), TIME_MAX, t)
+    payload = r.integers(-(1 << 31), 1 << 31, (h, 4))
+    src = r.integers(0, h, h)
+    is_pkt = r.random(h) < 0.5
+    m = get_model(model)()
+    if model == "tgen_tcp":
+        m.tx_batch = int(r.integers(1, 5))
+        params, st, kind, is_pkt, src, payload = _tgen_case(r, h, t)
+    elif model == "phold":
+        params = {"mean_delay": np.where(r.random(h) < 0.1, r.integers(1, 2_000, h),
+                                         r.integers(1, 500, h) * ms).astype(np.int64),
+                  "size": r.integers(40, 1_500, h).astype(np.int32),
+                  "num_hosts": np.full(h, int(r.choice([h, 7, 10_000, 1 << 30])), np.int64)}
+        st = {"handled": r.integers(0, 1 << 40, h)}
+        kind = r.integers(0, 3, h)
+    elif model == "udp_echo":
+        params = {"role": r.integers(0, 2, h).astype(np.int32), "peer": r.integers(0, h, h),
+                  "interval": (r.integers(1, 2_000, h) * ms).astype(np.int64),
+                  "size": r.integers(40, 1_500, h).astype(np.int32)}
+        st = {k: r.integers(0, 1 << 40, h) for k in ("sent", "rcvd", "rtt_sum", "rtt_max")}
+        kind = r.integers(0, 4, h)
+        t_sent = np.where(r.random(h) < 0.8, t - r.integers(0, 900, h) * ms,
+                          r.integers(-(1 << 62), 1 << 62, h))
+        payload[:, 1] = (t_sent & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        payload[:, 2] = t_sent >> 32
+    elif model == "timer":
+        params = {"interval": (r.integers(1, 2_000, h) * ms).astype(np.int64)}
+        st = {"fires": r.integers(0, 1 << 40, h)}
+        kind = r.integers(0, 2, h)
+    else:
+        raise ValueError(f"no handler case for model {model!r}")
+    if model != "tgen_tcp":  # the first hosts handle each of the model's kinds
+        n = min(h, n_forced)
+        kind[:n] = {"phold": [1, 0, 1], "udp_echo": [0, 1, 2], "timer": [0, 0, 0]}[model][:n]
+        if model == "phold":  # a hold at the 1 us floor
+            params["mean_delay"][0] = 1
+        if model == "udp_echo":
+            params["role"][:n] = [0, 1, 0][:n]
+            payload[2, 1] = (t[2] - 3 * ms) & 0xFFFFFFFF
+            payload[2, 2] = (t[2] - 3 * ms) >> 32
+    st = {k: np.ascontiguousarray(v) for k, v in st.items()}
+    arrays = dict(
+        t=t.astype(np.int64), kind=np.asarray(kind, np.int32),
+        payload=np.asarray(payload).astype(np.int64).astype(np.int32), active=active,
+        is_packet=np.asarray(is_pkt, bool), src=np.asarray(src, np.int64),
+        host_id=np.arange(h, dtype=np.int64), params=params, state=st,
+        rng=r.integers(-(1 << 63), (1 << 63) - 1, (h, 4)),
+    )
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    # the event time and payload as column `stride - 1` of a K-way peek
+    wt = np.zeros((h, stride), np.int64)
+    wt[:, -1] = arrays["t"]
+    wp = np.zeros((h, stride, arrays["payload"].shape[1]), np.int32)
+    wp[:, -1] = arrays["payload"]
+    ctx = HandlerCtx(
+        t=T(wt)[:, -1], window_end=int(t.min()) + 5 * ms, kind=T(arrays["kind"]),
+        payload=T(wp)[:, -1], active=T(active), is_packet=T(arrays["is_packet"]),
+        src=T(arrays["src"]), host_id=T(arrays["host_id"]),
+        state={k: T(v) for k, v in st.items()}, params={k: T(v) for k, v in params.items()},
+        rng=RngState(T(arrays["rng"])),
+    )
+    return dict(model=m, ctx=ctx, np=arrays)
+
+
+def clone_ctx(ctx):
+    """A context with its own copies of the state and RNG lanes (the
+    handler kernels update them in place); the event lanes are shared."""
+    return dataclasses.replace(ctx, state={k: v.clone() for k, v in ctx.state.items()},
+                               rng=type(ctx.rng)(ctx.rng.s.clone()))
+
+
+def handler_steps(model: str, seed: int, h: int, dev, *, stride: int = 1, steps: int = 3):
+    """Chained handler calls on the card: yields (kernel output, plain
+    output) for `steps` calls of `handle` and `handle_plain`, each side
+    carrying its own state and RNG lanes from call to call (the kernel's in
+    place) with a fresh `handler_case` event each time. Compare each pair
+    before asking for the next: the next kernel call overwrites the
+    state."""
+    case = handler_case(model, seed, h, dev, stride=stride)
+    m, ck = case["model"], case["ctx"]
+    cp = clone_ctx(ck)
+    for step in range(steps):
+        if step:
+            ev = handler_case(model, seed * 1_000 + step, h, dev, stride=stride)["ctx"]
+            ck = dataclasses.replace(ev, state=got.state, rng=got.rng)
+            cp = dataclasses.replace(ev, state=want.state, rng=want.rng)
+        got = m.handle(ck)
+        want = m.handle_plain(cp)
+        yield got, want
+
+
+def handler_tensors(out) -> dict:
+    """{name: array} over a handler's outputs (torch tensors, or the JAX
+    package's arrays): every state lane, the RNG lanes, and every field of
+    every push and send port (a port field that is None is left out; the
+    FlowDone record is not compared)."""
+    got = {f"state.{k}": v for k, v in sorted(out.state.items())}
+    got["rng"] = out.rng.s
+    for kind, ports in (("push", out.pushes), ("send", out.sends)):
+        for i, port in enumerate(ports):
+            for f, v in port._asdict().items():
+                if hasattr(v, "shape"):
+                    got[f"{kind}{i}.{f}"] = v
+    return got
+
+
+def handler_diff(got, want) -> list[str]:
+    """The names of the handler outputs (`handler_tensors` of two
+    HandlerOuts) that differ in the set of fields, dtype, shape or any
+    value: empty when the two are bit for bit the same."""
+    a, b = handler_tensors(got), handler_tensors(want)
+    return sorted(set(a) ^ set(b)) + [
+        k for k in b if k in a and (a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+                                    or not torch.equal(a[k], b[k]))]

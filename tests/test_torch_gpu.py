@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K16 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K20 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -20,7 +20,11 @@ in place) checks that a snapshot survives the chunk and repeated restores.
 The fluid plane's kernels (K14-K16) and fluid-on K11 take the random
 inputs of `shadow_tpu_torch.testing.fluid_case` (class counts up to 64,
 both host -> link maps, an empty window, the done-round); their float64
-outputs are compared bit for bit.
+outputs are compared bit for bit. The model handlers' kernels (K17-K20)
+take `shadow_tpu_torch.testing.handler_case` at full width (H = 10,000),
+the event a column of a K = 4 peek, over several chained calls on one
+state; PHOLD's `exp_delay` through K18's device function is compared on
+every one of the 2^24 inputs the model can draw.
 Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
 repeats the check at the main path's shapes.
@@ -41,7 +45,10 @@ from shadow_tpu_torch.testing import (
     chain_case,
     clone_carry,
     flat_tensors,
+    HANDLER_MODELS,
     fluid_case,
+    handler_diff,
+    handler_steps,
     merge_case,
     merge_fits,
 )
@@ -468,3 +475,39 @@ def test_fluid_egress_matches_plain(dev, affine, loss_max):
     want = pchain.event_egress_plain(clone_carry(c0), *args)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("model", HANDLER_MODELS)
+def test_handler_kernels_match_plain(dev, model, stride):
+    """K17-K20 at full width (H = 10,000) against `handle_plain` on the
+    card, bit for bit and dtype for dtype, over three chained calls: each
+    call's state and RNG lanes (which the kernel updates in place) feed the
+    next call of the same side, with a fresh event each time."""
+    from shadow_tpu_torch.models import KERNELS
+
+    n0 = {k: v.launches for k, v in KERNELS.items()}
+    prev = None
+    for step, (got, want) in enumerate(handler_steps(model, 5, 10_000, dev, stride=stride)):
+        assert handler_diff(got, want) == [], step
+        assert prev is None or (got.state is prev.state and got.rng.s is prev.rng.s)  # in place
+        prev = got
+    torch.cuda.synchronize()
+    ran = {k: v.launches - n0[k] for k, v in KERNELS.items()}
+    assert sum(ran.values()) == 3 and len([v for v in ran.values() if v]) == 1
+
+
+@pytest.mark.gpu
+def test_phold_exp_delay_kernel_on_every_input(dev):
+    """K18's exponential draw on all 2^24 uniforms the model can draw, at a
+    mean of 2^47 ns (each delay then holds every bit of the log: x * 2^47 is
+    exact and integral) and at 100 ms, against `exp_delay` on the CPU."""
+    from shadow_tpu_torch.models import phold
+
+    u = torch.arange(1 << 24, dtype=torch.int64).to(torch.float32) * (1.0 / (1 << 24))
+    for mean in (1 << 47, 100_000_000):
+        want = phold.exp_delay(u, torch.full((1,), mean, dtype=torch.int64).expand(1 << 24))
+        m = torch.full((1,), mean, dtype=torch.int64, device=dev).expand(1 << 24)
+        got = phold.exp_delay_kernel(u.to(dev), m).cpu()
+        assert int((got != want).sum()) == 0, mean
