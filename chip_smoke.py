@@ -125,12 +125,32 @@ line reports it):
      `shadow_tpu_torch.testing.handler_case` inputs, flat and as a K = 4
      column, over three chained calls; exact equality, dtypes included,
      with the timings of phase 2 and, as the yardstick, the same plain
-     handler replayed from a CUDA graph on static inputs.
+     handler replayed from a CUDA graph on static inputs; and so K21
+     (gossip_handle) at config 3's 100,000 hosts and K22 (circuit_handle)
+     at config 4's 7,500;
+ 25. the lanes of the CPU model and the merge-row bound against their
+     plain versions: K1 with the busy floor (slab and block caches), K10
+     with the execution-time rewrite and busy update (the anchor's and
+     config 6's shapes, busy horizons before, at and after the events),
+     K4 and K13 with `merge_rows` at config 2's shape on every load at
+     bounds that shed most rows, some and none, both shed modes; exact
+     equality, each lane on timed as in phase 2;
+ 26. bench configs 1 (1,000 udp_echo hosts, 60 sim-s), 3 (the 100,000-host
+     gossip flood, 30 sim-s) and 4 (5,000 relays and 2,500 circuit
+     clients, 60 sim-s) at full width as configured: the JAX package's
+     reports, K19, K21 and K22 each launched as often as K10;
+ 27. the anchor with `experimental.cpu_delay` 5 ms (its pops take per-host
+     limits: K5 + K6 replace K2) and config 2 cut to 30 sim-s with
+     `merge_rows` 14,000 (rows shed at the bound, under merge gears): the
+     JAX package's reports;
+ 28. config 3 small (2,048 hosts, 10 sim-s), config 4 small (96 hosts, 20
+     sim-s) and config 6 small at K = 4 with a 2 ms CPU delay (4 sim-s,
+     batch events deferred): card == CPU.
 
 Every leg checks that its model's handler kernel launched exactly as
 often as K10 (one launch per event_body call), and no other handler.
-The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 4-6, 8-10, 13, 14,
-16-20, 22, 23, so that every kernel's bound is counted before the profiles
+The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 4-6, 8-10, 13,
+14, 16-20, 22, 23, 26-28, so that every kernel's bound is counted before the profiles
 (5, 9) hold the kernels' in-path device times against it. A profiler reading below the
 kernel's bound (the least time the card needs for the work) is a
 misattributed trace: the kernel phases then take the queued timing, the
@@ -314,6 +334,64 @@ CFG12_FINAL = {
     "link_util_sha256": "225d6f56870b856450ae04ceb15eb8deccbe9a0f325514879cf28c4af85a3b9f",
 }
 CFG12_SMALL_CUT = "9 s"
+# bench configs 1 (1,000 udp_echo hosts), 3 (the 100,000-host gossip flood)
+# and 4 (5,000 relays and 2,500 circuit clients) at full width as
+# configured, to their full 60, 30 and 60 sim-s: the JAX package's reports
+# on the CPU
+CFG1_REF = {
+    "determinism_digest": "01aed6b831d46eff", "events_processed": 613_800, "rounds": 1800,
+    "microsteps": 10_800, "packets_sent": 609_000, "packets_delivered": 14_400,
+    "packets_lost": 0, "packets_unreachable": 0, "packets_codel_dropped": 0,
+    "queue_overflow_dropped": 589_800, "packets_budget_dropped": 4800,
+    "outbox_overflow_dropped": 0, "queue_occupancy_hwm": 16, "outbox_send_hwm": 8,
+    "monotonic_violations": 0, "bucket_cache_rebuilds": 0, "popk_deferred": 0,
+    "model_report": {"requests_sent": 599_400, "responses_received": 4800,
+                     "requests_served": 9600, "mean_rtt_ms": 2.0, "max_rtt_ms": 2.0},
+}
+CFG3_REF = {
+    "determinism_digest": "7910cf6b83dc3de6", "events_processed": 23_991_375, "rounds": 150,
+    "microsteps": 1725, "packets_sent": 11_995_680, "packets_delivered": 11_995_680,
+    "packets_lost": 0, "packets_unreachable": 0, "packets_codel_dropped": 0,
+    "queue_overflow_dropped": 0, "packets_budget_dropped": 0, "outbox_overflow_dropped": 0,
+    "queue_occupancy_hwm": 17, "outbox_send_hwm": 8, "monotonic_violations": 0,
+    "bucket_cache_rebuilds": 0, "popk_deferred": 0,
+    "model_report": {"reached": 99_964, "coverage": 0.99964, "generations": 15,
+                     "adoptions": 1_499_460, "max_hops": 8, "spread_ms": 400.0},
+}
+CFG4_REF = {
+    "determinism_digest": "937c65b417e8d98c", "events_processed": 4_500_000, "rounds": 1050,
+    "microsteps": 7800, "packets_sent": 2_250_000, "packets_delivered": 2_250_000,
+    "packets_lost": 0, "packets_unreachable": 0, "packets_codel_dropped": 0,
+    "queue_overflow_dropped": 0, "packets_budget_dropped": 0, "outbox_overflow_dropped": 0,
+    "queue_occupancy_hwm": 5, "outbox_send_hwm": 5, "monotonic_violations": 0,
+    "bucket_cache_rebuilds": 0, "popk_deferred": 0,
+    "model_report": {"cells_completed": 375_000, "mean_rtt_ms": 310.0,
+                     "relay_forwards": 1_875_000},
+}
+# the anchor with the CPU model on (experimental.cpu_delay), and config 2
+# cut to CFG2_STOP with a merge-row bound that sheds (about 10,000 of
+# 15,000 rows per round fit): the JAX package's reports on the CPU
+ANCHOR_CPU_DELAY = "5 ms"
+ANCHOR_DELAY_REF = {
+    "determinism_digest": "0b54d2b476d1a3f6", "events_processed": 664_919, "rounds": 80,
+    "microsteps": 527, "packets_sent": 334_482, "packets_delivered": 330_437,
+    "packets_lost": 0, "packets_unreachable": 0, "packets_codel_dropped": 0,
+    "queue_overflow_dropped": 0, "packets_budget_dropped": 0, "outbox_overflow_dropped": 0,
+    "queue_occupancy_hwm": 12, "outbox_send_hwm": 6, "monotonic_violations": 0,
+    "bucket_cache_rebuilds": 0, "popk_deferred": 0,
+    "model_report": {"total_events": 664_919, "min": 26, "max": 111},
+}
+CFG2_MERGE_ROWS = 14_000
+CFG2_ROWS_REF = {
+    "determinism_digest": "580cff5d3218d517", "events_processed": 1_261_085, "rounds": 600,
+    "microsteps": 2497, "packets_sent": 638_471, "packets_delivered": 622_614,
+    "packets_lost": 0, "packets_unreachable": 0, "packets_codel_dropped": 0,
+    "queue_overflow_dropped": 10_652, "packets_budget_dropped": 0, "outbox_overflow_dropped": 0,
+    "queue_occupancy_hwm": 10, "outbox_send_hwm": 4, "monotonic_violations": 0,
+    "bucket_cache_rebuilds": 0, "popk_deferred": 0,
+    "model_report": {"total_events": 1_261_085, "min": 75, "max": 184},
+    "gears": {"ladder": [1, 3, 6], "chunks_per_gear": {"6": 2}, "replays": 0},
+}
 # config 12's fluid shapes: links (the torus's nodes) and classes
 N12, K12 = 100, 4
 # config 6's queue shapes: hosts, slots, block, K, push ports of a K = 4
@@ -500,6 +578,69 @@ def cfg5_config(small: bool) -> dict:
                         "processes": [{"model": "timer", "model_args": {
                             "interval": "100 ms" if small else "1 s"}}]}},
     }
+
+
+def cfg1_config(small: bool) -> dict:
+    """bench.py baseline_config(1, small): udp_echo, one server and 999
+    clients (63 small) on the 1 Gbit switch (1 ms), one request of 512
+    bytes every 100 ms, capacity 16, 512 rounds per chunk, 60 sim-s."""
+    return {
+        "general": {"stop_time": "60 s", "seed": 1},
+        "network": {"graph": {"type": "1_gbit_switch"}},
+        "experimental": {"event_queue_capacity": 16, "rounds_per_chunk": 512},
+        "hosts": {
+            "server": {"network_node_id": 0, "processes": [{
+                "model": "udp_echo", "model_args": {"role": "server"}}]},
+            "cli": {"count": 63 if small else 999, "network_node_id": 0, "processes": [{
+                "model": "udp_echo",
+                "model_args": {"role": "client", "peer": "server", "interval": "100 ms",
+                               "size_bytes": 512}}]},
+        },
+    }
+
+
+def cfg3_config(small: bool, stop: str = "30 s") -> dict:
+    """bench.py baseline_config(3, small): the gossip flood, 100,000 hosts
+    (2,048 small) on one 50 ms node, fanout 8, one publisher flooding a
+    fresh generation every 2 s, capacity 32, 10 sends per host per round,
+    64 rounds per chunk; `stop` for its 30 s."""
+    return {
+        "general": {"stop_time": stop, "seed": 1},
+        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "experimental": {"event_queue_capacity": 32, "sends_per_host_round": 10,
+                         "rounds_per_chunk": 64},
+        "hosts": {
+            "pub": {"network_node_id": 0, "processes": [{
+                "model": "gossip",
+                "model_args": {"fanout": 8, "publisher": True, "publish_interval": "2 s"}}]},
+            "sub": {"count": (2048 if small else 100_000) - 1, "network_node_id": 0,
+                    "processes": [{"model": "gossip", "model_args": {"fanout": 8}}]},
+        },
+    }
+
+
+def cfg4_config(small: bool, stop: str = "60 s") -> dict:
+    """bench.py baseline_config(4, small): 5,000 relays and 2,500 circuit
+    clients (64 and 32 small) on one 50 ms node, a cell every 400 ms per
+    client, capacity 32, 8 sends per host per round, 256 rounds per chunk;
+    `stop` for its 60 s."""
+    return {
+        "general": {"stop_time": stop, "seed": 1},
+        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "experimental": {"event_queue_capacity": 32, "sends_per_host_round": 8,
+                         "rounds_per_chunk": 256},
+        "hosts": {
+            "relay": {"count": 64 if small else 5000, "network_node_id": 0, "processes": [{
+                "model": "circuit", "model_args": {"role": "relay"}}]},
+            "cli": {"count": 32 if small else 2500, "network_node_id": 0, "processes": [{
+                "model": "circuit", "model_args": {"role": "client", "interval": "400 ms"}}]},
+        },
+    }
+
+
+def with_experimental(cfg: dict, **knobs) -> dict:
+    """`cfg` with more `experimental` knobs (a copy)."""
+    return {**cfg, "experimental": {**cfg["experimental"], **knobs}}
 
 
 def small_configs() -> dict[str, dict]:
@@ -999,21 +1140,6 @@ def phase_kernels_merge(dev) -> dict[str, dict]:
     if not (branches["fast"] and branches["k4"]):
         raise AssertionError(f"K13 check: a branch went untested: {branches}")
 
-    def bytes_needed(q, ob, gc, cap, scatter):
-        """The row columns' dst and t; the valid rows' order, kind and
-        payload; the time plane of the hosts that get rows; one slot per
-        inserted row; dropped read and written where rows shed."""
-        dst, t = ob[0][:, :gc].reshape(-1), ob[1][:, :gc].reshape(-1)
-        h = q[0].shape[0]
-        ok = (t != TIME_MAX) & (dst >= 0) & (dst < h)
-        seg = np.bincount(dst[ok], minlength=h)
-        room = np.minimum((q[0] == TIME_MAX).sum(axis=1), cap)
-        ins = seg if scatter else np.minimum(seg, room)
-        n_valid = int(ok.sum())
-        return ((dst.size * (4 + 8) + n_valid * (8 + 4 + 4 * P) + int((seg > 0).sum()) * cap * 8
-                 + int(ins.sum()) * (8 + 8 + 4 + 4 * P) + int((seg > ins).sum()) * 16),
-                dst.size + n_valid)
-
     results = {}
     for name, gc, load, scatter in (("merge_scatter", 6, "fit", True),
                                     ("merge_insert_cols", 3, "fit", False)):
@@ -1025,7 +1151,9 @@ def phase_kernels_merge(dev) -> dict[str, dict]:
                       lambda: (EventQueue(*on_dev(q)),))
         r["plain_ms"] = time_ms(lambda qq: plain(qq, *rows, None, 16, True, cols=gc),
                                 lambda: (EventQueue(*on_dev(q)),))
-        r["bound"] = bound(*bytes_needed(q, ob, gc, 16, scatter))
+        q0 = EventQueue(*on_dev(q))
+        r["bound"] = bound(*merge_bytes(q0, plain(clone_q(q0), *rows, None, 16, True, cols=gc),
+                                        ob, gc))
         r["library_ms"] = None
         r["library_why"] = "no single PyTorch call computes the merge"
         r["shape"] = {"hosts": H, "capacity": 16, "outbox": [H, 6], "cols": gc, "load": load}
@@ -1388,10 +1516,13 @@ HANDLERS = {
     "phold_handle": ("phold", H, 1),
     "echo_handle": ("udp_echo", H, 1),
     "timer_handle": ("timer", 1_000_000, 1),
+    "gossip_handle": ("gossip", 100_000, 1),
+    "circuit_handle": ("circuit", 7_500, 1),
 }
 # integer and float operations per host of each handler (its statements,
 # counted from csrc/models.cu: the bound's operation side)
-HANDLER_OPS = {"tgen_handle": 600, "phold_handle": 160, "echo_handle": 30, "timer_handle": 6}
+HANDLER_OPS = {"tgen_handle": 600, "phold_handle": 160, "echo_handle": 30, "timer_handle": 6,
+               "gossip_handle": 40, "circuit_handle": 70}
 # the port fields each kernel writes (the others are the event's, the
 # params' or cached constants)
 HANDLER_WRITES = {
@@ -1400,6 +1531,10 @@ HANDLER_WRITES = {
     "phold_handle": ("push0.mask", "push0.t", "send0.mask", "send0.dst"),
     "echo_handle": ("push0.mask", "push0.t", "send0.payload", "send1.mask"),
     "timer_handle": ("push0.mask", "push0.t"),
+    "gossip_handle": ("push0.mask", "push0.payload", "push1.mask", "push1.t", "send0.mask",
+                      "send0.dst", "push2.mask"),
+    "circuit_handle": ("send0.mask", "send0.dst", "send0.payload", "push0.mask", "push0.t",
+                       "push1.mask", "push1.t", "send1.mask", "send1.dst", "send1.payload"),
 }
 
 
@@ -1420,10 +1555,11 @@ def graph_of(fn):
 
 
 def phase_kernels_handlers(dev) -> dict[str, dict]:
-    """K17-K20 against their plain versions (`handle_plain`) at full width:
+    """K17-K22 against their plain versions (`handle_plain`) at full width:
     tgen-TCP at config 6's shape (H = 10,000, the event a column of the K
     = 4 peek), PHOLD and udp_echo at the anchor's (H = 10,000), the timer at
-    config 5's (H = 10^6); `shadow_tpu_torch.testing.handler_case` inputs,
+    config 5's (H = 10^6), gossip at config 3's (H = 100,000), circuit at
+    config 4's (H = 7,500); `shadow_tpu_torch.testing.handler_case` inputs,
     two seeds, each also as a K = 4 column, and three chained calls on one
     state. Exact equality, dtypes included. Timings as phase 2's, and as the
     library yardstick the same plain handler replayed from a CUDA graph
@@ -1460,7 +1596,10 @@ def phase_kernels_handlers(dev) -> dict[str, dict]:
         r["shape"] = [h, k]
         r["checked_calls"] = n_checked
         # the context lanes the kernel reads (tgen: every lane and the four
-        # payload words; echo: its two time words), params and state read,
+        # payload words; echo: its two time words; gossip: the hop and
+        # generation words and one neighbor per host; circuit: the packet
+        # flag, the four words, the host id and the route), params and
+        # state read,
         # the outputs the kernel writes, each state lane written where it
         # changed
         want = handler_tensors(m.handle_plain(ctx))
@@ -1473,6 +1612,10 @@ def phase_kernels_handlers(dev) -> dict[str, dict]:
             reads += [ctx.payload, ctx.is_packet, ctx.src, ctx.host_id]
         elif model == "udp_echo":
             reads += [ctx.payload[:, 1:3]]
+        elif model == "gossip":
+            reads += [ctx.payload[:, 1:3], ctx.params["neighbors"][:, 0]]
+        elif model == "circuit":
+            reads += [ctx.payload, ctx.is_packet, ctx.host_id, ctx.params["route"]]
         changed = sum(int((v != want[key]).sum()) * v.element_size()
                       for key, v in state0.items())
         r["bound"] = bound(io_bytes(reads=reads, writes=[want[key] for key in HANDLER_WRITES[name]])
@@ -1481,6 +1624,166 @@ def phase_kernels_handlers(dev) -> dict[str, dict]:
         settle(name, r, r["bound"][0])
         results[name] = r
     return results
+
+
+def phase_kernels_lanes(dev) -> dict[str, dict]:
+    """The lanes of the CPU model (B20) and the merge-row bound (B21)
+    against their plain versions, exact equality: K1 with the busy floor
+    over the anchor's slab (H = 10,000, C = 64) and its block caches (block
+    8); K10 with the execution-time rewrite and busy update at the anchor's
+    and config 6's shapes (`testing.chain_case` with a 3 ms delay, busy
+    horizons before, at and after the events, the event a column of the K
+    = 4 peek on config 6's); K4 and K13 with `merge_rows` at config 2's
+    shape (C = 16, a [10,000, 6] outbox through 3 and 6 columns, every
+    load) at bounds that shed most rows, some and none, both shed modes.
+    Timings, each lane on: K1 and K10 at the anchor's shape (the
+    cpu_delay leg's), K4 and K13 at config 2's with the leg's bound."""
+    from shadow_tpu_torch.ops import chain
+    from shadow_tpu_torch.ops import events as ev
+    from shadow_tpu_torch.ops import merge
+    from shadow_tpu_torch.ops.events import Event, EventQueue
+    from shadow_tpu_torch.testing import (
+        MERGE_LOADS,
+        chain_case,
+        clone_carry,
+        flat_tensors,
+        merge_case,
+    )
+
+    rng = np.random.default_rng(20)
+    results = {}
+
+    def busy_lane(t_plane):
+        """Per-host horizons: 0, inside the live times, or past them all."""
+        return torch.as_tensor(np.select(
+            [rng.random(H) < 0.3, rng.random(H) < 0.5],
+            [0, rng.integers(0, 50, H) * 1_000_000], 1 << 62), device=t_plane.device)
+
+    err = 0.0
+    for case, fill in (("main", rng.integers(0, 8, H)), ("overflow", C - rng.integers(0, 3, H))):
+        q = random_queue(rng, fill, dev)
+        floor = busy_lane(q.t)
+        err = max(err, check_equal(f"K1 floor/{case}", [ev.next_time(q, floor)],
+                                   [ev.next_time_plain(q.t, floor)]))
+        bq = ev.bucket_rebuild(q, 8)
+        err = max(err, check_equal(f"K1 floor/{case}/blocks", [ev.bq_next_time(bq, floor)],
+                                   [ev.next_time_plain(bq.bt, floor)]))
+    q = random_queue(rng, rng.integers(0, 8, H), dev)
+    floor = busy_lane(q.t)
+    r = kernel_ms("queue_next_time", lambda: ev.next_time(q, floor))
+    r["plain_ms"] = time_ms(lambda: ev.next_time_plain(q.t, floor))
+    r["bound"] = bound(H * C * 8 + 2 * H * 8, H * C + H)
+    r["max_abs_err"] = err
+    results["queue_next_time_busy_floor"] = settle("queue_next_time/busy_floor", r, r["bound"][0])
+
+    shapes = {
+        "anchor": dict(n_push=1, sends=((1, False, False),), route="const", budget=B),
+        "cfg6": dict(n_push=2, sends=((2, True, True),), route="affine", n_nodes=100,
+                     budget=24, stride=K6),
+    }
+
+    def fresh(e):
+        """A copy of the event with its own time lane (K10 rewrites it in
+        place), at the same host stride."""
+        k = e.t.stride(0)
+        wide = torch.zeros((H, k), dtype=torch.int64, device=dev)
+        wide[:, -1] = e.t
+        return Event(wide[:, -1], e.order, e.kind, e.payload)
+
+    err = 0.0
+    for shape, kw in shapes.items():
+        for seed in (1, 2):
+            case = chain_case(seed, H, dev, **kw, cpu_delay=3_000_000)
+            cfg, params, e, act, c0 = (case[k] for k in ("cfg", "params", "ev", "active",
+                                                           "carry"))
+            got = chain.event_ingress(clone_carry(c0), params, cfg, fresh(e), act)
+            want = chain.event_ingress_plain(clone_carry(c0), params, cfg, fresh(e), act)
+            err = max(err, check_equal(f"K10 busy/{shape}/{seed}", flat_tensors(got),
+                                       flat_tensors(want)))
+        if shape == "anchor":
+            r = kernel_ms("event_ingress",
+                          lambda cc, ee: chain.event_ingress(cc, params, cfg, ee, act),
+                          lambda: (clone_carry(c0), fresh(e)))
+            r["plain_ms"] = time_ms(
+                lambda cc, ee: chain.event_ingress_plain(cc, params, cfg, ee, act),
+                lambda: (clone_carry(c0), fresh(e)))
+            c1, ing1 = want
+            r["bound"] = bound(io_bytes(
+                reads=[e.t, e.order, e.kind, e.payload[:, 0], act, params.in_tb.capacity,
+                       params.in_tb.refill, c0.tb_ingress.tokens, c0.tb_ingress.last_itv,
+                       c0.cpu_busy_until],
+                writes=[ing1.dispatch, ing1.is_pkt, ing1.kind, ing1.src,
+                        *(ing1.requeue[i] for i in (0, 1, 3))],
+                inplace=[(e.t, ing1.t), *zip(
+                    flat_tensors([c0.stats, c0.tb_ingress, c0.codel, c0.cpu_busy_until]),
+                    flat_tensors([c1.stats, c1.tb_ingress, c1.codel, c1.cpu_busy_until]))]),
+                300 * H)
+    r["max_abs_err"] = err
+    results["event_ingress_cpu_delay"] = settle("event_ingress/cpu_delay", r, r["bound"][0])
+
+    def on_dev(arrays):
+        return [torch.as_tensor(a, device=dev) for a in arrays]
+
+    kernels = {"merge_insert": (merge.merge_flat_events, merge.merge_flat_events_plain),
+               "merge_scatter": (merge.merge_scatter_free, merge.merge_scatter_free_plain)}
+    err = {k: 0.0 for k in kernels}
+    shed = 0
+    seed = 900
+    for gc in (3, 6):
+        for load in MERGE_LOADS:
+            seed += 1
+            q, ob = merge_case(seed, H, 16, 6, gc, load)
+            rows = on_dev(ob)
+            n_valid = int(((ob[1][:, :gc] != TIME_MAX) & (ob[0][:, :gc] < H)).sum())
+            for rows_bound in (H // 2, H + 1 + n_valid // 2, H + 1 + n_valid, 1 << 30):
+                for urgency in (True, False):
+                    for name, (fn, plain) in kernels.items():
+                        q0 = EventQueue(*on_dev(q))
+                        got = fn(clone_q(q0), *rows, None, 16, urgency, cols=gc,
+                                 merge_rows=rows_bound)
+                        want = plain(clone_q(q0), *rows, None, 16, urgency, cols=gc,
+                                     merge_rows=rows_bound)
+                        err[name] = max(err[name], check_equal(
+                            f"{name} merge_rows={rows_bound}/cols={gc}/{load}/urgency={urgency}",
+                            list(got), list(want)))
+                        shed += int((want.dropped - q0.dropped).sum())
+    if not shed:
+        raise AssertionError("merge_rows check: no row was shed at the bound")
+    q, ob = merge_case(42, H, 16, 6, 6, "fit")
+    rows = on_dev(ob)
+    n_valid = int(((ob[1] != TIME_MAX) & (ob[0] < H)).sum())
+    rows_bound = H + 1 + n_valid // 2
+    for name, (fn, plain) in kernels.items():
+        r = kernel_ms(name, lambda qq: fn(qq, *rows, None, 16, True, merge_rows=rows_bound),
+                      lambda: (EventQueue(*on_dev(q)),))
+        r["plain_ms"] = time_ms(
+            lambda qq: plain(qq, *rows, None, 16, True, merge_rows=rows_bound),
+            lambda: (EventQueue(*on_dev(q)),))
+        q0 = EventQueue(*on_dev(q))
+        after = plain(clone_q(q0), *rows, None, 16, True, merge_rows=rows_bound)
+        r["bound"] = bound(*merge_bytes(q0, after, ob, 6))
+        r["rows_bound"] = rows_bound
+        r["max_abs_err"] = err[name]
+        results[f"{name}_merge_rows"] = settle(f"{name}/merge_rows", r, r["bound"][0])
+    results["merge_rows_shed_checked"] = shed
+    return results
+
+
+def merge_bytes(q0, after, ob, gc: int) -> tuple[int, int]:
+    """(bytes, operations) one merge of the outbox's first gc columns into
+    queue `q0` must take to give `after`: the row columns' dst and t; the
+    valid rows' order, kind and payload; the time plane of the hosts that
+    get rows; one slot per inserted row; dropped read and written where
+    rows shed."""
+    dst, t = ob[0][:, :gc].reshape(-1), ob[1][:, :gc].reshape(-1)
+    h, cap = q0.t.shape
+    ok = (t != TIME_MAX) & (dst >= 0) & (dst < h)
+    seg = np.bincount(dst[ok], minlength=h)
+    n_ins = int((after.t != TIME_MAX).sum() - (q0.t != TIME_MAX).sum())
+    n_shed = int((after.dropped != q0.dropped).sum())
+    n_valid = int(ok.sum())
+    return ((dst.size * (4 + 8) + n_valid * (8 + 4 + 4 * P) + int((seg > 0).sum()) * cap * 8
+             + n_ins * (8 + 8 + 4 + 4 * P) + n_shed * 16), dst.size + n_valid)
 
 
 def phase_codel_law(dev) -> dict:
@@ -1582,6 +1885,8 @@ KERNEL_SYMBOLS = {
     "phold_handle": ("phold_handle_kernel",),
     "echo_handle": ("echo_handle_kernel",),
     "timer_handle": ("timer_handle_kernel",),
+    "gossip_handle": ("gossip_handle_kernel",),
+    "circuit_handle": ("circuit_handle_kernel",),
 }
 # the microstep's per-event steps, marked as profiler ranges in phases 5 and 9
 RANGES = ("ingress", "handler", "egress", "outbox_append")
@@ -1591,7 +1896,7 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
     """Where a leg's time goes: three unprofiled chunks (the first carries
     first-use costs; the third is timed), then one chunk under
     torch.profiler with the per-event chain's three steps — ingress (K10),
-    the model's handler (its kernel, K17-K20), egress (K11) — and the
+    the model's handler (its kernel, K17-K22), egress (K11) — and the
     outbox append (K9) marked as ranges: device busy share, launches per
     microstep, each range's device time and launches per microstep (the
     handler's should be one launch per event), the port's kernels by name,
@@ -1700,6 +2005,19 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
         "ranges": ranges,
         "port_kernels": ours,
         "top_device_ops": [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in top],
+    }
+
+
+def new_small_configs() -> dict[str, dict]:
+    """Config 3 small (2,048 gossip hosts) cut to 10 sim-s (five
+    generations), config 4 small (64 relays, 32 clients) cut to 20 sim-s,
+    and config 6 small at K = 4 with the CPU model (2 ms per event) cut to
+    4 sim-s."""
+    return {
+        "cfg3_small": cfg3_config(True, "10 s"),
+        "cfg4_small": cfg4_config(True, "20 s"),
+        "tgen_small_cpu_delay_k4": with_experimental(tgen_config(True, "4 s", k=4),
+                                                     cpu_delay="2 ms"),
     }
 
 
@@ -1872,6 +2190,13 @@ CFG5_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "event_ingre
 # once per round
 FLUID_PATH = ("fluid_fg_link_bytes", "fluid_advance", "fluid_host_effects")
 CFG12_PATH = TGEN_PATH + FLUID_PATH
+# configs 1, 3 and 4 run the anchor's kernels with their own handlers
+CFG1_PATH = tuple("echo_handle" if k == "phold_handle" else k for k in ANCHOR_PATH)
+CFG3_PATH = tuple("gossip_handle" if k == "phold_handle" else k for k in ANCHOR_PATH)
+CFG4_PATH = tuple("circuit_handle" if k == "phold_handle" else k for k in ANCHOR_PATH)
+# under the CPU model every pop has per-host limits: K5 + K6 replace K2
+ANCHOR_DELAY_PATH = tuple(k for k in ANCHOR_PATH if k != "queue_pop_min") + (
+    "queue_pop_k", "queue_clear_popped")
 SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
            "merge_scatter": "shadow_tpu_torch/csrc/merge.cu",
            **{k: "shadow_tpu_torch/csrc/event.cu" for k in CHAIN_PATH},
@@ -1898,6 +2223,8 @@ REPLACES = {
     "phold_handle": "shadow_tpu/models/phold.py:65",
     "echo_handle": "shadow_tpu/models/echo.py:104",
     "timer_handle": "shadow_tpu/models/timer.py:41",
+    "gossip_handle": "shadow_tpu/models/gossip.py:89",
+    "circuit_handle": "shadow_tpu/models/circuit.py:99",
 }
 # the path whose run each kernel's `launches` is read from: the one it was
 # ported for (wheel_cancel has no engine caller, in either package)
@@ -1911,8 +2238,10 @@ PORTED_FOR = {
     **{k: "cfg12" for k in FLUID_PATH},
     "tgen_handle": "tgen",
     "phold_handle": "anchor",
-    "echo_handle": "echo_overflow",  # udp_echo runs in phase 6's small config only
+    "echo_handle": "cfg1",
     "timer_handle": "cfg5",
+    "gossip_handle": "cfg3",
+    "circuit_handle": "cfg4",
 }
 
 
@@ -1990,6 +2319,16 @@ def main() -> int:
     emit("kernels_handlers_vs_plain", ok=True, exact=True,
          **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in hres.items()})
     kres.update(hres)
+
+    lres = phase_kernels_lanes(dev)
+    shed_checked = lres.pop("merge_rows_shed_checked")
+    emit("kernels_lanes_vs_plain", ok=True, exact=True, merge_rows_shed_checked=shed_checked,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in lres.items()})
+    for row, lane in (("queue_next_time", "busy_floor"), ("event_ingress", "cpu_delay"),
+                      ("merge_insert", "merge_rows"), ("merge_scatter", "merge_rows")):
+        r = lres[f"{row}_{lane}"]
+        r["bound_ms"] = r.pop("bound")[0]
+        kres[row][lane] = r
 
     # least device time per call at each path's shapes: the kernel phases'
     # bounds; K1 and K4 on the tgen path (block caches, 24-wide outbox) get
@@ -2076,6 +2415,22 @@ def main() -> int:
         raise AssertionError("cfg12 small loss_max 0.3: the fluid loss draw dropped nothing")
     if not small12["gears_from_lowest"]["gears"]["replays"]:
         raise AssertionError("cfg12 small from the lowest gear: no chunk shed and replayed")
+
+    # bench configs 1, 3 and 4; the CPU model on the anchor; config 2 under
+    # a merge-row bound that sheds
+    launches["cfg1"] = run_leg("cfg1", cfg1_config(False), CFG1_REF, CFG1_PATH)[0]
+    launches["cfg3"] = run_leg("cfg3", cfg3_config(False), CFG3_REF, CFG3_PATH)[0]
+    launches["cfg4"] = run_leg("cfg4", cfg4_config(False), CFG4_REF, CFG4_PATH)[0]
+    launches["anchor_cpu_delay"] = run_leg(
+        "anchor_cpu_delay", with_experimental(anchor_config(), cpu_delay=ANCHOR_CPU_DELAY),
+        ANCHOR_DELAY_REF, ANCHOR_DELAY_PATH)[0]
+    launches["cfg2_merge_rows"] = run_leg(
+        "cfg2_merge_rows", with_experimental(cfg2_config(False, CFG2_STOP),
+                                             merge_rows=CFG2_MERGE_ROWS),
+        CFG2_ROWS_REF, CFG2_PATH)[0]
+    small = card_vs_cpu("new_small", new_small_configs(), keys)
+    if not small["tgen_small_cpu_delay_k4"]["popk_deferred"]:
+        raise AssertionError("tgen_small_cpu_delay_k4: no batch event was deferred")
     emit("total", seconds=round(time.monotonic() - t_start, 3))
 
     table = []
@@ -2097,6 +2452,8 @@ def main() -> int:
                                for op, v in r["wheel_slab"].items()}}
                if "wheel_slab" in r else {}),
             **({"library_call": r["library_call"]} if "library_call" in r else {}),
+            **{lane: {k: r[lane][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
+               for lane in ("busy_floor", "cpu_delay", "merge_rows") if lane in r},
         })
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -8,21 +8,23 @@ does not implement yet raises `ConfigError` naming the knob — a config is
 never silently run with a plane switched off:
 
   - `general.parallelism > 1` (world > 1);
-  - `experimental.merge_rows > 0`, `cpu_delay > 0`, `scheduler:
-    cpu-reference`;
+  - `experimental.scheduler: cpu-reference`;
   - any non-empty `faults`, `pressure`, `integrity` or `campaign` block,
     and any enabled `observability` knob (`trace`, `network`, ...);
   - `pcap_enabled`, managed processes (`path:`), and models other than
-    phold, udp_echo, timer and tgen_tcp (checked when the simulation is
-    built).
+    phold, udp_echo, timer, tgen_tcp, gossip and circuit (checked when
+    the simulation is built).
 
 `experimental.event_queue_block` (the bucketed queue),
 `microstep_events` (K events per host per microstep), `timer_wheel`,
 `merge_gears` (off | auto | an int | a list of ints: the exchange's column
 widths, resolved against the send budget by `core/gears.py`) and
-`merge_scatter` (the sort-free exchange merge) are accepted with the JAX
-package's validation: the block is >= 0 and divides the queue capacity,
-K >= 1, and the gears' list entries are positive ints. The `fluid` block
+`merge_scatter` (the sort-free exchange merge), `merge_rows` (the
+exchange's positional row bound, 0 = none) and `cpu_delay` (the CPU model's
+per-event charge, a time whose bare numbers are ms, 0 = off) are accepted
+with the JAX package's validation: the block is >= 0 and divides the queue
+capacity, K >= 1, and the gears' list entries are positive ints; a negative
+row bound or delay, which the JAX package reads as "off", is refused. The `fluid` block
 (background traffic classes, net/fluid.py) is parsed and validated as the
 JAX package's `FluidOptions`, error texts included.
 
@@ -130,8 +132,6 @@ class NetworkOptions:
 # experimental knobs of the JAX engine that this port rejects, with the
 # value that means "off" (a config may spell the default explicitly)
 _EXPERIMENTAL_OFF = {
-    "merge_rows": 0,
-    "cpu_delay": 0,
     "scheduler": "tpu",
 }
 
@@ -165,6 +165,12 @@ class ExperimentalOptions:
     # the sort-free exchange merge (its fast path when every destination's
     # rows fit; the sort merge's result otherwise)
     merge_scatter: bool = False
+    # the exchange merge's positional row bound (0 = none): rows at sorted
+    # position >= merge_rows (one token per host counted) shed into
+    # queue_overflow_dropped
+    merge_rows: int = 0
+    # CPU model: simulated ns of CPU time charged per handled event (0 = off)
+    cpu_delay: int = 0
 
     def validate(self) -> None:
         """The JAX package's checks of the queue-shape knobs; the block's
@@ -194,6 +200,11 @@ class ExperimentalOptions:
                 f"(auto) or divide timer_wheel={self.timer_wheel} evenly"
             )
         self.merge_gears = parse_merge_gears(self.merge_gears)
+        for knob in ("merge_rows", "cpu_delay"):
+            if getattr(self, knob) < 0:
+                raise ConfigError(
+                    f"experimental.{knob} must be >= 0 (0 = off), got {getattr(self, knob)}"
+                )
         if self.timer_wheel and self.microstep_events > 1:
             raise ConfigError(
                 f"unsupported knob pair: experimental.timer_wheel={self.timer_wheel} x "
@@ -230,8 +241,6 @@ class ExperimentalOptions:
         for knob, off in _EXPERIMENTAL_OFF.items():
             if knob in d:
                 v = d.pop(knob)
-                if knob == "cpu_delay":
-                    v = parse_time_ns(v, TimeUnit.MS)
                 if v != off:
                     raise _unsupported(f"experimental.{knob}={v!r}")
         # the exchange kind only matters across devices; world 1 always
@@ -244,8 +253,9 @@ class ExperimentalOptions:
             )
         d.pop("a2a_block", None)
         e = ExperimentalOptions()
-        if "runahead" in d:
-            e.runahead = parse_time_ns(d.pop("runahead"), TimeUnit.MS)
+        for f in ("runahead", "cpu_delay"):
+            if f in d:
+                setattr(e, f, parse_time_ns(d.pop(f), TimeUnit.MS))
         if "overflow_shed" in d:
             e.overflow_shed = str(d.pop("overflow_shed"))
         if e.overflow_shed not in ("urgency", "append"):
@@ -268,6 +278,7 @@ class ExperimentalOptions:
             "microstep_events",
             "timer_wheel",
             "timer_wheel_block",
+            "merge_rows",
         ):
             if f in d:
                 setattr(e, f, int(d.pop(f)))
@@ -606,7 +617,7 @@ def merge_cli_overrides(cfg: ConfigOptions, overrides: dict[str, str]) -> Config
         try:
             if leaf.endswith("_time") or leaf in ("heartbeat_interval",):
                 val = parse_time_ns(val, TimeUnit.SEC)
-            elif leaf == "runahead":
+            elif leaf in ("runahead", "cpu_delay"):
                 val = parse_time_ns(val, TimeUnit.MS)
             elif leaf.startswith("bandwidth_") or leaf == "link_capacity":
                 val = parse_bits_per_sec(val)

@@ -11,8 +11,8 @@ as `BucketQueue`, a timer wheel (with its `wheel_spilled` and
 `wheel_occ_hwm` stats lanes) as the port's wheel, and the fluid plane's
 `FluidParams`, `FluidState` and `fl_bg_*` stats lanes as the port's.
 `engine_config_from` maps a JAX `EngineConfig` onto the port's (merge gear,
-scatter merge and fluid knobs included), refusing any knob the port does
-not run.
+scatter merge, merge-row bound, CPU delay and fluid knobs included),
+refusing any knob the port does not run.
 `to_numpy` flattens either package's state into {"queue.t": array, ...} for a
 field-by-field comparison. Nothing here imports JAX: the inputs are read by
 attribute name only.
@@ -49,8 +49,6 @@ _OFF_FIELDS = {
     "pressure_abort": False,
     "netobs": False,
     "integrity": False,
-    "merge_rows": 0,
-    "cpu_delay_ns": 0,
 }
 
 
@@ -129,6 +127,7 @@ def state_from_jax_numpy(sim_state, model_state=None, *, device) -> SimState:
         tb_ingress=TBState(_t(s.tb_ingress.tokens, device), _t(s.tb_ingress.last_itv, device)),
         codel=CodelState(*(_t(getattr(s.codel, f), device) for f in CodelState._fields)),
         min_used_lat=_t(s.min_used_lat, device),
+        cpu_busy_until=_t(s.cpu_busy_until, device),
         model=_tree(s.model if model_state is None else model_state, device),
         outbox=Outbox(*(_t(getattr(s.outbox, f), device) for f in Outbox._fields)),
         stats=Stats(*(_opt(getattr(s.stats, f, None), device) for f in Stats._fields)),
@@ -168,6 +167,7 @@ def to_numpy(state) -> dict[str, np.ndarray]:
         "seq": _np(state.seq),
         "sent_round": _np(state.sent_round),
         "min_used_lat": _np(state.min_used_lat),
+        "cpu_busy_until": _np(state.cpu_busy_until),
     }
     groups = {
         "queue": (state.queue, BucketQueue._fields if hasattr(state.queue, "bt")

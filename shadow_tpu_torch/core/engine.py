@@ -177,6 +177,9 @@ class SimState(NamedTuple):
     tb_ingress: TBState
     codel: CodelState
     min_used_lat: torch.Tensor  # i64[] min latency seen (dynamic runahead)
+    # the CPU model's busy horizon: a host's events execute no earlier than
+    # this (zeros, and untouched, unless cpu_delay_ns > 0)
+    cpu_busy_until: torch.Tensor  # i64[H]
     model: Any
     outbox: Outbox
     stats: Stats
@@ -216,6 +219,13 @@ class EngineConfig:
     shaping: bool = True
     # exchange-merge overflow shed by outbox position instead of urgency
     cheap_shed: bool = False
+    # CPU model: every executed event charges this much simulated CPU time;
+    # an event that pops while its host is busy executes at the busy
+    # horizon, or waits in the queue past the window (0 = off)
+    cpu_delay_ns: int = 0
+    # the exchange merge's positional row bound: rows at sorted position
+    # >= merge_rows, one token per host counted, shed (0 = none)
+    merge_rows: int = 0
     use_jitter: bool = False
     queue_capacity: int = 64
     # slots per block of the bucketed queue; 0 = flat queue
@@ -259,6 +269,11 @@ class EngineConfig:
             )
         if self.microstep_events < 1:
             raise ValueError(f"microstep_events={self.microstep_events} must be >= 1")
+        if self.cpu_delay_ns < 0 or self.merge_rows < 0:
+            raise ValueError(
+                f"cpu_delay_ns={self.cpu_delay_ns} and merge_rows={self.merge_rows} must be "
+                f">= 0 (0 = off)"
+            )
         if self.wheel_slots < 0:
             raise ValueError(f"wheel_slots={self.wheel_slots} must be >= 0 (0 = off)")
         if self.wheel_block < 0 or (
@@ -434,11 +449,12 @@ class _EvCarry(NamedTuple):
     tb_ingress: TBState
     codel: CodelState
     model: Any
+    cpu_busy_until: Any = None  # i64[H]: read and written by ingress (K10), CPU model on
 
 
 def _ev_carry_of(st: SimState) -> _EvCarry:
     return _EvCarry(st.stats, st.rng, st.seq, st.sent_round, st.tb_egress,
-                    st.tb_ingress, st.codel, st.model)
+                    st.tb_ingress, st.codel, st.model, st.cpu_busy_until)
 
 
 def _lex_less(at, ao, bt, bo):
@@ -509,6 +525,7 @@ class Engine:
             tb_ingress=tb_init(params.in_tb),
             codel=codel_init(h, dev),
             min_used_lat=torch.tensor(cfg.static_min_latency, dtype=torch.int64, device=dev),
+            cpu_busy_until=torch.zeros((h,), dtype=torch.int64, device=dev),
             model=model_state,
             outbox=make_empty_outbox(h, cfg.sends_per_host_round, dev),
             stats=_init_stats(cfg, dev),
@@ -548,14 +565,26 @@ class Engine:
         finally:
             self.cfg = base
 
-    @staticmethod
-    def next_times(st: SimState) -> torch.Tensor:
-        """Per-host next event time: the queue's head, and the wheel's where
-        there is one (a due timer is as executable as a due queue event)."""
-        nt = q_next_time(st.queue)
+    def next_times(self, st: SimState) -> torch.Tensor:
+        """Per-host next executable time: the queue's head, and the wheel's
+        where there is one (a due timer is as executable as a due queue
+        event), floored under the CPU model by the busy horizon (a busy
+        host keeps its events queued and resumes at busy_until; an empty
+        host stays at TIME_MAX). The floor is K1's lane: the minimum of
+        two floored heads is the floored minimum."""
+        floor = st.cpu_busy_until if self.cfg.cpu_delay_ns > 0 else None
+        nt = q_next_time(st.queue, floor)
         if st.wheel is not None:
-            nt = torch.minimum(nt, wheel_next_time(st.wheel))
+            nt = torch.minimum(nt, wheel_next_time(st.wheel, floor))
         return nt
+
+    def _pop_limit(self, st: SimState, window_end: int):
+        """The microstep's pop limit: `window_end`, or under the CPU model
+        an [H] limit that holds back (0) every host whose busy horizon has
+        reached the window's end."""
+        if self.cfg.cpu_delay_ns <= 0:
+            return window_end
+        return torch.where(st.cpu_busy_until < window_end, window_end, 0)
 
     def compute_window(self, st: SimState, shed0=None) -> tuple[int, bool, bool]:
         """Barrier + window: (window_end, done, shed), one device-to-host
@@ -650,12 +679,16 @@ class Engine:
 
     def microstep(self, st: SimState, params: EngineParams, window_end: int,
                   fluid_fx=None) -> SimState:
-        """The one-event microstep: pop, execute, push, append."""
+        """The one-event microstep: pop, execute, push, append. Under the
+        CPU model a host pops only while its busy horizon is inside the
+        window, and ingress (K10) moves the event to its execution time
+        max(t, busy) for every consumer downstream."""
         wheel = st.wheel
+        limit = self._pop_limit(st, window_end)
         if wheel is None:
-            queue, ev, active = q_pop_min(st.queue, window_end)
+            queue, ev, active = q_pop_min(st.queue, limit)
         else:
-            queue, wheel, ev, active = pop_min_merged(st.queue, wheel, window_end)
+            queue, wheel, ev, active = pop_min_merged(st.queue, wheel, limit)
         c, push_list, entries, used_min = self.event_body(
             _ev_carry_of(st), params, window_end, ev, active, fluid_fx,
         )
@@ -714,14 +747,18 @@ class Engine:
         requeues) has an earlier (time, order) key — with one event per
         microstep that push would pop first. Deferral is monotone, so the
         executed events are a prefix of the batch; the rest stay in the
-        slab. Drop exactness: the pushes run after the clear, in one-event
-        chronological order (requeue_0, pushes_0, requeue_1, ...), each
-        holding a reserve of the batch events that executed after it."""
+        slab. Under the CPU model a host peeks only while its busy horizon
+        is inside the window, and batch event j+1 also defers once the
+        events before it pushed the horizon to the window's end (the
+        one-event microstep would stop popping there). Drop exactness: the
+        pushes run after the clear, in one-event chronological order
+        (requeue_0, pushes_0, requeue_1, ...), each holding a reserve of
+        the batch events that executed after it."""
         cfg = self.cfg
         k = cfg.effective_microstep_events
         h = cfg.num_hosts
         dev = self.device
-        popped = pop_k(st.queue, window_end, k)
+        popped = pop_k(st.queue, self._pop_limit(st, window_end), k)
         c = _ev_carry_of(st)
         deferred = torch.zeros((h,), dtype=torch.bool, device=dev)
         pm_t = torch.full((h,), TIME_MAX, dtype=torch.int64, device=dev)
@@ -731,6 +768,8 @@ class Engine:
             ev = popped.event(j)
             if j > 0:
                 deferred = deferred | _lex_less(pm_t, pm_o, ev.t, ev.order)
+                if cfg.cpu_delay_ns > 0:
+                    deferred = deferred | (c.cpu_busy_until >= window_end)
             cons_j = popped.active[:, j] & ~deferred
             c, push_list, ents, used_min = self.event_body(c, params, window_end, ev, cons_j,
                                                            fluid_fx)
@@ -774,19 +813,20 @@ class Engine:
             queue=queue, rng=c.rng, seq=c.seq, sent_round=c.sent_round,
             tb_egress=c.tb_egress, tb_ingress=c.tb_ingress, codel=c.codel,
             model=c.model, outbox=outbox, min_used_lat=min_used, stats=stats,
+            cpu_busy_until=c.cpu_busy_until,
         )
 
     def event_body(self, c: _EvCarry, params: EngineParams, window_end: int, ev, active,
                    fluid_fx=None):
-        """Execute one event per active host: ingress (digest, shaping,
-        dispatch; K10), the model's handler, egress (pushes and sends, with
-        the round's fluid coupling `fluid_fx`; K11). Returns (carry',
-        pushes, outbox entry stack | None, per-host used-latency minimum |
-        None)."""
+        """Execute one event per active host: ingress (the CPU model's
+        execution time, digest, shaping, dispatch; K10), the model's
+        handler, egress (pushes and sends, with the round's fluid coupling
+        `fluid_fx`; K11). Returns (carry', pushes, outbox entry stack |
+        None, per-host used-latency minimum | None)."""
         cfg = self.cfg
         c, ing = event_ingress(c, params, cfg, ev, active)
         out = self.model.handle(HandlerCtx(
-            t=ev.t,
+            t=ing.t,
             window_end=window_end,
             kind=ing.kind,
             payload=ev.payload,
@@ -800,7 +840,7 @@ class Engine:
         ))
         c = c._replace(model=out.state, rng=out.rng)
         c, pushes, entries, used_min = event_egress(
-            c, params, cfg, ev.t, ing.dispatch, window_end, out, fluid_fx)
+            c, params, cfg, ing.t, ing.dispatch, window_end, out, fluid_fx)
         push_list = ([ing.requeue] if ing.requeue is not None else []) + pushes
         return c, push_list, entries, used_min
 
@@ -824,6 +864,7 @@ class Engine:
             queue = merge(
                 as_flat(st.queue), ob.dst, ob.t, ob.order, ob.kind, ob.payload, None,
                 cfg.max_round_inserts, shed_urgency=not cfg.cheap_shed, cols=gc,
+                merge_rows=cfg.merge_rows,
             )
             if isinstance(st.queue, BucketQueue):
                 queue = bucket_rebuild(queue, st.queue.block)
@@ -841,14 +882,15 @@ def pop_min_merged(queue, wheel: TimerWheel, limit: int):
     (time, order) key: compare the two heads, then each structure pops with
     the limit masked to the hosts it won (an [H] limit, 0 where it lost),
     so exactly one event pops per active host — the one the wheel-off path
-    would pop from its single queue. Live keys never tie; the all-empty tie
+    would pop from its single queue. `limit` is an int or an i64[H]
+    (the CPU model's per-host limits). Live keys never tie; the all-empty tie
     on the sentinels goes to the wheel, whose pop then finds nothing.
     Returns (queue', wheel', event, active)."""
     qt, qo = q_head(queue)
     wt, wo = q_head(wheel)
     q_wins = _lex_less(qt, qo, wt, wo)
     zero = torch.zeros_like(qt)
-    lim = torch.full_like(qt, limit)
+    lim = limit if isinstance(limit, torch.Tensor) else torch.full_like(qt, limit)
     queue, ev_q, act_q = q_pop_min(queue, torch.where(q_wins, lim, zero))
     wheel, ev_w, act_w = wheel_pop_min(wheel, torch.where(q_wins, zero, lim))
     ev = Event(

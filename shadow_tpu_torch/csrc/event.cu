@@ -6,7 +6,9 @@
 //   K9  shadow_tpu/core/engine.py:1126 _outbox_append_multi   (B4)
 //   K10 shadow_tpu/core/engine.py:2288-2367 _event_body, ingress half (B5):
 //       events + digest fold, CoDel and the downlink token bucket, the
-//       bucket-delay requeue, dispatch, pkts_delivered
+//       bucket-delay requeue, dispatch, pkts_delivered; with the CPU model
+//       (B20, :2754-2785 and :2995-3016) first the execution-time rewrite
+//       max(t, busy_until) and the busy update
 //   K11 shadow_tpu/core/engine.py:2415-2640 _event_body, egress half (B5):
 //       the model's local pushes (order keys, monotonic violations), then
 //       every send port and burst segment: route lookup, send budget,
@@ -128,8 +130,9 @@ __global__ void outbox_append_kernel(const AppendArgs a) {
 struct IngressArgs {
   int H, P, es, shaping, use_codel;
   long long interval;
-  // event (host stride es; payload stride es * P) and the active mask
-  const long long* ev_t;
+  // event (host stride es; payload stride es * P) and the active mask; the
+  // time lane is rewritten to the execution time under the CPU model
+  long long* ev_t;
   const long long* ev_order;
   const int* ev_kind;
   const int* ev_payload;
@@ -155,6 +158,10 @@ struct IngressArgs {
   bool* rq_mask;
   long long* rq_t;
   int* rq_kind;
+  // the CPU model (null when off): the per-event charge and the busy
+  // horizon, in place
+  long long cpu_delay;
+  long long* busy;
 };
 
 __global__ void event_ingress_kernel(const IngressArgs a) {
@@ -162,7 +169,14 @@ __global__ void event_ingress_kernel(const IngressArgs a) {
   if (h >= a.H) return;
   const long long ei = (long long)h * a.es;
   const bool act = a.active[h];
-  const long long t = a.ev_t[ei];
+  long long t = a.ev_t[ei];
+  if (a.busy != nullptr && act) {
+    // the execution time max(t, busy) replaces the event's time for every
+    // consumer downstream (digest, shaping, handler, egress)
+    t = imax(t, a.busy[h]);
+    a.ev_t[ei] = t;
+    a.busy[h] = wadd(t, a.cpu_delay);
+  }
   const long long order = a.ev_order[ei];
   const int kind = a.ev_kind[ei];
   if (act) {
@@ -454,7 +468,7 @@ int event_ingress(const long long* args, void* stream) {
   a.shaping = (int)r.v();
   a.use_codel = (int)r.v();
   a.interval = r.v();
-  a.ev_t = r.p<const long long>();
+  a.ev_t = r.p<long long>();
   a.ev_order = r.p<const long long>();
   a.ev_kind = r.p<const int>();
   a.ev_payload = r.p<const int>();
@@ -478,6 +492,8 @@ int event_ingress(const long long* args, void* stream) {
   a.rq_mask = r.p<bool>();
   a.rq_t = r.p<long long>();
   a.rq_kind = r.p<int>();
+  a.cpu_delay = r.v();
+  a.busy = r.p<long long>();
   if (a.P < 1 || a.interval <= 0) return (int)cudaErrorInvalidValue;
   if (a.H > 0)
     event_ingress_kernel<<<blocks_for(a.H), kThreads, 0, (cudaStream_t)stream>>>(a);

@@ -2,9 +2,10 @@
 // a global sort.
 //
 // Replaces (JAX reference): K4 shadow_tpu/ops/merge.py:240 merge_flat_events
-// (with _merge_scatter :73 / _merge_gather_plan :443, merge_rows = 0); K13
-// shadow_tpu/ops/merge.py:312 merge_scatter_free (merge_rows = 0); both as
-// called from shadow_tpu/core/engine.py:3273 _merge_into_queue.
+// (with _merge_scatter :73 / _merge_gather_plan :443, the merge_rows bound
+// :97-104 / :511-516 included); K13 shadow_tpu/ops/merge.py:312
+// merge_scatter_free (its merge_rows fits test :371-375); both as called
+// from shadow_tpu/core/engine.py:3273 _merge_into_queue.
 //
 // Rows. The rows are the first `gc` columns of an [R, B] outbox (host-major:
 // row (h, k) is element e = h * B + k of every plane), so a gear-sliced
@@ -13,15 +14,23 @@
 // plane, where its time is not TIME_MAX) and 0 <= dst[e] < H.
 //
 // K4 contract: destination h takes r = min(seg_len[h], r_cap, free slots of
-// h) of the valid rows addressed to it — the r smallest by key — and writes
-// the i-th smallest into its i-th free slot (free slots ranked by slot
-// index); seg_len[h] - r adds to dropped[h]. Key = (t, order) in urgency
-// mode, the row's element index e in append mode (monotone in the sliced
-// row index h * gc + k that the JAX package ranks by); both are unique among
-// valid rows.
+// h, bound[h]) of the valid rows addressed to it — the r smallest by key —
+// and writes the i-th smallest into its i-th free slot (free slots ranked
+// by slot index); seg_len[h] - r adds to dropped[h]. The merge_rows bound
+// (0 = none) is the JAX package's positional truncation: in its sorted
+// array one token per host precedes the host's rows, so the row of rank k
+// of destination h sits at position offsets[h] + h + 1 + k (offsets[h] =
+// the valid rows of smaller destinations) and survives iff that is below
+// merge_rows: bound[h] = max(merge_rows - 1 - offsets[h] - h, 0). Key =
+// (t, order) in urgency mode, the row's element index e in append mode
+// (monotone in the sliced row index h * gc + k that the JAX package ranks
+// by); both are unique among valid rows.
 //
 // K13 contract: when every destination's count of valid rows is at most
-// min(free slots, r_cap) ("fits"), destination h places its rows in
+// min(free slots, r_cap) and, under a merge_rows bound, every valid row
+// plus one token per host plus the end sentinel fits in it (n_valid + H + 1
+// <= merge_rows, the JAX package's conservative test) ("fits"),
+// destination h places its rows in
 // DESCENDING element index: the row of rank i into its i-th free slot
 // (JAX's scatter-max peeling), `dropped` unchanged. Otherwise the result is
 // K4's in the configured shed mode. The choice is made on the device: a
@@ -131,11 +140,15 @@ __global__ void scatter_kernel(const int* __restrict__ dst, const long long* __r
 }
 
 // K13's admission: host h fits iff its valid rows are at most min(free
-// slots, r_cap). Runs before either insert writes; counts failing hosts.
+// slots, r_cap); under a merge_rows bound thread 0 also counts a failure
+// when n_valid + H + 1 > merge_rows. Runs before either insert writes;
+// counts failing hosts.
 __global__ void fits_kernel(const long long* __restrict__ qt, const int* __restrict__ counts,
-                            int* __restrict__ over, int H, int C, int r_cap) {
+                            const int* __restrict__ offsets, int* __restrict__ over, int H, int C,
+                            int r_cap, int merge_rows) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= H) return;
+  if (h == 0 && merge_rows > 0 && (long long)offsets[H] + H + 1 > merge_rows) atomicAdd(over, 1);
   const int seg = counts[h];
   if (seg == 0) return;
   const long long base = (long long)h * C;
@@ -161,7 +174,8 @@ __global__ void insert_kernel(long long* qt, long long* qo, int* qk, int* qp,
                               const int* __restrict__ kind, const int* __restrict__ payload,
                               const int* __restrict__ counts, const int* __restrict__ offsets,
                               const long long* __restrict__ bucket, int H, int C, int P,
-                              int r_cap, int mode, const int* __restrict__ gate, int run_if_over) {
+                              int r_cap, int merge_rows, int mode, const int* __restrict__ gate,
+                              int run_if_over) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int h = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (h >= H) return;
@@ -176,7 +190,11 @@ __global__ void insert_kernel(long long* qt, long long* qo, int* qk, int* qp,
     const int c = c0 + lane;
     free_count += __popc(__ballot_sync(kFull, c < C && qt[base + c] == kTimeMax));
   }
-  const int r = min(seg, min(r_cap, free_count));
+  int r = min(seg, min(r_cap, free_count));
+  if (merge_rows > 0) {  // the positional bound: rank k sits at off + h + 1 + k
+    const long long bound = (long long)merge_rows - 1 - off - h;
+    if (bound < r) r = bound > 0 ? (int)bound : 0;
+  }
   if (lane == 0 && seg > r) dropped[h] += seg - r;
   long long pk1 = 0, pk2 = 0;  // previous winner's key (none before k = 0)
   int slot_from = 0;           // free slots below this index are taken
@@ -222,8 +240,8 @@ int launch_merge(long long* qt, long long* qo, int* qk, int* qp, long long* drop
                  const int* dst, const long long* t, const long long* order, const int* kind,
                  const int* payload, const bool* valid, int* counts, int* offsets, int* fill,
                  long long* bucket, int* over, int H, int C, int P, int R, int B, int gc,
-                 int r_cap, int urgency, cudaStream_t s) {
-  if (P > kWarp || gc > B || gc < 0) return (int)cudaErrorInvalidValue;
+                 int r_cap, int urgency, int merge_rows, cudaStream_t s) {
+  if (P > kWarp || gc > B || gc < 0 || merge_rows < 0) return (int)cudaErrorInvalidValue;
   if (H <= 0) return (int)cudaGetLastError();
   const long long N = (long long)R * gc;
   const int mode = urgency ? kUrgency : kAppend;
@@ -236,13 +254,15 @@ int launch_merge(long long* qt, long long* qo, int* qk, int* qp, long long* drop
   const unsigned blocks = cdiv(H, kWarpsPerBlock), threads = kWarpsPerBlock * kWarp;
   if (over != nullptr) {
     cudaMemsetAsync(over, 0, sizeof(int), s);
-    fits_kernel<<<cdiv(H, 256), 256, 0, s>>>(qt, counts, over, H, C, r_cap);
+    fits_kernel<<<cdiv(H, 256), 256, 0, s>>>(qt, counts, offsets, over, H, C, r_cap,
+                                              merge_rows);
     insert_kernel<<<blocks, threads, 0, s>>>(qt, qo, qk, qp, dropped, t, order, kind, payload,
-                                             counts, offsets, bucket, H, C, P, r_cap,
+                                             counts, offsets, bucket, H, C, P, r_cap, merge_rows,
                                              kDescending, over, 0);
   }
   insert_kernel<<<blocks, threads, 0, s>>>(qt, qo, qk, qp, dropped, t, order, kind, payload,
-                                           counts, offsets, bucket, H, C, P, r_cap, mode, over, 1);
+                                           counts, offsets, bucket, H, C, P, r_cap, merge_rows,
+                                           mode, over, 1);
   return (int)cudaGetLastError();
 }
 
@@ -254,10 +274,10 @@ extern "C" int merge_insert(long long* qt, long long* qo, int* qk, int* qp, long
                             const int* kind, const int* payload, const bool* valid,
                             int* counts, int* offsets, int* fill, long long* bucket,
                             int H, int C, int P, int R, int B, int gc, int r_cap, int urgency,
-                            void* stream) {
+                            int merge_rows, void* stream) {
   return launch_merge(qt, qo, qk, qp, dropped, dst, t, order, kind, payload, valid, counts,
                       offsets, fill, bucket, nullptr, H, C, P, R, B, gc, r_cap, urgency,
-                      (cudaStream_t)stream);
+                      merge_rows, (cudaStream_t)stream);
 }
 
 // K13: the scatter merge; `over` receives the count of hosts whose rows did
@@ -267,8 +287,8 @@ extern "C" int merge_scatter(long long* qt, long long* qo, int* qk, int* qp, lon
                              const int* kind, const int* payload, const bool* valid,
                              int* counts, int* offsets, int* fill, long long* bucket, int* over,
                              int H, int C, int P, int R, int B, int gc, int r_cap, int urgency,
-                             void* stream) {
+                             int merge_rows, void* stream) {
   return launch_merge(qt, qo, qk, qp, dropped, dst, t, order, kind, payload, valid, counts,
                       offsets, fill, bucket, over, H, C, P, R, B, gc, r_cap, urgency,
-                      (cudaStream_t)stream);
+                      merge_rows, (cudaStream_t)stream);
 }

@@ -7,6 +7,8 @@
 //   K18 shadow_tpu/models/phold.py:65  PholdModel.handle, :101 _exp_delay  (B19)
 //   K19 shadow_tpu/models/echo.py:104  UdpEchoModel.handle  (B19)
 //   K20 shadow_tpu/models/timer.py:41  TimerModel.handle  (B19)
+//   K21 shadow_tpu/models/gossip.py:89  GossipModel.handle  (B19)
+//   K22 shadow_tpu/models/circuit.py:99  CircuitModel.handle  (B19)
 // In the JAX package the handler is traced into `_event_body`
 // (shadow_tpu/core/engine.py:2381) and fused with the round; the port runs
 // it between K10 (ingress) and K11 (egress), which reads the port fields
@@ -281,6 +283,165 @@ __global__ void phold_exp_delay_kernel(long long n, const float* u, const long l
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   out[i] = exp_delay(u[i], mean[i * ms]);
+}
+
+// ---------------------------------------------------------------------------
+// K21 gossip_handle (models/gossip.py handle_plain)
+// ---------------------------------------------------------------------------
+
+constexpr int kGossipMsg = 0, kGossipFwd = 1, kGossipPub = 2;
+
+struct GossipArgs {
+  int K;                       // neighbor table width (max fanout)
+  const long long* neighbors;  // [H, K]
+  const int* fanout;
+  const long long* interval;
+  // state, in place
+  int* gen;
+  long long* recv_time;
+  int* hops;
+  int* fwd_idx;
+  long long* adopted;
+  // outputs: the start-forward push (mask, payload [H, P]), the publish
+  // push (mask, time), the send (mask, destination), the continuation mask
+  bool* fresh;
+  int* start_payload;
+  bool* repub;
+  long long* pub_t;
+  bool* more;
+  long long* dst;
+  bool* cont;
+};
+
+__global__ void gossip_handle_kernel(const Ctx c, const GossipArgs a) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= c.H) return;
+  const int P = c.P;
+  const long long t = c.t[(long long)h * c.es];
+  const int* pl = c.payload + (long long)h * c.es * P;
+  const bool act = c.active[h];
+  const int kind = c.kind[h];
+  const int gen = a.gen[h];
+  const bool pub = act && kind == kGossipPub;
+  const bool msg = act && kind == kGossipMsg;
+  // a publish starts generation gen + 1; a message carries its own
+  const int msg_gen = pub ? wadd32(gen, 1) : pl[2];
+  const bool fresh = (pub || msg) && msg_gen > gen;
+  const int hop = pub ? 0 : wadd32(pl[1], 1);
+  const int gen_n = fresh ? msg_gen : gen;
+  a.gen[h] = gen_n;
+  if (fresh) {
+    a.recv_time[h] = t;
+    a.hops[h] = hop;
+  }
+  const int idx = fresh ? 0 : a.fwd_idx[h];
+  a.adopted[h] = wadd(a.adopted[h], fresh);
+  a.fresh[h] = fresh;
+  int* sp = a.start_payload + (long long)h * P;
+  for (int w = 0; w < P; ++w) sp[w] = 0;
+  sp[1] = hop;
+  sp[2] = msg_gen;
+  const long long interval = a.interval[h];
+  a.repub[h] = pub && interval > 0;
+  a.pub_t[h] = wadd(t, interval);
+  // the continuation walks the neighbor row; one of a superseded
+  // generation (tested against the UPDATED generation) drops
+  const bool fwd = act && kind == kGossipFwd && pl[2] == gen_n;
+  const int fanout = a.fanout[h];
+  const bool more = fwd && idx < fanout;
+  a.more[h] = more;
+  a.dst[h] = a.neighbors[(long long)h * a.K + imin32(imax32(idx, 0), a.K - 1)];
+  const int idx1 = wadd32(idx, 1);
+  a.fwd_idx[h] = more ? idx1 : idx;
+  a.cont[h] = more && idx1 < fanout;
+}
+
+// ---------------------------------------------------------------------------
+// K22 circuit_handle (models/circuit.py handle_plain)
+// ---------------------------------------------------------------------------
+
+constexpr int kCircTick = 0, kCircCell = 1, kCircFwd = 2;
+constexpr int kCircClient = 1;
+constexpr int kPwGm = 1, kPwEc = 2, kPwHd = 3;
+
+struct CircuitArgs {
+  const int* route;  // [H, 3]: guard, middle, exit
+  const int* role;
+  const long long* interval;
+  const long long* proc;
+  // state, in place
+  bool* outstanding;
+  long long* launch_t;
+  long long* cells_done;
+  long long* rtt_sum;
+  long long* fwd;
+  // outputs: the launch send (mask, guard, payload [H, P]), the tick push
+  // (mask, time), the relay's continuation (mask, time), the forward send
+  // (mask, next hop, payload [H, P])
+  bool* launch;
+  long long* guard;
+  int* launch_payload;
+  bool* tick;
+  long long* tick_t;
+  bool* relay;
+  long long* proc_t;
+  bool* fwd_mask;
+  long long* nxt;
+  int* fwd_payload;
+};
+
+__global__ void circuit_handle_kernel(const Ctx c, const CircuitArgs a) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= c.H) return;
+  const int P = c.P;
+  const long long t = c.t[(long long)h * c.es];
+  const int* pl = c.payload + (long long)h * c.es * P;
+  const bool act = c.active[h];
+  const bool pkt = c.is_pkt[h];
+  const int kind = c.kind[h];
+  const bool is_client = a.role[h] == kCircClient;
+  const bool tick = act && !pkt && kind == kCircTick;
+  const bool cell_in = act && pkt && kind == kCircCell;
+  const bool fwd = act && !pkt && kind == kCircFwd;
+  const bool cell_back = cell_in && is_client;
+
+  // client tick: launch when idle; the route packs as 16-bit ids, shifted
+  // on a u32 (ids of 32,768 and above reach the sign bit)
+  const bool out0 = a.outstanding[h];
+  const bool launch = tick && !out0;
+  const int* rt = a.route + (long long)h * 3;
+  a.launch[h] = launch;
+  a.guard[h] = rt[0];
+  int* lp = a.launch_payload + (long long)h * P;
+  for (int w = 0; w < P; ++w) lp[w] = 0;
+  lp[kPwGm] = (int)((unsigned)rt[0] | ((unsigned)rt[1] << 16));
+  lp[kPwEc] = (int)((unsigned)rt[2] | ((unsigned)(int)c.host_id[h] << 16));
+  a.tick[h] = tick;
+  a.tick_t[h] = wadd(t, a.interval[h]);
+  a.relay[h] = cell_in && !is_client;
+  a.proc_t[h] = wadd(t, a.proc[h]);
+
+  // forward continuation: the next hop from the packed route
+  const unsigned gmw = (unsigned)pl[kPwGm], ecw = (unsigned)pl[kPwEc];
+  const long long g = gmw & 0xFFFF, m = (gmw >> 16) & 0xFFFF;
+  const long long e = ecw & 0xFFFF, cl = (ecw >> 16) & 0xFFFF;
+  const int hop = pl[kPwHd] & 0xFF;
+  const int dn = (pl[kPwHd] >> 8) & 1;
+  const bool at_exit = dn == 0 && hop == 2;
+  a.fwd_mask[h] = fwd;
+  a.nxt[h] = dn == 0 ? (hop == 0 ? m : (hop == 1 ? e : m)) : (hop == 1 ? g : cl);
+  const int nxt_hop = dn == 0 ? (hop == 0 ? 1 : (hop == 1 ? 2 : 1)) : 0;
+  const int nxt_dir = at_exit ? 1 : dn;
+  int* fp = a.fwd_payload + (long long)h * P;
+  for (int w = 0; w < P; ++w) fp[w] = pl[w];
+  fp[kPwHd] = nxt_hop | (nxt_dir << 8);
+
+  const long long rtt = wsub(t, a.launch_t[h]);
+  a.outstanding[h] = launch ? true : (cell_back ? false : out0);
+  if (launch) a.launch_t[h] = t;
+  a.cells_done[h] = wadd(a.cells_done[h], cell_back);
+  a.rtt_sum[h] = wadd(a.rtt_sum[h], cell_back ? rtt : 0);
+  a.fwd[h] = wadd(a.fwd[h], fwd);
 }
 
 // ---------------------------------------------------------------------------
@@ -746,6 +907,61 @@ int phold_exp_delay(const long long* args, void* stream) {
   if (n > 0)
     phold_exp_delay_kernel<<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0,
                              (cudaStream_t)stream>>>(n, u, mean, ms, out);
+  return (int)cudaGetLastError();
+}
+
+int gossip_handle(const long long* args, void* stream) {
+  Reader r{args, 0};
+  const Ctx c = read_ctx(r);
+  GossipArgs a;
+  a.K = (int)r.v();
+  a.neighbors = r.p<const long long>();
+  a.fanout = r.p<const int>();
+  a.interval = r.p<const long long>();
+  a.gen = r.p<int>();
+  a.recv_time = r.p<long long>();
+  a.hops = r.p<int>();
+  a.fwd_idx = r.p<int>();
+  a.adopted = r.p<long long>();
+  a.fresh = r.p<bool>();
+  a.start_payload = r.p<int>();
+  a.repub = r.p<bool>();
+  a.pub_t = r.p<long long>();
+  a.more = r.p<bool>();
+  a.dst = r.p<long long>();
+  a.cont = r.p<bool>();
+  if (c.P < 3 || a.K < 1) return (int)cudaErrorInvalidValue;
+  if (c.H > 0)
+    gossip_handle_kernel<<<blocks_for(c.H), kThreads, 0, (cudaStream_t)stream>>>(c, a);
+  return (int)cudaGetLastError();
+}
+
+int circuit_handle(const long long* args, void* stream) {
+  Reader r{args, 0};
+  const Ctx c = read_ctx(r);
+  CircuitArgs a;
+  a.route = r.p<const int>();
+  a.role = r.p<const int>();
+  a.interval = r.p<const long long>();
+  a.proc = r.p<const long long>();
+  a.outstanding = r.p<bool>();
+  a.launch_t = r.p<long long>();
+  a.cells_done = r.p<long long>();
+  a.rtt_sum = r.p<long long>();
+  a.fwd = r.p<long long>();
+  a.launch = r.p<bool>();
+  a.guard = r.p<long long>();
+  a.launch_payload = r.p<int>();
+  a.tick = r.p<bool>();
+  a.tick_t = r.p<long long>();
+  a.relay = r.p<bool>();
+  a.proc_t = r.p<long long>();
+  a.fwd_mask = r.p<bool>();
+  a.nxt = r.p<long long>();
+  a.fwd_payload = r.p<int>();
+  if (c.P < 4) return (int)cudaErrorInvalidValue;
+  if (c.H > 0)
+    circuit_handle_kernel<<<blocks_for(c.H), kThreads, 0, (cudaStream_t)stream>>>(c, a);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,9 @@
 //
 // Replaces (JAX reference):
 //   K1  shadow_tpu/ops/events.py:129 next_time      (row min; also bq_next_time
-//                                                    over the [H, C/B] block caches)
+//                                                    over the [H, C/B] block caches;
+//                                                    the floor lane: the CPU model's
+//                                                    busy horizon, core/engine.py:2255)
 //   K2  shadow_tpu/ops/events.py:138 pop_min        (lexicographic min, read, clear)
 //   K3  shadow_tpu/ops/events.py:342 push_many      (k-th firing push -> k-th free
 //                                                    slot, minus its reserve)
@@ -72,8 +74,10 @@ __device__ __forceinline__ int host_of_warp() {
   return blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
 }
 
-// K1: out[h] = min_c t[h, c]
-__global__ void next_time_kernel(const long long* __restrict__ t, long long* __restrict__ out,
+// K1: out[h] = min_c t[h, c]; with a floor (the CPU model's busy horizon),
+// max(that, floor[h]) unless the row is empty (TIME_MAX stays)
+__global__ void next_time_kernel(const long long* __restrict__ t,
+                                 const long long* __restrict__ floor, long long* __restrict__ out,
                                  int H, int C) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int h = host_of_warp();
@@ -88,6 +92,7 @@ __global__ void next_time_kernel(const long long* __restrict__ t, long long* __r
     long long o = __shfl_xor_sync(kFull, m, off);
     m = o < m ? o : m;
   }
+  if (floor != nullptr && m != kTimeMax && floor[h] > m) m = floor[h];
   if (lane == 0) out[h] = m;
 }
 
@@ -434,9 +439,10 @@ inline bool bad_block(int C, int B) { return B <= 0 || C % B != 0 || C / B > kWa
 
 extern "C" {
 
-int queue_next_time(const long long* t, long long* out, int H, int C, void* stream) {
+int queue_next_time(const long long* t, const long long* floor, long long* out, int H, int C,
+                    void* stream) {
   if (H > 0)
-    next_time_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(t, out, H, C);
+    next_time_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(t, floor, out, H, C);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Host application models, vectorized over all simulated hosts: `phold`,
-`udp_echo`, `timer` and `tgen_tcp`; config `processes: [{model: ...}]`
-resolves here. Each model's handler is a hand-written CUDA kernel
-(K17-K20, csrc/models.cu) beside its plain PyTorch version."""
+`udp_echo`, `timer`, `tgen_tcp`, `gossip` and `circuit`; config
+`processes: [{model: ...}]` resolves here. Each model's handler is a
+hand-written CUDA kernel (K17-K22, csrc/models.cu) beside its plain
+PyTorch version."""
 
 from shadow_tpu_torch.models.base import (
     MODEL_REGISTRY,
@@ -14,13 +15,16 @@ from shadow_tpu_torch.models.base import (
     get_model,
     register_model,
 )
-from shadow_tpu_torch.models import echo as _echo  # noqa: F401  (registers)
+from shadow_tpu_torch.models import circuit as _circuit  # noqa: F401  (registers)
+from shadow_tpu_torch.models import echo as _echo  # noqa: F401
+from shadow_tpu_torch.models import gossip as _gossip  # noqa: F401
 from shadow_tpu_torch.models import phold as _phold  # noqa: F401
 from shadow_tpu_torch.models import tgen as _tgen  # noqa: F401
 from shadow_tpu_torch.models import timer as _timer  # noqa: F401
 
 # every handler kernel's launch wrapper, by kernel name
-KERNELS = {**_tgen.KERNELS, **_phold.KERNELS, **_echo.KERNELS, **_timer.KERNELS}
+KERNELS = {**_tgen.KERNELS, **_phold.KERNELS, **_echo.KERNELS, **_timer.KERNELS,
+           **_gossip.KERNELS, **_circuit.KERNELS}
 
 __all__ = [
     "MODEL_REGISTRY",

@@ -12,7 +12,7 @@ Model params and state are dicts of [H, ...] tensors on the run's device.
 
 Every model has two implementations of its handler, as every kernel of the
 port does: `handle_plain`, plain PyTorch (functional), and a hand-written
-CUDA kernel (csrc/models.cu, K17-K20). `handle` dispatches on where
+CUDA kernel (csrc/models.cu, K17-K22). `handle` dispatches on where
 `ctx.t` lives: a CPU tensor runs `handle_plain`, a CUDA tensor launches the
 kernel, any other device is refused. There is no fallback: a kernel that
 fails to build or launch raises, and nothing on a CUDA path calls

@@ -3,11 +3,14 @@ of shadow_tpu/core/engine.py `_event_body` and `_outbox_append_multi`.
 
 One executed event per host runs in three steps:
 
-  1. ingress (`event_ingress`, K10): events and the digest fold; for a
-     packet that has not passed shaping, CoDel at the router queue and the
-     downlink token bucket — a CoDel drop is counted, a bucket delay
-     requeues the packet past shaping; what remains is dispatched;
-  2. the model's handler (plain PyTorch, the model's own code);
+  1. ingress (`event_ingress`, K10): under the CPU model (`cpu_delay_ns` >
+     0) the event moves to its execution time max(t, busy_until) and the
+     host's busy horizon to that plus the delay; events and the digest
+     fold; for a packet that has not passed shaping, CoDel at the router
+     queue and the downlink token bucket — a CoDel drop is counted, a
+     bucket delay requeues the packet past shaping; what remains is
+     dispatched;
+  2. the model's handler (its kernel, K17-K22; `handle_plain` on the CPU);
   3. egress (`event_egress`, K11): the model's local pushes get their
      order keys; every send port and burst segment passes the send budget,
      the uplink token bucket, the jitter and loss draws and the route
@@ -75,6 +78,10 @@ class Ingress(NamedTuple):
     kind: torch.Tensor  # i32 model kind (engine flags stripped)
     src: torch.Tensor  # i64 sending host (valid for packets)
     requeue: Any  # Push | None: bucket-delayed packets, past shaping
+    # the execution time every later step reads: the event's time, moved
+    # to the busy horizon under the CPU model (on CUDA the event's own
+    # lane, rewritten in place)
+    t: torch.Tensor  # i64
 
 
 def digest_update(digest, active, t, kind, order):
@@ -162,8 +169,13 @@ _ingress_k = CudaKernel("event", "event_ingress", ARG_BLOCK)
 
 
 def event_ingress_plain(c, params, cfg, ev, active):
-    """Digest, ingress shaping and dispatch for one event per active host.
-    Returns (carry', Ingress)."""
+    """The CPU model's execution time, digest, ingress shaping and dispatch
+    for one event per active host. Returns (carry', Ingress)."""
+    if cfg.cpu_delay_ns > 0:
+        busy = c.cpu_busy_until
+        exec_t = torch.maximum(ev.t, busy)
+        ev = ev._replace(t=torch.where(active, exec_t, ev.t))
+        c = c._replace(cpu_busy_until=torch.where(active, exec_t + cfg.cpu_delay_ns, busy))
     stats = c.stats
     stats = stats._replace(
         events=stats.events + active,
@@ -195,7 +207,8 @@ def event_ingress_plain(c, params, cfg, ev, active):
         stats = stats._replace(pkts_codel_dropped=stats.pkts_codel_dropped + codel_drop)
         dispatch = active & ~(needs_ingress & (codel_drop | delay))
     stats = stats._replace(pkts_delivered=stats.pkts_delivered + (dispatch & is_pkt))
-    ing = Ingress(dispatch, is_pkt, ev.kind & KIND_MASK, unpack_order_src(ev.order), requeue)
+    ing = Ingress(dispatch, is_pkt, ev.kind & KIND_MASK, unpack_order_src(ev.order), requeue,
+                  ev.t)
     return c._replace(stats=stats, tb_ingress=tb_in, codel=codel), ing
 
 
@@ -220,7 +233,8 @@ def _event_stride(ev, h: int, p: int) -> int:
 def event_ingress(c, params, cfg, ev, active):
     """`event_ingress_plain` as one kernel (K10) on CUDA, updating the
     carry's events, digest, CoDel, downlink bucket, codel-dropped and
-    delivered lanes in place."""
+    delivered lanes in place; under the CPU model also the busy horizon,
+    and the event's time lane (its execution time)."""
     if on_cpu(ev.t):
         return event_ingress_plain(c, params, cfg, ev, active)
     h = active.shape[0]
@@ -241,6 +255,9 @@ def event_ingress(c, params, cfg, ev, active):
         (cd.count, torch.int32, "codel count"), (cd.dropping, torch.bool, "codel dropping"),
     ):
         check(x, dt, (h,), name)
+    busy = c.cpu_busy_until if cfg.cpu_delay_ns > 0 else None
+    if busy is not None:
+        check(busy, torch.int64, (h,), "cpu_busy_until")
     ing = Ingress(
         dispatch=torch.empty((h,), dtype=torch.bool, device=dev),
         is_pkt=torch.empty((h,), dtype=torch.bool, device=dev),
@@ -253,6 +270,7 @@ def event_ingress(c, params, cfg, ev, active):
             torch.empty((h,), dtype=torch.int32, device=dev),
             ev.payload,
         ) if cfg.shaping else None,
+        t=ev.t,
     )
     rq = ing.requeue
     _ingress_k(arg_block([
@@ -263,6 +281,7 @@ def event_ingress(c, params, cfg, ev, active):
         addr(cd.first_above), addr(cd.drop_next), addr(cd.count), addr(cd.dropping),
         addr(ing.dispatch), addr(ing.is_pkt), addr(ing.kind), addr(ing.src),
         addr(rq and rq.mask), addr(rq and rq.t), addr(rq and rq.kind),
+        int(cfg.cpu_delay_ns), addr(busy),
     ]))
     return c, ing
 

@@ -15,7 +15,8 @@ exchange merge.
 This module holds the queue's hand-written CUDA kernels (csrc/queue.cu):
 
   K1 `queue_next_time`   per-host row minimum (the time plane, or the
-                         bucketed queue's block-minimum plane)
+                         bucketed queue's block-minimum plane), floored
+                         by the CPU model's busy horizon where given
   K2 `queue_pop_min`     per-host (time, order) minimum below a limit, read
                          out and cleared in place
   K3 `queue_push_many`   the k-th firing push lands in the k-th free slot,
@@ -192,33 +193,41 @@ def _check_caches(q: BucketQueue) -> int:
 
 _next_time_k = CudaKernel(
     "queue", "queue_next_time",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int],
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int],
 )
 
 
-def next_time_plain(t: torch.Tensor) -> torch.Tensor:
-    return t.min(dim=1).values
+def next_time_plain(t: torch.Tensor, floor: torch.Tensor | None = None) -> torch.Tensor:
+    m = t.min(dim=1).values
+    if floor is None:
+        return m
+    return torch.where(m == TIME_MAX, m, torch.maximum(m, floor))
 
 
-def row_min(t: torch.Tensor) -> torch.Tensor:
-    """Per-row minimum of an i64[H, W] plane (K1 on CUDA)."""
+def row_min(t: torch.Tensor, floor: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-row minimum of an i64[H, W] plane (K1 on CUDA); with an i64[H]
+    `floor` (the CPU model's busy horizon), max(minimum, floor) wherever
+    the row is not empty (TIME_MAX stays TIME_MAX)."""
     if on_cpu(t):
-        return next_time_plain(t)
+        return next_time_plain(t, floor)
     h, w = t.shape
     check(t, torch.int64, (h, w), "t")
+    if floor is not None:
+        check(floor, torch.int64, (h,), "floor")
     out = torch.empty((h,), dtype=torch.int64, device=t.device)
-    _next_time_k(ptr(t), ptr(out), h, w)
+    _next_time_k(ptr(t), ctypes.c_void_p(None) if floor is None else ptr(floor), ptr(out), h, w)
     return out
 
 
-def next_time(q: EventQueue) -> torch.Tensor:
-    """Per-host earliest pending event time (i64[H], TIME_MAX = empty)."""
-    return row_min(q.t)
+def next_time(q: EventQueue, floor: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-host earliest pending event time (i64[H], TIME_MAX = empty),
+    floored by `floor` where given."""
+    return row_min(q.t, floor)
 
 
-def bq_next_time(q: BucketQueue) -> torch.Tensor:
+def bq_next_time(q: BucketQueue, floor: torch.Tensor | None = None) -> torch.Tensor:
     """The same from the [H, C/B] block caches alone (no slab read)."""
-    return row_min(q.bt)
+    return row_min(q.bt, floor)
 
 
 # --------------------------------------------------------------------------
@@ -623,8 +632,8 @@ def make_bucket_queue(num_hosts: int, capacity: int, block: int, device) -> Buck
 # ---- queue-kind dispatchers ------------------------------------------------
 
 
-def q_next_time(q) -> torch.Tensor:
-    return bq_next_time(q) if isinstance(q, BucketQueue) else next_time(q)
+def q_next_time(q, floor: torch.Tensor | None = None) -> torch.Tensor:
+    return bq_next_time(q, floor) if isinstance(q, BucketQueue) else next_time(q, floor)
 
 
 def q_pop_min(q, limit):

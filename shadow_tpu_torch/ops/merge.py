@@ -8,10 +8,15 @@ Rows. The rows are either N flat rows (dst, t, order, kind [N], payload
 gear-sliced outbox is never copied. A row is valid where `valid` is set (by
 default where its time is not TIME_MAX) and its destination is in range.
 
-Contract of `merge_flat_events` (both shed modes, `merge_rows = 0`): group
-the valid rows by destination; destination h inserts r = min(seg_len,
-r_cap, free slots) of its rows, the i-th of them into its i-th free slot
-(free slots ranked by slot index), and adds seg_len - r to `dropped[h]`.
+Contract of `merge_flat_events` (both shed modes): group the valid rows by
+destination; destination h inserts r = min(seg_len, r_cap, free slots,
+bound[h]) of its rows, the i-th of them into its i-th free slot (free
+slots ranked by slot index), and adds seg_len - r to `dropped[h]`. The
+`merge_rows` bound (0 = none) is the JAX package's positional truncation
+of its sorted rows, where one token per host precedes the host's rows:
+destination h's row of rank k sits at position before[h] + h + 1 + k
+(before[h] = the valid rows of smaller destinations) and sheds at or past
+`merge_rows`, so bound[h] = max(merge_rows - 1 - before[h] - h, 0).
 Which rows, and in which order, is fixed by a per-row key:
 
   - `shed_urgency=True` (`overflow_shed: urgency`, the default): ascending
@@ -25,8 +30,10 @@ Keys are unique among valid rows in both modes, so the result does not
 depend on any sort's stability or on the order rows are visited.
 
 Contract of `merge_scatter_free` (`experimental.merge_scatter`): when
-every destination's count of valid rows is at most min(free slots, r_cap),
-destination h places its rows in descending row index, the row of rank i
+every destination's count of valid rows is at most min(free slots, r_cap)
+and, under a `merge_rows` bound, n_valid + H + 1 <= merge_rows (the JAX
+package's conservative test), destination h places its rows in descending
+row index, the row of rank i
 into its i-th free slot, and `dropped` is unchanged; otherwise the result
 is `merge_flat_events`'s. Both place the same events; the slots differ,
 and slot positions are never observed, so digests agree either way.
@@ -50,11 +57,11 @@ from shadow_tpu_torch.simtime import TIME_MAX
 
 _merge_k = CudaKernel(
     "merge", "merge_insert",
-    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8,
+    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9,
 )
 _scatter_k = CudaKernel(
     "merge", "merge_scatter",
-    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8,
+    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9,
 )
 
 
@@ -134,7 +141,7 @@ def _insert(q: EventQueue, slot_of_rank, perm, dst_key, n_take,
 
 def merge_flat_events_plain(
     q: EventQueue, dst, t, order, kind, payload, valid,
-    max_inserts: int, shed_urgency: bool = True, cols: int = 0,
+    max_inserts: int, shed_urgency: bool = True, cols: int = 0, merge_rows: int = 0,
 ) -> EventQueue:
     num_hosts, cap = q.t.shape
     dst, t, order, kind, payload, valid = _flat_rows(
@@ -143,13 +150,18 @@ def merge_flat_events_plain(
     dst_key = torch.where(valid, dst.to(torch.int64), num_hosts)
     perm = _sort_perm(dst_key, t, order, shed_urgency)
     slot_of_rank, free_count = _free_slots(q)
-    return _insert(q, slot_of_rank, perm, dst_key, torch.clamp(free_count, max=r_cap),
-                   t, order, kind, payload)
+    n_take = torch.clamp(free_count, max=r_cap)
+    if merge_rows > 0:
+        seg = torch.bincount(dst_key, minlength=num_hosts + 1)[:num_hosts]
+        before = torch.cumsum(seg, 0) - seg
+        hosts = torch.arange(num_hosts, device=seg.device)
+        n_take = torch.minimum(n_take, torch.clamp_min(merge_rows - 1 - before - hosts, 0))
+    return _insert(q, slot_of_rank, perm, dst_key, n_take, t, order, kind, payload)
 
 
 def merge_scatter_free_plain(
     q: EventQueue, dst, t, order, kind, payload, valid,
-    max_inserts: int, shed_urgency: bool = True, cols: int = 0,
+    max_inserts: int, shed_urgency: bool = True, cols: int = 0, merge_rows: int = 0,
 ) -> EventQueue:
     num_hosts, cap = q.t.shape
     rows = _flat_rows(dst, t, order, kind, payload, valid, cols, num_hosts)
@@ -158,8 +170,12 @@ def merge_scatter_free_plain(
     dst_key = torch.where(valid, dst.to(torch.int64), num_hosts)
     cnt = torch.bincount(dst_key, minlength=num_hosts + 1)[:num_hosts]
     slot_of_rank, free_count = _free_slots(q)
-    if not bool((cnt <= torch.clamp(free_count, max=r_cap)).all()):
-        return merge_flat_events_plain(q, *rows, max_inserts, shed_urgency)
+    fits = bool((cnt <= torch.clamp(free_count, max=r_cap)).all())
+    if merge_rows > 0:
+        fits = fits and int(cnt.sum()) + num_hosts + 1 <= merge_rows
+    if not fits:
+        return merge_flat_events_plain(q, *rows, max_inserts, shed_urgency,
+                                       merge_rows=merge_rows)
     # the fast path: rows grouped by destination, each group in descending
     # row index (a stable sort of the reversed rows)
     n = dst_key.shape[0]
@@ -168,7 +184,8 @@ def merge_scatter_free_plain(
 
 
 def _launch(kernel, q: EventQueue, dst, t, order, kind, payload, valid,
-            max_inserts: int, shed_urgency: bool, cols: int, scatter: bool) -> EventQueue:
+            max_inserts: int, shed_urgency: bool, cols: int, scatter: bool,
+            merge_rows: int) -> EventQueue:
     h, c = q.t.shape
     p = q.payload.shape[2]
     if dst.dim() == 1:  # N flat rows: an [N, 1] outbox
@@ -202,39 +219,41 @@ def _launch(kernel, q: EventQueue, dst, t, order, kind, payload, valid,
             ptr(counts), ptr(offsets), ptr(fill), ptr(bucket)]
     if scatter:
         args.append(ptr(torch.empty((1,), dtype=torch.int32, device=dev)))
-    kernel(*args, h, c, p, r, b, gc, min(max_inserts, c), int(bool(shed_urgency)))
+    if merge_rows < 0:
+        raise ValueError(f"merge_rows={merge_rows} must be >= 0 (0 = none)")
+    kernel(*args, h, c, p, r, b, gc, min(max_inserts, c), int(bool(shed_urgency)), merge_rows)
     return q
 
 
 def merge_flat_events(
     q: EventQueue, dst, t, order, kind, payload, valid,
-    max_inserts: int, shed_urgency: bool = True, cols: int = 0,
+    max_inserts: int, shed_urgency: bool = True, cols: int = 0, merge_rows: int = 0,
 ) -> EventQueue:
     """Insert the rows (flat [N] or the first `cols` columns of an [H, B]
-    outbox; `valid` may be None: time not TIME_MAX) into the [H, C] queue.
-    On CUDA, K4 updates the queue planes and `dropped` IN PLACE and returns
-    the same queue."""
+    outbox; `valid` may be None: time not TIME_MAX) into the [H, C] queue,
+    under the `merge_rows` bound where it is > 0. On CUDA, K4 updates the
+    queue planes and `dropped` IN PLACE and returns the same queue."""
     if on_cpu(q.t):
         return merge_flat_events_plain(
-            q, dst, t, order, kind, payload, valid, max_inserts, shed_urgency, cols
+            q, dst, t, order, kind, payload, valid, max_inserts, shed_urgency, cols, merge_rows
         )
     return _launch(_merge_k, q, dst, t, order, kind, payload, valid, max_inserts,
-                   shed_urgency, cols, scatter=False)
+                   shed_urgency, cols, False, merge_rows)
 
 
 def merge_scatter_free(
     q: EventQueue, dst, t, order, kind, payload, valid,
-    max_inserts: int, shed_urgency: bool = True, cols: int = 0,
+    max_inserts: int, shed_urgency: bool = True, cols: int = 0, merge_rows: int = 0,
 ) -> EventQueue:
     """The scatter merge of the same rows (module docstring). On CUDA, K13
     decides between its fast path and K4's insert on the device and
     updates the queue IN PLACE."""
     if on_cpu(q.t):
         return merge_scatter_free_plain(
-            q, dst, t, order, kind, payload, valid, max_inserts, shed_urgency, cols
+            q, dst, t, order, kind, payload, valid, max_inserts, shed_urgency, cols, merge_rows
         )
     return _launch(_scatter_k, q, dst, t, order, kind, payload, valid, max_inserts,
-                   shed_urgency, cols, scatter=True)
+                   shed_urgency, cols, True, merge_rows)
 
 
 KERNELS = {"merge_insert": _merge_k, "merge_scatter": _scatter_k}

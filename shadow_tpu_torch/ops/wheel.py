@@ -62,10 +62,11 @@ def make_wheel(num_hosts: int, slots: int, block: int = 0, device="cpu") -> Time
     return make_bucket_queue(num_hosts, slots, resolve_wheel_block(slots, block), device)
 
 
-def wheel_next_time(w: TimerWheel) -> torch.Tensor:
+def wheel_next_time(w: TimerWheel, floor: torch.Tensor | None = None) -> torch.Tensor:
     """Per-host earliest pending timer (i64[H], TIME_MAX = none), from the
-    block caches alone."""
-    return bq_next_time(w)
+    block caches alone; floored by the CPU model's busy horizon where
+    given."""
+    return bq_next_time(w, floor)
 
 
 def wheel_len(w: TimerWheel) -> torch.Tensor:

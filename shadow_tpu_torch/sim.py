@@ -48,7 +48,7 @@ from shadow_tpu_torch.simtime import NS_PER_SEC
 
 MTU_BITS = 1500 * 8
 UNLIMITED_BW = 1 << 40  # token-bucket params for "no bandwidth configured"
-SUPPORTED_MODELS = ("phold", "udp_echo", "timer", "tgen_tcp")
+SUPPORTED_MODELS = ("phold", "udp_echo", "timer", "tgen_tcp", "gossip", "circuit")
 # every hand-written kernel's launch wrapper, by kernel name
 KERNELS = {**OPS_KERNELS, **FLUID_KERNELS, **MODEL_KERNELS}
 
@@ -213,6 +213,8 @@ class Simulation:
             microstep_events=ex.microstep_events,
             shaping=any(h.bw_up_bits > 0 or h.bw_down_bits > 0 for h in self.hosts),
             cheap_shed=ex.overflow_shed == "append",
+            cpu_delay_ns=ex.cpu_delay,
+            merge_rows=ex.merge_rows,
             wheel_slots=ex.timer_wheel,
             wheel_block=ex.timer_wheel_block,
             merge_scatter=bool(ex.merge_scatter),

@@ -3,7 +3,7 @@ versions: `chain_case` builds one event per host through ingress, a
 synthetic handler output and egress (K9-K11); `merge_case` builds a queue
 and a round's [H, B] outbox for the exchange merges (K4, K13);
 `fluid_case` builds the fluid plane's inputs (K14-K16, fluid-on K11);
-`handler_case` builds a model handler's context (K17-K20), `clone_ctx`
+`handler_case` builds a model handler's context (K17-K22), `clone_ctx`
 copies its state and RNG lanes and `handler_tensors` lists a handler's
 outputs; `clone_carry` deep-copies a carry (the kernels update carries in
 place); `flat_tensors` lists a nested tuple's tensors for comparison. Used
@@ -23,7 +23,7 @@ from shadow_tpu_torch.simtime import TIME_MAX
 
 def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
                shaping: bool = True, jitter: bool = False, n_nodes: int = 4,
-               budget: int = 8, stride: int = 1) -> dict:
+               budget: int = 8, stride: int = 1, cpu_delay: int = 0) -> dict:
     """Random inputs of one event per host through ingress (K10), the
     handler's outputs (a synthetic HandlerOut) and egress (K11): a carry
     with every lane seeded, an event with packets, requeued packets and
@@ -32,7 +32,9 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
     send budget. `sends` lists (count_max, has_count, has_inc) per send
     port; `route` is "const" (one graph node), "affine" (per-host rows,
     node = host // g), "node_of" (per-host rows, irregular map) or "table"
-    (2-D gather); `stride` > 1 makes the event a column of a K-way peek."""
+    (2-D gather); `stride` > 1 makes the event a column of a K-way peek;
+    `cpu_delay` > 0 turns the CPU model on, with busy horizons before, at
+    and after the events' times."""
     from shadow_tpu_torch.core.engine import EngineConfig, EngineParams, Stats, _EvCarry
     from shadow_tpu_torch.models.base import HandlerOut, LocalPush, PacketSend
     from shadow_tpu_torch.net import CodelState, TBParams, TBState
@@ -40,6 +42,7 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
     from shadow_tpu_torch.ops.rng import RngState
 
     r = np.random.default_rng(seed)
+    rb = np.random.default_rng([seed, 20])  # the busy horizons' own draws
 
     def T(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
@@ -67,7 +70,8 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
     )
     cfg = EngineConfig(num_hosts=h, stop_time=60 * 10**9, shaping=shaping, use_jitter=jitter,
                        sends_per_host_round=budget, hosts_per_node=g,
-                       bootstrap_end_time=int(r.integers(0, 2)) * 900 * ms)
+                       bootstrap_end_time=int(r.integers(0, 2)) * 900 * ms,
+                       cpu_delay_ns=cpu_delay)
     t = r.integers(1_000, 1_200, h) * ms
     itv = t // ms
     active = r.random(h) < 0.85
@@ -97,6 +101,9 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
             dropping=T(r.random(h) < 0.5),
         ),
         model=None,
+        cpu_busy_until=T(np.select([rb.random(h) < 0.3, rb.random(h) < 0.5], [0, t],
+                                   np.minimum(t, 1 << 50) + rb.integers(-40, 40, h) * ms))
+        if cpu_delay else None,
     )
     kind = r.integers(0, 4, h) | np.where(r.random(h) < 0.7, KIND_PKT, 0)
     kind |= np.where(r.random(h) < 0.2, KIND_INGRESS_DONE, 0)
@@ -280,7 +287,89 @@ def fluid_case(seed: int, h: int, n_links: int, k_classes: int, dev, *, b: int =
                 bg_dropped=torch.tensor(int(r.integers(0, 1 << 40)), device=dev), chain=chain)
 
 
-HANDLER_MODELS = ("tgen_tcp", "phold", "udp_echo", "timer")
+HANDLER_MODELS = ("tgen_tcp", "phold", "udp_echo", "timer", "gossip", "circuit")
+# the hosts at the front of every gossip and circuit case, each forced into
+# one branch: (kind, what it drives)
+GOSSIP_FORCED = (
+    ("pub", "publish: a fresh generation and the re-armed publish"),
+    ("msg", "fresh message: adoption and the start-forward push"),
+    ("msg", "stale message: nothing"),
+    ("fwd", "current continuation: a send and the next continuation"),
+    ("fwd", "superseded continuation: nothing"),
+    ("fwd", "last continuation: a send, no further continuation"),
+)
+CIRCUIT_FORCED = (
+    ("tick", "idle client: a cell launched, the tick re-armed"),
+    ("tick", "busy client: only the tick re-armed"),
+    ("cell", "cell at a relay: the processing-delay push"),
+    ("cell", "cell back at its client: RTT and completion"),
+    ("fwd", "forward out of the guard (hop 0, outbound)"),
+    ("fwd", "forward out of the middle (hop 1, outbound)"),
+    ("fwd", "turn at the exit (hop 2, outbound)"),
+    ("fwd", "forward back through the middle (hop 1, inbound)"),
+    ("fwd", "forward back through the guard (hop 0, inbound)"),
+)
+
+
+def _gossip_case(r, h: int, payload: np.ndarray):
+    """Gossip params, state, kinds and payload words: neighbor rows of
+    width 8 with fanouts 0-8, generations and forward cursors near the
+    int32 limits (the wrapping adds), message generations below, at and
+    above the host's; GOSSIP_FORCED at the front."""
+    i32 = np.int32
+    k = 8
+    params = {"neighbors": r.integers(0, h, (h, k)), "size": r.integers(40, 1_500, h).astype(i32),
+              "fanout": r.integers(0, k + 1, h).astype(i32),
+              "interval": np.where(r.random(h) < 0.3, 0, r.integers(1, 5_000, h) * 1_000_000)}
+    big = np.iinfo(i32).max
+    gen = np.where(r.random(h) < 0.1, big, r.integers(0, 50, h))
+    idx = np.select([r.random(h) < 0.1, r.random(h) < 0.1], [big, -r.integers(1, 5, h)],
+                    r.integers(0, k + 2, h))
+    st = {"gen": gen.astype(i32), "recv_time": r.integers(-1, 1 << 40, h),
+          "hops": r.integers(-1, 30, h).astype(i32), "fwd_idx": idx.astype(i32),
+          "adopted": r.integers(0, 1 << 40, h)}
+    kind = r.integers(0, 4, h)
+    payload[:, 2] = np.where(r.random(h) < 0.8, gen + r.integers(-1, 2, h), payload[:, 2])
+    payload[:, 1] = np.where(r.random(h) < 0.1, big, payload[:, 1])
+    # GOSSIP_FORCED as (kind, params, state lanes, payload word 2: the
+    # message's or continuation's generation, None for the host's own)
+    forced = [(2, {"interval": 7_000_000}, {"gen": 1}, None), (0, {}, {"gen": 3}, 4),
+              (0, {}, {"gen": 9}, 9), (1, {"fanout": 8}, {"fwd_idx": 2}, None),
+              (1, {}, {"gen": 5}, 4), (1, {"fanout": 4}, {"fwd_idx": 3}, None)]
+    for i, (kd, prm, lanes, word2) in enumerate(forced[:h]):
+        kind[i] = kd
+        for key, v in prm.items():
+            params[key][i] = v
+        for key, v in lanes.items():
+            st[key][i] = v
+        payload[i, 2] = st["gen"][i] if word2 is None else word2
+    return params, st, kind, payload
+
+
+def _circuit_case(r, h: int, payload: np.ndarray, is_pkt: np.ndarray):
+    """Circuit params, state, kinds, payload words and host ids: routes and
+    host ids of 16-bit hosts (half of them 32,768 and above, so the u32
+    shifts matter), launch times before and after the event (RTTs of
+    either sign), and CIRCUIT_FORCED at the front."""
+    ms = 1_000_000
+    params = {"role": r.integers(0, 2, h).astype(np.int32),
+              "route": r.integers(0, 1 << 16, (h, 3)).astype(np.int32),
+              "interval": r.integers(1, 1_000, h) * ms, "proc": r.integers(0, 10, h) * ms,
+              "size": r.integers(40, 1_500, h).astype(np.int32)}
+    st = {"outstanding": r.random(h) < 0.5, "launch_t": r.integers(0, 1 << 50, h),
+          **{k: r.integers(0, 1 << 40, h) for k in ("cells_done", "rtt_sum", "fwd")}}
+    kind = r.integers(0, 4, h)
+    host_id = r.integers(0, 1 << 16, h)
+    forced = [(0, 1, False, 0), (0, 1, False, 1), (1, 0, True, 0), (1, 1, True, 1)]
+    for i, (kd, role, pkt, out) in enumerate(forced[: min(h, 4)]):
+        kind[i], params["role"][i], is_pkt[i], st["outstanding"][i] = kd, role, pkt, bool(out)
+    for i, (hop, dn) in enumerate(((0, 0), (1, 0), (2, 0), (1, 1), (0, 1))):
+        if 4 + i < h:
+            kind[4 + i], is_pkt[4 + i] = 2, False
+            payload[4 + i, 3] = (payload[4 + i, 3] & ~0x1FF) | hop | (dn << 8)
+    return params, st, kind, payload, is_pkt, host_id
+
+
 # tgen-TCP hosts with a fixed scenario at the front of every case, so that
 # each case runs these branches whatever the seed: (event, what it drives)
 TGEN_FORCED = (
@@ -439,7 +528,7 @@ def _tgen_case(r, h: int, t: np.ndarray):
 
 
 def handler_case(model: str, seed: int, h: int, dev, *, stride: int = 1) -> dict:
-    """Random inputs of one handler call per host, for K17-K20 and their
+    """Random inputs of one handler call per host, for K17-K22 and their
     plain versions: a model (`model` is its config name), its params and
     state, RNG lanes, and an event per host with the engine's lanes (time,
     kind, payload, dispatch, is_packet, source, host id), some hosts not
@@ -447,9 +536,11 @@ def handler_case(model: str, seed: int, h: int, dev, *, stride: int = 1) -> dict
     1 us floor) and destinations over varied host counts; udp_echo mixes
     roles, kinds and response send times, and their first three hosts
     handle each of the model's kinds; tgen-TCP draws coherent connections
-    (`_tgen_case`). `stride` > 1 makes the event time and payload a column
-    of a K-way peek. Returns dict(model=the port's model, ctx=HandlerCtx on
-    `dev`, np=the same inputs as numpy)."""
+    (`_tgen_case`); gossip and circuit force GOSSIP_FORCED and
+    CIRCUIT_FORCED at the front (`_gossip_case`, `_circuit_case`).
+    `stride` > 1 makes the event time and payload a column of a K-way
+    peek. Returns dict(model=the port's model, ctx=HandlerCtx on `dev`,
+    np=the same inputs as numpy)."""
     from shadow_tpu_torch.models import get_model
     from shadow_tpu_torch.models.base import HandlerCtx
     from shadow_tpu_torch.ops.rng import RngState
@@ -458,12 +549,14 @@ def handler_case(model: str, seed: int, h: int, dev, *, stride: int = 1) -> dict
     ms = 1_000_000
     t = r.integers(1_000, 60_000, h) * ms + r.integers(0, ms, h)
     active = r.random(h) < 0.85
-    n_forced = len(TGEN_FORCED) if model == "tgen_tcp" else 3
+    n_forced = {"tgen_tcp": len(TGEN_FORCED), "gossip": len(GOSSIP_FORCED),
+                "circuit": len(CIRCUIT_FORCED)}.get(model, 3)
     active[:n_forced] = True
     t = np.where(~active & (r.random(h) < 0.5), TIME_MAX, t)
     payload = r.integers(-(1 << 31), 1 << 31, (h, 4))
     src = r.integers(0, h, h)
     is_pkt = r.random(h) < 0.5
+    host_id = np.arange(h, dtype=np.int64)
     m = get_model(model)()
     if model == "tgen_tcp":
         m.tx_batch = int(r.integers(1, 5))
@@ -489,9 +582,13 @@ def handler_case(model: str, seed: int, h: int, dev, *, stride: int = 1) -> dict
         params = {"interval": (r.integers(1, 2_000, h) * ms).astype(np.int64)}
         st = {"fires": r.integers(0, 1 << 40, h)}
         kind = r.integers(0, 2, h)
+    elif model == "gossip":
+        params, st, kind, payload = _gossip_case(r, h, payload)
+    elif model == "circuit":
+        params, st, kind, payload, is_pkt, host_id = _circuit_case(r, h, payload, is_pkt)
     else:
         raise ValueError(f"no handler case for model {model!r}")
-    if model != "tgen_tcp":  # the first hosts handle each of the model's kinds
+    if model in ("phold", "udp_echo", "timer"):  # the first hosts take each kind
         n = min(h, n_forced)
         kind[:n] = {"phold": [1, 0, 1], "udp_echo": [0, 1, 2], "timer": [0, 0, 0]}[model][:n]
         if model == "phold":  # a hold at the 1 us floor
@@ -505,7 +602,7 @@ def handler_case(model: str, seed: int, h: int, dev, *, stride: int = 1) -> dict
         t=t.astype(np.int64), kind=np.asarray(kind, np.int32),
         payload=np.asarray(payload).astype(np.int64).astype(np.int32), active=active,
         is_packet=np.asarray(is_pkt, bool), src=np.asarray(src, np.int64),
-        host_id=np.arange(h, dtype=np.int64), params=params, state=st,
+        host_id=np.asarray(host_id, np.int64), params=params, state=st,
         rng=r.integers(-(1 << 63), (1 << 63) - 1, (h, 4)),
     )
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K20 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K22 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -20,10 +20,14 @@ in place) checks that a snapshot survives the chunk and repeated restores.
 The fluid plane's kernels (K14-K16) and fluid-on K11 take the random
 inputs of `shadow_tpu_torch.testing.fluid_case` (class counts up to 64,
 both host -> link maps, an empty window, the done-round); their float64
-outputs are compared bit for bit. The model handlers' kernels (K17-K20)
-take `shadow_tpu_torch.testing.handler_case` at full width (H = 10,000),
-the event a column of a K = 4 peek, over several chained calls on one
-state; PHOLD's `exp_delay` through K18's device function is compared on
+outputs are compared bit for bit. The model handlers' kernels (K17-K22)
+take `shadow_tpu_torch.testing.handler_case` at full width (H = 10,000;
+gossip at bench config 3's 100,000 hosts, circuit at config 4's 7,500),
+the event also a column of a K = 4 peek, over several chained calls on
+one state; the CPU model's lanes (K1's busy floor, K10's execution-time
+rewrite and busy update) and the merge-row bound of K4 and K13 (rows
+shed at several bounds, both shed modes, a sliced outbox) against their
+plain versions; PHOLD's `exp_delay` through K18's device function is compared on
 every one of the 2^24 inputs the model can draw.
 Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
@@ -477,19 +481,25 @@ def test_fluid_egress_matches_plain(dev, affine, loss_max):
     torch.cuda.synchronize()
 
 
+# each model's full width: its bench config's host count
+HANDLER_WIDTH = {"gossip": 100_000, "circuit": 7_500}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("stride", [1, 4])
 @pytest.mark.parametrize("model", HANDLER_MODELS)
 def test_handler_kernels_match_plain(dev, model, stride):
-    """K17-K20 at full width (H = 10,000) against `handle_plain` on the
-    card, bit for bit and dtype for dtype, over three chained calls: each
-    call's state and RNG lanes (which the kernel updates in place) feed the
-    next call of the same side, with a fresh event each time."""
+    """K17-K22 at full width (H = 10,000; gossip 100,000, circuit 7,500)
+    against `handle_plain` on the card, bit for bit and dtype for dtype,
+    over three chained calls: each call's state and RNG lanes (which the
+    kernel updates in place) feed the next call of the same side, with a
+    fresh event each time."""
     from shadow_tpu_torch.models import KERNELS
 
     n0 = {k: v.launches for k, v in KERNELS.items()}
     prev = None
-    for step, (got, want) in enumerate(handler_steps(model, 5, 10_000, dev, stride=stride)):
+    width = HANDLER_WIDTH.get(model, 10_000)
+    for step, (got, want) in enumerate(handler_steps(model, 5, width, dev, stride=stride)):
         assert handler_diff(got, want) == [], step
         assert prev is None or (got.state is prev.state and got.rng.s is prev.rng.s)  # in place
         prev = got
@@ -511,3 +521,72 @@ def test_phold_exp_delay_kernel_on_every_input(dev):
         m = torch.full((1,), mean, dtype=torch.int64, device=dev).expand(1 << 24)
         got = phold.exp_delay_kernel(u.to(dev), m).cpu()
         assert int((got != want).sum()) == 0, mean
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", FILLS)
+def test_busy_floor_next_time_matches_plain(dev, fill):
+    """K1 with the CPU model's floor lane, over the slab and over the
+    bucketed queue's block caches: max(row minimum, busy) where the row is
+    not empty, TIME_MAX where it is."""
+    q = slab(11, fill, dev)
+    r = np.random.default_rng(12)
+    floor = torch.as_tensor(np.select([r.random(H) < 0.3, r.random(H) < 0.5],
+                                      [0, r.integers(0, 6, H) * 1000], 1 << 62), device=dev)
+    assert torch.equal(pev.next_time(q, floor), pev.next_time_plain(q.t, floor))
+    bq = pev.bucket_rebuild(q, 4)
+    assert torch.equal(pev.bq_next_time(bq, floor), pev.next_time_plain(bq.bt, floor))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["anchor", "cfg6"])
+def test_ingress_busy_lane_matches_plain(dev, name, seed):
+    """K10 under the CPU model: the event's time lane rewritten in place to
+    max(t, busy) where active (a column of the K-way peek on config 6's
+    shape), the busy horizon moved to that plus the delay, and every other
+    output as the plain version gives it."""
+    from shadow_tpu_torch.ops.events import Event
+
+    case = chain_case(seed, 150, dev, **CHAIN_CASES[name], cpu_delay=3_000_000)
+    cfg, params, ev, active = case["cfg"], case["params"], case["ev"], case["active"]
+
+    def fresh_event():  # K10 writes the time lane in place: a copy per side
+        k = ev.t.stride(0)
+        wide = torch.zeros((150, k), dtype=torch.int64, device=dev)
+        wide[:, -1] = ev.t
+        return Event(wide[:, -1], ev.order, ev.kind, ev.payload)
+
+    got = pchain.event_ingress(clone_carry(case["carry"]), params, cfg, fresh_event(), active)
+    want = pchain.event_ingress_plain(clone_carry(case["carry"]), params, cfg, fresh_event(),
+                                      active)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    moved = want[1].t != ev.t
+    assert bool(moved.any()) and bool((want[0].cpu_busy_until != case["carry"].cpu_busy_until)
+                                      .any())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("urgency", [True, False], ids=["urgency", "append"])
+@pytest.mark.parametrize("gc", [3, 6])
+@pytest.mark.parametrize("load", MERGE_LOADS)
+def test_merge_rows_kernels_match_plain(dev, load, gc, urgency):
+    """K4 and K13 under the merge-row bound, on the first gc columns of a
+    [48, 6] outbox: bounds that shed most rows, some rows and none, each
+    the same queue planes and drops as the plain versions."""
+    q, ob = merge_case(71 + gc, 48, 8, 6, gc, load)
+    rows = [torch.as_tensor(a, device=dev) for a in ob]
+    n_valid = int(((ob[1][:, :gc] != TIME_MAX) & (ob[0][:, :gc] < 48)).sum())
+    shed = 0
+    for merge_rows in (30, 49 + n_valid // 2, 49 + n_valid, 1 << 20):
+        for fn, plain in ((pmerge.merge_flat_events, pmerge.merge_flat_events_plain),
+                          (pmerge.merge_scatter_free, pmerge.merge_scatter_free_plain)):
+            queue = pev.EventQueue(*(torch.as_tensor(a, device=dev) for a in q))
+            got = fn(clone(queue), *rows, None, 8, urgency, cols=gc, merge_rows=merge_rows)
+            want = plain(clone(queue), *rows, None, 8, urgency, cols=gc, merge_rows=merge_rows)
+            assert_all_equal(got, want)
+            shed += int((want.dropped - queue.dropped).sum())
+    assert load == "empty" or shed > 0
+    torch.cuda.synchronize()

@@ -1,8 +1,8 @@
 """PyTorch port vs JAX reference: the model handlers (B18, B19), the
-functions the CUDA kernels K17-K20 replace.
+functions the CUDA kernels K17-K22 replace.
 
-Each model's plain version (`handle_plain` of tgen_tcp, phold, udp_echo and
-timer) is held against the JAX model's `handle`, run op by op on the CPU as
+Each model's plain version (`handle_plain` of tgen_tcp, phold, udp_echo,
+timer, gossip and circuit) is held against the JAX model's `handle`, run op by op on the CPU as
 a function of numpy data, on the same numpy-seeded inputs
 (`shadow_tpu_torch.testing.handler_case`: random params, state, RNG lanes
 and one event per host, some hosts not dispatched, some at TIME_MAX; for
@@ -13,7 +13,10 @@ or an integer made from float32/float64 math. The event is read at a host
 stride of 1 and as a column of a K = 4 peek. A coverage test asserts the
 cases drive the branches that matter (tgen's fast retransmits, timeouts,
 retransmits, duplicate segments and completed flows, and every segment
-type on the wire; PHOLD's two draws and its 1 us floor; each echo role),
+type on the wire; PHOLD's two draws and its 1 us floor; each echo role;
+gossip's publish, fresh and stale messages and current, superseded and
+last continuations; circuit's idle and busy ticks, cells at a relay and
+back home, and a forward on each hop and direction),
 so that an untested branch cannot pass. The JAX reference runs once per
 (model, seed) for the module.
 """
@@ -121,6 +124,24 @@ def test_handler_case_covers_branches(jax_ref, model, seed):
     elif model == "udp_echo":
         assert out["push0.mask"].any() and out["send1.mask"].any()
         assert (out["state.rtt_sum"] != st["rtt_sum"]).any()
+    elif model == "gossip":
+        # GOSSIP_FORCED: publish, fresh and stale message, current,
+        # superseded and last continuation
+        assert out["push0.mask"][:6].tolist() == [True, True, False, False, False, False]
+        assert out["push1.mask"][0] and out["send0.mask"][:6].tolist() == [
+            False, False, False, True, False, True]
+        assert out["push2.mask"][:6].tolist() == [False, False, False, True, False, False]
+        assert (out["state.adopted"] != st["adopted"]).any()
+        assert (out["state.fwd_idx"] != st["fwd_idx"]).any()
+    elif model == "circuit":
+        # CIRCUIT_FORCED: idle and busy tick, cell at a relay and back home,
+        # a forward on each hop and direction (every next-hop branch)
+        assert out["send0.mask"][:2].tolist() == [True, False]
+        assert out["push0.mask"][:2].all() and out["push1.mask"][2]
+        assert out["send1.mask"][4:9].all() and not out["send1.mask"][:4].any()
+        assert (out["send1.payload"][4:9, 3] >> 8).tolist() == [0, 0, 1, 1, 1]
+        for lane in ("cells_done", "rtt_sum", "fwd", "outstanding", "launch_t"):
+            assert (out[f"state.{lane}"] != st[lane]).any(), lane
     else:
         assert out["push0.mask"].any() and (out["state.fires"] != st["fires"]).any()
 

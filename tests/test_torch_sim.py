@@ -83,7 +83,7 @@ def test_yaml_run_matches_jax():
         "queue_block_minima": 0, "outbox_append": 0, "event_ingress": 0, "event_egress": 0,
         "wheel_cancel": 0, "merge_scatter": 0, "fluid_fg_link_bytes": 0, "fluid_advance": 0,
         "fluid_host_effects": 0, "tgen_handle": 0, "phold_handle": 0, "echo_handle": 0,
-        "timer_handle": 0,
+        "timer_handle": 0, "gossip_handle": 0, "circuit_handle": 0,
     }  # the CPU path runs the plain versions, never a kernel
 
 
@@ -100,20 +100,21 @@ def test_anchor_shapes_resolve_like_jax():
 
 
 # knobs the port does not run yet, and (event_queue_block, microstep_events,
-# timer_wheel, merge_gears, merge_scatter, fluid) values the JAX package
-# rejects too: a block that does not divide the capacity (12 here), K < 1,
-# the wheel with K > 1, a gear of width 0; the scatter merge under a
-# merge-row bound (merge_rows > 0 stays unsupported); a fluid latency
-# factor below 1.0
+# timer_wheel, merge_gears, merge_scatter, merge_rows, cpu_delay, fluid)
+# values the JAX package rejects too: a block that does not divide the
+# capacity (12 here), K < 1, the wheel with K > 1, a gear of width 0; a
+# fluid latency factor below 1.0; and a negative merge-row bound (also
+# under the scatter merge) or CPU delay, which the JAX package reads as
+# "off" and the port refuses
 UNSUPPORTED = {
     "world": "general: {parallelism: 2}",
     "event_queue_block": "experimental: {event_queue_block: 5}",
     "microstep_events": "experimental: {microstep_events: 0}",
     "merge_gears": "experimental: {merge_gears: [0]}",
     "timer_wheel": "experimental: {timer_wheel: 16, microstep_events: 4}",
-    "merge_scatter": "experimental: {merge_scatter: true, merge_rows: 64}",
-    "merge_rows": "experimental: {merge_rows: 1000}",
-    "cpu_delay": "experimental: {cpu_delay: 1}",
+    "merge_scatter": "experimental: {merge_scatter: true, merge_rows: -64}",
+    "merge_rows": "experimental: {merge_rows: -1}",
+    "cpu_delay": "experimental: {cpu_delay: -1}",
     "faults": "faults: {crashes: [{host: a1, at: 1 s}]}",
     "fluid": "fluid: {latency_factor_max: 0.5}",
     "pressure": "pressure: {policy: escalate}",
@@ -208,8 +209,8 @@ def test_timer_wheel_rejects_kway_and_models_without_timers(monkeypatch):
 
 
 def test_unsupported_model_raises():
-    cfg = load_config(YAML.replace("model: phold", "model: gossip"), is_text=True)
-    with pytest.raises(ConfigError, match="gossip"):
+    cfg = load_config(YAML.replace("model: phold", "model: mixed"), is_text=True)
+    with pytest.raises(ConfigError, match="mixed"):
         Simulation(cfg, device="cpu")
 
 
