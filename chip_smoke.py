@@ -145,12 +145,30 @@ line reports it):
      JAX package's reports;
  28. config 3 small (2,048 hosts, 10 sim-s), config 4 small (96 hosts, 20
      sim-s) and config 6 small at K = 4 with a 2 ms CPU delay (4 sim-s,
-     batch events deferred): card == CPU.
+     batch events deferred): card == CPU;
+ 29. the fault plane's and the integrity sentinel's kernels against their
+     plain versions: K23 (fault_down_resume) at bench config 7's 4,096
+     hosts and at 10,000, K24 (integrity_round_check) at config 10's
+     10,000 hosts (capacity 28 in blocks of 7, and with a wheel) on rounds
+     that break each invariant in turn, K1's fault floor, K10's hold and
+     clear lanes and second digest, K11's link-fault lane, each lane on
+     and off; exact equality, with the timings of phase 2;
+ 30. bench config 7 at full width as configured (4,096 PHOLD hosts, 30
+     sim-s, host churn under queue hold, a lossy and slow window, the
+     supervisor every 4 chunks), again with a dispatch failure injected at
+     chunk 2 (the same report, with one retry and one restore), and bench
+     config 10 (config 6 with the integrity sentinel) cut to 5 sim-s at K =
+     4: the JAX package's reports, faults_dropped, faults_delayed,
+     supervisor{} and integrity{} with determinism_digest2 included;
+ 31. config 7 small (256 hosts, 12 sim-s) in clear mode at K = 4 bucketed
+     and with a 20 ms CPU delay: card == CPU; config 10 small with a
+     one-shot scribble: one replay, one transient, the clean run's
+     digests, card == CPU.
 
 Every leg checks that its model's handler kernel launched exactly as
 often as K10 (one launch per event_body call), and no other handler.
-The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 4-6, 8-10, 13,
-14, 16-20, 22, 23, 26-28, so that every kernel's bound is counted before the profiles
+The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 29, 4-6, 8-10,
+13, 14, 16-20, 22, 23, 26-28, 30, 31, so that every kernel's bound is counted before the profiles
 (5, 9) hold the kernels' in-path device times against it. A profiler reading below the
 kernel's bound (the least time the card needs for the work) is a
 misattributed trace: the kernel phases then take the queued timing, the
@@ -392,6 +410,33 @@ CFG2_ROWS_REF = {
     "model_report": {"total_events": 1_261_085, "min": 75, "max": 184},
     "gears": {"ladder": [1, 3, 6], "chunks_per_gear": {"6": 2}, "replays": 0},
 }
+# bench config 7 as configured (4,096 PHOLD hosts, 30 sim-s, host churn
+# under queue hold, the 10-15 s lossy window, the supervisor every 4 chunks
+# of 128 rounds) and bench config 10 (config 6 with the integrity sentinel)
+# cut to 5 sim-s at K = 4: the JAX package's reports on the CPU (config
+# 10's digests, events, drops and integrity block equal its K = 1 report;
+# microsteps and popk_deferred are K = 4's)
+CFG7_REF = {
+    "determinism_digest": "4290e5a56ebd51eb", "events_processed": 680_137, "rounds": 599,
+    "microsteps": 3989, "packets_sent": 344_040, "packets_delivered": 336_097,
+    "packets_lost": 0, "packets_unreachable": 0, "packets_codel_dropped": 0,
+    "queue_overflow_dropped": 1315, "packets_budget_dropped": 4, "faults_dropped": 6503,
+    "faults_delayed": 29_673, "outbox_overflow_dropped": 0, "alltoall_shed_dropped": 0,
+    "bucket_cache_rebuilds": 0, "popk_deferred": 0, "queue_occupancy_hwm": 16,
+    "outbox_send_hwm": 6, "monotonic_violations": 0,
+    "model_report": {"total_events": 680_137, "min": 81, "max": 232},
+    "supervisor": {"retries": 0, "restores": 0, "snapshots": 2, "checkpoints": 0,
+                   "snapshot_every_chunks": 4, "aborted": False},
+}
+CFG10_STOP = "5 s"
+CFG10_REF = {
+    **{k: v for k, v in TGEN_REF.items()}, "faults_dropped": 0, "faults_delayed": 0,
+    "alltoall_shed_dropped": 0,
+    "integrity": {"transients": 0, "replays": 0, "max_replays": 3,
+                  "determinism_digest2": "9f426bfd6532677e"},
+}
+# config 7's host count
+H7 = 4096
 # config 12's fluid shapes: links (the torus's nodes) and classes
 N12, K12 = 100, 4
 # config 6's queue shapes: hosts, slots, block, K, push ports of a K = 4
@@ -404,17 +449,12 @@ INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (fp32 table entry)
 H, C, P, NP, B, R_CAP = 10_000, 64, 4, 2, 12, 64
 TIME_MAX = (1 << 63) - 1
 
-PHOLD_GML = """
-graph [
-  directed 0
-  node [
-    id 0
-    host_bandwidth_down "1 Gbit"
-    host_bandwidth_up "1 Gbit"
-  ]
-  edge [ source 0 target 0 latency "50 ms" packet_loss 0.0 ]
-]
-"""
+def phold_gml() -> str:
+    """The single-node 50 ms PHOLD graph of bench.py (shadow_tpu_torch.testing's copy)."""
+    from shadow_tpu_torch.testing import PHOLD_GML
+
+    return PHOLD_GML
+
 
 TWO_NODE_GML = """
 graph [
@@ -439,25 +479,10 @@ def emit(phase: str, **kw) -> None:
 
 
 def torus_gml(side: int, lat_ms: int = 10) -> str:
-    """The JAX repo's bench.py torus (a copy: bench.py imports JAX)."""
-    lines = ["graph [", "  directed 0"]
-    for i in range(side * side):
-        lines.append(
-            f'  node [ id {i} host_bandwidth_down "1 Gbit" '
-            f'host_bandwidth_up "1 Gbit" ]'
-        )
-    for r in range(side):
-        for c in range(side):
-            i = r * side + c
-            right = r * side + (c + 1) % side
-            down = ((r + 1) % side) * side + c
-            lines.append(f'  edge [ source {i} target {i} latency "{lat_ms} ms" ]')
-            if right != i:
-                lines.append(f'  edge [ source {i} target {right} latency "{lat_ms} ms" ]')
-            if down != i:
-                lines.append(f'  edge [ source {i} target {down} latency "{lat_ms} ms" ]')
-    lines.append("]")
-    return "\n".join(lines)
+    """The JAX repo's bench.py torus (shadow_tpu_torch.testing's copy)."""
+    from shadow_tpu_torch import testing
+
+    return testing.torus_gml(side, lat_ms)
 
 
 def tgen_config(small: bool, stop: str, k: int = 4, block: int = 7, cap: int = 28,
@@ -531,7 +556,7 @@ def anchor_config(gears: bool = False, hosts: int = 10_000, stop_s: int = 4) -> 
         ex["merge_gears"] = "auto"
     return {
         "general": {"stop_time": f"{stop_s} s", "seed": 1, "heartbeat_interval": "1 s"},
-        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "network": {"graph": {"type": "gml", "inline": phold_gml()}},
         "experimental": ex,
         "hosts": {"node": {"count": hosts, "network_node_id": 0, "processes": [{
             "model": "phold",
@@ -572,7 +597,7 @@ def cfg5_config(small: bool) -> dict:
     seconds, shapes auto-sized, merge gears auto."""
     return {
         "general": {"stop_time": "30 s", "seed": 1},
-        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "network": {"graph": {"type": "gml", "inline": phold_gml()}},
         "experimental": {"merge_gears": "auto"},
         "hosts": {"t": {"count": 4096 if small else 1_000_000, "network_node_id": 0,
                         "processes": [{"model": "timer", "model_args": {
@@ -606,7 +631,7 @@ def cfg3_config(small: bool, stop: str = "30 s") -> dict:
     64 rounds per chunk; `stop` for its 30 s."""
     return {
         "general": {"stop_time": stop, "seed": 1},
-        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "network": {"graph": {"type": "gml", "inline": phold_gml()}},
         "experimental": {"event_queue_capacity": 32, "sends_per_host_round": 10,
                          "rounds_per_chunk": 64},
         "hosts": {
@@ -626,7 +651,7 @@ def cfg4_config(small: bool, stop: str = "60 s") -> dict:
     `stop` for its 60 s."""
     return {
         "general": {"stop_time": stop, "seed": 1},
-        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "network": {"graph": {"type": "gml", "inline": phold_gml()}},
         "experimental": {"event_queue_capacity": 32, "sends_per_host_round": 8,
                          "rounds_per_chunk": 256},
         "hosts": {
@@ -1769,6 +1794,237 @@ def phase_kernels_lanes(dev) -> dict[str, dict]:
     return results
 
 
+def phase_kernels_faults(dev) -> dict[str, dict]:
+    """The fault plane's and the integrity sentinel's kernels and lanes
+    against their plain versions, exact equality: K23 at config 7's shape
+    (4,096 hosts, one crash window each, times at the windows' edges) and
+    at 10,000 hosts; K24 at config 10's (10,000 hosts, capacity 28 in
+    blocks of 7; and with a 4-slot wheel) over two chained rounds that
+    break each invariant in turn, none, and the done-round; K1's fault lane
+    (config 7's 16-slot queue, with and without the busy floor); K10's hold
+    and clear lanes (config 7's shape, with and without the CPU model) and
+    its second digest (config 6's shape, a K = 4 column); K11's link-fault
+    lane (config 7's shape and config 6's); each lane off too. Timings as
+    phase 2's: K23 and the lanes at config 7's shape, K24 one round (its
+    pre- and post-exchange launches) and K10's second digest at config
+    10's."""
+    from shadow_tpu_torch.core import faults
+    from shadow_tpu_torch.core.integrity import (
+        IntegrityCheck,
+        fold_violations,
+        integrity_round_check_plain,
+        round_entry_plain,
+    )
+    from shadow_tpu_torch.ops import chain
+    from shadow_tpu_torch.ops import events as ev
+    from shadow_tpu_torch.ops.events import Event
+    from shadow_tpu_torch.testing import (
+        IV_CASES,
+        chain_case,
+        clone_carry,
+        fault_case,
+        flat_tensors,
+        integrity_case,
+    )
+
+    rng = np.random.default_rng(29)
+    results = {}
+    span = 30 * 10**9
+
+    # K23
+    err = 0.0
+    for h in (H7, H):
+        for seed in (1, 2):
+            c = fault_case(seed, h, 1, 1, dev, span=span)
+            fp = faults.FaultParams(c["down_t"], c["up_t"], None, None, None, None)
+            err = max(err, check_equal(f"K23/{h}/{seed}", list(faults.down_and_resume(fp, c["t"])),
+                                       list(faults.down_and_resume_plain(fp, c["t"]))))
+    c = fault_case(3, H7, 1, 1, dev, span=span)
+    fp = faults.FaultParams(c["down_t"], c["up_t"], None, None, None, None)
+    r = kernel_ms("fault_down_resume", lambda: faults.down_and_resume(fp, c["t"]))
+    r["plain_ms"] = time_ms(lambda: faults.down_and_resume_plain(fp, c["t"]))
+    r["bound"] = bound(H7 * (8 + 16 + 1 + 8), 3 * H7)
+    r["library_ms"] = None
+    r["max_abs_err"] = err
+    results["fault_down_resume"] = settle("fault_down_resume", r, r["bound"][0])
+
+    # K1's fault lane
+    err = 0.0
+    for case in ("main", "full"):
+        fill = rng.integers(0, 8, H7) if case == "main" else 16 - rng.integers(0, 3, H7)
+        q = random_queue(rng, fill, dev, cap=16)
+        cc = fault_case(4, H7, 1, 1, dev, span=50 * 10**6)
+        crash = (cc["down_t"], cc["up_t"])
+        floor = torch.as_tensor(rng.integers(0, 50, H7) * 1_000_000, device=dev)
+        for fl in (None, floor):
+            err = max(err, check_equal(f"K1 fault/{case}", [ev.next_time(q, fl, crash)],
+                                       [ev.next_time_plain(q.t, fl, crash)]))
+        bq = ev.bucket_rebuild(q, 4)
+        err = max(err, check_equal(f"K1 fault/{case}/blocks", [ev.bq_next_time(bq, None, crash)],
+                                   [ev.next_time_plain(bq.bt, None, crash)]))
+    r = kernel_ms("queue_next_time", lambda: ev.next_time(q, None, crash))
+    r["plain_ms"] = time_ms(lambda: ev.next_time_plain(q.t, None, crash))
+    r["bound"] = bound(H7 * 16 * 8 + H7 * 16 + H7 * 8, H7 * 16 + 3 * H7)
+    r["max_abs_err"] = err
+    results["queue_next_time_fault_floor"] = settle("queue_next_time/fault_floor", r,
+                                                   r["bound"][0])
+
+    def fresh(e, h):
+        """A copy of the event with its own time lane (K10 rewrites it in
+        place), at the same host stride."""
+        k = e.t.stride(0)
+        wide = torch.zeros((h, k), dtype=torch.int64, device=dev)
+        wide[:, -1] = e.t
+        return Event(wide[:, -1], e.order, e.kind, e.payload)
+
+    cfg7_shape = dict(n_push=1, sends=((1, False, False),), route="const", budget=6)
+    cfg6_shape = dict(n_push=2, sends=((2, True, True),), route="affine", n_nodes=100,
+                      budget=24, stride=K6)
+
+    def ingress_pair(case, h):
+        cfg, params, e, act, c0 = (case[k] for k in ("cfg", "params", "ev", "active", "carry"))
+        got = chain.event_ingress(clone_carry(c0), params, cfg, fresh(e, h), act)
+        want = chain.event_ingress_plain(clone_carry(c0), params, cfg, fresh(e, h), act)
+        return got, want
+
+    def ingress_timing(case, h):
+        cfg, params, e, act, c0 = (case[k] for k in ("cfg", "params", "ev", "active", "carry"))
+        r = kernel_ms("event_ingress", lambda cc, ee: chain.event_ingress(cc, params, cfg, ee, act),
+                      lambda: (clone_carry(c0), fresh(e, h)))
+        r["plain_ms"] = time_ms(
+            lambda cc, ee: chain.event_ingress_plain(cc, params, cfg, ee, act),
+            lambda: (clone_carry(c0), fresh(e, h)))
+        c1, ing1 = chain.event_ingress_plain(clone_carry(c0), params, cfg, fresh(e, h), act)
+        fp = params.faults
+        r["bound"] = bound(io_bytes(
+            reads=[e.order, e.kind, e.payload[:, 0], act, params.in_tb.capacity,
+                   params.in_tb.refill, c0.tb_ingress.tokens, c0.tb_ingress.last_itv,
+                   *(flat_tensors([fp.down_t, fp.up_t]) if fp is not None else [])],
+            writes=[ing1.dispatch, ing1.is_pkt, ing1.kind, ing1.src,
+                    *(ing1.requeue[i] for i in (0, 1, 3))],
+            inplace=[(e.t, ing1.t), *zip(flat_tensors([c0.stats, c0.tb_ingress, c0.codel]),
+                                         flat_tensors([c1.stats, c1.tb_ingress, c1.codel]))]),
+            300 * h)
+        return r
+
+    # K10: hold and clear lanes, with and without the CPU model, and off
+    err = 0.0
+    for restart in (None, "hold", "clear"):
+        for delay in (0, 3_000_000):
+            for seed in (1, 2):
+                case = chain_case(seed, H7, dev, **cfg7_shape, cpu_delay=delay,
+                                  restart_queue=restart)
+                got, want = ingress_pair(case, H7)
+                err = max(err, check_equal(f"K10 {restart}/{delay}/{seed}", flat_tensors(got),
+                                           flat_tensors(want)))
+    hold = chain_case(3, H7, dev, **cfg7_shape, restart_queue="hold")
+    r = ingress_timing(hold, H7)
+    r["max_abs_err"] = err
+    results["event_ingress_fault_hold"] = settle("event_ingress/fault_hold", r, r["bound"][0])
+    # K10's second digest at config 10's shape (a K = 4 column)
+    err = 0.0
+    for dual in (False, True):
+        for seed in (1, 2):
+            case = chain_case(seed, H, dev, **cfg6_shape, dual_digest=dual)
+            got, want = ingress_pair(case, H)
+            err = max(err, check_equal(f"K10 digest2={dual}/{seed}", flat_tensors(got),
+                                       flat_tensors(want)))
+    r = ingress_timing(chain_case(3, H, dev, **cfg6_shape, dual_digest=True), H)
+    r["max_abs_err"] = err
+    results["event_ingress_digest2"] = settle("event_ingress/digest2", r, r["bound"][0])
+
+    # K11: the link-fault lane at config 7's and config 6's shapes, and off
+    err = 0.0
+    for shape, h in ((cfg7_shape, H7), (cfg6_shape, H)):
+        for windows in (0, 1, 3):
+            for seed in (1, 2):
+                case = chain_case(seed, h, dev, **shape, loss_windows=windows)
+                cfg, params, e, c0 = (case[k] for k in ("cfg", "params", "ev", "carry"))
+                args = (e.t, case["dispatch"], case["window_end"], case["out"])
+                got = chain.event_egress(clone_carry(c0), params, cfg, *args)
+                want = chain.event_egress_plain(clone_carry(c0), params, cfg, *args)
+                err = max(err, check_equal(f"K11 windows={windows}/{h}/{seed}",
+                                           flat_tensors(got), flat_tensors(want)))
+    case = chain_case(3, H7, dev, **cfg7_shape, loss_windows=1)
+    cfg, params, e, c0 = (case[k] for k in ("cfg", "params", "ev", "carry"))
+    args = (e.t, case["dispatch"], case["window_end"], case["out"])
+    r = kernel_ms("event_egress", lambda cc: chain.event_egress(cc, params, cfg, *args),
+                  lambda: (clone_carry(c0),))
+    r["plain_ms"] = time_ms(lambda cc: chain.event_egress_plain(cc, params, cfg, *args),
+                            lambda: (clone_carry(c0),))
+    c1, pushes, entries, used = chain.event_egress_plain(clone_carry(c0), params, cfg, *args)
+    r["bound"] = bound(io_bytes(
+        reads=[e.t, case["dispatch"], *flat_tensors(case["out"].pushes),
+               *(x for sp in case["out"].sends for x in (sp.mask, sp.dst, sp.size_bytes, sp.kind,
+                                                         sp.payload, sp.count, sp.payload_inc)),
+               params.eg_tb.capacity, params.eg_tb.refill,
+               *flat_tensors([params.faults.win_start, params.faults.win_end,
+                              params.faults.win_loss, params.faults.win_lat])],
+        writes=[*flat_tensors([(p.mask, p.t, p.order, p.kind) for p in pushes]),
+                *flat_tensors(entries), used],
+        inplace=list(zip(flat_tensors([c0.stats, c0.rng, c0.seq, c0.sent_round, c0.tb_egress]),
+                         flat_tensors([c1.stats, c1.rng, c1.seq, c1.sent_round, c1.tb_egress])))),
+        400 * H7)
+    r["max_abs_err"] = err
+    results["event_egress_fault_window"] = settle("event_egress/fault_window", r, r["bound"][0])
+
+    # K24: every invariant broken in turn, over two chained rounds
+    def copy_to(x, d):
+        if isinstance(x, torch.Tensor):
+            return x.to(d, copy=True)
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(copy_to(v, d) for v in x))
+        return x
+
+    checked = 0
+    for wheel in (0, 4):
+        for v in IV_CASES:
+            if v == "wheel_qfill" and not wheel:
+                continue
+            c = integrity_case(29, H, C6, BLK6, dev, wheel=wheel, faults=False, violate=v)
+            lanes = []
+            for d in (dev, torch.device("cpu")):
+                chk = IntegrityCheck(c["cfg"])
+                st0, st_m, st_x = (copy_to(c[k], d) for k in ("st0", "st_m", "st_x"))
+                chk.enter(st0)
+                s_ = st_x.stats
+                for _ in range(2):
+                    chk.pre_exchange(st_m._replace(stats=s_))
+                    s_ = chk.post_exchange(st_x._replace(stats=s_), s_, c["window_end"],
+                                           c["done"], st0.now)
+                lanes.append([s_.integrity.cpu(), s_.iv_mask.cpu(), s_.iv_round.cpu()])
+            check_equal(f"K24 {v}/wheel={wheel}", lanes[0], lanes[1])
+            if (int(lanes[1][0]) > 0) != (v not in (None, "done")):
+                raise AssertionError(f"K24 {v}: the guard did not trip as the case breaks it")
+            checked += 1
+    c = integrity_case(30, H, C6, BLK6, dev, faults=False)
+    chk = IntegrityCheck(c["cfg"])
+    chk.enter(c["st0"])
+    st_m, st_x, we, now0 = c["st_m"], c["st_x"], c["window_end"], c["st0"].now
+
+    def check_round():
+        chk.pre_exchange(st_m)
+        chk.post_exchange(st_x, st_x.stats, we, False, now0)
+
+    entry = round_entry_plain(c["st0"])
+
+    def plain_round():
+        viol, mask = integrity_round_check_plain(c["cfg"], entry, st_m, st_x, st_x.stats, we,
+                                                 False, now0)
+        fold_violations(st_x.stats, entry.rounds, viol, mask)
+
+    r = kernel_ms("integrity_round_check", check_round)
+    r["plain_ms"] = time_ms(plain_round)
+    n_lanes = 8
+    r["bound"] = bound(2 * H * C6 * 8 + H * (C6 // BLK6) * 4 + H * 4
+                       + 3 * n_lanes * H * 8 + 2 * H * 8, 2 * H * C6 + 3 * n_lanes * H)
+    r["library_ms"] = None
+    r["max_abs_err"] = 0.0
+    r["rounds_checked"] = checked
+    results["integrity_round_check"] = settle("integrity_round_check", r, r["bound"][0])
+    return results
+
+
 def merge_bytes(q0, after, ob, gc: int) -> tuple[int, int]:
     """(bytes, operations) one merge of the outbox's first gc columns into
     queue `q0` must take to give `after`: the row columns' dst and t; the
@@ -1887,6 +2143,8 @@ KERNEL_SYMBOLS = {
     "timer_handle": ("timer_handle_kernel",),
     "gossip_handle": ("gossip_handle_kernel",),
     "circuit_handle": ("circuit_handle_kernel",),
+    "fault_down_resume": ("down_resume_kernel",),
+    "integrity_round_check": ("integrity_kernel",),
 }
 # the microstep's per-event steps, marked as profiler ranges in phases 5 and 9
 RANGES = ("ingress", "handler", "egress", "outbox_append")
@@ -2021,6 +2279,55 @@ def new_small_configs() -> dict[str, dict]:
     }
 
 
+def faults_small_configs() -> dict[str, dict]:
+    """Config 7 small (256 hosts) cut to 12 sim-s (the lossy window opens
+    at 10 s), in clear mode at K = 4 on a bucketed queue, and in hold mode
+    with a 20 ms CPU delay."""
+    from shadow_tpu_torch.testing import cfg7_config
+
+    return {
+        "cfg7_small_clear_k4": cfg7_config(256, "12 s", restart_queue="clear", k=4, block=4),
+        "cfg7_small_cpu_delay": cfg7_config(256, "12 s", cpu_delay="20 ms"),
+    }
+
+
+def phase_scribble(keys: tuple) -> dict:
+    """Config 10 small (128 hosts on the 4 x 4 torus, K = 4, 8-round
+    chunks) cut to 4 sim-s, with a one-shot scribble (host 3's event count
+    to -7 once it has 16 rounds): on the card and on the CPU the chunk is
+    replayed once and the violation counted as transient, and the run
+    gives the clean run's digests."""
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.sim import Simulation
+    from shadow_tpu_torch.testing import cfg10_config, scribble_hook
+
+    cfg = cfg10_config(4, 8, "4 s", flows=8, flow_segs=20, rounds_per_chunk=8)
+    clean = run_config(cfg, None)
+    reps = []
+    prev = torch.get_num_threads()
+    for dev in (None, "cpu"):
+        if dev == "cpu":
+            torch.set_num_threads(1)
+        try:
+            sim = Simulation(ConfigOptions.from_dict(cfg), device=dev)
+            sim._integrity_test_scribble = scribble_hook("once", 16, "counter")
+            reps.append(sim.run(progress=False))
+        finally:
+            torch.set_num_threads(prev)
+    card, cpu = reps
+    iv = card["integrity"]
+    same = all(card.get(k) == cpu.get(k) for k in keys)
+    out = {"integrity": iv, "equal_to_cpu": same,
+           "determinism_digest": card["determinism_digest"],
+           "clean_digest": clean["determinism_digest"],
+           "clean_digest2": clean["integrity"]["determinism_digest2"]}
+    if not same or (iv["transients"], iv["replays"]) != (1, 1) or \
+            card["determinism_digest"] != clean["determinism_digest"] or \
+            iv["determinism_digest2"] != clean["integrity"]["determinism_digest2"]:
+        raise AssertionError(f"config 10 small scribble: {out}")
+    return out
+
+
 def tgen_small_configs() -> dict[str, dict]:
     """Config 6 small (bench.py baseline_config(6, small=True)) cut to 4
     simulated seconds, over K, the queue layout, a lossy torus and a tight
@@ -2122,14 +2429,15 @@ def card_vs_cpu(phase: str, configs: dict, keys: tuple) -> dict:
 
 
 def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple,
-            final=None) -> tuple[dict, dict]:
+            final=None, setup=None) -> tuple[dict, dict]:
     """One full-width leg with every launch counter set to 0 just before
     and read just after: the report must equal the JAX constants `ref`,
     `final(sim)` (where given) must equal its JAX constants, every kernel
     of `path` must have launched, and the model's handler kernel exactly as
     often as the ingress kernel. Prints the run loop's wall
     (`wall_seconds`), the wall with the build (`build_and_run_seconds`) and
-    the card's peak allocated memory. Returns (counts, report)."""
+    the card's peak allocated memory. `setup(sim)`, where given, runs on
+    the built simulation before its run. Returns (counts, report)."""
     from shadow_tpu_torch.config.options import ConfigOptions
     from shadow_tpu_torch.sim import KERNELS, Simulation
 
@@ -2138,10 +2446,13 @@ def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     sim = Simulation(ConfigOptions.from_dict(cfg_dict))
+    if setup is not None:
+        setup(sim)
     report = sim.run(progress=False)
     total = time.monotonic() - t0
     launches = {k: v.launches for k, v in KERNELS.items()}
-    emit(name, **{k: report.get(k) for k in (*ref, "rounds", "microsteps", "gears")},
+    emit(name, **{k: report.get(k) for k in (*ref, "rounds", "microsteps", "gears",
+                                             "supervisor", "integrity")},
          wall_seconds=report["wall_seconds"], build_and_run_seconds=total,
          sim_wall_ratio=report["sim_wall_ratio"], host_syncs=report["host_syncs"],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -2197,11 +2508,17 @@ CFG4_PATH = tuple("circuit_handle" if k == "phold_handle" else k for k in ANCHOR
 # under the CPU model every pop has per-host limits: K5 + K6 replace K2
 ANCHOR_DELAY_PATH = tuple(k for k in ANCHOR_PATH if k != "queue_pop_min") + (
     "queue_pop_k", "queue_clear_popped")
+# config 7's queue-hold pops have per-host limits too, found by K23 at
+# the busy-floored head; config 10 is config 6's path plus K24
+CFG7_PATH = ANCHOR_DELAY_PATH + ("fault_down_resume",)
+CFG10_PATH = TGEN_PATH + ("integrity_round_check",)
 SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
            "merge_scatter": "shadow_tpu_torch/csrc/merge.cu",
            **{k: "shadow_tpu_torch/csrc/event.cu" for k in CHAIN_PATH},
            **{k: "shadow_tpu_torch/csrc/fluid.cu" for k in FLUID_PATH},
-           **{k: "shadow_tpu_torch/csrc/models.cu" for k in HANDLER_OF.values()}}
+           **{k: "shadow_tpu_torch/csrc/models.cu" for k in HANDLER_OF.values()},
+           "fault_down_resume": "shadow_tpu_torch/csrc/faults.cu",
+           "integrity_round_check": "shadow_tpu_torch/csrc/integrity.cu"}
 REPLACES = {
     "queue_next_time": "shadow_tpu/ops/events.py:129",
     "queue_pop_min": "shadow_tpu/ops/events.py:138",
@@ -2225,6 +2542,8 @@ REPLACES = {
     "timer_handle": "shadow_tpu/models/timer.py:41",
     "gossip_handle": "shadow_tpu/models/gossip.py:89",
     "circuit_handle": "shadow_tpu/models/circuit.py:99",
+    "fault_down_resume": "shadow_tpu/core/faults.py:266",
+    "integrity_round_check": "shadow_tpu/core/engine.py:2050",
 }
 # the path whose run each kernel's `launches` is read from: the one it was
 # ported for (wheel_cancel has no engine caller, in either package)
@@ -2242,6 +2561,8 @@ PORTED_FOR = {
     "timer_handle": "cfg5",
     "gossip_handle": "cfg3",
     "circuit_handle": "cfg4",
+    "fault_down_resume": "cfg7",
+    "integrity_round_check": "cfg10",
 }
 
 
@@ -2329,6 +2650,17 @@ def main() -> int:
         r = lres[f"{row}_{lane}"]
         r["bound_ms"] = r.pop("bound")[0]
         kres[row][lane] = r
+
+    # phase 29: the fault plane's and the integrity sentinel's kernels
+    fres = phase_kernels_faults(dev)
+    emit("kernels_faults_integrity_vs_plain", ok=True, exact=True,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in fres.items()})
+    for row, lane in (("queue_next_time", "fault_floor"), ("event_ingress", "fault_hold"),
+                      ("event_ingress", "digest2"), ("event_egress", "fault_window")):
+        r = fres.pop(f"{row}_{lane}")
+        r["bound_ms"] = r.pop("bound")[0]
+        kres[row][lane] = r
+    kres.update(fres)
 
     # least device time per call at each path's shapes: the kernel phases'
     # bounds; K1 and K4 on the tgen path (block caches, 24-wide outbox) get
@@ -2431,6 +2763,29 @@ def main() -> int:
     small = card_vs_cpu("new_small", new_small_configs(), keys)
     if not small["tgen_small_cpu_delay_k4"]["popk_deferred"]:
         raise AssertionError("tgen_small_cpu_delay_k4: no batch event was deferred")
+
+    # phase 30: bench config 7 as configured, again with a dispatch failure
+    # at chunk 2 (the supervisor's retry), and config 10 to 5 sim-s
+    from shadow_tpu_torch.testing import cfg7_config, cfg10_config
+
+    launches["cfg7"] = run_leg("cfg7", cfg7_config(), CFG7_REF, CFG7_PATH)[0]
+    launches["cfg7_retry"], rep7 = run_leg(
+        "cfg7_retry", cfg7_config(), {k: v for k, v in CFG7_REF.items() if k != "supervisor"},
+        CFG7_PATH, setup=lambda sim: setattr(sim, "_test_fail_dispatch", frozenset({2})))
+    sup = rep7["supervisor"]
+    if (sup["retries"], sup["restores"], sup["aborted"]) != (1, 1, False):
+        raise AssertionError(f"cfg7_retry: the supervisor did not retry once: {sup}")
+    launches["cfg10"] = run_leg("cfg10", cfg10_config(stop=CFG10_STOP), CFG10_REF,
+                                CFG10_PATH)[0]
+
+    # phase 31: small configs 7 and 10, card == CPU; config 10 small with a
+    # one-shot scribble is replayed, survived and gives the clean digests
+    fkeys = keys + ("faults_dropped", "faults_delayed", "supervisor", "integrity")
+    small = card_vs_cpu("faults_small", faults_small_configs(), fkeys)
+    for name, r in small.items():
+        if not (r["faults_dropped"] and r["faults_delayed"]):
+            raise AssertionError(f"{name}: no fault drop or delay was exercised")
+    emit("integrity_small_scribble", **phase_scribble(fkeys))
     emit("total", seconds=round(time.monotonic() - t_start, 3))
 
     table = []
@@ -2453,7 +2808,8 @@ def main() -> int:
                if "wheel_slab" in r else {}),
             **({"library_call": r["library_call"]} if "library_call" in r else {}),
             **{lane: {k: r[lane][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
-               for lane in ("busy_floor", "cpu_delay", "merge_rows") if lane in r},
+               for lane in ("busy_floor", "cpu_delay", "merge_rows", "fault_floor", "fault_hold",
+                            "digest2", "fault_window") if lane in r},
         })
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -9,8 +9,9 @@ never silently run with a plane switched off:
 
   - `general.parallelism > 1` (world > 1);
   - `experimental.scheduler: cpu-reference`;
-  - any non-empty `faults`, `pressure`, `integrity` or `campaign` block,
-    and any enabled `observability` knob (`trace`, `network`, ...);
+  - any non-empty `pressure` or `campaign` block, any enabled
+    `observability` knob (`trace`, `network`, ...), and
+    `faults.supervisor.checkpoint_file` (on-disk checkpoints);
   - `pcap_enabled`, managed processes (`path:`), and models other than
     phold, udp_echo, timer, tgen_tcp, gossip and circuit (checked when
     the simulation is built).
@@ -26,7 +27,9 @@ with the JAX package's validation: the block is >= 0 and divides the queue
 capacity, K >= 1, and the gears' list entries are positive ints; a negative
 row bound or delay, which the JAX package reads as "off", is refused. The `fluid` block
 (background traffic classes, net/fluid.py) is parsed and validated as the
-JAX package's `FluidOptions`, error texts included.
+JAX package's `FluidOptions`, error texts included, and so are the `faults`
+block (`FaultOptions`: host churn, explicit crashes, loss windows, the
+supervisor) and the `integrity` block (`IntegrityOptions`).
 
 `ExperimentalOptions.resolve_shapes` is the JAX package's auto-sizing rule,
 copied verbatim, so both packages resolve a config to the same queue
@@ -425,6 +428,250 @@ class FluidOptions:
             )
 
 
+@dataclass
+class FaultChurnOptions:
+    """Seeded host-churn: each host crashes once with probability `prob`
+    at a uniform time in [bootstrap_end_time, stop_time), down for an
+    exponential draw around `mean_downtime`."""
+
+    prob: float = 0.0
+    mean_downtime: int = parse_time_ns("1 s")  # ns
+
+    @staticmethod
+    def from_dict(d: dict[str, Any] | None) -> "FaultChurnOptions | None":
+        if d is None:
+            return None
+        d = dict(d)
+        c = FaultChurnOptions(
+            prob=float(d.pop("prob", 0.0)),
+            mean_downtime=parse_time_ns(d.pop("mean_downtime", "1 s"), TimeUnit.SEC),
+        )
+        if not 0.0 <= c.prob <= 1.0:
+            raise ConfigError(
+                f"faults.host_churn.prob must be in [0, 1], got {c.prob}"
+            )
+        if d:
+            raise ConfigError(f"unknown host_churn options: {sorted(d)}")
+        return c
+
+
+@dataclass
+class FaultCrash:
+    """One explicit host outage: down at `down_at`, back at `up_at`."""
+
+    host: Any = 0  # host id (int) or host name (str)
+    down_at: int = 0  # ns
+    up_at: int = 0  # ns
+
+    @staticmethod
+    def from_dict(d: dict[str, Any]) -> "FaultCrash":
+        d = dict(d)
+        if "host" not in d or "down_at" not in d or "up_at" not in d:
+            raise ConfigError(
+                "faults.crashes entries need host, down_at, up_at"
+            )
+        c = FaultCrash(
+            host=d.pop("host"),
+            down_at=parse_time_ns(d.pop("down_at"), TimeUnit.SEC),
+            up_at=parse_time_ns(d.pop("up_at"), TimeUnit.SEC),
+        )
+        if c.up_at <= c.down_at:
+            raise ConfigError(
+                f"faults.crashes: up_at must be > down_at (host {c.host!r})"
+            )
+        if d:
+            raise ConfigError(f"unknown crash options: {sorted(d)}")
+        return c
+
+
+@dataclass
+class FaultLossWindow:
+    """A link-fault window: extra packet-loss probability and a latency
+    multiplier active over [start, end). latency_factor must be >= 1.0 —
+    deflation would break the conservative-lookahead bound."""
+
+    start: int = 0  # ns
+    end: int = 0  # ns
+    loss: float = 0.0
+    latency_factor: float = 1.0
+
+    @staticmethod
+    def from_dict(d: dict[str, Any]) -> "FaultLossWindow":
+        d = dict(d)
+        if "start" not in d or "end" not in d:
+            raise ConfigError("faults.loss_windows entries need start, end")
+        w = FaultLossWindow(
+            start=parse_time_ns(d.pop("start"), TimeUnit.SEC),
+            end=parse_time_ns(d.pop("end"), TimeUnit.SEC),
+            loss=float(d.pop("loss", 0.0)),
+            latency_factor=float(d.pop("latency_factor", 1.0)),
+        )
+        if w.end <= w.start:
+            raise ConfigError("faults.loss_windows: end must be > start")
+        if not 0.0 <= w.loss <= 1.0:
+            raise ConfigError(
+                f"faults.loss_windows: loss must be in [0, 1], got {w.loss}"
+            )
+        if w.latency_factor < 1.0:
+            raise ConfigError(
+                f"faults.loss_windows: latency_factor must be >= 1.0 "
+                f"(got {w.latency_factor}; deflation would shrink latency "
+                f"below the conservative-lookahead bound)"
+            )
+        if d:
+            raise ConfigError(f"unknown loss_window options: {sorted(d)}")
+        return w
+
+
+@dataclass
+class SupervisorOptions:
+    """Crash-resilient run supervisor (core/supervisor.py): periodic
+    device snapshots of the sim state, retry-with-backoff on dispatch
+    failure, replay from the last good snapshot with a digest cross-check,
+    graceful abort after bounded retries. 0 snapshot interval = off."""
+
+    snapshot_every_chunks: int = 0
+    checkpoint_file: str | None = None  # on-disk .npz, relative to data dir
+    max_retries: int = 3
+    backoff_base_ms: int = 50
+
+    @property
+    def enabled(self) -> bool:
+        return self.snapshot_every_chunks > 0
+
+    @staticmethod
+    def from_dict(d: dict[str, Any] | None) -> "SupervisorOptions":
+        d = dict(d or {})
+        s = SupervisorOptions(
+            snapshot_every_chunks=int(d.pop("snapshot_every_chunks", 0)),
+            checkpoint_file=d.pop("checkpoint_file", None),
+            max_retries=int(d.pop("max_retries", 3)),
+            backoff_base_ms=int(d.pop("backoff_base_ms", 50)),
+        )
+        if s.snapshot_every_chunks < 0:
+            raise ConfigError(
+                f"faults.supervisor.snapshot_every_chunks must be >= 0, "
+                f"got {s.snapshot_every_chunks}"
+            )
+        if s.max_retries < 0:
+            raise ConfigError(
+                f"faults.supervisor.max_retries must be >= 0, "
+                f"got {s.max_retries}"
+            )
+        if s.backoff_base_ms < 0:
+            raise ConfigError(
+                f"faults.supervisor.backoff_base_ms must be >= 0, "
+                f"got {s.backoff_base_ms}"
+            )
+        if s.checkpoint_file is not None and not str(s.checkpoint_file):
+            raise ConfigError(
+                "faults.supervisor.checkpoint_file must be non-empty "
+                "(use null to disable)"
+            )
+        if d:
+            raise ConfigError(f"unknown supervisor options: {sorted(d)}")
+        return s
+
+
+@dataclass
+class FaultOptions:
+    """The fault plane (core/faults.py): deterministic in-sim fault
+    injection plus the crash-resilient run supervisor (core/supervisor.py).
+    Everything is seeded and bit-reproducible: same fault seed => same
+    digests, across reruns and a mid-run snapshot restore. With the block
+    absent the engine runs no fault lane and allocates none. The port
+    refuses `supervisor.checkpoint_file` (on-disk checkpoints are not
+    ported)."""
+
+    seed: int | None = None  # None = general.seed
+    # what happens to a crashed host's pending events at/during the
+    # outage: "hold" defers them to the restart (the CPU-model busy-floor
+    # mechanics); "clear" drops every event whose execution time falls in
+    # a down window (counted in stats.faults_dropped)
+    restart_queue: str = "hold"
+    host_churn: FaultChurnOptions | None = None
+    crashes: list[FaultCrash] = field(default_factory=list)
+    loss_windows: list[FaultLossWindow] = field(default_factory=list)
+    supervisor: SupervisorOptions = field(default_factory=SupervisorOptions)
+
+    @property
+    def injecting(self) -> bool:
+        """True when the block schedules any in-sim fault."""
+        return bool(
+            (self.host_churn is not None and self.host_churn.prob > 0)
+            or self.crashes
+            or self.loss_windows
+        )
+
+    @staticmethod
+    def from_dict(d: dict[str, Any] | None) -> "FaultOptions":
+        d = dict(d or {})
+        seed = d.pop("seed", None)
+        f = FaultOptions(
+            seed=int(seed) if seed is not None else None,
+            restart_queue=str(d.pop("restart_queue", "hold")),
+            host_churn=FaultChurnOptions.from_dict(d.pop("host_churn", None)),
+            crashes=[FaultCrash.from_dict(c) for c in d.pop("crashes", []) or []],
+            loss_windows=[
+                FaultLossWindow.from_dict(w)
+                for w in d.pop("loss_windows", []) or []
+            ],
+            supervisor=SupervisorOptions.from_dict(d.pop("supervisor", None)),
+        )
+        if f.restart_queue not in ("hold", "clear"):
+            raise ConfigError(
+                f"faults.restart_queue must be hold|clear, "
+                f"got {f.restart_queue!r}"
+            )
+        if d:
+            raise ConfigError(f"unknown faults options: {sorted(d)}")
+        return f
+
+
+@dataclass
+class IntegrityOptions:
+    """The integrity sentinel (core/integrity.py): per-round invariant
+    guards run only when `enabled` — conservation laws the state must
+    satisfy regardless of workload (time monotonicity, queue fill-cache
+    agreement, counter monotonicity, outbox bounds, dual-digest
+    virginity). With the block absent or off the engine runs no sentinel
+    kernel and allocates no sentinel lane.
+
+    On a violation the chunk aborts at the violating round and the
+    driver restores the pre-chunk snapshot and replays: a violation
+    reproducing with the same (shard, round, bitmask) signature is a
+    DETERMINISTIC engine bug -> loud IntegrityAbort naming the
+    invariant, round, and shard; one that does not reproduce is
+    transient silent data corruption -> counted in sim-stats
+    integrity{transients,replays}, logged, and the run continues."""
+
+    enabled: bool = False
+    # second, independently-folded per-host digest lane (stats.digest2)
+    # so a scribble on the digest plane itself is detectable
+    # (core/integrity.classify_digest_pair)
+    dual_digest: bool = True
+    # consecutive non-reproducing violation replays of ONE chunk before
+    # the sentinel gives up (violations persisting without ever
+    # reproducing still stop the run — progress must stay bounded)
+    max_replays: int = 3
+
+    @staticmethod
+    def from_dict(d: dict[str, Any] | None) -> "IntegrityOptions":
+        d = dict(d or {})
+        o = IntegrityOptions(
+            enabled=bool(d.pop("enabled", False)),
+            dual_digest=bool(d.pop("dual_digest", True)),
+            max_replays=int(d.pop("max_replays", 3)),
+        )
+        if o.max_replays < 1:
+            raise ConfigError(
+                f"integrity.max_replays must be >= 1, got {o.max_replays}"
+            )
+        if d:
+            raise ConfigError(f"unknown integrity options: {sorted(d)}")
+        return o
+
+
 def _reject_block(name: str, d: Any) -> None:
     """Optional planes of the JAX package: an absent or empty block is the
     plane switched off; anything else names what the port cannot run."""
@@ -530,15 +777,19 @@ class ConfigOptions:
     host_option_defaults: HostDefaultOptions = field(default_factory=HostDefaultOptions)
     hosts: list[HostOptions] = field(default_factory=list)
     fluid: FluidOptions = field(default_factory=FluidOptions)
+    faults: FaultOptions = field(default_factory=FaultOptions)
+    integrity: IntegrityOptions = field(default_factory=IntegrityOptions)
 
     @staticmethod
     def from_dict(d: dict[str, Any]) -> "ConfigOptions":
         d = dict(d)
         if "general" not in d:
             raise ConfigError("`general` section is required")
-        for block in ("faults", "pressure", "integrity", "campaign", "observability"):
+        for block in ("pressure", "campaign", "observability"):
             _reject_block(block, d.pop(block, None))
         fluid = FluidOptions.from_dict(d.pop("fluid", None))
+        faults = FaultOptions.from_dict(d.pop("faults", None))
+        integrity = IntegrityOptions.from_dict(d.pop("integrity", None))
         defaults = HostDefaultOptions.from_dict(d.pop("host_option_defaults", None))
         hosts: list[HostOptions] = []
         for name, hd in (d.pop("hosts", {}) or {}).items():
@@ -558,6 +809,8 @@ class ConfigOptions:
             host_option_defaults=defaults,
             hosts=hosts,
             fluid=fluid,
+            faults=faults,
+            integrity=integrity,
         )
         if d:
             raise ConfigError(f"unknown top-level sections: {sorted(d)}")
@@ -574,6 +827,8 @@ class ConfigOptions:
             raise _unsupported("pcap_enabled")
         self.experimental.validate()
         self.fluid.validate()
+        if self.faults.supervisor.checkpoint_file is not None:
+            raise _unsupported("faults.supervisor.checkpoint_file", "on-disk checkpoints")
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

@@ -1,13 +1,15 @@
-"""In-memory pre-chunk snapshots (the gears' part of the JAX package's
-`core/checkpoint.py` `snapshot_state` / `restore_snapshot`; on-disk
-checkpoints are not ported).
+"""In-memory pre-chunk snapshots (the JAX package's `core/checkpoint.py`
+`snapshot_state` / `restore_snapshot`, which the merge gears, the integrity
+sentinel's replays and the run supervisor restore from; on-disk checkpoints
+are not ported).
 
 The queue, wheel, merge and per-event chain kernels update the state's
 tensors IN PLACE on CUDA (K3-K13). A snapshot that shared storage with the
 live state would be overwritten by the very chunk it is meant to undo, so a
 snapshot is a deep copy of every tensor: queue and wheel planes and caches,
 outbox, RNG lanes, token buckets, CoDel, seq, `sent_round`,
-`min_used_lat`, every stats lane (the fluid plane's byte counters too),
+`min_used_lat`, every stats lane (the fluid plane's byte counters, the
+fault counters and the integrity sentinel's lanes too),
 the fluid plane's rates and link utilization (K15 writes them in place, so
 a replayed chunk restarts the ODE from the pre-chunk state and never
 advances it twice) and the model's state dict. Restoring

@@ -8,14 +8,17 @@ digests) are reinterpreted bit for bit as int64, and uint32 lanes (tgen's
 reassembly bitmap) are widened to int64 holding 0..2^32-1. A flat queue
 comes across as `EventQueue`, a bucketed one (with its bt/bo/bfill caches)
 as `BucketQueue`, a timer wheel (with its `wheel_spilled` and
-`wheel_occ_hwm` stats lanes) as the port's wheel, and the fluid plane's
-`FluidParams`, `FluidState` and `fl_bg_*` stats lanes as the port's.
+`wheel_occ_hwm` stats lanes) as the port's wheel, the fluid plane's
+`FluidParams`, `FluidState` and `fl_bg_*` stats lanes as the port's, the
+fault plane's `FaultParams` and counters, and the integrity sentinel's
+lanes (`integrity`, `iv_mask`, `iv_round`, `digest2`, uint64 bit for bit).
 `engine_config_from` maps a JAX `EngineConfig` onto the port's (merge gear,
-scatter merge, merge-row bound, CPU delay and fluid knobs included),
-refusing any knob the port does not run.
+scatter merge, merge-row bound, CPU delay, fluid, fault and integrity knobs
+included), refusing any knob the port does not run.
 `to_numpy` flattens either package's state into {"queue.t": array, ...} for a
-field-by-field comparison. Nothing here imports JAX: the inputs are read by
-attribute name only.
+field-by-field comparison; the fault counters, which the JAX package always
+carries, read as zeros where the port's plane is off. Nothing here imports
+JAX: the inputs are read by attribute name only.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from shadow_tpu_torch.config.options import ConfigError
+from shadow_tpu_torch.core.faults import FaultParams
 from shadow_tpu_torch.core.engine import (
     EngineConfig,
     EngineParams,
@@ -44,12 +48,13 @@ from shadow_tpu_torch.ops.rng import RngState
 _OFF_FIELDS = {
     "world": 1,
     "trace_rounds": 0,
-    "fault_crash_windows": 0,
-    "fault_loss_windows": 0,
     "pressure_abort": False,
     "netobs": False,
-    "integrity": False,
 }
+
+
+# stats lanes the JAX package carries (as zeros) with their plane off
+_ZERO_WHEN_OFF = ("faults_dropped", "faults_delayed")
 
 
 def engine_config_from(jcfg) -> EngineConfig:
@@ -107,6 +112,9 @@ def params_from_jax_numpy(engine_params, model_params=None, *, device) -> Engine
         jit_rows=_tree(p.jit_rows, device),
         fluid=(None if getattr(p, "fluid", None) is None
                else FluidParams(*(_t(getattr(p.fluid, f), device) for f in FluidParams._fields))),
+        faults=(None if getattr(p, "faults", None) is None
+                else FaultParams(*(_opt(getattr(p.faults, f), device)
+                                   for f in FaultParams._fields))),
     )
 
 
@@ -185,6 +193,8 @@ def to_numpy(state) -> dict[str, np.ndarray]:
     for g, (obj, fields) in groups.items():
         for f in fields:
             v = getattr(obj, f, None)
+            if v is None and g == "stats" and f in _ZERO_WHEN_OFF:
+                v = np.zeros_like(_np(state.stats.events))
             if v is not None:
                 out[f"{g}.{f}"] = _np(v)
     for k, v in state.model.items():

@@ -45,9 +45,21 @@ before its next round (`Simulation.run` replays it at a wider gear from a
 pre-chunk snapshot, core/gears.py); the shed test rides in the window's
 device-to-host read, so a round gains no sync.
 
+With the fault plane (`fault_crash_windows` W > 0 or `fault_loss_windows`
+L > 0, core/faults.py) crash windows hold a down host's events to its
+restart (queue hold: K1's fault floor for the barrier and the loop tests,
+K23 for the microsteps' pop limits and the K-way deferral, K10's hold lane
+for the execution time) or consume them undispatched (queue clear: K10's
+clear lane), and link windows add a loss draw and a latency multiplier to
+every send (K11's lane). With the integrity sentinel (`integrity`,
+core/integrity.py) every round is judged by K24 at the chunk's entry,
+before the exchange and after it, the chunk stops after the first
+violating round (read with the window, no extra sync), and K10 folds the
+second digest.
+
 The slice is the JAX package's single-device path: flat or bucketed queue,
 K >= 1, the timer wheel, merge gears, the scatter merge, the fluid plane,
-world 1.
+the fault plane and the integrity sentinel, world 1.
 `lax.while_loop` becomes a Python loop; each loop condition is one
 device-to-host read, counted in `Engine.host_syncs`. The window itself is
 computed on the device and read back with the `done` flag in the same
@@ -71,6 +83,8 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from shadow_tpu_torch.core.faults import down_and_resume
+from shadow_tpu_torch.core.integrity import DIGEST2_OFFSET_I64, IntegrityCheck
 from shadow_tpu_torch.ops.chain import (
     event_egress,
     event_ingress,
@@ -164,6 +178,20 @@ class Stats(NamedTuple):
     # bytes carried and dropped at congestion
     fl_bg_bytes: Any = None  # i64[] | None
     fl_bg_dropped: Any = None  # i64[] | None
+    # fault-plane counters, None unless the plane is on: events and packets
+    # an injected fault discarded (queue-clear drops charged to the down
+    # host, link-fault loss to the sender), and events executed at a crash
+    # restart plus packets a fault window slowed
+    faults_dropped: Any = None  # i64[H] | None
+    faults_delayed: Any = None  # i64[H] | None
+    # integrity-sentinel lanes, None unless it is on: the cumulative count
+    # of failed checks, the invariant bits seen and the first violating
+    # round (-1 = none yet); the second digest (uint64 bit pattern) with
+    # the dual digest
+    integrity: Any = None  # i64[1] | None
+    iv_mask: Any = None  # i64[1] | None
+    iv_round: Any = None  # i64[1] | None
+    digest2: Any = None  # i64[H] | None
 
 
 class SimState(NamedTuple):
@@ -201,6 +229,7 @@ class EngineParams(NamedTuple):
     loss_rows: Any = None  # f32[H, N] | None
     jit_rows: Any = None  # i64[H, N] | None
     fluid: Any = None  # FluidParams | None (net/fluid.py compile_fluid)
+    faults: Any = None  # FaultParams | None (core/faults.py compile_faults)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,6 +286,19 @@ class EngineConfig:
     fluid_loss_max: float = 0.0  # extra loss probability at full overload
     fluid_lat_max_x1000: int = 2000  # latency multiplier cap (x1000)
     fluid_seed: int = 1  # the counter-based loss draw's seed
+    # fault plane (core/faults.py; 0 windows = off): the arrays live in
+    # EngineParams.faults, these are their dims and the restart policy
+    fault_crash_windows: int = 0  # W: crash windows per host
+    fault_loss_windows: int = 0  # L: link-fault windows
+    # restart_queue "clear": events executing inside a crash window are
+    # consumed and counted in faults_dropped ("hold" defers them)
+    fault_queue_clear: bool = False
+    # integrity sentinel (core/integrity.py): the per-round guards and the
+    # chunk's first-violation stop; the dual digest lane; the window
+    # monotonicity half of IV_TIME (static runahead only)
+    integrity: bool = False
+    integrity_dual: bool = False
+    integrity_strict_time: bool = True
 
     def __post_init__(self):
         check_order_limits(self.num_hosts)
@@ -313,6 +355,16 @@ class EngineConfig:
                     f"fluid_lat_max_x1000 must be >= 1000 (inflation only: the "
                     f"conservative-lookahead bound), got {self.fluid_lat_max_x1000}"
                 )
+        if self.fault_crash_windows < 0 or self.fault_loss_windows < 0:
+            raise ValueError(
+                f"fault window counts must be >= 0, got crash="
+                f"{self.fault_crash_windows} loss={self.fault_loss_windows}"
+            )
+        if self.integrity_dual and not self.integrity:
+            raise ValueError(
+                "integrity_dual requires integrity=True (the dual digest "
+                "is an integrity-sentinel lane)"
+            )
         if self.wheel_slots and self.microstep_events > 1:
             raise ValueError(
                 f"unsupported knob pair: wheel_slots={self.wheel_slots} x "
@@ -328,6 +380,23 @@ class EngineConfig:
     @property
     def fluid_active(self) -> bool:
         return self.fluid_classes > 0
+
+    @property
+    def faults_active(self) -> bool:
+        """Any fault lane runs (and the fault counters exist)."""
+        return self.fault_crash_windows > 0 or self.fault_loss_windows > 0
+
+    @property
+    def fault_hold(self) -> bool:
+        """Queue-hold crash faults: a down host's events defer to its
+        restart (the barrier's and the microsteps' floor)."""
+        return self.fault_crash_windows > 0 and not self.fault_queue_clear
+
+    @property
+    def fault_clear(self) -> bool:
+        """Queue-clear crash faults: events executing while their host is
+        down are consumed and counted in faults_dropped."""
+        return self.fault_crash_windows > 0 and self.fault_queue_clear
 
     @property
     def gear_active(self) -> bool:
@@ -381,6 +450,14 @@ def _init_stats(cfg: EngineConfig, device) -> Stats:
                      if cfg.fluid_active else None),
         fl_bg_dropped=(torch.zeros((), dtype=torch.int64, device=device)
                        if cfg.fluid_active else None),
+        faults_dropped=zi() if cfg.faults_active else None,
+        faults_delayed=zi() if cfg.faults_active else None,
+        integrity=z1() if cfg.integrity else None,
+        iv_mask=z1() if cfg.integrity else None,
+        iv_round=(torch.full((1,), -1, dtype=torch.int64, device=device)
+                  if cfg.integrity else None),
+        digest2=(torch.full((h,), DIGEST2_OFFSET_I64, dtype=torch.int64, device=device)
+                 if cfg.integrity_dual else None),
     )
 
 
@@ -481,6 +558,8 @@ class Engine:
         self.model = model
         self.device = torch.device(device)
         self.host_syncs = 0
+        # the integrity sentinel's staged per-round check (None when off)
+        self._iv = IntegrityCheck(cfg) if cfg.integrity else None
         self._host_gid = torch.arange(cfg.num_hosts, dtype=torch.int64, device=self.device)
 
     # ---- build -------------------------------------------------------------
@@ -494,6 +573,12 @@ class Engine:
                 "EngineParams.fluid must be provided iff the EngineConfig declares fluid "
                 "classes (fluid_classes > 0): build both from one FluidSchedule "
                 "(net/fluid.py compile_fluid)"
+            )
+        if (params.faults is not None) != cfg.faults_active:
+            raise ValueError(
+                "EngineParams.faults must be provided iff the EngineConfig declares fault "
+                "windows (fault_crash_windows/fault_loss_windows): build both from one "
+                "FaultSchedule (core/faults.py compile_faults)"
             )
         n_nodes = params.lat_ns.shape[0]
         if n_nodes > 1:
@@ -540,14 +625,20 @@ class Engine:
     def run_chunk(self, st: SimState, params: EngineParams) -> SimState:
         """Up to `effective_rounds_per_chunk` rounds. Under a merge gear the
         chunk stops before the first round that follows a shed (the JAX
-        chunk loop's gear abort)."""
+        chunk loop's gear abort); with the integrity sentinel, before the
+        first round that follows a violation."""
         cfg = self.cfg
         shed0 = st.stats.gear_shed.clone() if cfg.gear_active else None
+        iv0 = None
+        if self._iv is not None:
+            iv0 = st.stats.integrity.clone()
+            if not st.done:
+                self._iv.enter(st)
         for _ in range(cfg.effective_rounds_per_chunk):
             if st.done:
                 break
-            window_end, done, shed = self.compute_window(st, shed0)
-            if shed:
+            window_end, done, stop = self.compute_window(st, shed0, iv0, params)
+            if stop:
                 break
             st = self.window_step(st, params, window_end, done)
         return st
@@ -565,33 +656,59 @@ class Engine:
         finally:
             self.cfg = base
 
-    def next_times(self, st: SimState) -> torch.Tensor:
+    def next_times(self, st: SimState, params: EngineParams | None = None) -> torch.Tensor:
         """Per-host next executable time: the queue's head, and the wheel's
         where there is one (a due timer is as executable as a due queue
         event), floored under the CPU model by the busy horizon (a busy
         host keeps its events queued and resumes at busy_until; an empty
-        host stays at TIME_MAX). The floor is K1's lane: the minimum of
-        two floored heads is the floored minimum."""
+        host stays at TIME_MAX) and, under queue-hold crash faults, moved
+        to the restart of a crash window containing it (`params` carries
+        the windows). Both floors are K1's lanes: each is monotone in the
+        head time, so the minimum of two floored heads is the floored
+        minimum."""
         floor = st.cpu_busy_until if self.cfg.cpu_delay_ns > 0 else None
-        nt = q_next_time(st.queue, floor)
+        crash = self._hold_crash(params)
+        nt = q_next_time(st.queue, floor, crash)
         if st.wheel is not None:
-            nt = torch.minimum(nt, wheel_next_time(st.wheel, floor))
+            nt = torch.minimum(nt, wheel_next_time(st.wheel, floor, crash))
         return nt
 
-    def _pop_limit(self, st: SimState, window_end: int):
-        """The microstep's pop limit: `window_end`, or under the CPU model
-        an [H] limit that holds back (0) every host whose busy horizon has
-        reached the window's end."""
-        if self.cfg.cpu_delay_ns <= 0:
-            return window_end
-        return torch.where(st.cpu_busy_until < window_end, window_end, 0)
+    def _hold_crash(self, params: EngineParams | None):
+        """The crash windows (down_t, up_t) iff queue-hold faults are on."""
+        if not self.cfg.fault_hold:
+            return None
+        if params is None:
+            raise ValueError("queue-hold faults: next_times needs the params (the windows)")
+        return params.faults.down_t, params.faults.up_t
 
-    def compute_window(self, st: SimState, shed0=None) -> tuple[int, bool, bool]:
-        """Barrier + window: (window_end, done, shed), one device-to-host
-        read. `shed` is whether `stats.gear_shed` grew past `shed0` (the
-        chunk-entry value; False without one)."""
+    def _pop_limit(self, st: SimState, window_end: int, params: EngineParams):
+        """The microstep's pop limit: `window_end`, or under the CPU model
+        or queue-hold crash faults an [H] limit that holds back (0) every
+        host whose execution floor has reached the window's end. The floor
+        is the busy horizon and, under hold, the restart of a crash window
+        containing the busy-floored head (K23 at that head: the queue's
+        and, where there is one, the wheel's)."""
         cfg = self.cfg
-        gmin = self.next_times(st).min()
+        busy = st.cpu_busy_until if cfg.cpu_delay_ns > 0 else None
+        if not cfg.fault_hold:
+            if busy is None:
+                return window_end
+            return torch.where(busy < window_end, window_end, 0)
+        ht = q_next_time(st.queue, busy)
+        if st.wheel is not None:
+            ht = torch.minimum(ht, wheel_next_time(st.wheel, busy))
+        _, resume = down_and_resume(params.faults, ht)
+        floor = resume if busy is None else torch.maximum(busy, resume)
+        return torch.where(floor < window_end, window_end, 0)
+
+    def compute_window(self, st: SimState, shed0=None, iv0=None,
+                       params: EngineParams | None = None) -> tuple[int, bool, bool]:
+        """Barrier + window: (window_end, done, stop), one device-to-host
+        read. `stop` is whether `stats.gear_shed` grew past `shed0` or
+        `stats.integrity` past `iv0` (the chunk-entry values; False without
+        them)."""
+        cfg = self.cfg
+        gmin = self.next_times(st, params).min()
         done = gmin >= cfg.stop_time
         gmin_safe = torch.clamp_max(gmin, cfg.stop_time)
         if cfg.use_dynamic_runahead:
@@ -602,12 +719,16 @@ class Engine:
         lanes = [window_end, done.to(torch.int64)]
         if shed0 is not None:
             lanes.append((st.stats.gear_shed[0] > shed0[0]).to(torch.int64))
+        if iv0 is not None:
+            lanes.append((st.stats.integrity[0] > iv0[0]).to(torch.int64))
         vals = torch.stack(lanes).tolist()
         self.host_syncs += 1
-        return int(vals[0]), bool(vals[1]), shed0 is not None and bool(vals[2])
+        return int(vals[0]), bool(vals[1]), any(bool(v) for v in vals[2:])
 
     def round_step(self, st: SimState, params: EngineParams) -> SimState:
-        window_end, done, _ = self.compute_window(st)
+        if self._iv is not None:
+            self._iv.enter(st)
+        window_end, done, _ = self.compute_window(st, params=params)
         return self.window_step(st, params, window_end, done)
 
     def window_step(self, st: SimState, params: EngineParams, window_end: int, done: bool) -> SimState:
@@ -627,7 +748,7 @@ class Engine:
             # max, read in the same device-to-host read as the loop test
             valve = torch.zeros((cfg.num_hosts,), dtype=torch.int64, device=self.device)
             while True:
-                pending = (self.next_times(st) < window_end).any().to(torch.int64)
+                pending = (self.next_times(st, params) < window_end).any().to(torch.int64)
                 go, vmax, sent = torch.stack(
                     [pending, valve.max(), st.outbox.count[0].to(torch.int64)]).tolist()
                 self.host_syncs += 1
@@ -639,7 +760,7 @@ class Engine:
                 steps += 1
         else:
             while steps < limit:
-                pending = (self.next_times(st) < window_end).any().to(torch.int64)
+                pending = (self.next_times(st, params) < window_end).any().to(torch.int64)
                 go, sent = torch.stack([pending, st.outbox.count[0].to(torch.int64)]).tolist()
                 self.host_syncs += 1
                 if not go:
@@ -658,6 +779,8 @@ class Engine:
                                          done, s.fl_bg_bytes, s.fl_bg_dropped)
             st = st._replace(fluid=fl, stats=s._replace(fl_bg_bytes=bgb, fl_bg_dropped=bgd))
         st_m = st
+        if self._iv is not None:
+            self._iv.pre_exchange(st_m)
         st_x = self.exchange(st_m, has_sends)
         occ = q_len(st_x.queue).to(torch.int64)
         ob_hwm = st_m.sent_round.max().to(torch.int64)
@@ -673,6 +796,10 @@ class Engine:
             # is the round's post-push peak
             stats = stats._replace(wheel_occ_hwm=torch.maximum(
                 stats.wheel_occ_hwm, q_len(st_x.wheel).to(torch.int64)))
+        if self._iv is not None:
+            # the sentinel's guards on the post-exchange state (the
+            # done-round is never judged)
+            stats = self._iv.post_exchange(st_x, stats, window_end, done, st.now)
         return st_x._replace(
             now=st.now if done else window_end, done=done, stats=stats
         )
@@ -680,11 +807,13 @@ class Engine:
     def microstep(self, st: SimState, params: EngineParams, window_end: int,
                   fluid_fx=None) -> SimState:
         """The one-event microstep: pop, execute, push, append. Under the
-        CPU model a host pops only while its busy horizon is inside the
-        window, and ingress (K10) moves the event to its execution time
-        max(t, busy) for every consumer downstream."""
+        CPU model (or queue-hold crash faults) a host pops only while its
+        execution floor is inside the window, and ingress (K10) moves the
+        event to its execution time for every consumer downstream; under
+        queue-clear faults K10 consumes an event whose host is down without
+        dispatching it."""
         wheel = st.wheel
-        limit = self._pop_limit(st, window_end)
+        limit = self._pop_limit(st, window_end, params)
         if wheel is None:
             queue, ev, active = q_pop_min(st.queue, limit)
         else:
@@ -750,7 +879,9 @@ class Engine:
         slab. Under the CPU model a host peeks only while its busy horizon
         is inside the window, and batch event j+1 also defers once the
         events before it pushed the horizon to the window's end (the
-        one-event microstep would stop popping there). Drop exactness: the
+        one-event microstep would stop popping there); under queue-hold
+        crash faults likewise once it enters a crash window whose restart
+        is past the window's end. Drop exactness: the
         pushes run after the clear, in one-event chronological order
         (requeue_0, pushes_0, requeue_1, ...), each holding a reserve of
         the batch events that executed after it."""
@@ -758,7 +889,7 @@ class Engine:
         k = cfg.effective_microstep_events
         h = cfg.num_hosts
         dev = self.device
-        popped = pop_k(st.queue, self._pop_limit(st, window_end), k)
+        popped = pop_k(st.queue, self._pop_limit(st, window_end, params), k)
         c = _ev_carry_of(st)
         deferred = torch.zeros((h,), dtype=torch.bool, device=dev)
         pm_t = torch.full((h,), TIME_MAX, dtype=torch.int64, device=dev)
@@ -770,6 +901,15 @@ class Engine:
                 deferred = deferred | _lex_less(pm_t, pm_o, ev.t, ev.order)
                 if cfg.cpu_delay_ns > 0:
                     deferred = deferred | (c.cpu_busy_until >= window_end)
+                if cfg.fault_hold:
+                    # a later batch event entering a crash window whose
+                    # restart is past the horizon: the one-event microstep
+                    # would stop popping this host (K23 at the event's
+                    # busy-floored time, the candidate execution time)
+                    t_cand = (torch.maximum(ev.t, c.cpu_busy_until) if cfg.cpu_delay_ns > 0
+                              else ev.t)
+                    down_j, resume_j = down_and_resume(params.faults, t_cand)
+                    deferred = deferred | (down_j & (resume_j >= window_end))
             cons_j = popped.active[:, j] & ~deferred
             c, push_list, ents, used_min = self.event_body(c, params, window_end, ev, cons_j,
                                                            fluid_fx)

@@ -26,9 +26,7 @@ Gear choices change which width runs, never what it computes.
 
 from __future__ import annotations
 
-import torch
-
-from shadow_tpu_torch.core.checkpoint import restore_snapshot, snapshot_state
+from shadow_tpu_torch.core.pressure import ResilienceController
 
 DOWN_LAG = 2  # chunks of low occupancy before shifting down
 
@@ -148,9 +146,9 @@ class GearController:
 
 
 def run_adaptive_chunk(ctl: GearController, engine, state, params, rounds0=None):
-    """One ACCEPTED chunk at the controller's gear, with shed-exact replay
-    (the gears-only reduction of the JAX package's
-    `core/pressure.py ResilienceController.run_chunk`).
+    """One ACCEPTED chunk at the controller's gear, with shed-exact replay:
+    the gears-only case of `core/pressure.py ResilienceController.run_chunk`
+    (the JAX package's `run_adaptive_chunk`).
 
     Below the top gear the pre-chunk state is snapshotted (a deep copy: the
     kernels write the state in place) and the chunk runs at the gear
@@ -166,22 +164,4 @@ def run_adaptive_chunk(ctl: GearController, engine, state, params, rounds0=None)
     no round, and `stats.outbox_hwm` is reset to 0 so the next chunk
     measures afresh (the caller folds the returned high-water into its
     run-wide maximum). Returns (state, accepted gear, chunk high-water)."""
-    gear = ctl.gear
-    snap = snapshot_state(state) if gear < ctl.top else None
-    while True:
-        shed0 = state.stats.gear_shed.clone()
-        out = engine.run_chunk_gear(state, params, gear)
-        s = out.stats
-        shed, hwm, rounds = torch.stack(
-            [(s.gear_shed - shed0).sum(), s.outbox_hwm.max(), s.rounds]).tolist()
-        engine.host_syncs += 1
-        if shed > 0:
-            gear = ctl.note_shed(int(hwm))
-            state = restore_snapshot(snap)
-            continue
-        break
-    hwm = int(hwm)
-    if rounds0 is None or rounds > rounds0:
-        ctl.note_chunk(gear, hwm)
-    out = out._replace(stats=s._replace(outbox_hwm=torch.zeros_like(s.outbox_hwm)))
-    return out, gear, hwm
+    return ResilienceController(gearctl=ctl).run_chunk(engine, state, params, rounds0)

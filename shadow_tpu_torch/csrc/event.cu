@@ -8,7 +8,13 @@
 //       events + digest fold, CoDel and the downlink token bucket, the
 //       bucket-delay requeue, dispatch, pkts_delivered; with the CPU model
 //       (B20, :2754-2785 and :2995-3016) first the execution-time rewrite
-//       max(t, busy_until) and the busy update
+//       max(t, busy_until) and the busy update; with queue-hold crash
+//       faults (B13, :2768-2790 and :2996-3016) the restart floor of the
+//       crash window containing that time, counted in faults_delayed; with
+//       queue-clear faults (:2792-2803, :3020-3026) an event whose
+//       execution time is down is consumed, not dispatched, and counted in
+//       faults_dropped; with the integrity sentinel's dual digest (B15,
+//       :1093-1101, :2293-2297) the second per-host fold
 //   K11 shadow_tpu/core/engine.py:2415-2640 _event_body, egress half (B5):
 //       the model's local pushes (order keys, monotonic violations), then
 //       every send port and burst segment: route lookup, send budget,
@@ -16,7 +22,10 @@
 //       arrival time, the packet counters; with the fluid plane on
 //       (:2459-2470, :2577-2603, :2633-2638) the background latency
 //       inflation and, when its loss is on, the counter-hash loss draw
-//       (shadow_tpu/net/fluid.py:302 fluid_send_uniform)
+//       (shadow_tpu/net/fluid.py:302 fluid_send_uniform); with link-fault
+//       windows (B14, :2445-2458, :2562-2613; core/faults.py:281
+//       window_effects) one more loss draw after the path-loss draw and the
+//       latency inflation, counted in faults_dropped and faults_delayed
 // with the device math of csrc/event_math.cuh (RNG, token bucket, CoDel,
 // FNV fold).
 //
@@ -48,6 +57,7 @@
 #include <cuda_runtime.h>
 
 #include "event_math.cuh"
+#include "faults.cuh"
 
 using namespace evm;
 
@@ -162,26 +172,56 @@ struct IngressArgs {
   // horizon, in place
   long long cpu_delay;
   long long* busy;
+  // crash faults (fault_mode 0 off, 1 queue hold, 2 queue clear): the
+  // [H, W] windows and the counters, in place
+  int fault_mode, W;
+  const long long* down_t;
+  const long long* up_t;
+  long long* faults_delayed;
+  long long* faults_dropped;
+  // the integrity sentinel's second digest (null when off), in place
+  unsigned long long* digest2;
 };
 
 __global__ void event_ingress_kernel(const IngressArgs a) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= a.H) return;
   const long long ei = (long long)h * a.es;
-  const bool act = a.active[h];
+  bool act = a.active[h];
   long long t = a.ev_t[ei];
-  if (a.busy != nullptr && act) {
-    // the execution time max(t, busy) replaces the event's time for every
-    // consumer downstream (digest, shaping, handler, egress)
-    t = imax(t, a.busy[h]);
+  if ((a.busy != nullptr || a.fault_mode == 1) && act) {
+    // the execution time max(t, busy) — and under queue hold the restart
+    // of a crash window containing it — replaces the event's time for
+    // every consumer downstream (digest, shaping, handler, egress)
+    if (a.busy != nullptr) t = imax(t, a.busy[h]);
+    if (a.fault_mode == 1) {
+      long long resume;
+      if (flt::down_resume(a.down_t + (long long)h * a.W, a.up_t + (long long)h * a.W, a.W, t,
+                           resume)) {
+        t = imax(t, resume);
+        a.faults_delayed[h] = wadd(a.faults_delayed[h], 1);
+      }
+    }
     a.ev_t[ei] = t;
-    a.busy[h] = wadd(t, a.cpu_delay);
+    if (a.busy != nullptr) a.busy[h] = wadd(t, a.cpu_delay);
+  }
+  if (a.fault_mode == 2 && act) {
+    // queue clear: an event executing inside a crash window is consumed
+    // (its host's CPU time charged) but not dispatched: no digest, no
+    // pushes, no sends
+    long long resume;
+    if (flt::down_resume(a.down_t + (long long)h * a.W, a.up_t + (long long)h * a.W, a.W, t,
+                         resume)) {
+      act = false;
+      a.faults_dropped[h] = wadd(a.faults_dropped[h], 1);
+    }
   }
   const long long order = a.ev_order[ei];
   const int kind = a.ev_kind[ei];
   if (act) {
     a.events[h] = wadd(a.events[h], 1);
     a.digest[h] = digest_fold(a.digest[h], t, kind, order);
+    if (a.digest2 != nullptr) a.digest2[h] = digest2_fold(a.digest2[h], t, kind, order);
   }
   const bool pkt = (kind & kKindPkt) != 0;
   bool dispatch = act;
@@ -290,6 +330,14 @@ struct EgressArgs {
   int* e_kind;
   int* e_payload;
   long long* used_min;  // [H]
+  // link-fault windows (n_win 0: none): [L] each, and the counters, in place
+  int n_win;
+  const long long* win_start;
+  const long long* win_end;
+  const float* win_loss;
+  const long long* win_lat;
+  long long* faults_dropped;
+  long long* faults_delayed;
 };
 
 __device__ __forceinline__ void route(const EgressArgs& a, int h, long long dst, long long& lat,
@@ -332,6 +380,14 @@ __global__ void event_egress_kernel(const EgressArgs a) {
   const long long bg_lat = fluid ? a.bg_lat[h] : kLatScale;
   // inflation honours bootstrap_end_time like the loss draws
   const bool bg_inflate = fluid && bg_lat > kLatScale && t >= a.bootstrap_end;
+  // the link-fault windows active at the event's time, shared by every
+  // port and segment below
+  float f_loss = 0.0f;
+  long long f_lat = kLatScale;
+  if (a.n_win > 0)
+    flt::window_effects(a.win_start, a.win_end, a.win_loss, a.win_lat, a.n_win, t, f_loss, f_lat);
+  const bool f_inflate = f_lat > kLatScale && t >= a.bootstrap_end;
+  long long n_fdrop = 0, n_fdelay = 0;
 
   // ---- the model's local pushes
   for (int p = 0; p < a.n_push; ++p) {
@@ -380,16 +436,27 @@ __global__ void event_egress_kernel(const EgressArgs a) {
       const bool unreachable = mask && (lat_bound0 < 0 || bad_dst);
       const float u = rng_uniform(s, mask);
       const bool lost = mask && u < lossp && t >= a.bootstrap_end;
-      // fluid congestion loss after the path draw (precedence: path loss >
-      // unreachable > fluid loss > budget), keyed on the pre-increment seq;
-      // then the inflation of the jittered latency
+      // fault loss draws after the path-loss draw (a fixed place in the
+      // host's stream), then the fault inflation of the jittered latency
+      bool flost = false;
+      if (a.n_win > 0) {
+        const float uf = rng_uniform(s, mask);
+        flost = mask && !lost && !unreachable && uf < f_loss && t >= a.bootstrap_end;
+        if (f_inflate) lat_j = floordiv(wmul(lat_j, f_lat), kLatScale);
+      }
+      // fluid congestion loss after the path and fault draws (precedence:
+      // path loss > unreachable > fault loss > fluid loss > budget), keyed
+      // on the pre-increment seq; then the inflation of the latency
       bool bglost = false;
       if (fluid && a.fluid_draw)
-        bglost = mask && !lost && !unreachable && t >= a.bootstrap_end &&
+        bglost = mask && !lost && !unreachable && !flost && t >= a.bootstrap_end &&
                  fluid_uniform(a.fluid_seed, h, seq) < bg_loss;
       if (bg_inflate) lat_j = floordiv(wmul(lat_j, bg_lat), kLatScale);
-      const bool send_ok = mask && !lost && !unreachable && !over && !bglost;
-      const bool budget_dropped = mask && !lost && !unreachable && over && !bglost;
+      const bool send_ok = mask && !lost && !unreachable && !over && !bglost && !flost;
+      const bool budget_dropped = mask && !lost && !unreachable && over && !bglost && !flost;
+      n_fdrop += flost;
+      // a fault-inflated send counts as delayed before the fluid draw
+      n_fdelay += mask && !lost && !unreachable && !over && !flost && f_inflate;
       const long long o = (long long)e * H + h;
       a.e_mask[o] = send_ok;
       a.e_col[o] = sent;
@@ -423,6 +490,10 @@ __global__ void event_egress_kernel(const EgressArgs a) {
   a.pkts_budget[h] = wadd(a.pkts_budget[h], n_budget);
   a.mono[h] = wadd(a.mono[h], n_mono);
   if (a.used_min != nullptr) a.used_min[h] = umin;  // null: the model has no send port
+  if (a.n_win > 0) {
+    a.faults_dropped[h] = wadd(a.faults_dropped[h], n_fdrop);
+    a.faults_delayed[h] = wadd(a.faults_delayed[h], n_fdelay);
+  }
 }
 
 }  // namespace
@@ -494,7 +565,18 @@ int event_ingress(const long long* args, void* stream) {
   a.rq_kind = r.p<int>();
   a.cpu_delay = r.v();
   a.busy = r.p<long long>();
-  if (a.P < 1 || a.interval <= 0) return (int)cudaErrorInvalidValue;
+  a.fault_mode = (int)r.v();
+  a.W = (int)r.v();
+  a.down_t = r.p<const long long>();
+  a.up_t = r.p<const long long>();
+  a.faults_delayed = r.p<long long>();
+  a.faults_dropped = r.p<long long>();
+  a.digest2 = r.p<unsigned long long>();
+  if (a.P < 1 || a.interval <= 0 || a.fault_mode < 0 || a.fault_mode > 2 ||
+      (a.fault_mode && (a.W < 1 || a.down_t == nullptr || a.up_t == nullptr)) ||
+      (a.fault_mode == 1 && a.faults_delayed == nullptr) ||
+      (a.fault_mode == 2 && a.faults_dropped == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (a.H > 0)
     event_ingress_kernel<<<blocks_for(a.H), kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
@@ -578,7 +660,18 @@ int event_egress(const long long* args, void* stream) {
   a.e_kind = r.p<int>();
   a.e_payload = r.p<int>();
   a.used_min = r.p<long long>();
-  if (a.P < 1 || a.P > kMaxPayload || a.interval <= 0 || a.route_mode < 0 || a.route_mode > 2)
+  a.n_win = (int)r.v();
+  a.win_start = r.p<const long long>();
+  a.win_end = r.p<const long long>();
+  a.win_loss = r.p<const float>();
+  a.win_lat = r.p<const long long>();
+  a.faults_dropped = r.p<long long>();
+  a.faults_delayed = r.p<long long>();
+  if (a.P < 1 || a.P > kMaxPayload || a.interval <= 0 || a.route_mode < 0 || a.route_mode > 2 ||
+      a.n_win < 0 || (a.n_win > 0 && (a.win_start == nullptr || a.win_end == nullptr ||
+                                      a.win_loss == nullptr || a.win_lat == nullptr ||
+                                      a.faults_dropped == nullptr ||
+                                      a.faults_delayed == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (a.H > 0)
     event_egress_kernel<<<blocks_for(a.H), kThreads, 0, (cudaStream_t)stream>>>(a);

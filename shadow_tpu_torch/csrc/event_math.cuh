@@ -7,6 +7,7 @@
 //   tb_remove                shadow_tpu/net/tokenbucket.py:53
 //   codel_on_packet          shadow_tpu/net/codel.py:48,54
 //   digest_fold              shadow_tpu/core/engine.py:1086
+//   digest2_fold             shadow_tpu/core/engine.py:1093 _digest_update2
 //   pack_order               shadow_tpu/ops/events.py pack_order
 //   splitmix64 /             shadow_tpu/ops/rng.py _splitmix64 and
 //   fluid_uniform            shadow_tpu/net/fluid.py:302 fluid_send_uniform
@@ -45,6 +46,11 @@ constexpr i64 kCodelInterval = 100000000LL;  // 100 ms
 constexpr u64 kMix1 = 0x9E3779B97F4A7C15ULL;
 constexpr u64 kMix2 = 0xC2B2AE3D27D4EB4FULL;
 constexpr u64 kFnvPrime = 1099511628211ULL;
+// the integrity sentinel's second fold (shadow_tpu/core/engine.py:1093
+// _digest_update2): no constant shared with the first
+constexpr u64 kMix3 = 0xD6E8FEB86659FD93ULL;
+constexpr u64 kMix4 = 0xA0761D6478BD642FULL;
+constexpr u64 kDigest2Prime = 0x5851F42D4C957F2DULL;
 
 // latency multipliers are parts per thousand (the fault and fluid planes)
 constexpr i64 kLatScale = 1000;
@@ -78,6 +84,13 @@ __device__ __forceinline__ u64 digest_fold(u64 digest, i64 t, int kind, i64 orde
   x ^= (u64)(i64)kind * kMix2;
   x ^= (u64)order;
   return (digest ^ x) * kFnvPrime;
+}
+
+__device__ __forceinline__ u64 digest2_fold(u64 digest2, i64 t, int kind, i64 order) {
+  u64 x = (u64)order * kMix3;
+  x ^= (u64)t * kMix4;
+  x ^= (u64)(i64)kind;
+  return (digest2 ^ x) * kDigest2Prime;
 }
 
 // ---- xoshiro256++ (state s[4] in registers; advanced only where mask) ----

@@ -6,7 +6,11 @@
 //   K1  shadow_tpu/ops/events.py:129 next_time      (row min; also bq_next_time
 //                                                    over the [H, C/B] block caches;
 //                                                    the floor lane: the CPU model's
-//                                                    busy horizon, core/engine.py:2255)
+//                                                    busy horizon, core/engine.py:2255;
+//                                                    the fault lane: the restart of a
+//                                                    crash window containing the floored
+//                                                    head, :2256-2259 with
+//                                                    core/faults.py:266 down_and_resume)
 //   K2  shadow_tpu/ops/events.py:138 pop_min        (lexicographic min, read, clear)
 //   K3  shadow_tpu/ops/events.py:342 push_many      (k-th firing push -> k-th free
 //                                                    slot, minus its reserve)
@@ -43,6 +47,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "faults.cuh"
+
 namespace {
 
 constexpr long long kTimeMax = 0x7fffffffffffffffLL;
@@ -78,7 +84,8 @@ __device__ __forceinline__ int host_of_warp() {
 // max(that, floor[h]) unless the row is empty (TIME_MAX stays)
 __global__ void next_time_kernel(const long long* __restrict__ t,
                                  const long long* __restrict__ floor, long long* __restrict__ out,
-                                 int H, int C) {
+                                 int H, int C, const long long* __restrict__ down_t,
+                                 const long long* __restrict__ up_t, int W) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int h = host_of_warp();
   if (h >= H) return;  // whole warp exits together
@@ -93,7 +100,17 @@ __global__ void next_time_kernel(const long long* __restrict__ t,
     m = o < m ? o : m;
   }
   if (floor != nullptr && m != kTimeMax && floor[h] > m) m = floor[h];
-  if (lane == 0) out[h] = m;
+  if (lane == 0) {
+    // the fault lane: a floored head inside one of the host's crash windows
+    // executes at that window's restart (TIME_MAX stays TIME_MAX)
+    if (down_t != nullptr && m != kTimeMax) {
+      long long resume;
+      const long long row = (long long)h * W;
+      flt::down_resume(down_t + row, up_t + row, W, m, resume);
+      m = resume > m ? resume : m;
+    }
+    out[h] = m;
+  }
 }
 
 // K2: per host, the lexicographic (t, order) minimum over all slots; active
@@ -440,9 +457,11 @@ inline bool bad_block(int C, int B) { return B <= 0 || C % B != 0 || C / B > kWa
 extern "C" {
 
 int queue_next_time(const long long* t, const long long* floor, long long* out, int H, int C,
-                    void* stream) {
+                    const long long* down_t, const long long* up_t, int W, void* stream) {
+  if (down_t != nullptr && (up_t == nullptr || W < 1)) return (int)cudaErrorInvalidValue;
   if (H > 0)
-    next_time_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(t, floor, out, H, C);
+    next_time_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(t, floor, out, H, C,
+                                                                           down_t, up_t, W);
   return (int)cudaGetLastError();
 }
 

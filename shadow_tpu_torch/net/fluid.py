@@ -64,16 +64,13 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from shadow_tpu_torch.core.faults import CTR_STRIDE_I64 as _CTR_STRIDE
+from shadow_tpu_torch.core.faults import HOST_STRIDE_I64 as _HOST_STRIDE
+from shadow_tpu_torch.core.faults import LAT_SCALE
 from shadow_tpu_torch.ops.cuda_build import ARG_BLOCK, CudaKernel, addr, arg_block, check, on_cpu
 from shadow_tpu_torch.ops.rng import _splitmix64, lshr, u64
 from shadow_tpu_torch.simtime import TIME_MAX
 
-# latency multipliers are parts-per-thousand integers (the JAX package's
-# core/faults.py LAT_SCALE; kept here until the fault plane is ported)
-LAT_SCALE = 1000
-# the counter-draw strides of the JAX package's core/faults.py
-_HOST_STRIDE = u64(0xD1342543DE82EF95)
-_CTR_STRIDE = u64(0xA0761D6478BD642F)
 # class counts whose sums this port holds to XLA-CPU's order
 MAX_CLASSES = 64
 _VECTORIZED_K = range(28, 33)

@@ -5,8 +5,12 @@ One executed event per host runs in three steps:
 
   1. ingress (`event_ingress`, K10): under the CPU model (`cpu_delay_ns` >
      0) the event moves to its execution time max(t, busy_until) and the
-     host's busy horizon to that plus the delay; events and the digest
-     fold; for a packet that has not passed shaping, CoDel at the router
+     host's busy horizon to that plus the delay, and under queue-hold
+     crash faults to the restart of a crash window containing it (counted
+     in `faults_delayed`); under queue-clear faults an event executing in
+     a crash window is consumed, not dispatched (`faults_dropped`); events
+     and the digest fold (with the integrity sentinel's dual digest, a
+     second fold); for a packet that has not passed shaping, CoDel at the router
      queue and the downlink token bucket — a CoDel drop is counted, a
      bucket delay requeues the packet past shaping; what remains is
      dispatched;
@@ -18,7 +22,9 @@ One executed event per host runs in three steps:
      plane on (net/fluid.py) the round's per-host `fluid_fx` = (extra loss,
      latency x1000) adds a counter-hash loss draw (when `fluid_loss_max` >
      0) and inflates the jittered latency; the lookahead keeps the
-     pre-inflation bound.
+     pre-inflation bound. With link-fault windows (core/faults.py) one
+     more loss draw follows the path-loss draw and the latency is
+     inflated by the windows' multiplier first.
 
 `outbox_append_multi` (K9) then writes the stack into the [H, B] outbox.
 
@@ -52,6 +58,10 @@ from shadow_tpu_torch.simtime import TIME_MAX
 _FNV_PRIME = u64(1099511628211)
 _MIX1 = u64(0x9E3779B97F4A7C15)
 _MIX2 = u64(0xC2B2AE3D27D4EB4F)
+# the integrity sentinel's second fold (core/integrity.py DIGEST2_PRIME)
+_MIX3 = u64(0xD6E8FEB86659FD93)
+_MIX4 = u64(0xA0761D6478BD642F)
+_DIGEST2_PRIME = u64(0x5851F42D4C957F2D)
 MAX_PUSH_PORTS = 8  # model push ports per event (K11 limit)
 MAX_SEND_PORTS = 8  # model send ports per event (K11 limit)
 
@@ -168,19 +178,51 @@ def outbox_append_multi(ob, stacks, ob_dropped: torch.Tensor):
 _ingress_k = CudaKernel("event", "event_ingress", ARG_BLOCK)
 
 
+def digest2_update(digest2, active, t, kind, order):
+    """The integrity sentinel's second fold: the same inputs, no constant
+    shared with `digest_update`, and the order (not the time) carries the
+    first multiplier."""
+    x = order * _MIX3
+    x = x ^ (t * _MIX4)
+    x = x ^ kind.to(torch.int64)
+    return torch.where(active, (digest2 ^ x) * _DIGEST2_PRIME, digest2)
+
+
 def event_ingress_plain(c, params, cfg, ev, active):
-    """The CPU model's execution time, digest, ingress shaping and dispatch
-    for one event per active host. Returns (carry', Ingress)."""
-    if cfg.cpu_delay_ns > 0:
-        busy = c.cpu_busy_until
-        exec_t = torch.maximum(ev.t, busy)
-        ev = ev._replace(t=torch.where(active, exec_t, ev.t))
-        c = c._replace(cpu_busy_until=torch.where(active, exec_t + cfg.cpu_delay_ns, busy))
+    """The execution time (the CPU model's busy horizon; under queue-hold
+    crash faults the restart of the window containing it), the queue-clear
+    fault drop, the digests, ingress shaping and dispatch for one event per
+    active host. Returns (carry', Ingress)."""
+    from shadow_tpu_torch.core.faults import down_and_resume_plain
+
     stats = c.stats
+    if cfg.cpu_delay_ns > 0 or cfg.fault_hold:
+        exec_t = ev.t
+        if cfg.cpu_delay_ns > 0:
+            exec_t = torch.maximum(exec_t, c.cpu_busy_until)
+        if cfg.fault_hold:
+            # the down check reads the busy-floored time (the candidate
+            # execution time); an event executing at a restart is delayed
+            down, resume = down_and_resume_plain(params.faults, exec_t)
+            exec_t = torch.maximum(exec_t, resume)
+            stats = stats._replace(faults_delayed=stats.faults_delayed + (active & down))
+        ev = ev._replace(t=torch.where(active, exec_t, ev.t))
+        if cfg.cpu_delay_ns > 0:
+            c = c._replace(cpu_busy_until=torch.where(active, exec_t + cfg.cpu_delay_ns,
+                                                      c.cpu_busy_until))
+    if cfg.fault_clear:
+        # consumed but never dispatched: no digest, no pushes, no sends
+        down, _ = down_and_resume_plain(params.faults, ev.t)
+        fdrop = active & down
+        active = active & ~fdrop
+        stats = stats._replace(faults_dropped=stats.faults_dropped + fdrop)
     stats = stats._replace(
         events=stats.events + active,
         digest=digest_update(stats.digest, active, ev.t, ev.kind, ev.order),
     )
+    if cfg.integrity_dual:
+        stats = stats._replace(
+            digest2=digest2_update(stats.digest2, active, ev.t, ev.kind, ev.order))
     is_pkt = (ev.kind & KIND_PKT) != 0
     codel, tb_in, requeue, dispatch = c.codel, c.tb_ingress, None, active
     if cfg.shaping:
@@ -234,7 +276,9 @@ def event_ingress(c, params, cfg, ev, active):
     """`event_ingress_plain` as one kernel (K10) on CUDA, updating the
     carry's events, digest, CoDel, downlink bucket, codel-dropped and
     delivered lanes in place; under the CPU model also the busy horizon,
-    and the event's time lane (its execution time)."""
+    under the CPU model or queue-hold faults the event's time lane (its
+    execution time), and the fault counters and the second digest where
+    their planes are on."""
     if on_cpu(ev.t):
         return event_ingress_plain(c, params, cfg, ev, active)
     h = active.shape[0]
@@ -258,6 +302,17 @@ def event_ingress(c, params, cfg, ev, active):
     busy = c.cpu_busy_until if cfg.cpu_delay_ns > 0 else None
     if busy is not None:
         check(busy, torch.int64, (h,), "cpu_busy_until")
+    fault_mode = 1 if cfg.fault_hold else 2 if cfg.fault_clear else 0
+    crash = (params.faults.down_t, params.faults.up_t) if fault_mode else (None, None)
+    nw = crash[0].shape[1] if fault_mode else 0
+    if fault_mode:
+        for x, name in zip(crash, ("fault down_t", "fault up_t")):
+            check(x, torch.int64, (h, nw), name)
+        check(s.faults_delayed if fault_mode == 1 else s.faults_dropped, torch.int64, (h,),
+              "faults_delayed" if fault_mode == 1 else "faults_dropped")
+    d2 = s.digest2 if cfg.integrity_dual else None
+    if d2 is not None:
+        check(d2, torch.int64, (h,), "digest2")
     ing = Ingress(
         dispatch=torch.empty((h,), dtype=torch.bool, device=dev),
         is_pkt=torch.empty((h,), dtype=torch.bool, device=dev),
@@ -282,6 +337,9 @@ def event_ingress(c, params, cfg, ev, active):
         addr(ing.dispatch), addr(ing.is_pkt), addr(ing.kind), addr(ing.src),
         addr(rq and rq.mask), addr(rq and rq.t), addr(rq and rq.kind),
         int(cfg.cpu_delay_ns), addr(busy),
+        fault_mode, nw, addr(crash[0]), addr(crash[1]),
+        addr(s.faults_delayed if fault_mode == 1 else None),
+        addr(s.faults_dropped if fault_mode == 2 else None), addr(d2),
     ]))
     return c, ing
 
@@ -324,7 +382,8 @@ def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out, flu
     send port; `used_min[h]` is the least pre-jitter latency among the
     host's sends that landed (TIME_MAX where none), None without send
     ports."""
-    from shadow_tpu_torch.net.fluid import LAT_SCALE, fluid_send_uniform
+    from shadow_tpu_torch.core.faults import LAT_SCALE, window_effects_plain
+    from shadow_tpu_torch.net.fluid import fluid_send_uniform
 
     h = dispatch.shape[0]
     host_gid = torch.arange(h, dtype=torch.int64, device=dispatch.device)
@@ -345,6 +404,11 @@ def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out, flu
         bg_loss, bg_lat = fluid_fx
         # inflation honours bootstrap_end_time like the loss draws
         bg_inflate = (bg_lat > LAT_SCALE) & (ev_t >= cfg.bootstrap_end_time)
+    if cfg.fault_loss_windows:
+        # the link-fault windows active at the event's time, shared by
+        # every port and segment below
+        f_loss, f_lat = window_effects_plain(params.faults, ev_t)
+        f_inflate = (f_lat > LAT_SCALE) & (ev_t >= cfg.bootstrap_end_time)
 
     # sends: each port may carry a burst of up to count_max segments to one
     # destination, sharing the route lookup; each segment has its own
@@ -383,14 +447,35 @@ def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out, flu
             lost = mask & (u < lossp) & (ev_t >= cfg.bootstrap_end_time)
             send_ok = mask & ~lost & ~unreachable & ~over_budget
             budget_dropped = mask & ~lost & ~unreachable & over_budget
+            flost = None
+            if cfg.fault_loss_windows:
+                # fault loss draws after the path-loss draw (a fixed place
+                # in the host's stream); then the fault inflation. A
+                # fault-inflated send counts as delayed before the fluid
+                # draw
+                rng, uf = rng_uniform(rng, mask)
+                flost = (mask & ~lost & ~unreachable & (uf < f_loss)
+                         & (ev_t >= cfg.bootstrap_end_time))
+                lat_j = torch.where(
+                    f_inflate, torch.div(lat_j * f_lat, LAT_SCALE, rounding_mode="floor"),
+                    lat_j)
+                send_ok = send_ok & ~flost
+                budget_dropped = budget_dropped & ~flost
+                stats = stats._replace(
+                    faults_dropped=stats.faults_dropped + flost,
+                    faults_delayed=stats.faults_delayed + (send_ok & f_inflate),
+                )
             if fluid_fx is not None:
                 if cfg.fluid_loss_max > 0.0:
-                    # fluid loss after the path draw (precedence: path loss >
-                    # unreachable > fluid loss > budget), keyed on the
-                    # pre-increment seq; it never advances the RNG lanes
+                    # fluid loss after the path and fault draws (precedence:
+                    # path loss > unreachable > fault loss > fluid loss >
+                    # budget), keyed on the pre-increment seq; it never
+                    # advances the RNG lanes
                     ub = fluid_send_uniform(cfg.fluid_seed, host_gid, seq)
                     bglost = (mask & ~lost & ~unreachable & (ub < bg_loss)
                               & (ev_t >= cfg.bootstrap_end_time))
+                    if flost is not None:
+                        bglost = bglost & ~flost
                     send_ok = send_ok & ~bglost
                     budget_dropped = budget_dropped & ~bglost
                     lost = lost | bglost
@@ -466,8 +551,9 @@ def _rows(x: torch.Tensor, h: int, p: int, keep: list) -> tuple[int, int]:
 def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=None):
     """`event_egress_plain` as one kernel (K11) on CUDA, updating the
     carry's seq, send cursor, RNG, uplink bucket and packet-counter lanes in
-    place; the pushes' mask/t/order/kind, the entry stack and `used_min`
-    are the kernel's outputs."""
+    place (with link-fault windows also the fault counters); the pushes'
+    mask/t/order/kind, the entry stack and `used_min` are the kernel's
+    outputs."""
     if on_cpu(ev_t):
         return event_egress_plain(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx)
     h = dispatch.shape[0]
@@ -498,6 +584,16 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=
     ):
         check(x, dt, (h,), name)
     check(c.rng.s, torch.int64, (h, 4), "rng")
+    nl = cfg.fault_loss_windows
+    fp = params.faults if nl else None
+    if nl:
+        for x, dt, name in ((fp.win_start, torch.int64, "win_start"),
+                            (fp.win_end, torch.int64, "win_end"),
+                            (fp.win_loss, torch.float32, "win_loss"),
+                            (fp.win_lat, torch.int64, "win_lat")):
+            check(x, dt, (nl,), f"fault {name}")
+        check(s.faults_dropped, torch.int64, (h,), "faults_dropped")
+        check(s.faults_delayed, torch.int64, (h,), "faults_delayed")
     bg_loss = bg_lat = None
     if fluid_fx is not None:
         bg_loss, bg_lat = fluid_fx
@@ -539,6 +635,8 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=
         int(bg_lat is not None and cfg.fluid_loss_max > 0.0),
         n_push, *push_args, *(addr(x) for x in op),
         n_send, *send_args, *(addr(x) for x in (entries or [None] * 7)), addr(used_min),
+        nl, *(addr(getattr(fp, f, None)) for f in ("win_start", "win_end", "win_loss", "win_lat")),
+        addr(s.faults_dropped if nl else None), addr(s.faults_delayed if nl else None),
     ]))
     del keep
     pushes = [Push(op[0][i], op[1][i], op[2][i], op[3][i], p.payload.to(torch.int32))

@@ -16,7 +16,8 @@ This module holds the queue's hand-written CUDA kernels (csrc/queue.cu):
 
   K1 `queue_next_time`   per-host row minimum (the time plane, or the
                          bucketed queue's block-minimum plane), floored
-                         by the CPU model's busy horizon where given
+                         by the CPU model's busy horizon and moved past a
+                         queue-hold crash window where given
   K2 `queue_pop_min`     per-host (time, order) minimum below a limit, read
                          out and cleared in place
   K3 `queue_push_many`   the k-th firing push lands in the k-th free slot,
@@ -193,41 +194,60 @@ def _check_caches(q: BucketQueue) -> int:
 
 _next_time_k = CudaKernel(
     "queue", "queue_next_time",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int],
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int],
 )
 
 
-def next_time_plain(t: torch.Tensor, floor: torch.Tensor | None = None) -> torch.Tensor:
+def next_time_plain(t: torch.Tensor, floor: torch.Tensor | None = None,
+                    crash=None) -> torch.Tensor:
     m = t.min(dim=1).values
-    if floor is None:
-        return m
-    return torch.where(m == TIME_MAX, m, torch.maximum(m, floor))
+    if floor is not None:
+        m = torch.where(m == TIME_MAX, m, torch.maximum(m, floor))
+    if crash is not None:
+        from shadow_tpu_torch.core.faults import FaultParams, down_and_resume_plain
+
+        _, resume = down_and_resume_plain(FaultParams(*crash, None, None, None, None), m)
+        m = torch.where(m == TIME_MAX, m, torch.maximum(m, resume))
+    return m
 
 
-def row_min(t: torch.Tensor, floor: torch.Tensor | None = None) -> torch.Tensor:
+def row_min(t: torch.Tensor, floor: torch.Tensor | None = None, crash=None) -> torch.Tensor:
     """Per-row minimum of an i64[H, W] plane (K1 on CUDA); with an i64[H]
     `floor` (the CPU model's busy horizon), max(minimum, floor) wherever
-    the row is not empty (TIME_MAX stays TIME_MAX)."""
+    the row is not empty (TIME_MAX stays TIME_MAX); with `crash` = (down_t,
+    up_t), the fault plane's i64[H, W'] crash windows under queue hold,
+    that floored head moved on to the restart of the window containing it."""
     if on_cpu(t):
-        return next_time_plain(t, floor)
+        return next_time_plain(t, floor, crash)
     h, w = t.shape
     check(t, torch.int64, (h, w), "t")
     if floor is not None:
         check(floor, torch.int64, (h,), "floor")
+    nw = 0
+    if crash is not None:
+        nw = crash[0].shape[1]
+        check(crash[0], torch.int64, (h, nw), "fault down_t")
+        check(crash[1], torch.int64, (h, nw), "fault up_t")
     out = torch.empty((h,), dtype=torch.int64, device=t.device)
-    _next_time_k(ptr(t), ctypes.c_void_p(None) if floor is None else ptr(floor), ptr(out), h, w)
+    none = ctypes.c_void_p(None)
+    _next_time_k(ptr(t), none if floor is None else ptr(floor), ptr(out), h, w,
+                 none if crash is None else ptr(crash[0]),
+                 none if crash is None else ptr(crash[1]), nw)
     return out
 
 
-def next_time(q: EventQueue, floor: torch.Tensor | None = None) -> torch.Tensor:
+def next_time(q: EventQueue, floor: torch.Tensor | None = None, crash=None) -> torch.Tensor:
     """Per-host earliest pending event time (i64[H], TIME_MAX = empty),
-    floored by `floor` where given."""
-    return row_min(q.t, floor)
+    floored by `floor` and moved past a crash window by `crash` where
+    given (`row_min`)."""
+    return row_min(q.t, floor, crash)
 
 
-def bq_next_time(q: BucketQueue, floor: torch.Tensor | None = None) -> torch.Tensor:
+def bq_next_time(q: BucketQueue, floor: torch.Tensor | None = None,
+                 crash=None) -> torch.Tensor:
     """The same from the [H, C/B] block caches alone (no slab read)."""
-    return row_min(q.bt, floor)
+    return row_min(q.bt, floor, crash)
 
 
 # --------------------------------------------------------------------------
@@ -632,8 +652,9 @@ def make_bucket_queue(num_hosts: int, capacity: int, block: int, device) -> Buck
 # ---- queue-kind dispatchers ------------------------------------------------
 
 
-def q_next_time(q, floor: torch.Tensor | None = None) -> torch.Tensor:
-    return bq_next_time(q, floor) if isinstance(q, BucketQueue) else next_time(q, floor)
+def q_next_time(q, floor: torch.Tensor | None = None, crash=None) -> torch.Tensor:
+    return (bq_next_time(q, floor, crash) if isinstance(q, BucketQueue)
+            else next_time(q, floor, crash))
 
 
 def q_pop_min(q, limit):

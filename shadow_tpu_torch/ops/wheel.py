@@ -62,11 +62,12 @@ def make_wheel(num_hosts: int, slots: int, block: int = 0, device="cpu") -> Time
     return make_bucket_queue(num_hosts, slots, resolve_wheel_block(slots, block), device)
 
 
-def wheel_next_time(w: TimerWheel, floor: torch.Tensor | None = None) -> torch.Tensor:
+def wheel_next_time(w: TimerWheel, floor: torch.Tensor | None = None,
+                    crash=None) -> torch.Tensor:
     """Per-host earliest pending timer (i64[H], TIME_MAX = none), from the
-    block caches alone; floored by the CPU model's busy horizon where
-    given."""
-    return bq_next_time(w, floor)
+    block caches alone; floored by the CPU model's busy horizon and moved
+    past a queue-hold crash window where given."""
+    return bq_next_time(w, floor, crash)
 
 
 def wheel_len(w: TimerWheel) -> torch.Tensor:

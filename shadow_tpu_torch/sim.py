@@ -9,15 +9,31 @@ report's keys for every counter this slice has (including
 `host_syncs` and `kernel_launches` (per kernel, this run).
 
 With `experimental.merge_gears` the run loop dispatches every chunk at the
-gear the controller picked (core/gears.py `run_adaptive_chunk`: snapshot,
-run, and on a shed restore and replay wider), and the heartbeat carries
-`gear=<g>`. Snapshots are taken only below the top gear; a gear-free run
-dispatches `Engine.run_chunk` as before.
+gear the controller picked (core/pressure.py `ResilienceController`:
+snapshot, run, and on a shed restore and replay wider), and the heartbeat
+carries `gear=<g>`. Snapshots are taken only below the top gear; a
+gear-free run without the sentinel dispatches `Engine.run_chunk` as
+before.
 
 A `fluid:` block compiles onto the graph's nodes (net/fluid.py
 `compile_fluid`, zones resolved through `NetworkGraph.node_index`, the loss
 draw's seed defaulting to `general.seed`); the report gains the JAX
 package's `fluid{}` block and the heartbeat `bg=<bytes>/<dropped>`.
+
+A `faults:` block compiles into crash and link-fault windows
+(core/faults.py `compile_faults`, hosts named or by id, the seed defaulting
+to `general.seed`); the heartbeat gains `faults=<dropped>/<delayed>`. With
+`faults.supervisor.snapshot_every_chunks` > 0 every chunk runs under the
+supervisor (core/supervisor.py: periodic snapshots, retry from the last
+one on a dispatch failure, a graceful abort that reports the last good
+state) and the report gains `supervisor{}`. With `integrity.enabled` the
+chunks run through the replay controller (core/pressure.py) that also
+carries the merge gears, the report gains `integrity{}` (with
+`determinism_digest2`) and the heartbeat `iv=<transients>/<replays>`; a
+deterministic violation ends the run with the last good state reported and
+`integrity_aborted` set. The report always carries `faults_dropped`,
+`faults_delayed` and `alltoall_shed_dropped` (0 on one device), as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -36,7 +52,13 @@ import yaml
 from shadow_tpu_torch import resolve_device
 from shadow_tpu_torch.config.options import ConfigError, ConfigOptions
 from shadow_tpu_torch.core.engine import Engine, EngineConfig, EngineParams
-from shadow_tpu_torch.core.gears import GearController, resolve_gear_ladder, run_adaptive_chunk
+from shadow_tpu_torch.core.faults import INACTIVE_FAULTS, compile_faults
+from shadow_tpu_torch.core.faults import KERNELS as FAULT_KERNELS
+from shadow_tpu_torch.core.gears import GearController, resolve_gear_ladder
+from shadow_tpu_torch.core.integrity import KERNELS as INTEGRITY_KERNELS
+from shadow_tpu_torch.core.integrity import IntegrityAbort
+from shadow_tpu_torch.core.pressure import ResilienceController
+from shadow_tpu_torch.core.supervisor import ChunkSupervisor, SupervisorAbort
 from shadow_tpu_torch.models import KERNELS as MODEL_KERNELS
 from shadow_tpu_torch.models import get_model
 from shadow_tpu_torch.net import TBParams
@@ -50,7 +72,8 @@ MTU_BITS = 1500 * 8
 UNLIMITED_BW = 1 << 40  # token-bucket params for "no bandwidth configured"
 SUPPORTED_MODELS = ("phold", "udp_echo", "timer", "tgen_tcp", "gossip", "circuit")
 # every hand-written kernel's launch wrapper, by kernel name
-KERNELS = {**OPS_KERNELS, **FLUID_KERNELS, **MODEL_KERNELS}
+KERNELS = {**OPS_KERNELS, **FLUID_KERNELS, **MODEL_KERNELS, **FAULT_KERNELS,
+           **INTEGRITY_KERNELS}
 
 
 @dataclasses.dataclass
@@ -128,13 +151,18 @@ def tb_params(bws: np.ndarray, interval_ns: int, device) -> TBParams:
 
 def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
                    rounds: int, q_hwm: int, host_syncs: int, gear: int | None = None,
-                   bg: tuple[int, int] | None = None) -> str:
+                   bg: tuple[int, int] | None = None, fault: tuple[int, int] | None = None,
+                   iv: tuple[int, int] | None = None) -> str:
     """The `[heartbeat]` progress line, in the JAX package's format (ici_bytes
-    is 0 on one device; `gear=` only on merge-gear runs, where the JAX
-    package puts it after `faults=` and before `cap=`; `bg=<bytes>/<dropped>`
-    only on fluid runs, after `gear=`) plus the port's host-sync count."""
+    is 0 on one device; `faults=<dropped>/<delayed>` only on fault-plane
+    runs, after `q_hwm=`; `gear=` only on merge-gear runs, after `faults=`;
+    `bg=<bytes>/<dropped>` only on fluid runs, after `gear=`;
+    `iv=<transients>/<replays>` only on integrity-sentinel runs, after
+    `bg=`) plus the port's host-sync count."""
+    fault_f = f"faults={fault[0]}/{fault[1]} " if fault is not None else ""
     gear_f = f"gear={gear} " if gear is not None else ""
     bg_f = f"bg={bg[0]}/{bg[1]} " if bg is not None else ""
+    iv_f = f"iv={iv[0]}/{iv[1]} " if iv is not None else ""
     return (
         f"[heartbeat] sim_time={now_ns / NS_PER_SEC:.3f}s "
         f"wall={wall:.2f}s events={events} "
@@ -142,8 +170,10 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
         f"msteps/round={microsteps / max(rounds, 1):.1f} "
         f"ev/mstep={events / max(microsteps, 1):.2f} "
         f"ici_bytes=0 q_hwm={q_hwm} "
+        f"{fault_f}"
         f"{gear_f}"
         f"{bg_f}"
+        f"{iv_f}"
         f"syncs={host_syncs} "
         f"ratio={now_ns / NS_PER_SEC / max(wall, 1e-9):.2f}x"
     )
@@ -185,6 +215,21 @@ class Simulation:
         except (ValueError, KeyError) as e:
             raise ConfigError(f"fluid: {e}") from e
         fl = self._fluid_sched
+        # fault plane: the seeded schedule as device arrays plus the
+        # static dims the round specializes on
+        try:
+            self._fault_sched = (
+                compile_faults(cfg.faults, num_hosts=num_hosts,
+                               stop_time=cfg.general.stop_time,
+                               bootstrap_end=cfg.general.bootstrap_end_time,
+                               default_seed=cfg.general.seed,
+                               name_to_id={h.name: h.host_id for h in self.hosts},
+                               device=self.device)
+                if cfg.faults.injecting else INACTIVE_FAULTS
+            )
+        except ValueError as e:
+            raise ConfigError(f"faults: {e}") from e
+        fs = self._fault_sched
         qcap, send_budget, rpc = ex.resolve_shapes(num_hosts)
         ex.check_queue_block(qcap)
         # the timer wheel: a model with no timer kinds fails here, at
@@ -225,6 +270,11 @@ class Simulation:
             fluid_loss_max=fl.loss_max,
             fluid_lat_max_x1000=fl.lat_max_x1000,
             fluid_seed=fl.seed,
+            fault_crash_windows=fs.crash_windows,
+            fault_loss_windows=fs.loss_windows,
+            fault_queue_clear=fs.queue_clear,
+            integrity=cfg.integrity.enabled,
+            integrity_dual=cfg.integrity.enabled and cfg.integrity.dual_digest,
         )
         # merge gears: the ladder resolved against the (auto-sized) send
         # budget; [] = off (a budget of 1 leaves no narrower width)
@@ -233,7 +283,16 @@ class Simulation:
         except ValueError as e:
             raise ConfigError(f"experimental.merge_gears: {e}") from e
         self._gearctl: GearController | None = None  # one per run()
+        self._resil: ResilienceController | None = None  # gears or the sentinel
+        self._supervisor: ChunkSupervisor | None = None
+        self._aborted = self._integrity_aborted = False
         self._ob_hwm_run = 0  # run-wide outbox high-water of a geared run
+        # test seams: a hook (state, attempt) -> state applied before each
+        # dispatch attempt of a sentinel run (core/pressure.py
+        # test_scribble), and the supervised dispatch calls (1-based) that
+        # raise before dispatching
+        self._integrity_test_scribble = None
+        self._test_fail_dispatch: frozenset[int] = frozenset()
         self.engine = Engine(self.engine_cfg, self.model, self.device)
         self._build_state()
 
@@ -270,6 +329,7 @@ class Simulation:
             in_tb=tb_params(bw_down, ecfg.tb_interval_ns, dev),
             model=mparams,
             fluid=self._fluid_sched.params,
+            faults=self._fault_sched.params,
         )
         self.state, self.params = self.engine.init_state(
             params, mstate, events, seed=self.cfg.general.seed
@@ -300,29 +360,84 @@ class Simulation:
             gearctl.gear = start_gear
         self._gearctl = gearctl
         self._ob_hwm_run = 0
+        self._aborted = self._integrity_aborted = False
+        integrity_on = cfg.integrity.enabled
+        # the snapshot-replay seam: merge gears (a shed replays wider) and
+        # the integrity sentinel (a violation replays to classify it)
+        resil = None
+        if gearctl is not None or integrity_on:
+            resil = ResilienceController(
+                gearctl=gearctl, integrity=cfg.integrity if integrity_on else None, log=log)
+            resil.test_scribble = self._integrity_test_scribble
+        self._resil = resil
+        sup = None
+        if cfg.faults.supervisor.enabled:
+            so = cfg.faults.supervisor
+            sup = ChunkSupervisor(snapshot_every_chunks=so.snapshot_every_chunks,
+                                  max_retries=so.max_retries,
+                                  backoff_base_s=so.backoff_base_ms / 1000.0, log=log)
+            sup.note_state(self.state)
+        self._supervisor = sup
         gear = None
-        while not self.state.done:
-            if gearctl is not None:
-                self.state, gear, hwm = run_adaptive_chunk(
-                    gearctl, self.engine, self.state, self.params)
+        calls = 0
+
+        def chunk_step(st):
+            nonlocal gear, calls
+            calls += 1
+            if calls in self._test_fail_dispatch:
+                raise RuntimeError(f"injected dispatch failure (call {calls})")
+            if resil is not None:
+                st, g, hwm = resil.run_chunk(self.engine, st, self.params)
+                gear = g if gearctl is not None else None
                 self._ob_hwm_run = max(self._ob_hwm_run, hwm)
-            else:
-                self.state = self.engine.run_chunk(self.state, self.params)
+                return st
+            return self.engine.run_chunk(st, self.params)
+
+        while not self.state.done:
+            try:
+                if sup is not None:
+                    self.state = sup.run_chunk(self.state, chunk_step)
+                else:
+                    self.state = chunk_step(self.state)
+            except IntegrityAbort as e:
+                # the violating attempts are discarded: report the last
+                # good pre-chunk state, naming the invariant
+                print(f"[integrity] aborting run: {e}", file=log)
+                good = resil.abort_export_state()
+                if good is not None:
+                    self.state = good
+                self._integrity_aborted = True
+                break
+            except SupervisorAbort as e:
+                print(f"[supervisor] aborting run: {e}", file=log)
+                good = sup.abort_export_state()
+                if good is not None:
+                    self.state = good
+                self._aborted = True
+                break
             chunks += 1
             now_ns = self.state.now
             if hb_ns and now_ns >= next_hb:
                 s = self.state.stats
                 lanes = [s.events.sum(), s.microsteps.sum(), s.rounds, s.q_occ_hwm.max()]
+                if s.faults_dropped is not None:
+                    lanes += [s.faults_dropped.sum(), s.faults_delayed.sum()]
                 if s.fl_bg_bytes is not None:
                     lanes += [s.fl_bg_bytes, s.fl_bg_dropped]
                 # one device-to-host read for the counters
                 vals = torch.stack(lanes).tolist()
                 self.engine.host_syncs += 1
+                fault = bg = None
+                if s.faults_dropped is not None:
+                    fault, vals = tuple(vals[4:6]), vals[:4] + vals[6:]
+                if s.fl_bg_bytes is not None:
+                    bg = tuple(vals[4:6])
+                iv = ((resil.iv_transients, resil.iv_replays) if integrity_on else None)
                 print(
                     heartbeat_line(
                         now_ns, time.monotonic() - t0, *vals[:4],
-                        self.engine.host_syncs - syncs0, gear,
-                        tuple(vals[4:]) if len(vals) > 4 else None,
+                        self.engine.host_syncs - syncs0 + (sup.syncs if sup else 0), gear,
+                        bg, fault, iv,
                     ),
                     file=log,
                 )
@@ -336,7 +451,7 @@ class Simulation:
         if show_progress:
             print(file=log)
         self._chunks = chunks
-        self._host_syncs = self.engine.host_syncs - syncs0
+        self._host_syncs = self.engine.host_syncs - syncs0 + (sup.syncs if sup else 0)
         self._launches = {k: v.launches - launches0[k] for k, v in KERNELS.items()}
         return self.stats_report()
 
@@ -360,9 +475,30 @@ class Simulation:
             }
         if self._gearctl is not None:
             report["gears"] = self._gearctl.report()
+        if self.engine_cfg.integrity:
+            # the sentinel's transient/replay accounting, the second digest
+            # fold and, after an IntegrityAbort, the violation's naming
+            block = (self._resil.integrity_report() if self._resil is not None
+                     else {"transients": 0, "replays": 0,
+                           "max_replays": self.cfg.integrity.max_replays})
+            if self.engine_cfg.integrity_dual:
+                d2 = self.state.stats.digest2.cpu().numpy().view(np.uint64)
+                block["determinism_digest2"] = f"{int(np.bitwise_xor.reduce(d2)):016x}"
+            report["integrity"] = block
+            if self._integrity_aborted:
+                report["integrity_aborted"] = True
+                report["aborted"] = True
         if self.engine_cfg.fluid_active:
             report["fluid"] = assemble_fluid_report(
                 stats=self.state.stats, fluid_state=self.state.fluid, cfg=self.engine_cfg)
+        if self._supervisor is not None:
+            report["supervisor"] = self._supervisor.report()
+        if self._aborted:
+            # bounded retries exhausted: the report describes the last good
+            # snapshot, unless it failed its cross-check
+            report["aborted"] = True
+            if self._supervisor is not None and self._supervisor.poisoned:
+                report["poisoned"] = True
         return report
 
     def _base_report(self) -> dict:
@@ -385,7 +521,11 @@ class Simulation:
             "packets_codel_dropped": int(s["pkts_codel_dropped"].sum()),
             "queue_overflow_dropped": int(self.state.queue.dropped.sum()),
             "packets_budget_dropped": int(s["pkts_budget_dropped"].sum()),
+            "faults_dropped": int(s["faults_dropped"].sum()) if "faults_dropped" in s else 0,
+            "faults_delayed": int(s["faults_delayed"].sum()) if "faults_delayed" in s else 0,
             "outbox_overflow_dropped": int(s["ob_dropped"].sum()),
+            # the all-to-all exchange's block sheds: none on one device
+            "alltoall_shed_dropped": 0,
             "bucket_cache_rebuilds": int(s["bq_rebuilds"].sum()),
             "popk_deferred": int(s["popk_deferred"].sum()),
             "queue_occupancy_hwm": int(s["q_occ_hwm"].max()),
@@ -404,14 +544,31 @@ class Simulation:
         }
 
     def write_outputs(self, data_dir: str | None = None, report: dict | None = None) -> str:
-        """Write processed-config.yaml and sim-stats.json into the data
-        directory."""
+        """Write the data directory as the JAX package does:
+        processed-config.yaml, sim-stats.json and hosts/<name>/host-stats.json
+        (the per-host counters and digest)."""
         data_dir = data_dir or self.cfg.general.data_directory
         os.makedirs(data_dir, exist_ok=True)
         with open(os.path.join(data_dir, "processed-config.yaml"), "w") as f:
             yaml.safe_dump(self.cfg.to_dict(), f, sort_keys=False)
         with open(os.path.join(data_dir, "sim-stats.json"), "w") as f:
             json.dump(report if report is not None else self.stats_report(), f, indent=2)
+        st = self.state.stats
+        lanes = {k: getattr(st, f).cpu().numpy() for k, f in (
+            ("events_processed", "events"), ("packets_sent", "pkts_sent"),
+            ("packets_delivered", "pkts_delivered"), ("packets_lost", "pkts_lost"),
+            ("queue_occupancy_hwm", "q_occ_hwm"))}
+        digests = self.host_digests()
+        for h in self.hosts:
+            hd = os.path.join(data_dir, "hosts", h.name)
+            os.makedirs(hd, exist_ok=True)
+            with open(os.path.join(hd, "host-stats.json"), "w") as f:
+                json.dump({
+                    "name": h.name,
+                    "ip": h.ip,
+                    **{k: int(v[h.host_id]) for k, v in lanes.items()},
+                    "determinism_digest": f"{int(digests[h.host_id]):016x}",
+                }, f, indent=2)
         return data_dir
 
 

@@ -6,9 +6,14 @@ and a round's [H, B] outbox for the exchange merges (K4, K13);
 `handler_case` builds a model handler's context (K17-K22), `clone_ctx`
 copies its state and RNG lanes and `handler_tensors` lists a handler's
 outputs; `clone_carry` deep-copies a carry (the kernels update carries in
-place); `flat_tensors` lists a nested tuple's tensors for comparison. Used
-by chip_smoke.py and the tests; nothing on the simulation path imports
-it."""
+place); `flat_tensors` lists a nested tuple's tensors for comparison;
+`cfg7_config` and `cfg10_config` build bench configs 7 (PHOLD under host
+churn, a lossy window and the supervisor) and 10 (tgen-TCP on a torus with
+the integrity sentinel) at any size, `fault_case` the fault plane's and
+`integrity_case` the sentinel's kernel inputs (K23, K24 and the lanes of
+K1, K10, K11), and `scribble_hook` a state change for the sentinel's replay
+seam. Used by chip_smoke.py and the tests; nothing on the simulation path
+imports it."""
 
 from __future__ import annotations
 
@@ -23,7 +28,9 @@ from shadow_tpu_torch.simtime import TIME_MAX
 
 def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
                shaping: bool = True, jitter: bool = False, n_nodes: int = 4,
-               budget: int = 8, stride: int = 1, cpu_delay: int = 0) -> dict:
+               budget: int = 8, stride: int = 1, cpu_delay: int = 0,
+               restart_queue: str | None = None, loss_windows: int = 0,
+               dual_digest: bool = False) -> dict:
     """Random inputs of one event per host through ingress (K10), the
     handler's outputs (a synthetic HandlerOut) and egress (K11): a carry
     with every lane seeded, an event with packets, requeued packets and
@@ -34,7 +41,12 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
     node = host // g), "node_of" (per-host rows, irregular map) or "table"
     (2-D gather); `stride` > 1 makes the event a column of a K-way peek;
     `cpu_delay` > 0 turns the CPU model on, with busy horizons before, at
-    and after the events' times."""
+    and after the events' times; `restart_queue` ("hold" or "clear") adds
+    crash windows (two per host, from `fault_case`, so that the events'
+    times fall at their edges, inside and outside), `loss_windows` > 0
+    link-fault windows around the events' times, and `dual_digest` the
+    integrity sentinel's second digest. The extra lanes come from their own
+    generators: the other inputs do not change."""
     from shadow_tpu_torch.core.engine import EngineConfig, EngineParams, Stats, _EvCarry
     from shadow_tpu_torch.models.base import HandlerOut, LocalPush, PacketSend
     from shadow_tpu_torch.net import CodelState, TBParams, TBState
@@ -71,7 +83,11 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
     cfg = EngineConfig(num_hosts=h, stop_time=60 * 10**9, shaping=shaping, use_jitter=jitter,
                        sends_per_host_round=budget, hosts_per_node=g,
                        bootstrap_end_time=int(r.integers(0, 2)) * 900 * ms,
-                       cpu_delay_ns=cpu_delay)
+                       cpu_delay_ns=cpu_delay,
+                       fault_crash_windows=2 if restart_queue else 0,
+                       fault_loss_windows=loss_windows,
+                       fault_queue_clear=restart_queue == "clear",
+                       integrity=dual_digest, integrity_dual=dual_digest)
     t = r.integers(1_000, 1_200, h) * ms
     itv = t // ms
     active = r.random(h) < 0.85
@@ -139,9 +155,53 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
         count_max=cmax,
     ) for cmax, has_count, has_inc in sends)
     out = HandlerOut(state=None, rng=carry.rng, pushes=pushes, sends=sends_out)
+    if cfg.faults_active or dual_digest:
+        params, carry = _fault_lanes(seed, h, dev, cfg, params, carry, t)
     return dict(cfg=cfg, params=params, carry=carry, ev=ev, active=T(active),
                 dispatch=T(active & (r.random(h) < 0.9)), out=out,
                 window_end=int(t[active].min()) + 2 * ms if active.any() else 0)
+
+
+def _fault_lanes(seed: int, h: int, dev, cfg, params, carry, t: np.ndarray):
+    """chain_case's fault windows, fault counters and second digest, from
+    their own generator: crash windows whose edges sit at the events' times
+    (and 1 ms either side), link-fault windows covering some of them."""
+    from shadow_tpu_torch.core.faults import FaultParams
+
+    rf = np.random.default_rng([seed, 30])
+    ms = 1_000_000
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    down = up = ws = we = wl = wlat = None
+    if cfg.fault_crash_windows:
+        live = np.where(t == TIME_MAX, 1_000 * ms, t)
+        shift = rf.integers(-1, 2, h) * ms  # the window starts at, before or after t
+        d0 = np.where(rf.random(h) < 0.7, live + shift, live + 500 * ms)
+        u0 = d0 + rf.integers(1, 300, h) * ms
+        d1, u1 = u0 + rf.integers(1, 100, h) * ms, u0 + rf.integers(100, 200, h) * ms
+        down = np.stack([d0, d1], axis=1)
+        up = np.stack([u0, u1], axis=1)
+        unused = rf.random(h) < 0.2
+        down[unused, 1] = up[unused, 1] = TIME_MAX
+        down, up = T(down), T(up)
+    if cfg.fault_loss_windows:
+        n = cfg.fault_loss_windows
+        ws = T(np.sort(rf.integers(900, 1_150, n)) * ms)
+        we = T(ws.cpu().numpy() + rf.integers(10, 150, n) * ms)
+        wl = T(rf.random(n).astype(np.float32))
+        wlat = T(rf.integers(1000, 2600, n))
+    if cfg.faults_active:
+        params = params._replace(faults=FaultParams(down, up, ws, we, wl, wlat))
+    s = carry.stats
+    s = s._replace(
+        faults_dropped=T(rf.integers(0, 1 << 40, h)) if cfg.faults_active else None,
+        faults_delayed=T(rf.integers(0, 1 << 40, h)) if cfg.faults_active else None,
+        digest2=(T(rf.integers(-(1 << 63), (1 << 63) - 1, h)) if cfg.integrity_dual
+                 else None),
+    )
+    return params, carry._replace(stats=s)
 
 
 def clone_carry(c):
@@ -674,3 +734,296 @@ def handler_diff(got, want) -> list[str]:
     return sorted(set(a) ^ set(b)) + [
         k for k in b if k in a and (a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
                                     or not torch.equal(a[k], b[k]))]
+
+
+# --------------------------------------------------------------------------
+# the fault plane and the integrity sentinel (bench configs 7 and 10)
+# --------------------------------------------------------------------------
+
+PHOLD_GML = """
+graph [
+  directed 0
+  node [
+    id 0
+    host_bandwidth_down "1 Gbit"
+    host_bandwidth_up "1 Gbit"
+  ]
+  edge [ source 0 target 0 latency "50 ms" packet_loss 0.0 ]
+]
+"""
+
+
+def torus_gml(side: int, lat_ms: int = 10) -> str:
+    """The JAX repo's bench.py torus (a copy: bench.py imports JAX)."""
+    lines = ["graph [", "  directed 0"]
+    for i in range(side * side):
+        lines.append(
+            f'  node [ id {i} host_bandwidth_down "1 Gbit" '
+            f'host_bandwidth_up "1 Gbit" ]'
+        )
+    for r in range(side):
+        for c in range(side):
+            i = r * side + c
+            right = r * side + (c + 1) % side
+            down = ((r + 1) % side) * side + c
+            lines.append(f'  edge [ source {i} target {i} latency "{lat_ms} ms" ]')
+            if right != i:
+                lines.append(f'  edge [ source {i} target {right} latency "{lat_ms} ms" ]')
+            if down != i:
+                lines.append(f'  edge [ source {i} target {down} latency "{lat_ms} ms" ]')
+    lines.append("]")
+    return "\n".join(lines)
+
+
+def cfg7_config(hosts: int = 4096, stop: str = "30 s", *, restart_queue: str = "hold",
+                k: int = 1, block: int = 0, cpu_delay: str | None = None, wheel: int = 0,
+                bootstrap: str | None = None, rounds_per_chunk: int = 128,
+                snapshot_every: int = 4, backoff_ms: int = 50, **faults) -> dict:
+    """bench.py baseline_config(7) (4,096 PHOLD hosts for 30 sim-s; 256
+    small): ~30% of hosts crash once and restart (seed 7, a 2 s mean
+    downtime), a 10-15 s window with 20% extra loss and 1.5x latency, the
+    supervisor snapshotting every 4 chunks. The arguments vary the host
+    count, the horizon, the restart policy, K and the queue block, the CPU
+    delay, the timer wheel, `general.bootstrap_end_time`, the chunk length,
+    the supervisor, and (`faults`) any other `faults:` key."""
+    ex = {"event_queue_capacity": 16, "sends_per_host_round": 6,
+          "rounds_per_chunk": rounds_per_chunk}
+    if k > 1:
+        ex["microstep_events"] = k
+    if block:
+        ex["event_queue_block"] = block
+    if cpu_delay is not None:
+        ex["cpu_delay"] = cpu_delay
+    if wheel:
+        ex["timer_wheel"] = wheel
+    general = {"stop_time": stop, "seed": 1, "heartbeat_interval": None}
+    if bootstrap is not None:
+        general["bootstrap_end_time"] = bootstrap
+    fb = {
+        "seed": 7,
+        "restart_queue": restart_queue,
+        "host_churn": {"prob": 0.3, "mean_downtime": "2 s"},
+        "loss_windows": [{"start": "10 s", "end": "15 s", "loss": 0.2, "latency_factor": 1.5}],
+        "supervisor": {"snapshot_every_chunks": snapshot_every, "backoff_base_ms": backoff_ms},
+        **faults,
+    }
+    return {
+        "general": general,
+        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "experimental": ex,
+        "faults": fb,
+        "hosts": {"node": {"count": hosts, "network_node_id": 0, "processes": [{
+            "model": "phold",
+            "model_args": {"population": 2, "mean_delay": "200 ms", "size_bytes": 64},
+        }]}},
+    }
+
+
+def cfg10_config(side: int = 10, per_node: int = 100, stop: str = "5 s", *, k: int = 4,
+                 block: int = 7, cap: int = 28, flows: int = 64, flow_segs: int = 100,
+                 wheel: int = 0, rounds_per_chunk: int = 256) -> dict:
+    """bench.py baseline_config(10): config 6 (tgen-TCP on the side x side
+    torus at 50 ms, 10 x 10 with 100 hosts per node, K = 4, capacity 28 in
+    blocks of 7, 24 sends per round) with `integrity: {enabled: true}`, cut
+    to `stop`; the arguments size it down and vary K, the queue, the timer
+    wheel and the chunk length."""
+    ex = {"event_queue_capacity": cap, "microstep_events": k, "sends_per_host_round": 24,
+          "rounds_per_chunk": rounds_per_chunk}
+    if block:
+        ex["event_queue_block"] = block
+    if wheel:
+        ex["timer_wheel"] = wheel
+    return {
+        "general": {"stop_time": stop, "seed": 1, "heartbeat_interval": None},
+        "network": {"graph": {"type": "gml", "inline": torus_gml(side, lat_ms=50)}},
+        "experimental": ex,
+        "integrity": {"enabled": True},
+        "hosts": {f"n{i:03d}": {"count": per_node, "network_node_id": i, "processes": [{
+            "model": "tgen_tcp",
+            "model_args": {"flows": flows, "flow_segs": flow_segs, "cwnd_cap": 16, "mss": 1460,
+                           "flow_gap": "50 ms", "tx_batch": 2},
+        }]} for i in range(side * side)},
+    }
+
+
+def scribble_hook(mode: str, at_round: int = 16, what: str = "time"):
+    """A hook for the sentinel's replay seam (`Simulation._integrity_test_scribble`
+    or `ResilienceController.test_scribble`): once the state has `at_round`
+    rounds, set queue slot (0, 0)'s time to 0 (`what` "time"; a flat queue's
+    slab: a bucketed queue's caches would not see it) or host 3's event
+    count to -7 ("counter") — on the first attempt of that chunk only
+    (`mode` "once": a transient the replay does not see), or on every
+    attempt ("always": a violation that reproduces)."""
+    fired = []
+
+    def hook(st, attempt):
+        if int(st.stats.rounds) < at_round:
+            return st
+        if mode == "once" and (attempt or fired):
+            return st
+        fired.append(1)
+        if what == "time":
+            st.queue.t[0, 0] = 0
+        else:
+            st.stats.events[3] = -7
+        return st
+
+    return hook
+
+
+def fault_case(seed: int, h: int, w: int, n_win: int, dev, *, span: int = 10**9) -> dict:
+    """Random fault-plane inputs: [h, w] disjoint crash windows per host
+    (some slots unused), `n_win` link-fault windows, and per-host times
+    drawn at window edges (down, up - 1, up), inside and between windows,
+    and TIME_MAX."""
+    r = np.random.default_rng(seed)
+    down = np.full((h, w), TIME_MAX, np.int64)
+    up = np.full((h, w), TIME_MAX, np.int64)
+    edges = np.sort(r.integers(0, span, (h, 2 * w)), axis=1)
+    used = r.integers(0, w + 1, h)
+    for i in range(w):
+        on = i < used
+        down[on, i] = edges[on, 2 * i]
+        up[on, i] = np.maximum(edges[on, 2 * i + 1], edges[on, 2 * i] + 1)
+    pick = r.integers(0, 6, h)
+    col = r.integers(0, w, h)
+    rows = np.arange(h)
+    d, u = down[rows, col], up[rows, col]
+    t = np.select([pick == 0, pick == 1, pick == 2, pick == 3, pick == 4],
+                  [d, np.where(u == TIME_MAX, u, u - 1), u, r.integers(0, span, h),
+                   np.full(h, TIME_MAX)], r.integers(0, span, h))
+    ws = np.sort(r.integers(0, span, n_win))
+    we = ws + r.integers(1, span // 4, n_win)
+    loss = r.random(n_win).astype(np.float32)
+    lat = r.integers(1000, 3000, n_win)
+    tw = np.select([pick == 0, pick == 1], [ws[r.integers(0, n_win, h)],
+                                            we[r.integers(0, n_win, h)]], t)
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    return {"down_t": T(down), "up_t": T(up), "t": T(t), "win_start": T(ws), "win_end": T(we),
+            "win_loss": T(loss), "win_lat": T(lat), "t_win": T(tw)}
+
+
+IV_CASES = (None, "time", "qfill", "wheel_qfill", "counter", "outbox", "digest", "done")
+
+
+def integrity_case(seed: int, h: int, cap: int, block: int, dev, *, wheel: int = 0,
+                   faults: bool = True, violate: str | None = None) -> dict:
+    """One round's inputs to the sentinel's check (K24 and its plain
+    version): the round-entry state `st0`, the state after the microsteps
+    `st_m` and after the exchange `st_x` (queue slab and caches, the
+    wheel's with `wheel` slots, the counter lanes with the fault counters
+    where `faults`, send cursors, the outbox count, both digests), as a
+    legal round leaves them, then changed so that the guard named by
+    `violate` (one of IV_CASES; "done" makes it the done-round) trips.
+    Returns dict(cfg, st0, st_m, st_x, window_end, done)."""
+    from shadow_tpu_torch.core.engine import (
+        EngineConfig,
+        SimState,
+        _init_stats,
+        make_empty_outbox,
+    )
+    from shadow_tpu_torch.core.integrity import DIGEST2_OFFSET_I64
+    from shadow_tpu_torch.ops.events import ORDER_MAX, EventQueue, bucket_rebuild
+    from shadow_tpu_torch.ops.rng import u64
+
+    r = np.random.default_rng(seed)
+    ms = 1_000_000
+    budget = 6
+    cfg = EngineConfig(num_hosts=h, stop_time=60 * 10**9, queue_capacity=max(cap, 1),
+                       queue_block=block, sends_per_host_round=budget, wheel_slots=wheel,
+                       wheel_block=2 if wheel else 0, integrity=True, integrity_dual=True,
+                       fault_crash_windows=1 if faults else 0)
+    now0 = 1_000 * ms
+    window_end = now0 + 50 * ms
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    def slab(width, fill, lo):
+        t = np.full((h, width), TIME_MAX, np.int64)
+        live = r.random((h, width)).argsort(axis=1) < fill[:, None]
+        t[live] = lo + r.integers(0, 200, int(live.sum())) * ms
+        order = np.where(live, r.integers(0, 1 << 40, (h, width)), ORDER_MAX)
+        return t, order
+
+    def queue(t, order, b, dropped):
+        q = EventQueue(T(t), T(order), T(np.zeros((h, t.shape[1]), np.int32)),
+                       T(np.zeros((h, t.shape[1], 4), np.int32)), T(dropped))
+        return bucket_rebuild(q, b) if b else q
+
+    fill0 = r.integers(0, cap + 1, h)
+    t0, o0 = slab(cap, fill0, now0)
+    # the round pops some of each host's events and pushes later ones
+    tm, om = t0.copy(), o0.copy()
+    popped = (tm < window_end) & (r.random(tm.shape) < 0.5)
+    tm[popped], om[popped] = TIME_MAX, ORDER_MAX
+    add = (tm == TIME_MAX) & (r.random(tm.shape) < 0.2)
+    tm[add] = now0 + r.integers(0, 400, int(add.sum())) * ms
+    om[add] = r.integers(0, 1 << 40, int(add.sum()))
+    tx, ox = tm.copy(), om.copy()
+    arrive = (tx == TIME_MAX) & (r.random(tx.shape) < 0.3)
+    tx[arrive] = window_end + r.integers(0, 300, int(arrive.sum())) * ms
+    ox[arrive] = r.integers(0, 1 << 40, int(arrive.sum()))
+    d0 = r.integers(0, 9, h)
+    dx = d0 + r.integers(0, 3, h) * (r.random(h) < 0.3)
+    q0, qm, qx = queue(t0, o0, block, d0), queue(tm, om, block, d0), queue(tx, ox, block, dx)
+    w0 = wm = wx = None
+    if wheel:
+        wt0, wo0 = slab(wheel, r.integers(0, wheel + 1, h), now0)
+        w0 = wm = wx = queue(wt0, wo0, 2, np.zeros(h, np.int64))
+
+    stats0 = _init_stats(cfg, dev)
+    events0 = r.integers(0, 50, h) * (r.random(h) < 0.8)
+    lanes0 = {f: r.integers(0, 1 << 30, h) for f in (
+        "pkts_sent", "pkts_lost", "pkts_unreachable", "pkts_codel_dropped", "pkts_delivered",
+        "pkts_budget_dropped", "faults_dropped", "faults_delayed", "wheel_spilled")}
+    d1 = r.integers(-(1 << 63), (1 << 63) - 1, h)
+    d2 = r.integers(-(1 << 63), (1 << 63) - 1, h)
+    stats0 = stats0._replace(
+        events=T(events0), rounds=T(np.int64(r.integers(0, 1000))),
+        digest=T(np.where(events0 == 0, u64(0xCBF29CE484222325), d1)),
+        digest2=T(np.where(events0 == 0, DIGEST2_OFFSET_I64, d2)),
+        **{f: T(v) for f, v in lanes0.items() if getattr(stats0, f) is not None})
+    step = {f: r.integers(0, 4, h) for f in ("events", *lanes0)}
+    events_x = events0 + step["events"]
+
+    def later(s):
+        return s._replace(
+            events=T(events_x),
+            digest=T(np.where(events_x == 0, u64(0xCBF29CE484222325), d1 ^ 5)),
+            digest2=T(np.where(events_x == 0, DIGEST2_OFFSET_I64, d2 ^ 9)),
+            **{f: T(lanes0[f] + step[f]) for f in lanes0 if getattr(s, f) is not None})
+
+    sent = r.integers(0, budget + 1, h).astype(np.int32)
+    ob = make_empty_outbox(h, budget, dev)
+    ob = ob._replace(count=T(np.array([sent.sum()], np.int32)))
+    base = SimState(now=now0, done=False, queue=q0, rng=None, seq=None,
+                    sent_round=T(np.zeros(h, np.int32)), tb_egress=None, tb_ingress=None,
+                    codel=None, min_used_lat=None, cpu_busy_until=None, model={},
+                    outbox=make_empty_outbox(h, budget, dev), stats=stats0, wheel=w0)
+    st_m = base._replace(queue=qm, wheel=wm, sent_round=T(sent), outbox=ob,
+                         stats=later(stats0))
+    st_x = base._replace(queue=qx, wheel=wx, stats=later(stats0)._replace(
+        rounds=stats0.rounds + 1))
+    done = violate == "done"
+    host = int(r.integers(0, h))
+    if violate in ("time", "done"):
+        st_x.queue.t[host, 0] = now0 - 1  # a slot below the entry minimum
+        if block:
+            st_x.queue.bt[host, 0] = now0 - 1
+    elif violate == "qfill":
+        st_m.queue.bfill[host, 0] += 1
+    elif violate == "wheel_qfill":
+        st_m.wheel.bfill[host, 0] += 1
+    elif violate == "counter":
+        st_x.stats.pkts_lost[host] -= 5
+    elif violate == "outbox":
+        st_m.sent_round[host] = budget + 1
+    elif violate == "digest":
+        # a host that executed events shows none (a counter decrease too,
+        # where it had some at entry)
+        st_x.stats.events[int(np.flatnonzero(events_x)[0])] = 0
+    return dict(cfg=cfg, st0=base, st_m=st_m, st_x=st_x, window_end=window_end, done=done)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K22 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K24 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -28,7 +28,13 @@ one state; the CPU model's lanes (K1's busy floor, K10's execution-time
 rewrite and busy update) and the merge-row bound of K4 and K13 (rows
 shed at several bounds, both shed modes, a sliced outbox) against their
 plain versions; PHOLD's `exp_delay` through K18's device function is compared on
-every one of the 2^24 inputs the model can draw.
+every one of the 2^24 inputs the model can draw. The fault plane: K23 on
+`shadow_tpu_torch.testing.fault_case` windows (times at their edges, a
+strided time lane), K1's fault floor, K10's hold and clear lanes with the
+second digest and K11's link-fault lane on `chain_case` inputs with crash
+and loss windows; the integrity sentinel's K24 on
+`shadow_tpu_torch.testing.integrity_case` rounds that break each invariant
+in turn (flat, bucketed, with the wheel).
 Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
 repeats the check at the main path's shapes.
@@ -589,4 +595,138 @@ def test_merge_rows_kernels_match_plain(dev, load, gc, urgency):
             assert_all_equal(got, want)
             shed += int((want.dropped - queue.dropped).sum())
     assert load == "empty" or shed > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fault_down_resume_kernel_matches_plain(dev, seed, stride):
+    """K23 against `down_and_resume_plain`: 3 crash windows per host (some
+    slots unused), times at the windows' edges, inside, between and at
+    TIME_MAX, the time lane also a column of a [H, 4] tensor."""
+    from shadow_tpu_torch.core import faults
+    from shadow_tpu_torch.testing import fault_case
+
+    c = fault_case(seed, 3000, 3, 2, dev)
+    fp = faults.FaultParams(c["down_t"], c["up_t"], None, None, None, None)
+    wide = torch.zeros((3000, stride), dtype=torch.int64, device=dev)
+    wide[:, -1] = c["t"]
+    got = faults.down_and_resume(fp, wide[:, -1])
+    want = faults.down_and_resume_plain(fp, c["t"])
+    assert_all_equal(got, want)
+    assert bool(want[0].any()) and not bool(want[0].all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", FILLS)
+def test_fault_floor_next_time_matches_plain(dev, fill):
+    """K1's fault lane (queue hold), after the busy floor and without it,
+    over the slab and the block caches: a floored head inside a crash
+    window moves to its restart."""
+    from shadow_tpu_torch.testing import fault_case
+
+    q = slab(13, fill, dev)
+    c = fault_case(14, H, 2, 1, dev, span=6000)
+    crash = (c["down_t"], c["up_t"])
+    r = np.random.default_rng(15)
+    floor = torch.as_tensor(r.integers(0, 6, H) * 1000, device=dev)
+    bq = pev.bucket_rebuild(q, 4)
+    for fl in (None, floor):
+        assert torch.equal(pev.next_time(q, fl, crash), pev.next_time_plain(q.t, fl, crash))
+        assert torch.equal(pev.bq_next_time(bq, fl, crash),
+                           pev.next_time_plain(bq.bt, fl, crash))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cpu_delay", [0, 3_000_000])
+@pytest.mark.parametrize("restart", ["hold", "clear"])
+@pytest.mark.parametrize("name", ["anchor", "cfg6"])
+def test_ingress_fault_lanes_match_plain(dev, name, restart, cpu_delay):
+    """K10's fault lanes and the second digest: under hold the execution
+    time moves to the restart of a crash window containing it (after the
+    busy floor), counted in faults_delayed; under clear an event executing
+    in a crash window is consumed, not dispatched, and counted in
+    faults_dropped; every executed event folds the second digest."""
+    from shadow_tpu_torch.ops.events import Event
+
+    case = chain_case(2, 150, dev, **CHAIN_CASES[name], cpu_delay=cpu_delay,
+                      restart_queue=restart, dual_digest=True)
+    cfg, params, ev, active = case["cfg"], case["params"], case["ev"], case["active"]
+
+    def fresh_event():  # K10 writes the time lane in place: a copy per side
+        k = ev.t.stride(0)
+        wide = torch.zeros((150, k), dtype=torch.int64, device=dev)
+        wide[:, -1] = ev.t
+        return Event(wide[:, -1], ev.order, ev.kind, ev.payload)
+
+    got = pchain.event_ingress(clone_carry(case["carry"]), params, cfg, fresh_event(), active)
+    want = pchain.event_ingress_plain(clone_carry(case["carry"]), params, cfg, fresh_event(),
+                                      active)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    s0, s1 = case["carry"].stats, want[0].stats
+    lane = "faults_delayed" if restart == "hold" else "faults_dropped"
+    assert bool((getattr(s1, lane) != getattr(s0, lane)).any())
+    assert bool((s1.digest2 != s0.digest2).any())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", list(CHAIN_CASES))
+def test_egress_fault_lane_matches_plain(dev, name, seed):
+    """K11's link-fault lane: one more loss draw after the path-loss draw
+    and the latency inflation (gated on bootstrap) from three windows
+    around the events' times, counted in faults_dropped and
+    faults_delayed."""
+    case = chain_case(seed, 150, dev, **CHAIN_CASES[name], loss_windows=3)
+    cfg, params, ev = case["cfg"], case["params"], case["ev"]
+    out, dispatch, we = case["out"], case["dispatch"], case["window_end"]
+    if name == "strided_fields":
+        out = strided(out, 150)
+    got = pchain.event_egress(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we, out)
+    want = pchain.event_egress_plain(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we,
+                                     out)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [(0, 0), (4, 0), (4, 4)], ids=["flat", "bucketed", "wheel"])
+def test_integrity_check_kernel_matches_plain(dev, layout):
+    """K24's three stages against the plain check, on every invariant's
+    violation (and none, and the done-round), over two chained rounds (the
+    second reads the first's post-exchange state as its entry): the
+    integrity, iv_mask and iv_round lanes."""
+    from shadow_tpu_torch.core.integrity import IntegrityCheck
+    from shadow_tpu_torch.testing import IV_CASES, integrity_case
+
+    block, wheel = layout
+
+    def to(x, d):  # a copy: the kernel writes the sentinel's lanes in place
+        if isinstance(x, torch.Tensor):
+            return x.to(d, copy=True)
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(to(v, d) for v in x))
+        return x
+
+    for v in IV_CASES:
+        if (v == "qfill" and not block) or (v == "wheel_qfill" and not wheel):
+            continue
+        c = integrity_case(7, 300, 16, block, dev, wheel=wheel, violate=v)
+        lanes = []
+        for d in (dev, torch.device("cpu")):
+            chk = IntegrityCheck(c["cfg"])
+            st0, st_m, st_x = (to(c[k], d) for k in ("st0", "st_m", "st_x"))
+            chk.enter(st0)
+            s = st_x.stats
+            for _ in range(2):
+                chk.pre_exchange(st_m._replace(stats=s))
+                s = chk.post_exchange(st_x._replace(stats=s), s, c["window_end"], c["done"],
+                                      st0.now)
+            lanes.append([s.integrity.cpu(), s.iv_mask.cpu(), s.iv_round.cpu()])
+        assert_all_equal(lanes[0], lanes[1])
+        assert (int(lanes[1][0]) > 0) == (v not in (None, "done")), v
     torch.cuda.synchronize()

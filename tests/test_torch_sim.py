@@ -84,6 +84,7 @@ def test_yaml_run_matches_jax():
         "wheel_cancel": 0, "merge_scatter": 0, "fluid_fg_link_bytes": 0, "fluid_advance": 0,
         "fluid_host_effects": 0, "tgen_handle": 0, "phold_handle": 0, "echo_handle": 0,
         "timer_handle": 0, "gossip_handle": 0, "circuit_handle": 0,
+        "fault_down_resume": 0, "integrity_round_check": 0,
     }  # the CPU path runs the plain versions, never a kernel
 
 
@@ -99,11 +100,12 @@ def test_anchor_shapes_resolve_like_jax():
     assert ExperimentalOptions.from_dict(kw).resolve_shapes(10_000) == (64, 12, 16)
 
 
-# knobs the port does not run yet, and (event_queue_block, microstep_events,
-# timer_wheel, merge_gears, merge_scatter, merge_rows, cpu_delay, fluid)
-# values the JAX package rejects too: a block that does not divide the
-# capacity (12 here), K < 1, the wheel with K > 1, a gear of width 0; a
-# fluid latency factor below 1.0; and a negative merge-row bound (also
+# knobs the port does not run yet (on-disk supervisor checkpoints among
+# them), and (event_queue_block, microstep_events, timer_wheel, merge_gears,
+# merge_scatter, merge_rows, cpu_delay, fluid, integrity) values the JAX
+# package rejects too: a block that does not divide the capacity (12 here),
+# K < 1, the wheel with K > 1, a gear of width 0; a fluid latency factor
+# below 1.0; a sentinel with no replay; and a negative merge-row bound (also
 # under the scatter merge) or CPU delay, which the JAX package reads as
 # "off" and the port refuses
 UNSUPPORTED = {
@@ -115,10 +117,10 @@ UNSUPPORTED = {
     "merge_scatter": "experimental: {merge_scatter: true, merge_rows: -64}",
     "merge_rows": "experimental: {merge_rows: -1}",
     "cpu_delay": "experimental: {cpu_delay: -1}",
-    "faults": "faults: {crashes: [{host: a1, at: 1 s}]}",
+    "faults": "faults: {supervisor: {snapshot_every_chunks: 2, checkpoint_file: ck.npz}}",
     "fluid": "fluid: {latency_factor_max: 0.5}",
     "pressure": "pressure: {policy: escalate}",
-    "integrity": "integrity: {enabled: true}",
+    "integrity": "integrity: {enabled: true, max_replays: 0}",
     "observability_trace": "observability: {trace: true}",
     "observability_network": "observability: {network: true}",
     "pcap": "host_option_defaults: {pcap_enabled: true}",
