@@ -163,12 +163,34 @@ line reports it):
  31. config 7 small (256 hosts, 12 sim-s) in clear mode at K = 4 bucketed
      and with a 20 ms CPU delay: card == CPU; config 10 small with a
      one-shot scribble: one replay, one transient, the clean run's
-     digests, card == CPU.
+     digests, card == CPU;
+ 32. the pressure plane's kernels against their plain versions: K25
+     (queue_migrate) at bench config 9's shapes (4,096 hosts, 8 -> 16 ->
+     32 slots and shrinks with compaction, flat), at a bucketed shape (28
+     slots in blocks of 7 -> 56 and back, with K8) and on a wheel slab,
+     its count-only launch (`migration_fits`), and K26 (pressure_total)
+     at 4,096 and 10^6 hosts; exact equality, with the timings of phase 2;
+ 33. bench config 9 at full width as configured (4,096 PHOLD hosts,
+     population 6 on an 8-slot queue under `pressure: escalate`, 30
+     sim-s), under `policy: abort`, and launched at its final shape
+     (capacity 32, outbox 12) under drop: the JAX package's reports,
+     pressure{} included, the last with the escalated run's digest; K25
+     and K26 launch on no other leg;
+ 34. config 9 with the supervisor checkpointing every chunk, in a child
+     process killed by SIGKILL after its second checkpoint, resumed by a
+     second child: the uninterrupted JAX report; a t = 0 checkpoint written
+     at capacity 32 resumed into the 8-slot build under drop (K25 shrinks
+     the slab): JAX's report of that resume; one written after the first
+     chunk: JAX's CheckpointError;
+ 35. config 9 small (256 hosts, 6 sim-s) and a tgen-TCP K = 4 bucketed
+     pressure case (16 hosts): card == CPU, pressure{} included; and a
+     checkpoint written on the card resumes on the CPU and back, giving
+     the uninterrupted run's report.
 
 Every leg checks that its model's handler kernel launched exactly as
 often as K10 (one launch per event_body call), and no other handler.
-The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 29, 4-6, 8-10,
-13, 14, 16-20, 22, 23, 26-28, 30, 31, so that every kernel's bound is counted before the profiles
+The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 29, 32, 4-6,
+8-10, 13, 14, 16-20, 22, 23, 26-28, 30, 31, 33-35, so that every kernel's bound is counted before the profiles
 (5, 9) hold the kernels' in-path device times against it. A profiler reading below the
 kernel's bound (the least time the card needs for the work) is a
 misattributed trace: the kernel phases then take the queued timing, the
@@ -435,6 +457,42 @@ CFG10_REF = {
     "integrity": {"transients": 0, "replays": 0, "max_replays": 3,
                   "determinism_digest2": "9f426bfd6532677e"},
 }
+# bench config 9 as configured (4,096 PHOLD hosts for 30 sim-s, population
+# 6 on an 8-slot queue with a send budget of 6, `pressure: {policy:
+# escalate, max_capacity: 64}`), under `policy: abort` (its first round
+# drops), launched at its final shape (capacity 32, outbox 12, the
+# escalation's pinned valve of 16) under drop, and at its configured 8/6
+# under drop resumed from a t = 0 checkpoint written at 32 (through K25):
+# the JAX package's reports on the CPU. A checkpoint written at 32 after
+# the first chunk is refused at 8, with the JAX package's message
+CFG9_PRESSURE = {"policy": "escalate", "regrows": 3, "proactive_regrows": 0, "replays": 3,
+                 "oom_fallbacks": 0, "capacity_ladder": [8, 16, 32, 64],
+                 "outbox_ladder": [6, 12, 24], "capacity": 32, "outbox": 12,
+                 "base_capacity": 8, "base_outbox": 6}
+CFG9_REF = {
+    "determinism_digest": "c90869efb8a06343", "events_processed": 5_931_310, "rounds": 602,
+    "microsteps": 6347, "packets_sent": 2_968_061, "queue_overflow_dropped": 0,
+    "packets_budget_dropped": 0, "outbox_overflow_dropped": 0,
+    "pressure": CFG9_PRESSURE, "pressure_regrows": 3, "pressure_replays": 3,
+}
+CFG9_ABORT_REF = {
+    "determinism_digest": "5de0000000000000", "events_processed": 24_576, "rounds": 1,
+    "microsteps": 6, "packets_sent": 24_576, "queue_overflow_dropped": 1328,
+    "packets_budget_dropped": 0, "outbox_overflow_dropped": 0,
+    "pressure": {"policy": "abort", "regrows": 0, "proactive_regrows": 0, "replays": 0,
+                 "oom_fallbacks": 0, "aborted": True, "capacity": 8, "outbox": 6,
+                 "base_capacity": 8, "base_outbox": 6},
+    "pressure_regrows": 0, "pressure_replays": 0, "pressure_aborted": True, "aborted": True,
+}
+CFG9_FINAL_REF = {k: v for k, v in CFG9_REF.items() if not k.startswith("pressure")}
+CFG9_DROP8_REF = {
+    "determinism_digest": "422756ef2282b328", "events_processed": 2_897_985, "rounds": 600,
+    "microsteps": 4235, "packets_sent": 1_457_374, "queue_overflow_dropped": 14_772,
+    "packets_budget_dropped": 9, "outbox_overflow_dropped": 0,
+}
+CFG9_REFUSAL = ("cannot resume at queue capacity 8: the checkpoint holds up to 16 live events "
+                "per host (written at capacity 32) — resume at >= 16 slots")
+H9 = 4096
 # config 7's host count
 H7 = 4096
 # config 12's fluid shapes: links (the torus's nodes) and classes
@@ -2025,6 +2083,97 @@ def phase_kernels_faults(dev) -> dict[str, dict]:
     return results
 
 
+def phase_kernels_pressure(dev) -> dict[str, dict]:
+    """K25 (queue_migrate) and K26 (pressure_total) against their plain
+    versions, exact equality: K25 at bench config 9's shapes (4,096 hosts,
+    8 -> 16 -> 32 slots, flat; the shrinks 32 -> 16 and 32 -> 8 with
+    compaction where the live events fit; the same capacity), each on slabs
+    whose empty slots keep stale kind and payload words; K25 + K8 at a
+    bucketed shape (config 6's 10,000 hosts, 28 slots in blocks of 7 -> 56
+    and a shrink back to 28); K25's count-only launch (`migration_fits`) on
+    an overfull slab; `migrate_wheel` on config 11's [10,000, 4] wheel in
+    blocks of 2 (-> 8 slots and back); the input is unchanged and no
+    output shares its storage. K26 at config 9's 4,096 hosts and at 10^6.
+    Timings as phase 2's: K25 at config 9's first regrow (8 -> 16), K26
+    at 4,096 hosts."""
+    from shadow_tpu_torch.ops.pressure import pressure_total, pressure_total_plain
+    from shadow_tpu_torch.ops import events as ev
+    from shadow_tpu_torch.ops.wheel import migrate_wheel, resolve_wheel_block
+    from shadow_tpu_torch.testing import migrate_case
+
+    def slab(seed, h, cap, fill=None):
+        c = migrate_case(seed, h, cap, dev, fill=fill)
+        return ev.EventQueue(c["t"], c["order"], c["kind"], c["payload"], c["dropped"])
+
+    def plain(q, new_cap, block):
+        out = ev.migrate_slab_plain(ev.as_flat(q), new_cap)
+        if not block:
+            return out
+        return ev.BucketQueue(*out, *ev.block_minima_plain(out.t, out.order, new_cap // block))
+
+    def bq(q, block):
+        return ev.BucketQueue(*q, *ev.block_minima_plain(q.t, q.order, q.t.shape[1] // block))
+
+    cases = [("cfg9_8_16", slab(901, H9, 8), 16, 0), ("cfg9_16_32", slab(902, H9, 16), 32, 0),
+             ("cfg9_32_16", slab(903, H9, 32, 16), 16, 0),
+             ("cfg9_32_8", slab(904, H9, 32, 8), 8, 0), ("cfg9_8_8", slab(905, H9, 8), 8, 0),
+             ("bucketed_28_56", bq(slab(906, H6, C6), BLK6), 56, BLK6),
+             ("bucketed_56_28", bq(slab(907, H6, 56, C6), BLK6), C6, BLK6)]
+    err = 0.0
+    for name, q, new_cap, block in cases:
+        before = [x.clone() for x in q]
+        got = ev.migrate_queue(q, new_cap, block)
+        err = max(err, check_equal(f"K25 {name}", list(got), list(plain(q, new_cap, block))))
+        check_equal(f"K25 {name} input", list(q), before)
+        if {x.data_ptr() for x in got} & {x.data_ptr() for x in q}:
+            raise AssertionError(f"K25 {name}: the output shares storage with the input")
+    over = slab(908, H9, 32)
+    for new_cap in (8, 16, 32):
+        check_equal(f"K25 fits {new_cap}", [ev.migration_fits(over, new_cap)],
+                    [ev.queue_len(over) <= new_cap])
+    if bool(ev.migration_fits(over, 8).all()):
+        raise AssertionError("K25 fits: the overfull slab fits 8 slots")
+    w = bq(slab(909, H6, 4), 2)
+    for slots, src in ((8, w), (4, None)):
+        src = src if src is not None else migrate_wheel(w, 8)
+        blk = resolve_wheel_block(slots, 0)
+        err = max(err, check_equal(f"K25 wheel -> {slots}", list(migrate_wheel(src, slots)),
+                                   list(plain(src, slots, blk))))
+    checked = len(cases) + 5
+    results = {}
+    q9 = slab(901, H9, 8)
+    r = kernel_ms("queue_migrate", lambda q: ev.migrate_queue(q, 16), lambda: (q9,))
+    r["plain_ms"] = time_ms(lambda q: ev.migrate_slab_plain(q, 16), lambda: (q9,))
+    slot = 8 + 8 + 4 + 4 * P
+    # the kernel's work: the four [H, 8] planes read, the [H, 16] planes written
+    r["bound"] = bound(H9 * 8 * slot + H9 * 16 * slot, H9 * 16)
+    r["library_ms"] = None
+    r["library_why"] = "no single PyTorch call re-seats the four planes"
+    r["shape"] = {"hosts": H9, "capacity": 8, "new_capacity": 16, "payload_words": P}
+    r["max_abs_err"] = err
+    r["cases_checked"] = checked
+    results["queue_migrate"] = settle("queue_migrate", r, r["bound"][0])
+
+    rng = np.random.default_rng(32)
+    err = 0.0
+    for h in (H9, 1_000_000):
+        lanes = [torch.as_tensor(rng.integers(0, 1 << 20, h), device=dev) for _ in range(2)]
+        ob = torch.as_tensor(rng.integers(0, 1 << 20, 1), device=dev)
+        err = max(err, check_equal(f"K26 h={h}", [pressure_total(*lanes, ob)],
+                                   [pressure_total_plain(*lanes, ob)]))
+    lanes = [torch.as_tensor(rng.integers(0, 100, H9), device=dev) for _ in range(2)]
+    ob = torch.zeros(1, dtype=torch.int64, device=dev)
+    r = kernel_ms("pressure_total", lambda: pressure_total(*lanes, ob))
+    r["plain_ms"] = time_ms(lambda: pressure_total_plain(*lanes, ob))
+    r["bound"] = bound(2 * H9 * 8 + 8 + 8, 2 * H9)
+    r["library_ms"] = None
+    r["library_why"] = "no single PyTorch call sums the three lanes"
+    r["shape"] = {"hosts": H9}
+    r["max_abs_err"] = err
+    results["pressure_total"] = settle("pressure_total", r, r["bound"][0])
+    return results
+
+
 def merge_bytes(q0, after, ob, gc: int) -> tuple[int, int]:
     """(bytes, operations) one merge of the outbox's first gc columns into
     queue `q0` must take to give `after`: the row columns' dst and t; the
@@ -2145,6 +2294,8 @@ KERNEL_SYMBOLS = {
     "circuit_handle": ("circuit_handle_kernel",),
     "fault_down_resume": ("down_resume_kernel",),
     "integrity_round_check": ("integrity_kernel",),
+    "queue_migrate": ("migrate_kernel",),
+    "pressure_total": ("pressure_total_kernel",),
 }
 # the microstep's per-event steps, marked as profiler ranges in phases 5 and 9
 RANGES = ("ingress", "handler", "egress", "outbox_append")
@@ -2512,13 +2663,20 @@ ANCHOR_DELAY_PATH = tuple(k for k in ANCHOR_PATH if k != "queue_pop_min") + (
 # the busy-floored head; config 10 is config 6's path plus K24
 CFG7_PATH = ANCHOR_DELAY_PATH + ("fault_down_resume",)
 CFG10_PATH = TGEN_PATH + ("integrity_round_check",)
+# config 9 is the anchor's kernels (flat queue, K = 1) plus the pressure
+# plane's: K26 every round, K25 at every regrow; under the abort policy K26
+# alone; launched at its final shape under drop, neither
+PRESSURE_PATH = ("queue_migrate", "pressure_total")
+CFG9_PATH = ANCHOR_PATH + PRESSURE_PATH
+CFG9_ABORT_PATH = ANCHOR_PATH + ("pressure_total",)
 SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
            "merge_scatter": "shadow_tpu_torch/csrc/merge.cu",
            **{k: "shadow_tpu_torch/csrc/event.cu" for k in CHAIN_PATH},
            **{k: "shadow_tpu_torch/csrc/fluid.cu" for k in FLUID_PATH},
            **{k: "shadow_tpu_torch/csrc/models.cu" for k in HANDLER_OF.values()},
            "fault_down_resume": "shadow_tpu_torch/csrc/faults.cu",
-           "integrity_round_check": "shadow_tpu_torch/csrc/integrity.cu"}
+           "integrity_round_check": "shadow_tpu_torch/csrc/integrity.cu",
+           "pressure_total": "shadow_tpu_torch/csrc/pressure.cu"}
 REPLACES = {
     "queue_next_time": "shadow_tpu/ops/events.py:129",
     "queue_pop_min": "shadow_tpu/ops/events.py:138",
@@ -2544,6 +2702,8 @@ REPLACES = {
     "circuit_handle": "shadow_tpu/models/circuit.py:99",
     "fault_down_resume": "shadow_tpu/core/faults.py:266",
     "integrity_round_check": "shadow_tpu/core/engine.py:2050",
+    "queue_migrate": "shadow_tpu/ops/events.py:719",
+    "pressure_total": "shadow_tpu/core/engine.py:1896",
 }
 # the path whose run each kernel's `launches` is read from: the one it was
 # ported for (wheel_cancel has no engine caller, in either package)
@@ -2563,7 +2723,142 @@ PORTED_FOR = {
     "circuit_handle": "cfg4",
     "fault_down_resume": "cfg7",
     "integrity_round_check": "cfg10",
+    "queue_migrate": "cfg9",
+    "pressure_total": "cfg9",
 }
+
+
+def cfg9_final_shape() -> dict:
+    """Config 9 launched at its escalated shape (capacity 32, outbox 12)
+    under drop, with the escalation's pins: the base's valve (2 x 8) and
+    the auto insert cap, which follows the capacity."""
+    from shadow_tpu_torch.testing import cfg9_config
+
+    c = cfg9_config(policy="drop", cap=32, budget=12)
+    c["experimental"]["microstep_limit"] = 16
+    return c
+
+
+# a child process of phase 34: build config 9 from a JSON file, resume it
+# from a checkpoint where one is named, run it and print its report
+RESUME_CHILD = """
+import json, sys
+from shadow_tpu_torch.config.options import ConfigOptions
+from shadow_tpu_torch.core.checkpoint import load_checkpoint
+from shadow_tpu_torch.sim import Simulation
+with open(sys.argv[1]) as f:
+    sim = Simulation(ConfigOptions.from_dict(json.load(f)))
+if len(sys.argv) > 2:
+    load_checkpoint(sys.argv[2], sim)
+print(json.dumps(sim.run(progress=False)))
+"""
+
+
+def phase_resume(tmp: str) -> dict:
+    """Config 9 as configured with the supervisor writing a checkpoint
+    after every chunk, in a child process killed by SIGKILL right after its
+    second checkpoint; a second child builds it afresh, resumes from the
+    checkpoint and runs to the end: the uninterrupted run's JAX report.
+    Then, in this process, a checkpoint written at t = 0 by config 9
+    launched at capacity 32 under drop resumes into the configured 8-slot
+    build under drop (K25 shrinks the slab; every counter set to 0 just
+    before the load and read after the run): the JAX report of that
+    resume; and one written after its first chunk is refused with the JAX
+    package's CheckpointError."""
+    import os
+
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.core.checkpoint import CheckpointError, load_checkpoint, save_checkpoint
+    from shadow_tpu_torch.sim import KERNELS, Simulation
+    from shadow_tpu_torch.testing import cfg9_config
+
+    ck = os.path.join(tmp, "cfg9.npz")
+    c = cfg9_config(supervisor={"snapshot_every_chunks": 1, "checkpoint_file": ck})
+    c["general"]["data_directory"] = os.path.join(tmp, "data")
+    cfg_file = os.path.join(tmp, "cfg9.json")
+    with open(cfg_file, "w") as f:
+        json.dump(c, f)
+    cmd = [sys.executable, "-c", RESUME_CHILD, cfg_file]
+    env = {**os.environ, "SHADOW_TPU_TORCH_TEST_KILL_AT_CHECKPOINT": "2"}
+    t0 = time.monotonic()
+    killed = subprocess.run(cmd, env=env, capture_output=True, text=True)
+    if killed.returncode != -9 or not os.path.exists(ck):
+        raise AssertionError(f"the first child was not killed at its checkpoint: "
+                             f"rc {killed.returncode}\n{killed.stderr[-2000:]}")
+    t1 = time.monotonic()
+    resumed = subprocess.run(cmd + [ck], capture_output=True, text=True)
+    if resumed.returncode != 0:
+        raise AssertionError(f"the resumed child failed:\n{resumed.stderr[-2000:]}")
+    rep = json.loads(resumed.stdout.strip().splitlines()[-1])
+    keys = [k for k in CFG9_REF if not k.startswith("pressure")]
+    out = {"killed_rc": killed.returncode, "killed_seconds": t1 - t0,
+           "resumed_seconds": time.monotonic() - t1,
+           "resumed": {k: rep.get(k) for k in keys},
+           "resumed_pressure": rep.get("pressure")}
+    if any(rep.get(k) != CFG9_REF[k] for k in keys):
+        raise AssertionError(f"the resumed run differs from the JAX report: {out}")
+
+    sim32 = Simulation(ConfigOptions.from_dict(cfg9_final_shape()))
+    p0 = save_checkpoint(os.path.join(tmp, "ck32_t0"), sim32)
+    sim8 = Simulation(ConfigOptions.from_dict(cfg9_config(policy="drop")))
+    for k in KERNELS.values():
+        k.launches = 0
+    load_checkpoint(p0, sim8)
+    rep8 = sim8.run(progress=False)
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    out["cross_capacity"] = {k: rep8.get(k) for k in CFG9_DROP8_REF}
+    out["cross_capacity_wall_seconds"] = rep8["wall_seconds"]
+    if any(rep8.get(k) != v for k, v in CFG9_DROP8_REF.items()) \
+            or not launches["queue_migrate"]:
+        raise AssertionError(f"the cross-capacity resume differs from JAX's: {out}")
+    sim32 = Simulation(ConfigOptions.from_dict(cfg9_final_shape()))
+    sim32.state = sim32.engine.run_chunk(sim32.state, sim32.params)
+    p1 = save_checkpoint(os.path.join(tmp, "ck32_1"), sim32)
+    try:
+        load_checkpoint(p1, Simulation(ConfigOptions.from_dict(cfg9_config(policy="drop"))))
+        refusal = None
+    except CheckpointError as e:
+        refusal = str(e)
+    out["cross_capacity_refusal"] = refusal
+    if refusal != CFG9_REFUSAL:
+        raise AssertionError(f"the overfull cross-capacity resume: {refusal!r}")
+    return {**out, "launches": launches}
+
+
+def phase_cross_device(cfg_dict: dict, want: dict, keys: tuple) -> dict:
+    """A checkpoint written on one device resumes on the other: config 9
+    small runs one chunk (an escalating one) on the card, is saved, loaded
+    into a CPU build and finished there; and the other way round. Both
+    must give the uninterrupted card run's report on `keys`."""
+    import os
+    import tempfile
+
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
+    from shadow_tpu_torch.core.pressure import ResilienceController
+    from shadow_tpu_torch.sim import Simulation
+
+    out = {}
+    prev_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+                a = Simulation(ConfigOptions.from_dict(cfg_dict), device=src)
+                rc = ResilienceController(pressure=a.cfg.pressure,
+                                          queue_block=a.engine_cfg.queue_block)
+                a.state, _, _ = rc.run_chunk(a.engine, a.state, a.params)
+                p = save_checkpoint(os.path.join(tmp, f"{src}.npz"), a)
+                b = Simulation(ConfigOptions.from_dict(cfg_dict), device=dst)
+                load_checkpoint(p, b)
+                rep = b.run(progress=False)
+                got = {k: rep.get(k) for k in keys}
+                out[f"{src}_to_{dst}"] = {"regrows_before_save": rc.regrows, **got}
+                if got != {k: want.get(k) for k in keys}:
+                    raise AssertionError(f"checkpoint {src} -> {dst}: {got} != {want}")
+    finally:
+        torch.set_num_threads(prev_threads)
+    return out
 
 
 def main() -> int:
@@ -2661,6 +2956,12 @@ def main() -> int:
         r["bound_ms"] = r.pop("bound")[0]
         kres[row][lane] = r
     kres.update(fres)
+
+    # phase 32: the pressure plane's kernels
+    pres = phase_kernels_pressure(dev)
+    emit("kernels_pressure_vs_plain", ok=True, exact=True,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in pres.items()})
+    kres.update(pres)
 
     # least device time per call at each path's shapes: the kernel phases'
     # bounds; K1 and K4 on the tgen path (block caches, 24-wide outbox) get
@@ -2786,6 +3087,41 @@ def main() -> int:
         if not (r["faults_dropped"] and r["faults_delayed"]):
             raise AssertionError(f"{name}: no fault drop or delay was exercised")
     emit("integrity_small_scribble", **phase_scribble(fkeys))
+
+    # phase 33: bench config 9 as configured, under the abort policy, and
+    # launched at its final shape under drop (the escalated run's digest)
+    from shadow_tpu_torch.testing import cfg9_config, tgen_pressure_config
+
+    launches["cfg9"] = run_leg("cfg9", cfg9_config(), CFG9_REF, CFG9_PATH)[0]
+    launches["cfg9_abort"] = run_leg("cfg9_abort", cfg9_config(policy="abort"),
+                                     CFG9_ABORT_REF, CFG9_ABORT_PATH)[0]
+    launches["cfg9_final_shape"] = run_leg("cfg9_final_shape", cfg9_final_shape(),
+                                           CFG9_FINAL_REF, ANCHOR_PATH)[0]
+    ran = {leg: [k for k in PRESSURE_PATH if c[k]] for leg, c in launches.items()
+           if leg not in ("cfg9", "cfg9_abort")}
+    if any(ran.values()) or launches["cfg9_abort"]["queue_migrate"]:
+        raise AssertionError(f"a pressure kernel launched outside its legs: {ran}")
+
+    # phase 34: kill and resume from an on-disk checkpoint; the
+    # cross-capacity resume and its refusal
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res = phase_resume(tmp)
+    launches["cfg9_cross_capacity"] = res.pop("launches")
+    emit("cfg9_checkpoint_resume", **res)
+
+    # phase 35: config 9 small and a tgen K = 4 bucketed pressure case:
+    # card == CPU; a checkpoint moves between the devices
+    pkeys = keys + ("pressure", "pressure_regrows", "pressure_replays")
+    small9 = {"cfg9_small": cfg9_config(256, "6 s"),
+              "tgen_k4_bucketed": tgen_pressure_config(4, 3)}
+    small = card_vs_cpu("pressure_small", small9, pkeys)
+    for name, r in small.items():
+        if not (r["pressure_regrows"] and r["queue_overflow_dropped"] == 0):
+            raise AssertionError(f"{name}: no regrow, or a drop under escalate")
+    emit("pressure_checkpoint_cross_device",
+         **phase_cross_device(small9["cfg9_small"], small["cfg9_small"], keys))
     emit("total", seconds=round(time.monotonic() - t_start, 3))
 
     table = []

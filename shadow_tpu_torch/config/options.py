@@ -9,9 +9,8 @@ never silently run with a plane switched off:
 
   - `general.parallelism > 1` (world > 1);
   - `experimental.scheduler: cpu-reference`;
-  - any non-empty `pressure` or `campaign` block, any enabled
-    `observability` knob (`trace`, `network`, ...), and
-    `faults.supervisor.checkpoint_file` (on-disk checkpoints);
+  - any non-empty `campaign` block and any enabled `observability` knob
+    (`trace`, `network`, ...);
   - `pcap_enabled`, managed processes (`path:`), and models other than
     phold, udp_echo, timer, tgen_tcp, gossip and circuit (checked when
     the simulation is built).
@@ -29,7 +28,9 @@ row bound or delay, which the JAX package reads as "off", is refused. The `fluid
 (background traffic classes, net/fluid.py) is parsed and validated as the
 JAX package's `FluidOptions`, error texts included, and so are the `faults`
 block (`FaultOptions`: host churn, explicit crashes, loss windows, the
-supervisor) and the `integrity` block (`IntegrityOptions`).
+supervisor, with its on-disk `checkpoint_file`), the `integrity` block
+(`IntegrityOptions`) and the `pressure` block (`PressureOptions`: drop,
+escalate or abort, the ceilings, the growth factor and the headroom).
 
 `ExperimentalOptions.resolve_shapes` is the JAX package's auto-sizing rule,
 copied verbatim, so both packages resolve a config to the same queue
@@ -157,6 +158,10 @@ class ExperimentalOptions:
     microstep_limit: int = 0
     # events folded per host per microstep (K >= 1)
     microstep_events: int = 1
+    # the all-to-all exchange's block (multi-device only; world 1 ignores it,
+    # but the pressure plane's escalate refuses an explicit one, as in the
+    # JAX package)
+    a2a_block: int = 0
     # timer wheel: slots per host for the model's timer events (0 = off;
     # needs microstep_events = 1) and slots per block of its caches (0 =
     # auto, a divisor near sqrt)
@@ -254,8 +259,9 @@ class ExperimentalOptions:
                 f"experimental.exchange must be auto|gather|alltoall|"
                 f"hierarchical, got {ex!r}"
             )
-        d.pop("a2a_block", None)
+        a2a_block = int(d.pop("a2a_block", 0))
         e = ExperimentalOptions()
+        e.a2a_block = a2a_block
         for f in ("runahead", "cpu_delay"):
             if f in d:
                 setattr(e, f, parse_time_ns(d.pop(f), TimeUnit.MS))
@@ -579,9 +585,7 @@ class FaultOptions:
     injection plus the crash-resilient run supervisor (core/supervisor.py).
     Everything is seeded and bit-reproducible: same fault seed => same
     digests, across reruns and a mid-run snapshot restore. With the block
-    absent the engine runs no fault lane and allocates none. The port
-    refuses `supervisor.checkpoint_file` (on-disk checkpoints are not
-    ported)."""
+    absent the engine runs no fault lane and allocates none."""
 
     seed: int | None = None  # None = general.seed
     # what happens to a crashed host's pending events at/during the
@@ -670,6 +674,85 @@ class IntegrityOptions:
         if d:
             raise ConfigError(f"unknown integrity options: {sorted(d)}")
         return o
+
+
+@dataclass
+class PressureOptions:
+    """The pressure plane (core/pressure.py, a copy of the JAX package's
+    options): what happens when a fixed-shape lane would drop for capacity
+    (queue-push overflow, the exchange's overflow, outbox overflow,
+    per-host send-budget drops).
+
+      drop      — the default: drops are counted and the run goes on; no
+                  pressure code runs.
+      escalate  — drop-free: the chunk stops at the first dropping round,
+                  the run loop restores the pre-chunk snapshot, regrows the
+                  queue capacity and/or outbox width one geometric rung
+                  (growth_factor) and replays; bounded by max_capacity /
+                  max_outbox; also proactive at chunk boundaries once
+                  occupancy crosses `headroom`.
+      abort     — stop at the first dropping round and report it.
+    """
+
+    policy: str = "drop"  # drop | escalate | abort
+    # escalation ceilings: 0 = auto (8x the initial queue capacity / 4x the
+    # initial send budget)
+    max_capacity: int = 0  # queue slots per host
+    max_outbox: int = 0  # sends per host per round
+    growth_factor: int = 2  # geometric rung ratio (>= 2 keeps a bucketed
+    # queue's block divisibility: C * 2^k stays divisible by B)
+    # proactive-regrow threshold: grow at a chunk boundary once the
+    # occupancy high-water reaches ceil(headroom * capacity) (and the outbox
+    # once a chunk's send high-water fills the budget); 0 disables it
+    headroom: float = 0.85
+    # the JAX package's memory guard's factor (its guard is not ported; the
+    # knob is parsed and validated as there)
+    memory_safety_factor: float = 1.25
+
+    @property
+    def active(self) -> bool:
+        return self.policy != "drop"
+
+    @staticmethod
+    def from_dict(d: dict[str, Any] | None) -> "PressureOptions":
+        d = dict(d or {})
+        p = PressureOptions(
+            policy=str(d.pop("policy", "drop")),
+            max_capacity=int(d.pop("max_capacity", 0)),
+            max_outbox=int(d.pop("max_outbox", 0)),
+            growth_factor=int(d.pop("growth_factor", 2)),
+            headroom=float(d.pop("headroom", 0.85)),
+            memory_safety_factor=float(d.pop("memory_safety_factor", 1.25)),
+        )
+        if p.policy not in ("drop", "escalate", "abort"):
+            raise ConfigError(
+                f"pressure.policy must be drop|escalate|abort, "
+                f"got {p.policy!r}"
+            )
+        if p.max_capacity < 0 or p.max_outbox < 0:
+            raise ConfigError(
+                f"pressure ceilings must be >= 0 (0 = auto), got "
+                f"max_capacity={p.max_capacity} max_outbox={p.max_outbox}"
+            )
+        if p.growth_factor < 2:
+            raise ConfigError(
+                f"pressure.growth_factor must be >= 2, "
+                f"got {p.growth_factor}"
+            )
+        if not 0.0 <= p.headroom <= 1.0:
+            raise ConfigError(
+                f"pressure.headroom must be in [0, 1] (0 disables "
+                f"proactive regrow), got {p.headroom}"
+            )
+        if p.memory_safety_factor < 1.0:
+            raise ConfigError(
+                f"pressure.memory_safety_factor must be >= 1.0 (a factor "
+                f"below 1 would admit rungs past measured headroom), "
+                f"got {p.memory_safety_factor}"
+            )
+        if d:
+            raise ConfigError(f"unknown pressure options: {sorted(d)}")
+        return p
 
 
 def _reject_block(name: str, d: Any) -> None:
@@ -779,14 +862,16 @@ class ConfigOptions:
     fluid: FluidOptions = field(default_factory=FluidOptions)
     faults: FaultOptions = field(default_factory=FaultOptions)
     integrity: IntegrityOptions = field(default_factory=IntegrityOptions)
+    pressure: PressureOptions = field(default_factory=PressureOptions)
 
     @staticmethod
     def from_dict(d: dict[str, Any]) -> "ConfigOptions":
         d = dict(d)
         if "general" not in d:
             raise ConfigError("`general` section is required")
-        for block in ("pressure", "campaign", "observability"):
+        for block in ("campaign", "observability"):
             _reject_block(block, d.pop(block, None))
+        pressure = PressureOptions.from_dict(d.pop("pressure", None))
         fluid = FluidOptions.from_dict(d.pop("fluid", None))
         faults = FaultOptions.from_dict(d.pop("faults", None))
         integrity = IntegrityOptions.from_dict(d.pop("integrity", None))
@@ -811,6 +896,7 @@ class ConfigOptions:
             fluid=fluid,
             faults=faults,
             integrity=integrity,
+            pressure=pressure,
         )
         if d:
             raise ConfigError(f"unknown top-level sections: {sorted(d)}")
@@ -827,8 +913,6 @@ class ConfigOptions:
             raise _unsupported("pcap_enabled")
         self.experimental.validate()
         self.fluid.validate()
-        if self.faults.supervisor.checkpoint_file is not None:
-            raise _unsupported("faults.supervisor.checkpoint_file", "on-disk checkpoints")
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

@@ -11,10 +11,13 @@ as `BucketQueue`, a timer wheel (with its `wheel_spilled` and
 `wheel_occ_hwm` stats lanes) as the port's wheel, the fluid plane's
 `FluidParams`, `FluidState` and `fl_bg_*` stats lanes as the port's, the
 fault plane's `FaultParams` and counters, and the integrity sentinel's
-lanes (`integrity`, `iv_mask`, `iv_round`, `digest2`, uint64 bit for bit).
+lanes (`integrity`, `iv_mask`, `iv_round`, `digest2`, uint64 bit for bit)
+and the pressure plane's `pressure` lane. Queue and outbox planes come
+across at whatever shape they have, so an escalated state keeps its grown
+capacity and send budget.
 `engine_config_from` maps a JAX `EngineConfig` onto the port's (merge gear,
-scatter merge, merge-row bound, CPU delay, fluid, fault and integrity knobs
-included), refusing any knob the port does not run.
+scatter merge, merge-row bound, CPU delay, fluid, fault, integrity and
+pressure knobs included), refusing any knob the port does not run.
 `to_numpy` flattens either package's state into {"queue.t": array, ...} for a
 field-by-field comparison; the fault counters, which the JAX package always
 carries, read as zeros where the port's plane is off. Nothing here imports
@@ -48,7 +51,6 @@ from shadow_tpu_torch.ops.rng import RngState
 _OFF_FIELDS = {
     "world": 1,
     "trace_rounds": 0,
-    "pressure_abort": False,
     "netobs": False,
 }
 

@@ -57,9 +57,16 @@ before the exchange and after it, the chunk stops after the first
 violating round (read with the window, no extra sync), and K10 folds the
 second digest.
 
+With a pressure policy (`pressure_abort`, core/pressure.py) each round
+after the exchange writes the run's capacity-drop total into
+`stats.pressure` (K26), and the chunk stops after the first round where it
+grew (read with the window, no extra sync); `run_chunk_resized` runs a
+chunk at the state's (capacity, send budget) when escalation regrew it,
+under `resized_cfg`'s pins.
+
 The slice is the JAX package's single-device path: flat or bucketed queue,
 K >= 1, the timer wheel, merge gears, the scatter merge, the fluid plane,
-the fault plane and the integrity sentinel, world 1.
+the fault plane, the integrity sentinel and the pressure plane, world 1.
 `lax.while_loop` becomes a Python loop; each loop condition is one
 device-to-host read, counted in `Engine.host_syncs`. The window itself is
 computed on the device and read back with the `done` flag in the same
@@ -122,6 +129,7 @@ from shadow_tpu_torch.ops.events import (
     q_push_many,
 )
 from shadow_tpu_torch.ops.merge import gear_shed_count, merge_flat_events, merge_scatter_free
+from shadow_tpu_torch.ops.pressure import pressure_total
 from shadow_tpu_torch.ops.rng import RngState, rng_init, u64
 from shadow_tpu_torch.ops.wheel import (
     TimerWheel,
@@ -192,6 +200,9 @@ class Stats(NamedTuple):
     iv_mask: Any = None  # i64[1] | None
     iv_round: Any = None  # i64[1] | None
     digest2: Any = None  # i64[H] | None
+    # the pressure plane's signal, None unless a policy is on (escalate or
+    # abort): the run's cumulative capacity-drop total, written every round
+    pressure: Any = None  # i64[1] | None
 
 
 class SimState(NamedTuple):
@@ -299,6 +310,10 @@ class EngineConfig:
     integrity: bool = False
     integrity_dual: bool = False
     integrity_strict_time: bool = True
+    # pressure plane (core/pressure.py): the per-round drop total (K26,
+    # ops/pressure.py) and the chunk's first-drop stop; False (policy drop)
+    # runs neither
+    pressure_abort: bool = False
 
     def __post_init__(self):
         check_order_limits(self.num_hosts)
@@ -458,6 +473,7 @@ def _init_stats(cfg: EngineConfig, device) -> Stats:
                   if cfg.integrity else None),
         digest2=(torch.full((h,), DIGEST2_OFFSET_I64, dtype=torch.int64, device=device)
                  if cfg.integrity_dual else None),
+        pressure=z1() if cfg.pressure_abort else None,
     )
 
 
@@ -626,9 +642,11 @@ class Engine:
         """Up to `effective_rounds_per_chunk` rounds. Under a merge gear the
         chunk stops before the first round that follows a shed (the JAX
         chunk loop's gear abort); with the integrity sentinel, before the
-        first round that follows a violation."""
+        first round that follows a violation; with a pressure policy, before
+        the first round that follows a capacity drop."""
         cfg = self.cfg
         shed0 = st.stats.gear_shed.clone() if cfg.gear_active else None
+        press0 = st.stats.pressure.clone() if cfg.pressure_abort else None
         iv0 = None
         if self._iv is not None:
             iv0 = st.stats.integrity.clone()
@@ -637,11 +655,25 @@ class Engine:
         for _ in range(cfg.effective_rounds_per_chunk):
             if st.done:
                 break
-            window_end, done, stop = self.compute_window(st, shed0, iv0, params)
+            window_end, done, stop = self.compute_window(st, shed0, iv0, params, press0)
             if stop:
                 break
             st = self.window_step(st, params, window_end, done)
         return st
+
+    def _run_chunk_at(self, cfg: EngineConfig, st: SimState, params: EngineParams) -> SimState:
+        """One chunk under `cfg` in place of the engine's config (the
+        sentinel's check follows it); the base config is back afterwards."""
+        base = self.cfg
+        self.cfg = cfg
+        if self._iv is not None:
+            self._iv.cfg = cfg
+        try:
+            return self.run_chunk(st, params)
+        finally:
+            self.cfg = base
+            if self._iv is not None:
+                self._iv.cfg = base
 
     def run_chunk_gear(self, st: SimState, params: EngineParams, gear_cols: int) -> SimState:
         """One chunk at merge gear `gear_cols` (the exchange reads that many
@@ -649,12 +681,46 @@ class Engine:
         chunk. State shapes are the same at every gear."""
         if gear_cols <= 0 or gear_cols >= self.cfg.sends_per_host_round:
             return self.run_chunk(st, params)
+        return self._run_chunk_at(dataclasses.replace(self.cfg, gear_cols=gear_cols), st, params)
+
+    def run_chunk_resized(self, st: SimState, params: EngineParams, gear_cols: int,
+                          queue_capacity: int, send_budget: int) -> SimState:
+        """One chunk at an escalated shape: `queue_capacity` slots per host
+        and a `send_budget`-wide outbox (the pressure plane's regrown
+        shapes, which the state must already have), at merge gear
+        `gear_cols` (0 = full width). The base shape, or 0 for either
+        (the gears-only controller), is `run_chunk_gear`. Every part of the
+        round that reads a shape from the config (the exchange's fresh
+        outbox, the send-budget check, the sentinel's outbox bound, the
+        K-way clamp, the merge's insert bound) runs under `resized_cfg`."""
         base = self.cfg
-        self.cfg = dataclasses.replace(base, gear_cols=gear_cols)
-        try:
-            return self.run_chunk(st, params)
-        finally:
-            self.cfg = base
+        if queue_capacity in (0, base.queue_capacity) and send_budget in (
+                0, base.sends_per_host_round):
+            return self.run_chunk_gear(st, params, gear_cols)
+        if (st.queue.t.shape[1], st.outbox.t.shape[1]) != (queue_capacity, send_budget):
+            raise ValueError(
+                f"run_chunk_resized at ({queue_capacity}, {send_budget}) got a state of shape "
+                f"({st.queue.t.shape[1]}, {st.outbox.t.shape[1]}): migrate it first")
+        return self._run_chunk_at(self.resized_cfg(gear_cols, queue_capacity, send_budget),
+                                  st, params)
+
+    def resized_cfg(self, gear_cols: int, queue_capacity: int, send_budget: int) -> EngineConfig:
+        """The escalated config, with the JAX package's pins, so that the
+        escalated run equals one launched at the final shape with them:
+        `microstep_limit` stays the base config's effective valve;
+        `max_round_inserts` follows the capacity only where the base left
+        it auto (equal to the base capacity); the gear is kept only below
+        the new budget."""
+        base = self.cfg
+        return dataclasses.replace(
+            base,
+            queue_capacity=queue_capacity,
+            sends_per_host_round=send_budget,
+            gear_cols=gear_cols if 0 < gear_cols < send_budget else 0,
+            microstep_limit=base.effective_microstep_limit,
+            max_round_inserts=(queue_capacity if base.max_round_inserts == base.queue_capacity
+                               else base.max_round_inserts),
+        )
 
     def next_times(self, st: SimState, params: EngineParams | None = None) -> torch.Tensor:
         """Per-host next executable time: the queue's head, and the wheel's
@@ -702,11 +768,12 @@ class Engine:
         return torch.where(floor < window_end, window_end, 0)
 
     def compute_window(self, st: SimState, shed0=None, iv0=None,
-                       params: EngineParams | None = None) -> tuple[int, bool, bool]:
+                       params: EngineParams | None = None,
+                       press0=None) -> tuple[int, bool, bool]:
         """Barrier + window: (window_end, done, stop), one device-to-host
-        read. `stop` is whether `stats.gear_shed` grew past `shed0` or
-        `stats.integrity` past `iv0` (the chunk-entry values; False without
-        them)."""
+        read. `stop` is whether `stats.gear_shed` grew past `shed0`,
+        `stats.integrity` past `iv0` or `stats.pressure` past `press0` (the
+        chunk-entry values; False without them)."""
         cfg = self.cfg
         gmin = self.next_times(st, params).min()
         done = gmin >= cfg.stop_time
@@ -721,6 +788,8 @@ class Engine:
             lanes.append((st.stats.gear_shed[0] > shed0[0]).to(torch.int64))
         if iv0 is not None:
             lanes.append((st.stats.integrity[0] > iv0[0]).to(torch.int64))
+        if press0 is not None:
+            lanes.append((st.stats.pressure[0] > press0[0]).to(torch.int64))
         vals = torch.stack(lanes).tolist()
         self.host_syncs += 1
         return int(vals[0]), bool(vals[1]), any(bool(v) for v in vals[2:])
@@ -796,6 +865,12 @@ class Engine:
             # is the round's post-push peak
             stats = stats._replace(wheel_occ_hwm=torch.maximum(
                 stats.wheel_occ_hwm, q_len(st_x.wheel).to(torch.int64)))
+        if cfg.pressure_abort:
+            # the pressure signal (K26): the run's capacity-drop total after
+            # the exchange (queue pushes and merge overflow, send budget,
+            # outbox)
+            stats = stats._replace(pressure=pressure_total(
+                st_x.queue.dropped, stats.pkts_budget_dropped, stats.ob_dropped))
         if self._iv is not None:
             # the sentinel's guards on the post-exchange state (the
             # done-round is never judged)

@@ -1,10 +1,11 @@
 """The crash-resilient run supervisor: retry a chunk's dispatch from device
 snapshots (port of the JAX package's `core/supervisor.py`; the memory and
-wall-clock hooks of its observatories and the on-disk checkpoint are left
-out).
+wall-clock hooks of its observatories are left out).
 
   RUNNING --dispatch ok--> RUNNING (a snapshot every
-                                    `snapshot_every_chunks` chunks)
+                                    `snapshot_every_chunks` chunks, and
+                                    with a checkpoint path an on-disk
+                                    checkpoint of it)
   RUNNING --dispatch raises--> BACKOFF (sleep base * 2^attempt)
   BACKOFF --> RESTORE (a fresh copy of the last good snapshot; its digest
               signature is checked against the one recorded when it was
@@ -19,10 +20,19 @@ have changed its input: the supervisor never reuses it and always replays
 from a copy of the snapshot (`core/checkpoint.py` deep-copies every
 tensor). Because the engine is deterministic, a retried run's final digest
 is the uninterrupted run's.
+
+On-disk checkpoints are written atomically (a temporary file, then
+`os.replace`), so a kill in the middle of a write never leaves a truncated
+file for the resume. With the environment variable
+`SHADOW_TPU_TORCH_TEST_KILL_AT_CHECKPOINT=N` the process kills itself with
+SIGKILL right after its N-th checkpoint lands: the hard crash the resume
+path is tested against.
 """
 
 from __future__ import annotations
 
+import os
+import signal
 import time
 
 import numpy as np
@@ -63,8 +73,12 @@ class ChunkSupervisor:
         snapshot_every_chunks: int = 1,
         max_retries: int = 3,
         backoff_base_s: float = 0.05,
+        checkpoint_path: str | None = None,
+        save_fn=None,
         log=None,
     ):
+        self.checkpoint_path = checkpoint_path
+        self._save_fn = save_fn  # (path, state) -> the file written
         self.snapshot_every = max(int(snapshot_every_chunks), 1)
         self.max_retries = int(max_retries)
         # clamp: a negative base would make time.sleep raise mid-recovery
@@ -77,7 +91,7 @@ class ChunkSupervisor:
         self.retries = 0  # failed dispatches retried
         self.restores = 0  # snapshot restores performed
         self.snapshots = 0  # device snapshots taken
-        self.checkpoints = 0  # on-disk checkpoints written (not ported: 0)
+        self.checkpoints = 0  # on-disk checkpoints written
         self.aborted = False
         self.poisoned = False  # snapshot failed its digest cross-check
         self.last_error: str | None = None
@@ -97,10 +111,26 @@ class ChunkSupervisor:
         self._chunks_since_snap = 0
         self.snapshots += 1
 
+    def _write_checkpoint(self):
+        """The snapshot to `checkpoint_path`, atomically."""
+        if self.checkpoint_path is None or self._save_fn is None:
+            return
+        real = self._save_fn(self.checkpoint_path + ".tmp", self._snap)
+        final = self.checkpoint_path
+        if real.endswith(".npz") and not final.endswith(".npz"):
+            final += ".npz"
+        os.replace(real, final)
+        self.checkpoints += 1
+        self._say(f"checkpoint written: {final}")
+        kill_at = os.environ.get("SHADOW_TPU_TORCH_TEST_KILL_AT_CHECKPOINT")
+        if kill_at and self.checkpoints >= int(kill_at):
+            os.kill(os.getpid(), signal.SIGKILL)
+
     def note_state(self, state):
         """Adopt `state` as the recovery point (drivers call it once before
         their loop; the periodic refresh goes through run_chunk)."""
         self._take_snapshot(state)
+        self._write_checkpoint()
 
     def run_chunk(self, state, dispatch):
         """Run `dispatch(state) -> state` with bounded-retry recovery.
@@ -139,6 +169,7 @@ class ChunkSupervisor:
             self._chunks_since_snap += 1
             if self._chunks_since_snap >= self.snapshot_every:
                 self._take_snapshot(out)
+                self._write_checkpoint()
             return out
 
     def _restore_checked(self):

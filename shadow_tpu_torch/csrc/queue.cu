@@ -22,6 +22,13 @@
 //   K12 shadow_tpu/ops/wheel.py:123 wheel_cancel    (masked order-key compare over
 //                                                    the timer wheel's slab + victim-
 //                                                    block recompute)
+//   K25 shadow_tpu/ops/events.py:719 migrate_queue  (re-seat [H, C] into new [H, C']
+//                                                    tensors: pad, or stable compaction
+//                                                    and truncation; or the live count
+//                                                    per host, which :823
+//                                                    migration_fits compares;
+//                                                    ops/wheel.py:165 migrate_wheel on
+//                                                    the wheel slab)
 //
 // Layout: one [H, C] slab per field, row-major; t/order int64, kind int32,
 // payload int32[P] per slot. Empty slots hold (TIME_MAX, ORDER_MAX). The
@@ -38,6 +45,11 @@
 // independent of scheduling: each host is owned by exactly one warp and every
 // reduction is over a total order with unique keys ((t, order) among live
 // slots; (t, order, slot) where empty slots must be told apart).
+//
+// K25 moves each plane once (read [H, C], write [H, C']), a bytes-bound copy,
+// once per capacity migration: one warp per host again, the destination of a
+// slot from two ballot prefix counts (live slots before it, empty slots
+// before it), so the compaction needs no sort and no shared memory.
 //
 // Limits checked at the C entry points: P <= 32, C <= 1024 (a lane tracks its
 // slots in one 32-bit mask), K <= 32 and NP <= 32 (pushes per host per call;
@@ -447,6 +459,70 @@ __global__ void block_minima_kernel(const long long* __restrict__ t,
   }
 }
 
+// K25: re-seat each host's slots into new [H, C2] planes, or write the
+// host's live-slot count. C2 >= C: every slot keeps its column (kind and
+// payload of empty slots as they were) and the tail is padded with the empty
+// sentinel and zero kind/payload. C2 < C: the reference's stable argsort on
+// "slot is empty" -- the live slots first, in column order, then the empty
+// slots in column order -- truncated to C2 (lossless iff live <= C2, which
+// the callers check first). With out_t null only the live count is written;
+// with live null only the planes.
+__global__ void migrate_kernel(const long long* __restrict__ t, const long long* __restrict__ order,
+                               const int* __restrict__ kind, const int* __restrict__ payload,
+                               long long* __restrict__ out_t, long long* __restrict__ out_order,
+                               int* __restrict__ out_kind, int* __restrict__ out_payload,
+                               int* __restrict__ live, int H, int C, int C2, int P) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int h = host_of_warp();
+  if (h >= H) return;
+  const long long base = (long long)h * C;
+  const long long obase = (long long)h * C2;
+  int n_live = 0;
+  if (live != nullptr || C2 < C) {
+    for (int c = lane; c < C; c += kWarp) n_live += t[base + c] != kTimeMax;
+    n_live = __reduce_add_sync(kFull, n_live);
+  }
+  if (live != nullptr && lane == 0) live[h] = n_live;
+  if (out_t == nullptr) return;
+  if (C2 >= C) {
+    for (int c = lane; c < C2; c += kWarp) {
+      const long long o = obase + c;
+      if (c < C) {
+        out_t[o] = t[base + c];
+        out_order[o] = order[base + c];
+        out_kind[o] = kind[base + c];
+        for (int p = 0; p < P; ++p) out_payload[o * P + p] = payload[(base + c) * P + p];
+      } else {
+        out_t[o] = kTimeMax;
+        out_order[o] = kOrderMax;
+        out_kind[o] = 0;
+        for (int p = 0; p < P; ++p) out_payload[o * P + p] = 0;
+      }
+    }
+    return;
+  }
+  const unsigned below = (1u << lane) - 1u;
+  int seen_live = 0, seen_empty = 0;
+  for (int c0 = 0; c0 < C; c0 += kWarp) {
+    const int c = c0 + lane;
+    const bool valid = c < C;
+    const bool is_live = valid && t[base + c] != kTimeMax;
+    const unsigned lm = __ballot_sync(kFull, is_live);
+    const unsigned em = __ballot_sync(kFull, valid && !is_live);
+    const int dst = is_live ? seen_live + __popc(lm & below)
+                            : n_live + seen_empty + __popc(em & below);
+    if (valid && dst < C2) {
+      const long long o = obase + dst;
+      out_t[o] = t[base + c];
+      out_order[o] = order[base + c];
+      out_kind[o] = kind[base + c];
+      for (int p = 0; p < P; ++p) out_payload[o * P + p] = payload[(base + c) * P + p];
+    }
+    seen_live += __popc(lm);
+    seen_empty += __popc(em);
+  }
+}
+
 inline int blocks_for(int H) { return (H + kWarpsPerBlock - 1) / kWarpsPerBlock; }
 constexpr int kThreads = kWarpsPerBlock * kWarp;
 
@@ -544,6 +620,20 @@ int queue_block_minima(const long long* t, const long long* order, long long* bt
   if (H > 0)
     block_minima_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
         t, order, bt, bo, bfill, H, C, B);
+  return (int)cudaGetLastError();
+}
+
+// out_t == nullptr: the live count only (migration_fits); live == nullptr:
+// the re-seated planes only (migrate_queue)
+int queue_migrate(const long long* t, const long long* order, const int* kind, const int* payload,
+                  long long* out_t, long long* out_order, int* out_kind, int* out_payload,
+                  int* live, int H, int C, int C2, int P, void* stream) {
+  if (C < 1 || P > kWarp || (out_t == nullptr) == (live == nullptr) ||
+      (out_t != nullptr && C2 < 1))
+    return (int)cudaErrorInvalidValue;
+  if (H > 0)
+    migrate_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
+        t, order, kind, payload, out_t, out_order, out_kind, out_payload, live, H, C, C2, P);
   return (int)cudaGetLastError();
 }
 

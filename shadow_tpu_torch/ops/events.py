@@ -28,12 +28,18 @@ This module holds the queue's hand-written CUDA kernels (csrc/queue.cu):
                          victim blocks' caches)
   K7 `queue_push_many_bucketed`  K3 plus the block-cache update
   K8 `queue_block_minima`  every block's cache, from the slab
+  K25 `queue_migrate`    re-seat the slab at a new capacity (pad, or stable
+                         compaction and truncation) into new tensors
+                         (`migrate_queue`), or count each host's live slots
+                         (`migration_fits`)
 
 Each public function dispatches on where its tensors live: CPU tensors run
 the plain PyTorch version beside it (the same function, used by the tests
 and as the reference the kernel is held against on the card); CUDA tensors
 launch the kernel. There is no fallback from one to the other. On CUDA the
-kernels that change a queue change its planes in place and return it.
+kernels that change a queue change its planes in place and return it;
+K25 alone writes new tensors, so a migrated state never shares storage with
+the snapshot it came from.
 """
 
 from __future__ import annotations
@@ -55,6 +61,8 @@ SEQ_MASK = (1 << _SEQ_BITS) - 1
 ORDER_MAX = (1 << 63) - 1  # empty-slot sentinel, compares after any real key
 MAX_PUSH_PORTS = 32  # pushes per host per push_many call (kernel limit)
 MAX_BATCH = 32  # K of pop_k / clear_popped (kernel limit)
+MAX_CAPACITY = 32 * 32  # slots per host of the push and peek kernels (kernel limit)
+MAX_BLOCKS = 32  # blocks per host of the bucketed kernels (kernel limit)
 
 
 class EventQueue(NamedTuple):
@@ -394,8 +402,8 @@ def _launch_push_ports(q, pushes: list[Push]):
     n = len(pushes)
     if not 0 < n <= MAX_PUSH_PORTS:
         raise ValueError(f"push_many takes 1 to {MAX_PUSH_PORTS} push ports, got {n}")
-    if c > 32 * 32:
-        raise ValueError(f"push_many: capacity {c} exceeds the kernel's 1024 slots")
+    if c > MAX_CAPACITY:
+        raise ValueError(f"push_many: capacity {c} exceeds the kernel's {MAX_CAPACITY} slots")
     mask = torch.stack([x.mask for x in pushes]).contiguous()
     pt = torch.stack([x.t for x in pushes]).contiguous()
     po = torch.stack([x.order for x in pushes]).contiguous()
@@ -499,8 +507,9 @@ def pop_k(q, limit, k: int) -> PoppedK:
         return pop_k_plain(q, limit, k)
     h, c, p = _check_slab(as_flat(q))
     k = min(k, c)
-    if not 0 < k <= MAX_BATCH or c > 32 * 32:
-        raise ValueError(f"pop_k: k={k} must be in 1..{MAX_BATCH} and capacity {c} <= 1024")
+    if not 0 < k <= MAX_BATCH or c > MAX_CAPACITY:
+        raise ValueError(
+            f"pop_k: k={k} must be in 1..{MAX_BATCH} and capacity {c} <= {MAX_CAPACITY}")
     dev = q.t.device
     out = PoppedK(
         t=torch.empty((h, k), dtype=torch.int64, device=dev),
@@ -649,6 +658,128 @@ def make_bucket_queue(num_hosts: int, capacity: int, block: int, device) -> Buck
     return bucket_rebuild(make_queue(num_hosts, capacity, device), block)
 
 
+# --------------------------------------------------------------------------
+# K25 queue_migrate: capacity migration (the pressure plane's escalation
+# primitive and the cross-capacity checkpoint restore)
+# --------------------------------------------------------------------------
+
+_migrate_k = CudaKernel(
+    "queue", "queue_migrate",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4,
+)
+
+
+def _check_migration(new_capacity: int, block: int) -> int:
+    new_capacity = int(new_capacity)
+    if new_capacity < 1:
+        raise ValueError(f"new_capacity must be >= 1, got {new_capacity}")
+    if block < 0 or (block and new_capacity % block):
+        raise ValueError(
+            f"block={block} must be 0 (flat) or divide new_capacity={new_capacity} evenly"
+        )
+    return new_capacity
+
+
+def migrate_slab_plain(q: EventQueue, new_capacity: int) -> EventQueue:
+    """The reference's re-seat of the flat planes: growth appends empty
+    columns (TIME_MAX / ORDER_MAX, kind and payload 0); shrink sorts the
+    columns stably on "slot is empty" (live slots first, each group in
+    column order) and truncates. `dropped` is copied."""
+    h, c = q.t.shape
+    t, order, kind, payload = q.t, q.order, q.kind, q.payload
+    if new_capacity < c:
+        cols = torch.arange(c, dtype=torch.int64, device=t.device)[None, :].expand(h, c)
+        key = torch.where(t != TIME_MAX, cols, c)
+        idx = torch.argsort(key, dim=1, stable=True)[:, :new_capacity]
+        t = torch.gather(t, 1, idx)
+        order = torch.gather(order, 1, idx)
+        kind = torch.gather(kind, 1, idx)
+        payload = torch.gather(payload, 1, idx[:, :, None].expand(-1, -1, payload.shape[2]))
+    elif new_capacity > c:
+        pad = new_capacity - c
+        dev = t.device
+        t = torch.cat([t, torch.full((h, pad), TIME_MAX, dtype=torch.int64, device=dev)], 1)
+        order = torch.cat([order, torch.full((h, pad), ORDER_MAX, dtype=torch.int64,
+                                             device=dev)], 1)
+        kind = torch.cat([kind, torch.zeros((h, pad), dtype=torch.int32, device=dev)], 1)
+        payload = torch.cat([payload, torch.zeros((h, pad, payload.shape[2]),
+                                                  dtype=torch.int32, device=dev)], 1)
+    else:
+        t, order, kind, payload = t.clone(), order.clone(), kind.clone(), payload.clone()
+    return EventQueue(t, order, kind, payload, q.dropped.clone())
+
+
+def migrate_slab(q: EventQueue, new_capacity: int) -> EventQueue:
+    """K25 on CUDA: the re-seated flat planes, in new tensors; the plain
+    version on the CPU."""
+    if on_cpu(q.t):
+        return migrate_slab_plain(q, new_capacity)
+    h, c, p = _check_slab(q)
+    dev = q.t.device
+    out = EventQueue(
+        t=torch.empty((h, new_capacity), dtype=torch.int64, device=dev),
+        order=torch.empty((h, new_capacity), dtype=torch.int64, device=dev),
+        kind=torch.empty((h, new_capacity), dtype=torch.int32, device=dev),
+        payload=torch.empty((h, new_capacity, p), dtype=torch.int32, device=dev),
+        dropped=q.dropped.clone(),
+    )
+    _migrate_k(ptr(q.t), ptr(q.order), ptr(q.kind), ptr(q.payload), ptr(out.t),
+               ptr(out.order), ptr(out.kind), ptr(out.payload), ctypes.c_void_p(None), h, c,
+               new_capacity, p)
+    return out
+
+
+def migrate_queue(q, new_capacity: int, block: int = 0):
+    """Re-seat a queue's events into a slab of `new_capacity` slots per host
+    (either queue type in; a `BucketQueue` with rebuilt caches out when
+    `block` > 0, K8 on CUDA, else a flat `EventQueue`).
+
+    Slot positions are unobservable (pops select by the (time, order) key
+    over the whole slab, pushes and drops depend only on the free-slot
+    count), so the result behaves exactly as a queue built at
+    `new_capacity` with the same events. On shrink every live event must
+    fit (`migration_fits`): the callers refuse before calling. The result
+    never shares storage with `q`."""
+    new_capacity = _check_migration(new_capacity, block)
+    out = migrate_slab(as_flat(q), new_capacity)
+    return bucket_rebuild(out, block) if block else out
+
+
+def grow_queue(q: EventQueue, new_capacity: int) -> EventQueue:
+    """`migrate_queue` restricted to growth on a flat queue."""
+    if new_capacity <= q.t.shape[1]:
+        raise ValueError(
+            f"grow_queue: new_capacity={new_capacity} must exceed the current capacity "
+            f"{q.t.shape[1]}"
+        )
+    return migrate_queue(q, new_capacity, block=0)
+
+
+def grow_bucket_queue(q: BucketQueue, new_capacity: int, block: int = 0) -> BucketQueue:
+    """`grow_queue` for the bucketed queue: pad, then rebuild the caches for
+    the new block grid (`block` 0 keeps the queue's)."""
+    if new_capacity <= q.t.shape[1]:
+        raise ValueError(
+            f"grow_bucket_queue: new_capacity={new_capacity} must exceed the current "
+            f"capacity {q.t.shape[1]}"
+        )
+    return migrate_queue(q, new_capacity, block=block or q.block)
+
+
+def migration_fits(q, new_capacity: int) -> torch.Tensor:
+    """bool[H]: every live event of the host fits in `new_capacity` slots.
+    On CUDA the count is K25's (count-only launch) over the slab."""
+    qf = as_flat(q)
+    if on_cpu(qf.t):
+        return q_len(q) <= int(new_capacity)
+    h, c, p = _check_slab(qf)
+    live = torch.empty((h,), dtype=torch.int32, device=qf.t.device)
+    none = ctypes.c_void_p(None)
+    _migrate_k(ptr(qf.t), ptr(qf.order), ptr(qf.kind), ptr(qf.payload), none, none, none,
+               none, ptr(live), h, c, 0, p)
+    return live <= int(new_capacity)
+
+
 # ---- queue-kind dispatchers ------------------------------------------------
 
 
@@ -692,4 +823,5 @@ KERNELS = {
     "queue_clear_popped": _clear_popped_k,
     "queue_push_many_bucketed": _bq_push_many_k,
     "queue_block_minima": _block_minima_k,
+    "queue_migrate": _migrate_k,
 }

@@ -15,6 +15,9 @@ one masked compare over the [H, S] key plane and a recompute of the block
 that lost the slot — kernel K12 (csrc/queue.cu) on CUDA, its plain PyTorch
 version on the CPU. No engine path calls it (in the JAX package either);
 it is exported for models that cancel timers.
+
+`migrate_wheel` re-seats the wheel at another slot count (the checkpoint's
+cross-shape restore): K25 on the wheel slab, then K8 for the caches.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 
 from shadow_tpu_torch.ops.cuda_build import CudaKernel, check, on_cpu, ptr
 from shadow_tpu_torch.ops.events import (
+    MAX_BLOCKS,
+    MAX_CAPACITY,
     ORDER_MAX,
     BucketQueue,
     _check_caches,
@@ -33,6 +38,7 @@ from shadow_tpu_torch.ops.events import (
     bq_pop_min,
     bq_push_many,
     make_bucket_queue,
+    migrate_queue,
     q_len,
 )
 from shadow_tpu_torch.simtime import TIME_MAX
@@ -133,7 +139,7 @@ def wheel_cancel(w: TimerWheel, mask: torch.Tensor, order: torch.Tensor):
         return wheel_cancel_plain(w, mask, order)
     h, s, _ = _check_slab(w)
     b = _check_caches(w)
-    if s > 32 * 32 or s // b > 32:
+    if s > MAX_CAPACITY or s // b > MAX_BLOCKS:
         raise ValueError(f"wheel_cancel: {s} slots in blocks of {b} exceed the kernel's limits")
     check(mask, torch.bool, (h,), "mask")
     check(order, torch.int64, (h,), "order")
@@ -143,4 +149,12 @@ def wheel_cancel(w: TimerWheel, mask: torch.Tensor, order: torch.Tensor):
     return w, found
 
 
+def migrate_wheel(w: TimerWheel, new_slots: int, block: int = 0) -> TimerWheel:
+    """Re-seat the wheel at `new_slots` slots per host (`migrate_queue` with
+    the resolved block; the caller checks `migration_fits` before a
+    shrink)."""
+    return migrate_queue(w, new_slots, block=resolve_wheel_block(new_slots, block))
+
+
 KERNELS = {"wheel_cancel": _cancel_k}
+

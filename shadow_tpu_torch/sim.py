@@ -34,6 +34,19 @@ deterministic violation ends the run with the last good state reported and
 `integrity_aborted` set. The report always carries `faults_dropped`,
 `faults_delayed` and `alltoall_shed_dropped` (0 on one device), as the JAX
 package's does.
+
+A `pressure:` block with policy escalate or abort runs every chunk through
+the same controller with the pressure plane on (core/pressure.py; K26's
+per-round drop total in ops/pressure.py, the first-drop stop, and under escalate the
+capacity migration by K25 and the replay); each dispatch runs at the
+state's own shapes. The report gains `pressure{}` (the controller's
+accounting plus the ending `capacity` and `outbox` and their bases),
+`pressure_regrows`, `pressure_replays` and, after an abort,
+`pressure_aborted` and `aborted`; the heartbeat gains `cap=<capacity>`.
+With `faults.supervisor.checkpoint_file` (relative to the data directory)
+every supervisor snapshot is also written to disk (core/checkpoint.py
+`save_checkpoint`); `load_checkpoint(path, sim)` resumes a freshly built
+simulation from it, on either device.
 """
 
 from __future__ import annotations
@@ -52,12 +65,13 @@ import yaml
 from shadow_tpu_torch import resolve_device
 from shadow_tpu_torch.config.options import ConfigError, ConfigOptions
 from shadow_tpu_torch.core.engine import Engine, EngineConfig, EngineParams
+from shadow_tpu_torch.core.checkpoint import save_checkpoint
 from shadow_tpu_torch.core.faults import INACTIVE_FAULTS, compile_faults
 from shadow_tpu_torch.core.faults import KERNELS as FAULT_KERNELS
 from shadow_tpu_torch.core.gears import GearController, resolve_gear_ladder
 from shadow_tpu_torch.core.integrity import KERNELS as INTEGRITY_KERNELS
 from shadow_tpu_torch.core.integrity import IntegrityAbort
-from shadow_tpu_torch.core.pressure import ResilienceController
+from shadow_tpu_torch.core.pressure import PressureAbort, ResilienceController, capacity_ladder
 from shadow_tpu_torch.core.supervisor import ChunkSupervisor, SupervisorAbort
 from shadow_tpu_torch.models import KERNELS as MODEL_KERNELS
 from shadow_tpu_torch.models import get_model
@@ -66,6 +80,7 @@ from shadow_tpu_torch.net.fluid import INACTIVE_SCHEDULE, assemble_fluid_report,
 from shadow_tpu_torch.net.fluid import KERNELS as FLUID_KERNELS
 from shadow_tpu_torch.net.graph import IpAssignment, NetworkGraph, load_graph
 from shadow_tpu_torch.ops import KERNELS as OPS_KERNELS
+from shadow_tpu_torch.ops.events import MAX_BLOCKS, MAX_CAPACITY
 from shadow_tpu_torch.simtime import NS_PER_SEC
 
 MTU_BITS = 1500 * 8
@@ -152,15 +167,17 @@ def tb_params(bws: np.ndarray, interval_ns: int, device) -> TBParams:
 def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
                    rounds: int, q_hwm: int, host_syncs: int, gear: int | None = None,
                    bg: tuple[int, int] | None = None, fault: tuple[int, int] | None = None,
-                   iv: tuple[int, int] | None = None) -> str:
+                   iv: tuple[int, int] | None = None, cap: int | None = None) -> str:
     """The `[heartbeat]` progress line, in the JAX package's format (ici_bytes
     is 0 on one device; `faults=<dropped>/<delayed>` only on fault-plane
     runs, after `q_hwm=`; `gear=` only on merge-gear runs, after `faults=`;
-    `bg=<bytes>/<dropped>` only on fluid runs, after `gear=`;
+    `cap=<queue capacity>` only on pressure-plane runs, after `gear=`;
+    `bg=<bytes>/<dropped>` only on fluid runs, after `cap=`;
     `iv=<transients>/<replays>` only on integrity-sentinel runs, after
     `bg=`) plus the port's host-sync count."""
     fault_f = f"faults={fault[0]}/{fault[1]} " if fault is not None else ""
     gear_f = f"gear={gear} " if gear is not None else ""
+    cap_f = f"cap={cap} " if cap is not None else ""
     bg_f = f"bg={bg[0]}/{bg[1]} " if bg is not None else ""
     iv_f = f"iv={iv[0]}/{iv[1]} " if iv is not None else ""
     return (
@@ -172,6 +189,7 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
         f"ici_bytes=0 q_hwm={q_hwm} "
         f"{fault_f}"
         f"{gear_f}"
+        f"{cap_f}"
         f"{bg_f}"
         f"{iv_f}"
         f"syncs={host_syncs} "
@@ -232,6 +250,7 @@ class Simulation:
         fs = self._fault_sched
         qcap, send_budget, rpc = ex.resolve_shapes(num_hosts)
         ex.check_queue_block(qcap)
+        self._check_pressure(qcap, send_budget)
         # the timer wheel: a model with no timer kinds fails here, at
         # config time, not when the engine is built
         if ex.timer_wheel and not tuple(getattr(self.model, "timer_kinds", ())):
@@ -275,6 +294,7 @@ class Simulation:
             fault_queue_clear=fs.queue_clear,
             integrity=cfg.integrity.enabled,
             integrity_dual=cfg.integrity.enabled and cfg.integrity.dual_digest,
+            pressure_abort=cfg.pressure.active,
         )
         # merge gears: the ladder resolved against the (auto-sized) send
         # budget; [] = off (a budget of 1 leaves no narrower width)
@@ -283,9 +303,10 @@ class Simulation:
         except ValueError as e:
             raise ConfigError(f"experimental.merge_gears: {e}") from e
         self._gearctl: GearController | None = None  # one per run()
-        self._resil: ResilienceController | None = None  # gears or the sentinel
+        # gears, the pressure plane or the sentinel
+        self._resil: ResilienceController | None = None
         self._supervisor: ChunkSupervisor | None = None
-        self._aborted = self._integrity_aborted = False
+        self._aborted = self._integrity_aborted = self._pressure_aborted = False
         self._ob_hwm_run = 0  # run-wide outbox high-water of a geared run
         # test seams: a hook (state, attempt) -> state applied before each
         # dispatch attempt of a sentinel run (core/pressure.py
@@ -295,6 +316,42 @@ class Simulation:
         self._test_fail_dispatch: frozenset[int] = frozenset()
         self.engine = Engine(self.engine_cfg, self.model, self.device)
         self._build_state()
+
+    def _check_pressure(self, qcap: int, send_budget: int) -> None:
+        """The pressure plane's build-time refusals: the JAX package's
+        (escalate cannot cure a merge_rows bound or an explicit a2a_block;
+        a ceiling below the base shape), and the port's queue kernels'
+        limits, checked against the ladder's top rung so that a run never
+        fails mid-way at a grown shape."""
+        press, ex = self.cfg.pressure, self.cfg.experimental
+        if press.policy != "escalate":
+            return
+        if ex.merge_rows > 0:
+            raise ConfigError(
+                "pressure: escalate cannot cure a merge_rows bound (its shed is positional, "
+                "not capacity-sized) — drop merge_rows or keep policy: drop/abort")
+        if ex.a2a_block > 0:
+            raise ConfigError(
+                "pressure: escalate cannot cure an explicit a2a_block's sheds (the resized "
+                "programs scale only the AUTO block with the send budget) — drop a2a_block "
+                "(auto-sizing follows escalation) or keep policy: drop/abort")
+        if press.max_capacity and press.max_capacity < qcap:
+            raise ConfigError(
+                f"pressure.max_capacity={press.max_capacity} is below the configured queue "
+                f"capacity {qcap}")
+        if press.max_outbox and press.max_outbox < send_budget:
+            raise ConfigError(
+                f"pressure.max_outbox={press.max_outbox} is below the configured send "
+                f"budget {send_budget}")
+        top = capacity_ladder(qcap, press)[-1]
+        block = ex.event_queue_block
+        if top > MAX_CAPACITY or (block and top // block > MAX_BLOCKS):
+            raise ConfigError(
+                f"pressure: the capacity ladder's top rung {top}"
+                + (f" (in blocks of {block})" if block else "")
+                + f" exceeds the queue kernels' limit of {MAX_CAPACITY} slots and "
+                f"{MAX_BLOCKS} blocks per host (csrc/queue.cu); set "
+                f"pressure.max_capacity within it")
 
     def _model_hosts(self) -> list[dict]:
         return [
@@ -360,22 +417,35 @@ class Simulation:
             gearctl.gear = start_gear
         self._gearctl = gearctl
         self._ob_hwm_run = 0
-        self._aborted = self._integrity_aborted = False
+        self._aborted = self._integrity_aborted = self._pressure_aborted = False
         integrity_on = cfg.integrity.enabled
-        # the snapshot-replay seam: merge gears (a shed replays wider) and
+        pressure_on = cfg.pressure.active
+        # the snapshot-replay seam: merge gears (a shed replays wider), the
+        # pressure plane (a drop regrows and replays, or stops the run) and
         # the integrity sentinel (a violation replays to classify it)
         resil = None
-        if gearctl is not None or integrity_on:
+        if gearctl is not None or integrity_on or pressure_on:
             resil = ResilienceController(
-                gearctl=gearctl, integrity=cfg.integrity if integrity_on else None, log=log)
+                gearctl=gearctl, pressure=cfg.pressure if pressure_on else None,
+                integrity=cfg.integrity if integrity_on else None,
+                queue_block=self.engine_cfg.queue_block, log=log)
             resil.test_scribble = self._integrity_test_scribble
         self._resil = resil
         sup = None
         if cfg.faults.supervisor.enabled:
             so = cfg.faults.supervisor
+            ckpt = so.checkpoint_file
+            if ckpt is not None:
+                if not os.path.isabs(ckpt):
+                    ckpt = os.path.join(cfg.general.data_directory, ckpt)
+                os.makedirs(os.path.dirname(ckpt) or ".", exist_ok=True)
             sup = ChunkSupervisor(snapshot_every_chunks=so.snapshot_every_chunks,
                                   max_retries=so.max_retries,
-                                  backoff_base_s=so.backoff_base_ms / 1000.0, log=log)
+                                  backoff_base_s=so.backoff_base_ms / 1000.0,
+                                  checkpoint_path=ckpt,
+                                  save_fn=(lambda path, st: save_checkpoint(path, self, st))
+                                  if ckpt else None,
+                                  log=log)
             sup.note_state(self.state)
         self._supervisor = sup
         gear = None
@@ -399,14 +469,19 @@ class Simulation:
                     self.state = sup.run_chunk(self.state, chunk_step)
                 else:
                     self.state = chunk_step(self.state)
-            except IntegrityAbort as e:
-                # the violating attempts are discarded: report the last
-                # good pre-chunk state, naming the invariant
-                print(f"[integrity] aborting run: {e}", file=log)
+            except (IntegrityAbort, PressureAbort) as e:
+                # an integrity abort or an escalation that is cornered
+                # discards its attempts: report the last good pre-chunk
+                # state; the abort policy reports the dropping state
+                kind = "integrity" if isinstance(e, IntegrityAbort) else "pressure"
+                print(f"[{kind}] aborting run: {e}", file=log)
                 good = resil.abort_export_state()
                 if good is not None:
                     self.state = good
-                self._integrity_aborted = True
+                if kind == "integrity":
+                    self._integrity_aborted = True
+                else:
+                    self._pressure_aborted = True
                 break
             except SupervisorAbort as e:
                 print(f"[supervisor] aborting run: {e}", file=log)
@@ -433,11 +508,12 @@ class Simulation:
                 if s.fl_bg_bytes is not None:
                     bg = tuple(vals[4:6])
                 iv = ((resil.iv_transients, resil.iv_replays) if integrity_on else None)
+                # the ACTIVE queue capacity (escalation regrows it)
+                cap = self.state.queue.t.shape[1] if pressure_on else None
                 print(
                     heartbeat_line(
                         now_ns, time.monotonic() - t0, *vals[:4],
-                        self.engine.host_syncs - syncs0 + (sup.syncs if sup else 0), gear,
-                        bg, fault, iv,
+                        self._syncs_since(syncs0), gear, bg, fault, iv, cap,
                     ),
                     file=log,
                 )
@@ -451,9 +527,16 @@ class Simulation:
         if show_progress:
             print(file=log)
         self._chunks = chunks
-        self._host_syncs = self.engine.host_syncs - syncs0 + (sup.syncs if sup else 0)
+        self._host_syncs = self._syncs_since(syncs0)
         self._launches = {k: v.launches - launches0[k] for k, v in KERNELS.items()}
         return self.stats_report()
+
+    def _syncs_since(self, syncs0: int) -> int:
+        """Device-to-host reads of this run: the engine's, the supervisor's
+        and the controller's own."""
+        sup, resil = self._supervisor, self._resil
+        return (self.engine.host_syncs - syncs0 + (sup.syncs if sup is not None else 0)
+                + (resil.syncs if resil is not None else 0))
 
     def host_digests(self) -> np.ndarray:
         """Per-host event digests as uint64."""
@@ -475,6 +558,21 @@ class Simulation:
             }
         if self._gearctl is not None:
             report["gears"] = self._gearctl.report()
+        if self.cfg.pressure.active and self._resil is not None:
+            rc = self._resil
+            report["pressure"] = {
+                **rc.report(),
+                # the shapes the run ENDED at (escalation regrows them)
+                "capacity": self.state.queue.t.shape[1],
+                "outbox": self.state.outbox.t.shape[1],
+                "base_capacity": self.engine_cfg.queue_capacity,
+                "base_outbox": self.engine_cfg.sends_per_host_round,
+            }
+            report["pressure_regrows"] = rc.regrows + rc.proactive_regrows
+            report["pressure_replays"] = rc.replays
+            if self._pressure_aborted:
+                report["pressure_aborted"] = True
+                report["aborted"] = True
         if self.engine_cfg.integrity:
             # the sentinel's transient/replay accounting, the second digest
             # fold and, after an IntegrityAbort, the violation's naming

@@ -846,6 +846,91 @@ def cfg10_config(side: int = 10, per_node: int = 100, stop: str = "5 s", *, k: i
     }
 
 
+# --------------------------------------------------------------------------
+# the pressure plane (bench config 9) and capacity migration
+# --------------------------------------------------------------------------
+
+
+def cfg9_config(hosts: int = 4096, stop: str = "30 s", *, policy: str = "escalate",
+                cap: int = 8, budget: int = 6, k: int = 1, block: int = 0,
+                rounds_per_chunk: int = 128, supervisor: dict | None = None,
+                **pressure) -> dict:
+    """bench.py baseline_config(9) (4,096 PHOLD hosts for 30 sim-s; 256
+    small): population 6 on an 8-slot queue with a send budget of 6,
+    128-round chunks, `pressure: {policy: escalate, max_capacity: 64}`.
+    The arguments vary the host count, the horizon, the policy, the
+    launch shape (capacity, budget, K, queue block), the chunk length, add
+    a `faults.supervisor` block, and (`pressure`) any other `pressure:`
+    key."""
+    ex = {"event_queue_capacity": cap, "sends_per_host_round": budget,
+          "rounds_per_chunk": rounds_per_chunk}
+    if k > 1:
+        ex["microstep_events"] = k
+    if block:
+        ex["event_queue_block"] = block
+    c = {
+        "general": {"stop_time": stop, "seed": 1, "heartbeat_interval": None},
+        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "experimental": ex,
+        "pressure": {"policy": policy, "max_capacity": 64, **pressure},
+        "hosts": {"node": {"count": hosts, "network_node_id": 0, "processes": [{
+            "model": "phold",
+            "model_args": {"population": 6, "mean_delay": "200 ms", "size_bytes": 64},
+        }]}},
+    }
+    if supervisor is not None:
+        c["faults"] = {"supervisor": supervisor}
+    return c
+
+
+def tgen_pressure_config(k: int = 1, block: int = 0, cap: int = 6, stop: str = "1 s", *,
+                         policy: str = "escalate", **pressure) -> dict:
+    """A small tgen-TCP pressure case: 16 hosts on the 2 x 2 torus at 10 ms,
+    three flows each, a 6-slot queue and a send budget of 4 under
+    `pressure: {policy: escalate, max_capacity: 48}`, which regrows both;
+    `k` and `block` set the microstep and the queue layout, `policy` and
+    `pressure` the rest of the `pressure:` block."""
+    ex = {"event_queue_capacity": cap, "sends_per_host_round": 4, "rounds_per_chunk": 16,
+          "microstep_events": k}
+    if block:
+        ex["event_queue_block"] = block
+    return {
+        "general": {"stop_time": stop, "seed": 3, "heartbeat_interval": None},
+        "network": {"graph": {"type": "gml", "inline": torus_gml(2, lat_ms=10)}},
+        "experimental": ex,
+        "pressure": {"policy": policy, "max_capacity": 48, **pressure},
+        "hosts": {f"n{i}": {"count": 4, "network_node_id": i, "processes": [{
+            "model": "tgen_tcp",
+            "model_args": {"flows": 3, "flow_segs": 10, "cwnd_cap": 8, "mss": 1460,
+                           "flow_gap": "20 ms", "tx_batch": 2},
+        }]} for i in range(4)},
+    }
+
+
+def migrate_case(seed: int, h: int, cap: int, dev, *, fill: int | None = None,
+                 p: int = 4) -> dict:
+    """A random [h, cap] slab for the migration ops (K25 and its plain
+    version): each host holds 0..`fill` live events (default: up to the
+    whole row) at random columns, and the empty slots keep stale kind and
+    payload words, as popped slots do. Returns dict(t, order, kind,
+    payload, dropped)."""
+    r = np.random.default_rng(seed)
+    fill = cap if fill is None else fill
+    n = r.integers(0, fill + 1, h)
+    live = r.random((h, cap)).argsort(axis=1) < n[:, None]
+    t = np.where(live, r.integers(0, 1 << 40, (h, cap)), TIME_MAX).astype(np.int64)
+    order = np.where(live, r.integers(0, 1 << 62, (h, cap)), (1 << 63) - 1).astype(np.int64)
+    kind = r.integers(0, 1 << 20, (h, cap)).astype(np.int32)
+    payload = r.integers(-(1 << 31), (1 << 31) - 1, (h, cap, p)).astype(np.int32)
+    dropped = r.integers(0, 100, h).astype(np.int64)
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    return {"t": T(t), "order": T(order), "kind": T(kind), "payload": T(payload),
+            "dropped": T(dropped)}
+
+
 def scribble_hook(mode: str, at_round: int = 16, what: str = "time"):
     """A hook for the sentinel's replay seam (`Simulation._integrity_test_scribble`
     or `ResilienceController.test_scribble`): once the state has `at_round`

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from engine_harness import build_sim, mk_hosts
 from shadow_tpu.core import Engine as JaxEngine
@@ -35,6 +36,15 @@ from shadow_tpu_torch.models import get_model
 
 SEC = 1_000_000_000
 MS = 1_000_000
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny tensors: PyTorch's intra-op threads only add overhead here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def multi_node(cfg, params, node_of):

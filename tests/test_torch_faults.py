@@ -233,14 +233,18 @@ def test_supervisor_retry_abort_and_cross_check():
 
 def test_options_parse_like_jax_and_refusals():
     """The `faults:` block parses to the JAX package's values (the YAML
-    units included); an on-disk checkpoint is refused by name, and a bad
-    restart policy as in the JAX package."""
+    units included, an on-disk checkpoint file too); an empty checkpoint
+    file name is refused by name, and a bad restart policy, as in the JAX
+    package."""
     d = cfg7_config(48, "6 s")["faults"]
     assert dataclasses.asdict(FaultOptions.from_dict(d)) == \
         dataclasses.asdict(JaxFaultOptions.from_dict(d))
+    sup = {"snapshot_every_chunks": 1, "checkpoint_file": "ck.npz"}
+    assert dataclasses.asdict(FaultOptions.from_dict({**d, "supervisor": sup})) == \
+        dataclasses.asdict(JaxFaultOptions.from_dict({**d, "supervisor": sup}))
     with pytest.raises(ConfigError, match="checkpoint_file"):
         ConfigOptions.from_dict(small7(supervisor={"snapshot_every_chunks": 1,
-                                                   "checkpoint_file": "ck.npz"}))
+                                                   "checkpoint_file": ""}))
     with pytest.raises(ConfigError, match="restart_queue"):
         ConfigOptions.from_dict(small7(restart_queue="drop"))
     with pytest.raises(ConfigError):

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K24 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K26 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -34,7 +34,11 @@ strided time lane), K1's fault floor, K10's hold and clear lanes with the
 second digest and K11's link-fault lane on `chain_case` inputs with crash
 and loss windows; the integrity sentinel's K24 on
 `shadow_tpu_torch.testing.integrity_case` rounds that break each invariant
-in turn (flat, bucketed, with the wheel).
+in turn (flat, bucketed, with the wheel). The pressure plane: K25
+(`migrate_queue`, `migration_fits`, `migrate_wheel`) on
+`shadow_tpu_torch.testing.migrate_case` slabs (growth, shrink with
+compaction, flat and bucketed, wider than a warp), K26 (`pressure_total`)
+on random lanes.
 Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
 repeats the check at the main path's shapes.
@@ -729,4 +733,69 @@ def test_integrity_check_kernel_matches_plain(dev, layout):
             lanes.append([s.integrity.cpu(), s.iv_mask.cpu(), s.iv_round.cpu()])
         assert_all_equal(lanes[0], lanes[1])
         assert (int(lanes[1][0]) > 0) == (v not in (None, "done")), v
+    torch.cuda.synchronize()
+
+
+MIGRATIONS = [(16, 8, 0, 8), (16, 32, 0, None), (16, 16, 0, None), (16, 4, 0, 4),
+              (16, 32, 4, None), (16, 8, 4, 8), (40, 1200, 0, None), (1200, 64, 0, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,new_cap,block,fill", MIGRATIONS)
+def test_migrate_queue_kernel_matches_plain(dev, cap, new_cap, block, fill):
+    """K25 (then K8 for a bucketed target) against the plain re-seat:
+    growth, the same capacity, shrinks with compaction where the live
+    events fit (stale kind and payload in empty slots move as in the
+    reference), a slab wider than one warp's 32 columns both ways; the
+    input is unchanged and shares no storage with the output; the
+    count-only launch (`migration_fits`) against the plain count on the
+    unshrunk slab."""
+    from shadow_tpu_torch.testing import migrate_case
+
+    for seed in range(3):
+        c = migrate_case(seed, 300, cap, dev, fill=fill)
+        q = pev.EventQueue(c["t"], c["order"], c["kind"], c["payload"], c["dropped"])
+        before = clone(q)
+        got = pev.migrate_queue(q, new_cap, block)
+        flat = pev.migrate_slab_plain(q, new_cap)
+        want = (pev.BucketQueue(*flat, *pev.block_minima_plain(flat.t, flat.order,
+                                                               new_cap // block))
+                if block else flat)
+        assert_all_equal(list(got), list(want))
+        assert_all_equal(list(q), list(before))
+        assert not {x.data_ptr() for x in got} & {x.data_ptr() for x in q}
+        for k in (1, new_cap, cap):
+            assert torch.equal(pev.migration_fits(q, k), pev.queue_len(q) <= k)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_migrate_wheel_kernel_matches_plain(dev):
+    """`migrate_wheel` (K25 + K8) on a [300, 4] wheel in blocks of 2, to 8
+    slots and back."""
+    from shadow_tpu_torch.testing import migrate_case
+
+    c = migrate_case(5, 300, 4, dev)
+    q = pev.EventQueue(c["t"], c["order"], c["kind"], c["payload"], c["dropped"])
+    w = pev.bucket_rebuild(q, 2)
+    for slots, src in ((8, w), (4, pwheel.migrate_wheel(w, 8))):
+        b = pwheel.resolve_wheel_block(slots, 0)
+        flat = pev.migrate_slab_plain(pev.as_flat(src), slots)
+        want = pev.BucketQueue(*flat, *pev.block_minima_plain(flat.t, flat.order, slots // b))
+        assert_all_equal(list(pwheel.migrate_wheel(src, slots)), list(want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [1, 300, 4096, 100_003])
+def test_pressure_total_kernel_matches_plain(dev, h):
+    """K26 against the three sums in torch, on lanes up to 2^40 (no
+    overflow) and a host count that is not a multiple of the block."""
+    from shadow_tpu_torch.ops.pressure import pressure_total, pressure_total_plain
+
+    r = np.random.default_rng(h)
+    lanes = [torch.as_tensor(r.integers(0, 1 << 40, h), device=dev) for _ in range(2)]
+    ob = torch.as_tensor(r.integers(0, 1 << 40, 1), device=dev)
+    got = pressure_total(*lanes, ob)
+    assert torch.equal(got, pressure_total_plain(*lanes, ob))
     torch.cuda.synchronize()

@@ -20,6 +20,15 @@ from shadow_tpu_torch.net import tokenbucket as ptb
 H = 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny tensors: PyTorch's intra-op threads only add overhead here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def same(j, p) -> bool:
     return np.array_equal(np.asarray(j), p.numpy())
 

@@ -33,6 +33,15 @@ FILLS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny tensors: PyTorch's intra-op threads only add overhead here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def slab(seed: int, fill_kind: str):
     r = np.random.default_rng(seed)
     fill = FILLS[fill_kind](r)

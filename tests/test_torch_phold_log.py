@@ -9,10 +9,21 @@ Tolerance: exact equality, checked over all 2^24 inputs the model can draw
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from shadow_tpu.models.phold import _exp_delay as j_exp_delay
 from shadow_tpu_torch.models.phold import exp_delay, log_f32
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: beside the other test workers, PyTorch's
+    threads oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _inputs():

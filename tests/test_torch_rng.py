@@ -17,6 +17,15 @@ from shadow_tpu_torch.ops import rng as prng
 H = 37
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny tensors: PyTorch's intra-op threads only add overhead here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bits(x) -> np.ndarray:
     a = np.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
     return a.view(np.int64) if a.dtype.itemsize == 8 else a.view(np.int32)

@@ -63,6 +63,15 @@ SHARED_KEYS = (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Tiny tensors: PyTorch's intra-op threads only add overhead here."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_yaml_run_matches_jax():
     jsim = JaxSimulation(jax_load_config(YAML, is_text=True), world=1)
     psim = Simulation(load_config(YAML, is_text=True), device="cpu")
@@ -84,7 +93,8 @@ def test_yaml_run_matches_jax():
         "wheel_cancel": 0, "merge_scatter": 0, "fluid_fg_link_bytes": 0, "fluid_advance": 0,
         "fluid_host_effects": 0, "tgen_handle": 0, "phold_handle": 0, "echo_handle": 0,
         "timer_handle": 0, "gossip_handle": 0, "circuit_handle": 0,
-        "fault_down_resume": 0, "integrity_round_check": 0,
+        "fault_down_resume": 0, "integrity_round_check": 0, "queue_migrate": 0,
+        "pressure_total": 0,
     }  # the CPU path runs the plain versions, never a kernel
 
 
@@ -100,12 +110,13 @@ def test_anchor_shapes_resolve_like_jax():
     assert ExperimentalOptions.from_dict(kw).resolve_shapes(10_000) == (64, 12, 16)
 
 
-# knobs the port does not run yet (on-disk supervisor checkpoints among
-# them), and (event_queue_block, microstep_events, timer_wheel, merge_gears,
-# merge_scatter, merge_rows, cpu_delay, fluid, integrity) values the JAX
-# package rejects too: a block that does not divide the capacity (12 here),
-# K < 1, the wheel with K > 1, a gear of width 0; a fluid latency factor
-# below 1.0; a sentinel with no replay; and a negative merge-row bound (also
+# knobs the port does not run yet, and (event_queue_block, microstep_events,
+# timer_wheel, merge_gears, merge_scatter, merge_rows, cpu_delay, fluid,
+# faults, pressure, integrity) values the JAX package rejects too: a block
+# that does not divide the capacity (12 here), K < 1, the wheel with K > 1, a
+# gear of width 0; a fluid latency factor below 1.0; an empty checkpoint
+# file name; a pressure policy that does not exist; a sentinel with no
+# replay; and a negative merge-row bound (also
 # under the scatter merge) or CPU delay, which the JAX package reads as
 # "off" and the port refuses
 UNSUPPORTED = {
@@ -117,9 +128,9 @@ UNSUPPORTED = {
     "merge_scatter": "experimental: {merge_scatter: true, merge_rows: -64}",
     "merge_rows": "experimental: {merge_rows: -1}",
     "cpu_delay": "experimental: {cpu_delay: -1}",
-    "faults": "faults: {supervisor: {snapshot_every_chunks: 2, checkpoint_file: ck.npz}}",
+    "faults": "faults: {supervisor: {snapshot_every_chunks: 2, checkpoint_file: ''}}",
     "fluid": "fluid: {latency_factor_max: 0.5}",
-    "pressure": "pressure: {policy: escalate}",
+    "pressure": "pressure: {policy: grow}",
     "integrity": "integrity: {enabled: true, max_replays: 0}",
     "observability_trace": "observability: {trace: true}",
     "observability_network": "observability: {network: true}",
