@@ -1,6 +1,12 @@
 """Smoke run of the PyTorch port (`shadow_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --observer-cost
+
+The second form runs only the cost of observation: the tgen leg (phase 8)
+and configs 11 and 12 (phases 13, 22), each without and with its riders in
+turns (without, with, with, without), every run checked against its JAX
+digest and events, printing each run's loop wall and host syncs.
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit. Phases, each printed as one JSON line; any failure exits
@@ -45,10 +51,14 @@ line reports it):
      force drops; exact equality, with the same timings as phase 2;
   8. the second main path: bench config 6 (10,000 tgen-TCP hosts on the
      10x10 torus at 50 ms, K = 4, bucketed queue of 28 slots in blocks of
-     7, 24 sends per host per round) cut to 5 simulated seconds, which must
-     reproduce the JAX package's digest, event count, drop counters and
-     tgen report for that depth, with every kernel of the path launched (K17
-     as often as K10);
+     7, 24 sends per host per round) cut to 5 simulated seconds with the
+     riders bench.py measures (the trace ring, the network observatory
+     with config 6's flow ledger, the runtime observatory), which must
+     reproduce the JAX package's digest, event count, drop counters, tgen
+     report, network{} block and drained trace rows and flow records (at K
+     = 4) for that depth, with every kernel of the path launched (K17 as
+     often as K10, K27 once per round), and a runtime{} block with the JAX
+     keys that attributes at least 85% of the wall;
   9. where its time goes: one steady 8-round chunk, profiled as in phase 5;
  10. config 6 small (128 hosts on a 4x4 torus) for K in {1, 4} x {flat,
      bucketed}, a lossy torus and a tight capacity: card == CPU;
@@ -65,9 +75,10 @@ line reports it):
      against the CPU and against the law computed in Python (exact);
  13. the third path: bench config 11 (config 6 with the timer wheel, 4
      slots in blocks of 2, queue capacity 14 in blocks of 7, K = 1) at full
-     width cut to 10 simulated seconds and without its network-observatory
-     rider, which must reproduce the JAX package's digest, events, drop
-     counters, tgen report, microsteps and wheel block;
+     width cut to 10 simulated seconds, as configured (its network rider)
+     and with the trace ring, which must reproduce the JAX package's
+     digest, events, drop counters, tgen report, microsteps, wheel block,
+     network{} block and drained trace rows and flow records;
  14. config 11 small (128 hosts) as configured, with one wheel slot
      (timers spill) and on a lossy torus: card == CPU;
  15. the exchange merges on a gear-sliced outbox: K4 with a column limit
@@ -106,11 +117,12 @@ line reports it):
      float64 and float32 compared by bits, with the timings of phase 2 and
      an int64 `index_add_` as K14's library yardstick;
  22. bench config 12 at full width (config 6 plus four background crowd
-     classes on the fluid plane) without its network-observatory rider,
-     cut to 10 simulated seconds: the JAX package's report (digest, events,
-     drops, tgen report, microsteps at K = 4, the fluid block), the final
-     float64 rates bit for bit, and every kernel of the path launched,
-     K14-K16 included;
+     classes on the fluid plane) as configured (its network rider) and with
+     the trace ring, cut to 10 simulated seconds: the JAX package's report
+     (digest, events, drops, tgen report, microsteps at K = 4, the fluid
+     block, the network{} block), the final float64 rates bit for bit, the
+     drained trace rows and flow records at K = 4, and every kernel of the
+     path launched, K14-K16 and K27-K28 included;
  23. config 12 small (128 hosts, 4x4 torus) cut to 9 sim-s as configured,
      with loss_max 0.3 (the counter draw) and with merge gears started at
      the lowest gear (replays across the fluid state), and cut to 4 sim-s
@@ -185,13 +197,29 @@ line reports it):
  35. config 9 small (256 hosts, 6 sim-s) and a tgen-TCP K = 4 bucketed
      pressure case (16 hosts): card == CPU, pressure{} included; and a
      checkpoint written on the card resumes on the CPU and back, giving
-     the uninterrupted run's report.
+     the uninterrupted run's report;
+ 36. the observatories' kernels against their plain versions at config 6's
+     width (H = 10,000): K27 (trace_round) over five rounds into a ring
+     that wraps, on a bucketed queue's head plane with the network
+     observatory's and the flow ledger's lanes and on a flat slab with
+     crash windows; K28 (flow_append) on a K = 4 microstep's four columns
+     into a 4,096-record ledger and an 8-record one (the wrap rule); K10's
+     event-class lane; K17's flow-record lanes over three chained calls;
+     exact equality, with the timings of phase 2;
+ 37. the anchor (phase 4's) with all four observatories on (the trace
+     ring, the network, memory and runtime observatories) and a checkpoint
+     every chunk: the JAX digest and events, memory{} and runtime{} with
+     the JAX keys (the card's allocator as the memory source); killed by
+     SIGKILL after its second checkpoint in a child and resumed in
+     another, whose report and drained trace rows equal the uninterrupted
+     run's.
 
 Every leg checks that its model's handler kernel launched exactly as
 often as K10 (one launch per event_body call), and no other handler.
-The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 29, 32, 4-6,
-8-10, 13, 14, 16-20, 22, 23, 26-28, 30, 31, 33-35, so that every kernel's bound is counted before the profiles
-(5, 9) hold the kernels' in-path device times against it. A profiler reading below the
+The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 29, 32, 36,
+4-6, 8-10, 13, 14, 16-20, 22, 23, 26-28, 30, 31, 33-35, 37, so that every
+kernel's bound is counted before the profiles (5, 9) hold the kernels'
+in-path device times against it. A profiler reading below the
 kernel's bound (the least time the card needs for the work) is a
 misattributed trace: the kernel phases then take the queued timing, the
 profiles report no time for that kernel.
@@ -246,8 +274,8 @@ TGEN_REF = {
     },
 }
 # bench config 11 (config 6 with the timer wheel: 4 slots in blocks of 2,
-# capacity 14 in blocks of 7, K = 1) at full width cut to CFG11_STOP, without
-# its network-observatory rider: the JAX package's report on the CPU
+# capacity 14 in blocks of 7, K = 1) at full width cut to CFG11_STOP: the
+# JAX package's report on the CPU (the same with its network rider)
 CFG11_STOP = "10 s"
 CFG11_REF = {
     "determinism_digest": "35e000d62342a79f",
@@ -331,8 +359,8 @@ CFG5_REF = {
     "model_report": {"total_fires": 30_000_000, "min_fires": 30, "max_fires": 30},
 }
 # bench config 12 (config 6 plus the fluid crowd) at full width cut to
-# CFG12_STOP, without its network-observatory rider: the JAX package's
-# report on the CPU at K = 4 (the K = 1 report differs only in microsteps
+# CFG12_STOP: the JAX package's report on the CPU at K = 4 (the same with
+# its network rider) (the K = 1 report differs only in microsteps
 # and popk_deferred), and the final rates' float64 bits
 CFG12_STOP = "10 s"
 CFG12_REF = {
@@ -373,6 +401,54 @@ CFG12_FINAL = {
     "rates_hex": 4 * ["0x1.dcd2cc0000000p+25"],
     "link_util_sha256": "225d6f56870b856450ae04ceb15eb8deccbe9a0f325514879cf28c4af85a3b9f",
 }
+# the observed legs (phases 8, 13, 22: each config with the riders bench.py
+# measures): the JAX package's drained trace rows, flow records and
+# network{} block (SHA-256 of the int64 little-endian rows and of the
+# canonical JSON) on the CPU, config 6 and 12 at K = 4 (the microsteps and
+# popk_deferred columns depend on K), config 11 at its K = 1
+TGEN_OBS_REF = {
+    "trace_rows_sha256": "d8c3e85f814b9e5edec63c24f016186033cae1e195e4c7fc343ed96da14f111f",
+    "trace_rows_shape": [1, 100, 25],
+    "flow_records_sha256": "a76faf685b9324a45f2bfde5b91c031035cccaa69776458770f89d1de8893cd5",
+    "network_sha256": "f0b1ada80ae87028f651decb7bb1ebc1feb0415059f743190ba0d1bfe27f072c",
+    "event_classes": {"timer": 469_260, "packet": 6_338_550, "app": 2_116_170,
+        "total": 8_923_980, "timer_share": 0.0526, "packet_share": 0.7103},
+    "flows": {"completed": 39_930, "bytes": 5_829_780_000, "retransmits": 0,
+        "records_drained": 4096, "records_lost": 35_834, "drained_bytes": 598_016_000,
+        "drained_retransmits": 0},
+}
+CFG11_OBS_REF = {
+    "trace_rows_sha256": "0869eb52751c57546a991e8e69ea304e30942a21874694190c144e2489a1f09c",
+    "trace_rows_shape": [1, 200, 25],
+    "flow_records_sha256": "f67a5843758136a9e55fcdb9471d1c0e2590cd7a759a0e3d4c719ecccbe58998",
+    "network_sha256": "f7cb820993654c1186d04594410dd31c482e2150f996c3edbfd1a560dd12c46d",
+    "event_classes": {"timer": 1_076_770, "packet": 9_756_750, "app": 3_239_120,
+        "total": 14_072_640, "timer_share": 0.0765, "packet_share": 0.6933},
+    "flows": {"completed": 59_760, "bytes": 8_724_960_000, "retransmits": 119_700,
+        "records_drained": 4096, "records_lost": 55_664, "drained_bytes": 598_016_000,
+        "drained_retransmits": 8192},
+}
+CFG12_OBS_REF = {
+    "trace_rows_sha256": "5faf8659a16eb372a9b2206e0382da43759c5288533f31c71bb20116be31c6ee",
+    "trace_rows_shape": [1, 200, 25],
+    "flow_records_sha256": "264dd689fca10f4504c0a18338086fbe7a1fed7f28a1cb808b96d5593ba8d42c",
+    "network_sha256": "e6650ca9053f9a5f91646ea8f2c1be8b5b7fc82e65f0cb2f118fb3590cc15536",
+    "event_classes": {"timer": 946_092, "packet": 13_311_449, "app": 4_440_632,
+        "total": 18_698_173, "timer_share": 0.0506, "packet_share": 0.7119},
+    "flows": {"completed": 79_446, "bytes": 11_599_116_000, "retransmits": 0,
+        "records_drained": 8192, "records_lost": 71_254, "drained_bytes": 1_196_032_000,
+        "drained_retransmits": 0},
+}
+# the memory{} and runtime{} blocks' keys (the JAX package's; memory{} with
+# the allocator's limit and headroom, which a card reports)
+MEMORY_KEYS = {"model", "ledger", "source", "samples", "per_shard_hwm_bytes", "bytes_in_use",
+               "limit_bytes", "headroom_bytes"}
+MODEL_KEYS = {"components", "registered_bytes", "replicas", "unregistered",
+              "state_bytes_measured", "state_bytes", "params_bytes", "total_bytes",
+              "per_host_bytes"}
+RUNTIME_KEYS = {"attributed_share", "attributed_wall_s", "chunk_wall_s", "chunks",
+                "chunks_recorded", "compiles", "realtime_factor", "shares", "spans_s",
+                "total_wall_s"}
 CFG12_SMALL_CUT = "9 s"
 # bench configs 1 (1,000 udp_echo hosts), 3 (the 100,000-host gossip flood)
 # and 4 (5,000 relays and 2,500 circuit clients) at full width as
@@ -570,20 +646,20 @@ def tgen_config(small: bool, stop: str, k: int = 4, block: int = 7, cap: int = 2
 
 
 def cfg11_config(small: bool, stop: str, wheel: int = 4, loss: float = 0.0) -> dict:
-    """bench.py baseline_config(11, small) without its `observability:
-    {network: true}` rider (the port has no network observatory; the rider
-    changes no digest, tests/test_torch_wheel.py): config 6 with the timer
-    wheel, capacity 14 in blocks of 7, K = 1, and `stop` for its 120 s."""
+    """bench.py baseline_config(11, small): config 6 with the timer wheel,
+    capacity 14 in blocks of 7, K = 1, its `observability: {network:
+    true}` rider, and `stop` for its 120 s."""
     c = tgen_config(small, stop, k=1, block=7, cap=14, loss=loss)
     c["experimental"]["timer_wheel"] = wheel
+    c["observability"] = {"network": True}
     return c
 
 
 def cfg12_config(small: bool, stop: str, *, loss_max: float | None = None,
                  zero_demand: bool = False, gears: bool = False) -> dict:
     """bench.py baseline_config(12, small) as built off the CPU (K = 4),
-    without its `observability: {network: true}` rider (digest-neutral,
-    PERF.md section 4): config 6 at 128 rounds per chunk plus four
+    with its `observability: {network: true}` rider: config 6 at 128
+    rounds per chunk plus four
     background crowd classes, 1,500 Mbit each from zones 1, 2, 3 and 5 to
     zone 0 on 2 Gbit links from 5, 6, 7 and 8 s, latency factor up to 1.5
     from utilization 0.5; `stop` for its 120 s. `loss_max` turns the loss
@@ -596,11 +672,19 @@ def cfg12_config(small: bool, stop: str, *, loss_max: float | None = None,
                      "start": "1000 s" if zero_demand else f"{5 + i} s"}
                     for i, z in enumerate((1, 2, 3, 5))],
     }
+    c["observability"] = {"network": True}
     if loss_max is not None:
         c["fluid"]["loss_max"] = loss_max
     if gears:
         c["experimental"]["merge_gears"] = "auto"
     return c
+
+
+def with_obs(cfg: dict, **knobs) -> dict:
+    """`cfg` with observability knobs turned on (added to its own)."""
+    cfg = dict(cfg)
+    cfg["observability"] = {**cfg.get("observability", {}), **knobs}
+    return cfg
 
 
 def anchor_config(gears: bool = False, hosts: int = 10_000, stop_s: int = 4) -> dict:
@@ -2174,6 +2258,186 @@ def phase_kernels_pressure(dev) -> dict[str, dict]:
     return results
 
 
+def phase_kernels_obs(dev) -> dict[str, dict]:
+    """The observatories' kernels against their plain versions (run on the
+    same card), exact equality, at config 6's width (H = 10,000): K27
+    (`trace_round`) over a chunk entry and five rounds into a 3-row ring
+    (it wraps), on a bucketed queue's [H, 4] head plane with the network
+    observatory's and the flow ledger's lanes, and on a flat [H, 28] slab
+    with crash windows (the hosts-down column); K28 (`flow_append`) on a
+    K = 4 microstep's four event columns (completion densities 5%, 50%,
+    0% and 95%) into a 4,096-record ledger and into an 8-record one (the
+    wrap rule: only the newest records of a column are written); K10's
+    event-class lane on `chain_case` inputs at the anchor's and config 6's
+    shapes (the event a column of the K = 4 peek); K17's flow-record lanes
+    on `handler_case` inputs (a K = 4 column, three chained calls).
+    Timings as phase 2's: K27 and K28 at the tgen leg's shapes, K10 and
+    K17 with their lanes on."""
+    import dataclasses
+
+    from shadow_tpu_torch.obs.netobs import FLOW_COLS
+    from shadow_tpu_torch.ops import chain
+    from shadow_tpu_torch.ops import obs as pobs
+    from shadow_tpu_torch.testing import (
+        chain_case,
+        clone_carry,
+        clone_ctx,
+        flat_tensors,
+        flow_case,
+        handler_case,
+        handler_diff,
+        handler_tensors,
+        trace_case,
+    )
+
+    results = {}
+    err = 0.0
+    for name, kw in (("bucketed_netobs", dict(block=BLK6, netobs=True, ledger=True)),
+                     ("flat_crash_windows", dict(block=0, windows=3, netobs=False,
+                                                 ledger=False))):
+        c = trace_case(36, H6, 5, 3, dev, cap=C6, **kw)
+        ring_k, ring_p = c["new_ring"](), c["new_ring"]()
+        sk, sp = pobs.make_trace_scratch(dev), pobs.make_trace_scratch(dev)
+        pobs.trace_enter(sk, c["stats"][0])
+        sp.copy_(pobs.counter_values_plain(c["stats"][0]))
+        for i, (st, ri) in enumerate(zip(c["stats"][1:], c["inputs"])):
+            pobs.trace_round(ring_k, sk, st, ri)
+            pobs.trace_round_plain(ring_p, sp, st, ri)
+            err = max(err, check_equal(f"K27 {name} round {i}", [*ring_k, sk],
+                                       [*ring_p, sp]))
+        if name.startswith("flat") and not int(ring_k.rows[0, :, 16].max()):
+            raise AssertionError("K27: no host was down at a round's end")
+    c = trace_case(37, H6, 1, 256, dev, cap=C6, block=BLK6)
+    st0, st1, ri = c["stats"][0], c["stats"][1], c["inputs"][0]
+
+    def trace_setup():
+        sc = pobs.make_trace_scratch(dev)
+        sc.copy_(pobs.counter_values_plain(st0))
+        return c["new_ring"](), sc
+
+    r = kernel_ms("trace_round", lambda ring, sc: pobs.trace_round(ring, sc, st1, ri),
+                  trace_setup)
+    r["plain_ms"] = time_ms(lambda ring, sc: pobs.trace_round_plain(ring, sc, st1, ri),
+                            trace_setup)
+    # the [H] events and occupancy lanes, the [H, 4] head plane, the [1]
+    # lanes and the scratch read; the row, the cursor and the scratch written
+    r["bound"] = bound(io_bytes(reads=[st1.events, ri.occ, ri.heads, st1.popk_deferred,
+                                       st1.bq_rebuilds, st1.ec_timer, st1.ec_pkt, st1.ec_app,
+                                       st1.fl_done, ri.sends, ri.ob_hwm, ri.rounds])
+                       + 2 * 9 * 8 + 25 * 8 + 2 * 8, 3 * H6 + H6 * C6 // BLK6)
+    r["library_ms"] = None
+    r["library_why"] = ("no single PyTorch call builds the row: its sums, maximum and "
+                        "minimum are three reductions over different lanes")
+    r["shape"] = {"hosts": H6, "head_plane": [H6, C6 // BLK6], "ring": 256}
+    r["max_abs_err"] = err
+    results["trace_round"] = settle("trace_round", r, r["bound"][0])
+
+    err = 0.0
+    wrapped = 0
+    for records in (4096, 8):
+        for seed in (1, 2):
+            c = flow_case(seed, H6, K6, records, dev)
+            k = {"ledger": type(c["ledger"])(*(x.clone() for x in c["ledger"])),
+                 "fl": [x.clone() for x in c["fl"]]}
+            pobs.flow_append(k["ledger"], c["lanes"], *k["fl"])
+            pobs.flow_append_plain(c["ledger"], c["lanes"], *c["fl"])
+            err = max(err, check_equal(f"K28 records={records}/{seed}",
+                                       [*k["ledger"], *k["fl"]], [*c["ledger"], *c["fl"]]))
+            wrapped += int((c["lanes"].mask.sum(dim=1) > records).sum())
+    if not wrapped:
+        raise AssertionError("K28: no column completed more flows than the ledger holds")
+    c = flow_case(3, H6, K6, 4096, dev, density=(0.02, 0.02, 0.0, 0.05))
+    lanes = c["lanes"]
+
+    def flow_setup():
+        return type(c["ledger"])(*(x.clone() for x in c["ledger"])), [x.clone() for x in c["fl"]]
+
+    r = kernel_ms("flow_append", lambda led, fl: pobs.flow_append(led, lanes, *fl), flow_setup)
+    r["plain_ms"] = time_ms(lambda led, fl: pobs.flow_append_plain(led, lanes, *fl),
+                            flow_setup)
+    n = int(lanes.mask.sum())
+    # every mask read; the bytes and retransmits of completing hosts read
+    # for the fold, their six record lanes read and their rows written
+    r["bound"] = bound(K6 * H6 + n * (6 * 8 + FLOW_COLS * 8) + 4 * 2 * 8, K6 * H6 + 3 * n)
+    r["library_ms"] = None
+    r["library_why"] = ("no single PyTorch call scatters rows at prefix-sum slots modulo "
+                        "the ring")
+    r["shape"] = {"hosts": H6, "columns": K6, "records": 4096, "completions": n}
+    r["max_abs_err"] = err
+    r["wrap_columns_checked"] = wrapped
+    results["flow_append"] = settle("flow_append", r, r["bound"][0])
+
+    shapes = {
+        "anchor": dict(n_push=1, sends=((1, False, False),), route="const", budget=B),
+        "cfg6": dict(n_push=2, sends=((2, True, True),), route="affine", n_nodes=100,
+                     budget=24, stride=K6),
+    }
+    err = 0.0
+    for shape, kw in shapes.items():
+        for seed in (1, 2):
+            case = chain_case(seed, H6, dev, **kw, netobs=True)
+            cfg, params, e, act, c0, tm = (case[k] for k in ("cfg", "params", "ev", "active",
+                                                               "carry", "timer_mask"))
+            got = chain.event_ingress(clone_carry(c0), params, cfg, e, act, tm)
+            want = chain.event_ingress_plain(clone_carry(c0), params, cfg, e, act, tm)
+            err = max(err, check_equal(f"K10 event classes/{shape}/{seed}", flat_tensors(got),
+                                       flat_tensors(want)))
+    r = kernel_ms("event_ingress", lambda cc: chain.event_ingress(cc, params, cfg, e, act, tm),
+                  lambda: (clone_carry(c0),))
+    r["plain_ms"] = time_ms(lambda cc: chain.event_ingress_plain(cc, params, cfg, e, act, tm),
+                            lambda: (clone_carry(c0),))
+    c1, ing1 = want
+    r["bound"] = bound(io_bytes(
+        reads=[e.t, e.order, e.kind, e.payload[:, 0], act, params.in_tb.capacity,
+               params.in_tb.refill, c0.tb_ingress.tokens, c0.tb_ingress.last_itv],
+        writes=[ing1.dispatch, ing1.is_pkt, ing1.kind, ing1.src,
+                *(ing1.requeue[i] for i in (0, 1, 3))],
+        inplace=list(zip(flat_tensors([c0.stats, c0.tb_ingress, c0.codel]),
+                         flat_tensors([c1.stats, c1.tb_ingress, c1.codel])))), 300 * H6)
+    r["max_abs_err"] = err
+    results["event_ingress_event_classes"] = settle("event_ingress/event_classes", r,
+                                                    r["bound"][0])
+
+    err = 0.0
+    done = 0
+    case = handler_case("tgen_tcp", 36, H6, dev, stride=K6)
+    m, ck = case["model"], case["ctx"]
+    cp = clone_ctx(ck)
+    for step in range(3):
+        if step:
+            ev = handler_case("tgen_tcp", 3_600 + step, H6, dev, stride=K6)["ctx"]
+            ck = dataclasses.replace(ev, state=got.state, rng=got.rng)
+            cp = dataclasses.replace(ev, state=want.state, rng=want.rng)
+        lanes_k, lanes_p = pobs.make_flow_lanes(1, H6, dev), pobs.make_flow_lanes(1, H6, dev)
+        got = m.handle(dataclasses.replace(ck, flow=lanes_k.row(0)))
+        want = m.handle_plain(dataclasses.replace(cp, flow=lanes_p.row(0)))
+        diff = handler_diff(got, want)
+        if diff:
+            raise AssertionError(f"K17 with flow lanes, call {step}: {diff} differ")
+        err = max(err, check_equal(f"K17 flow lanes/{step}", list(lanes_k), list(lanes_p)))
+        done += int(lanes_k.mask.sum())
+    if not done:
+        raise AssertionError("K17 flow lanes: no flow completed")
+    ctx = handler_case("tgen_tcp", 3, H6, dev, stride=K6)["ctx"]
+    fl = pobs.make_flow_lanes(1, H6, dev)
+
+    def k17_setup():
+        return (dataclasses.replace(clone_ctx(ctx), flow=fl.row(0)),)
+
+    r = kernel_ms("tgen_handle", lambda cc: m.handle(cc), k17_setup)
+    r["plain_ms"] = time_ms(lambda cc: m.handle_plain(cc), k17_setup)
+    want = handler_tensors(m.handle_plain(clone_ctx(ctx)))
+    r["bound"] = bound(io_bytes(
+        reads=[ctx.t, ctx.kind, ctx.active, ctx.payload, ctx.is_packet, ctx.src, ctx.host_id,
+               *(ctx.params[p] for p, _ in m.kernel_params), *ctx.state.values()],
+        writes=[want[key] for key in HANDLER_WRITES["tgen_handle"]] + list(fl)),
+        HANDLER_OPS["tgen_handle"] * H6)
+    r["max_abs_err"] = err
+    r["flows_completed_checked"] = done
+    results["tgen_handle_flow_lanes"] = settle("tgen_handle/flow_lanes", r, r["bound"][0])
+    return results
+
+
 def merge_bytes(q0, after, ob, gc: int) -> tuple[int, int]:
     """(bytes, operations) one merge of the outbox's first gc columns into
     queue `q0` must take to give `after`: the row columns' dst and t; the
@@ -2296,6 +2560,8 @@ KERNEL_SYMBOLS = {
     "integrity_round_check": ("integrity_kernel",),
     "queue_migrate": ("migrate_kernel",),
     "pressure_total": ("pressure_total_kernel",),
+    "trace_round": ("trace_round_kernel",),
+    "flow_append": ("flow_append_kernel",),
 }
 # the microstep's per-event steps, marked as profiler ranges in phases 5 and 9
 RANGES = ("ingress", "handler", "egress", "outbox_append")
@@ -2538,7 +2804,7 @@ def cfg12_small_configs() -> dict[str, dict | tuple[dict, dict]]:
     }
 
 
-def fluid_final(sim) -> dict:
+def fluid_final(sim, report=None) -> dict:
     """The fluid state at the end of a run: each rate's float64 bits (hex)
     and a SHA-256 of the link utilizations' little-endian float64 bytes."""
     st = sim.state.fluid
@@ -2547,6 +2813,47 @@ def fluid_final(sim) -> dict:
         "link_util_sha256": hashlib.sha256(
             st.link_util.cpu().numpy().astype("<f8").tobytes()).hexdigest(),
     }
+
+
+def canonical_sha256(obj) -> str:
+    """SHA-256 of a JSON value's canonical text (sorted keys)."""
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+
+def obs_final(sim, report) -> dict:
+    """An observed leg's observatory results: SHA-256 of the drained trace
+    rows (int64 little-endian, [1, rounds, 25]) and of the flow records,
+    and of the report's network{} block (canonical JSON, every key), with
+    the block's event classes and flows summary. The ring holds one row
+    per completed round, and K27 launched once per completed round plus
+    once per chunk entry (the entry launch fills its scratch)."""
+    rows = sim._tracer.rows()
+    ran = report["kernel_launches"]["trace_round"]
+    if rows.shape[1] != report["rounds"] or ran < report["rounds"]:
+        raise AssertionError(f"trace: {rows.shape[1]} rows and {ran} K27 launches for "
+                             f"{report['rounds']} rounds")
+    flows = sim._flowcol.records() if sim._flowcol is not None else None
+    net = report["network"]
+    return {
+        "trace_rows_sha256": hashlib.sha256(np.ascontiguousarray(rows, "<i8").tobytes()
+                                            ).hexdigest(),
+        "trace_rows_shape": list(rows.shape),
+        "flow_records_sha256": (hashlib.sha256(np.ascontiguousarray(flows, "<i8").tobytes()
+                                               ).hexdigest() if flows is not None else None),
+        "network_sha256": canonical_sha256(net),
+        "event_classes": net["event_classes"],
+        "flows": {k: v for k, v in net.get("flows", {}).items() if k != "fct"},
+    }
+
+
+def check_runtime(name: str, report: dict) -> None:
+    """A runtime-observatory leg: the runtime{} block has the JAX
+    package's keys and attributes at least 85% of the run loop's wall."""
+    rt = report["runtime"]
+    emit(f"{name}_runtime", **rt)
+    if set(rt) != RUNTIME_KEYS or rt["attributed_share"] < 0.85:
+        raise AssertionError(f"{name}: runtime keys {sorted(rt)} or attributed share "
+                             f"{rt['attributed_share']} below 0.85")
 
 
 def run_config(cfg_dict: dict, device, **run_kw) -> dict:
@@ -2583,7 +2890,7 @@ def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple,
             final=None, setup=None) -> tuple[dict, dict]:
     """One full-width leg with every launch counter set to 0 just before
     and read just after: the report must equal the JAX constants `ref`,
-    `final(sim)` (where given) must equal its JAX constants, every kernel
+    `final(sim, report)` (where given) must equal its JAX constants, every kernel
     of `path` must have launched, and the model's handler kernel exactly as
     often as the ingress kernel. Prints the run loop's wall
     (`wall_seconds`), the wall with the build (`build_and_run_seconds`) and
@@ -2610,7 +2917,7 @@ def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple,
          launches=launches)
     diff = {k: (report.get(k), v) for k, v in ref.items() if report.get(k) != v}
     if final is not None:
-        got, want = final[0](sim), final[1]
+        got, want = final[0](sim, report), final[1]
         emit(f"{name}_final_state", **got, equal_to_jax=got == want)
         if got != want:
             diff["final_state"] = (got, want)
@@ -2641,7 +2948,7 @@ TGEN_PATH = ("queue_next_time", "merge_insert", "queue_pop_k", "queue_clear_popp
              "queue_push_many_bucketed", "queue_block_minima", *CHAIN_PATH, "tgen_handle")
 # the wheel path: the queue's and the wheel's pops are K5 (per-host
 # limits) + K6, both slabs' pushes K7, next times K1 on the block caches
-CFG11_PATH = TGEN_PATH
+CFG11_PATH = TGEN_PATH + ("trace_round", "flow_append")
 # config 2 is the anchor's kernels on the torus; with merge_scatter K13
 # merges instead of K4. Config 5's timers never send: no merge, no append
 CFG2_PATH = ANCHOR_PATH
@@ -2651,7 +2958,7 @@ CFG5_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "event_ingre
 # config 12 is config 6's path plus the fluid plane's three kernels, each
 # once per round
 FLUID_PATH = ("fluid_fg_link_bytes", "fluid_advance", "fluid_host_effects")
-CFG12_PATH = TGEN_PATH + FLUID_PATH
+CFG12_PATH = TGEN_PATH + FLUID_PATH + ("trace_round", "flow_append")
 # configs 1, 3 and 4 run the anchor's kernels with their own handlers
 CFG1_PATH = tuple("echo_handle" if k == "phold_handle" else k for k in ANCHOR_PATH)
 CFG3_PATH = tuple("gossip_handle" if k == "phold_handle" else k for k in ANCHOR_PATH)
@@ -2667,6 +2974,10 @@ CFG10_PATH = TGEN_PATH + ("integrity_round_check",)
 # plane's: K26 every round, K25 at every regrow; under the abort policy K26
 # alone; launched at its final shape under drop, neither
 PRESSURE_PATH = ("queue_migrate", "pressure_total")
+# with the trace ring K27 runs once per round; with a flow ledger (tgen
+# under the network observatory) K28 once per microstep
+OBS_PATH = ("trace_round", "flow_append")
+TGEN_OBS_PATH = TGEN_PATH + OBS_PATH
 CFG9_PATH = ANCHOR_PATH + PRESSURE_PATH
 CFG9_ABORT_PATH = ANCHOR_PATH + ("pressure_total",)
 SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
@@ -2676,7 +2987,9 @@ SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
            **{k: "shadow_tpu_torch/csrc/models.cu" for k in HANDLER_OF.values()},
            "fault_down_resume": "shadow_tpu_torch/csrc/faults.cu",
            "integrity_round_check": "shadow_tpu_torch/csrc/integrity.cu",
-           "pressure_total": "shadow_tpu_torch/csrc/pressure.cu"}
+           "pressure_total": "shadow_tpu_torch/csrc/pressure.cu",
+           "trace_round": "shadow_tpu_torch/csrc/obs.cu",
+           "flow_append": "shadow_tpu_torch/csrc/obs.cu"}
 REPLACES = {
     "queue_next_time": "shadow_tpu/ops/events.py:129",
     "queue_pop_min": "shadow_tpu/ops/events.py:138",
@@ -2704,6 +3017,8 @@ REPLACES = {
     "integrity_round_check": "shadow_tpu/core/engine.py:2050",
     "queue_migrate": "shadow_tpu/ops/events.py:719",
     "pressure_total": "shadow_tpu/core/engine.py:1896",
+    "trace_round": "shadow_tpu/core/engine.py:1971",
+    "flow_append": "shadow_tpu/core/engine.py:2661",
 }
 # the path whose run each kernel's `launches` is read from: the one it was
 # ported for (wheel_cancel has no engine caller, in either package)
@@ -2725,6 +3040,8 @@ PORTED_FOR = {
     "integrity_round_check": "cfg10",
     "queue_migrate": "cfg9",
     "pressure_total": "cfg9",
+    "trace_round": "tgen",
+    "flow_append": "tgen",
 }
 
 
@@ -2825,6 +3142,98 @@ def phase_resume(tmp: str) -> dict:
     return {**out, "launches": launches}
 
 
+# a child process of phase 37: build the observed anchor from a JSON file,
+# resume it from a checkpoint where one is named, run it and print its
+# report and its drained trace rows
+OBSERVED_CHILD = """
+import json, sys
+from shadow_tpu_torch.config.options import ConfigOptions
+from shadow_tpu_torch.core.checkpoint import load_checkpoint
+from shadow_tpu_torch.sim import Simulation
+with open(sys.argv[1]) as f:
+    sim = Simulation(ConfigOptions.from_dict(json.load(f)))
+if len(sys.argv) > 2:
+    load_checkpoint(sys.argv[2], sim)
+rep = sim.run(progress=False)
+print(json.dumps({"report": rep, "rows": sim._tracer.rows()[0].tolist()}))
+"""
+
+
+def phase_observed_resume(tmp: str) -> dict:
+    """The anchor (phase 4's, without merge gears: the gear controller is
+    not part of a checkpoint, so a resumed geared run's gear column would
+    start over at the top gear) with all four observatories on (the trace
+    ring, the network, memory and runtime observatories) and the
+    supervisor writing a checkpoint every chunk: uninterrupted in this
+    process (every counter set to 0 just before the run and read after),
+    the anchor's JAX digest and events, the memory{} and runtime{} blocks'
+    keys (the card's allocator as the memory source; at least 85% of the
+    wall attributed), then in a child process killed by SIGKILL after its
+    second checkpoint and resumed by another: the resumed run's report
+    (digest, events, drops, the network{} block's event classes and safe
+    window) and its drained trace rows (those after the checkpoint) equal
+    the uninterrupted run's."""
+    import os
+
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.sim import KERNELS, Simulation
+
+    ck = os.path.join(tmp, "anchor.npz")
+    c = with_obs(anchor_config(), trace=True, network=True, memory=True, runtime=True)
+    c["faults"] = {"supervisor": {"snapshot_every_chunks": 1, "checkpoint_file": ck}}
+    c["general"]["data_directory"] = os.path.join(tmp, "data")
+    for k in KERNELS.values():
+        k.launches = 0
+    sim = Simulation(ConfigOptions.from_dict(c))
+    full = sim.run(progress=False)
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    rows = sim._tracer.rows()[0]
+    out = {"wall_seconds": full["wall_seconds"], "host_syncs": full["host_syncs"],
+           "memory": full["memory"], "network": full["network"],
+           "trace_rows": int(rows.shape[0]), "trace_round_launches": launches["trace_round"]}
+    want = {"determinism_digest": ANCHOR_DIGEST, "events_processed": ANCHOR_EVENTS}
+    if any(full.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"the observed anchor differs from the JAX report: "
+                             f"{ {k: full.get(k) for k in want} }")
+    mem = full["memory"]
+    if set(mem) != MEMORY_KEYS or mem["source"] != "device" or set(mem["model"]) != MODEL_KEYS:
+        raise AssertionError(f"memory{{}}: keys {sorted(mem)}, source {mem['source']}")
+    check_runtime("anchor_observed", full)
+    if not all(launches[k] for k in ANCHOR_PATH + ("trace_round",)):
+        raise AssertionError(f"anchor_observed: a kernel of the path never launched: {launches}")
+    cfg_file = os.path.join(tmp, "anchor.json")
+    with open(cfg_file, "w") as f:
+        json.dump(c, f)
+    cmd = [sys.executable, "-c", OBSERVED_CHILD, cfg_file]
+    env = {**os.environ, "SHADOW_TPU_TORCH_TEST_KILL_AT_CHECKPOINT": "2"}
+    t0 = time.monotonic()
+    killed = subprocess.run(cmd, env=env, capture_output=True, text=True)
+    if killed.returncode != -9 or not os.path.exists(ck):
+        raise AssertionError(f"the first child was not killed at its checkpoint: "
+                             f"rc {killed.returncode}\n{killed.stderr[-2000:]}")
+    t1 = time.monotonic()
+    resumed = subprocess.run(cmd + [ck], capture_output=True, text=True)
+    if resumed.returncode != 0:
+        raise AssertionError(f"the resumed child failed:\n{resumed.stderr[-2000:]}")
+    got = json.loads(resumed.stdout.strip().splitlines()[-1])
+    rep, rrows = got["report"], np.asarray(got["rows"], np.int64)
+    keys = ("determinism_digest", "events_processed", "rounds", "packets_lost",
+            "queue_overflow_dropped", "packets_budget_dropped", "outbox_overflow_dropped")
+    same = {k: rep.get(k) == full.get(k) for k in keys}
+    for k in ("event_classes", "safe_window"):
+        same[f"network.{k}"] = rep["network"][k] == full["network"][k]
+    tail = rows[rows.shape[0] - rrows.shape[0]:]
+    same["trace_rows_after_the_checkpoint"] = (
+        0 < rrows.shape[0] < rows.shape[0] and np.array_equal(rrows, tail))
+    out.update(killed_seconds=t1 - t0, resumed_seconds=time.monotonic() - t1,
+               resumed_trace_rows=int(rrows.shape[0]),
+               resumed_from_round=int(rrows[0, 0]) if rrows.shape[0] else None,
+               resumed_equal=same, launches=launches)
+    if not all(same.values()):
+        raise AssertionError(f"the resumed observed anchor differs: {same}")
+    return out
+
+
 def phase_cross_device(cfg_dict: dict, want: dict, keys: tuple) -> dict:
     """A checkpoint written on one device resumes on the other: config 9
     small runs one chunk (an escalating one) on the card, is saved, loaded
@@ -2861,6 +3270,41 @@ def phase_cross_device(cfg_dict: dict, want: dict, keys: tuple) -> dict:
     return out
 
 
+def strip_obs(cfg: dict) -> dict:
+    """`cfg` without its observability block (the riderless leg)."""
+    return {k: v for k, v in cfg.items() if k != "observability"}
+
+
+def phase_observer_cost() -> dict:
+    """The rider legs' run loops against the same legs without riders, in
+    one process on one card: each of the tgen leg, config 11 and config 12
+    runs without, with, with and without its riders (as phases 8, 13 and
+    22 run them). Every run must give the JAX digest and events."""
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.sim import Simulation
+
+    legs = {
+        "tgen": (with_obs(tgen_config(False, TGEN_STOP), trace=True, network=True,
+                          runtime=True), TGEN_REF),
+        "cfg11": (with_obs(cfg11_config(False, CFG11_STOP), trace=True), CFG11_REF),
+        "cfg12": (with_obs(cfg12_config(False, CFG12_STOP), trace=True), CFG12_REF),
+    }
+    out = {}
+    for name, (cfg, ref) in legs.items():
+        runs = []
+        for riders in (False, True, True, False):
+            c = cfg if riders else strip_obs(cfg)
+            rep = Simulation(ConfigOptions.from_dict(c)).run(progress=False)
+            for k in ("determinism_digest", "events_processed"):
+                if rep[k] != ref[k]:
+                    raise AssertionError(f"{name} riders={riders}: {k} {rep[k]} != {ref[k]}")
+            runs.append({"riders": riders, "wall_seconds": rep["wall_seconds"],
+                         "host_syncs": rep["host_syncs"]})
+        emit(f"observer_cost_{name}", runs=runs)
+        out[name] = runs
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2880,6 +3324,12 @@ def main() -> int:
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     t_start = time.monotonic()
+    if sys.argv[1:] == ["--observer-cost"]:
+        build_all()
+        phase_observer_cost()
+        emit("total", seconds=round(time.monotonic() - t_start, 3))
+        print(smi, flush=True)
+        return 0
 
     t0 = time.monotonic()
     ptxas = build_all()
@@ -2963,6 +3413,16 @@ def main() -> int:
          **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in pres.items()})
     kres.update(pres)
 
+    # phase 36: the observatories' kernels and lanes
+    ores = phase_kernels_obs(dev)
+    emit("kernels_obs_vs_plain", ok=True, exact=True,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in ores.items()})
+    for row, lane in (("event_ingress", "event_classes"), ("tgen_handle", "flow_lanes")):
+        r = ores.pop(f"{row}_{lane}")
+        r["bound_ms"] = r.pop("bound")[0]
+        kres[row][lane] = r
+    kres.update(ores)
+
     # least device time per call at each path's shapes: the kernel phases'
     # bounds; K1 and K4 on the tgen path (block caches, 24-wide outbox) get
     # the bytes every call reads whatever the data (the caches' time plane
@@ -2985,7 +3445,13 @@ def main() -> int:
     launches["echo_overflow"] = small["echo_overflow"]["kernel_launches"]
     check_handler_launches("echo_overflow", launches["echo_overflow"])
 
-    launches["tgen"] = run_leg("tgen", tgen_config(False, TGEN_STOP), TGEN_REF, TGEN_PATH)[0]
+    # phase 8, with the riders bench.py measures: the trace ring, the
+    # network observatory (config 6's flow ledger) and the runtime
+    # observatory
+    launches["tgen"], rep6 = run_leg(
+        "tgen", with_obs(tgen_config(False, TGEN_STOP), trace=True, network=True, runtime=True),
+        TGEN_REF, TGEN_OBS_PATH, final=(obs_final, TGEN_OBS_REF))
+    check_runtime("tgen", rep6)
 
     emit("tgen_profile", **phase_profile(tgen_config(False, TGEN_STOP, rounds_per_chunk=8),
                                          tgen_floors))
@@ -2998,8 +3464,9 @@ def main() -> int:
     if not tgen_small["tight_k4_cap9_block3"]["queue_overflow_dropped"]:
         raise AssertionError("tight_k4_cap9_block3: no queue overflow drop was exercised")
 
-    launches["cfg11"] = run_leg("cfg11", cfg11_config(False, CFG11_STOP), CFG11_REF,
-                                CFG11_PATH)[0]
+    # phase 13: config 11 as configured (its network rider) with the trace
+    launches["cfg11"] = run_leg("cfg11", with_obs(cfg11_config(False, CFG11_STOP), trace=True),
+                                CFG11_REF, CFG11_PATH, final=(obs_final, CFG11_OBS_REF))[0]
 
     small = card_vs_cpu("cfg11_small", cfg11_small_configs(), keys + ("wheel",))
     if not small["wheel1_spill"]["wheel"]["spilled"]:
@@ -3033,8 +3500,11 @@ def main() -> int:
         raise AssertionError("cfg2_small_scatter_lossy_cap4: no round took K13's K4 branch")
 
     # the fluid plane on bench config 12
-    launches["cfg12"], rep12 = run_leg("cfg12", cfg12_config(False, CFG12_STOP), CFG12_REF,
-                                       CFG12_PATH, final=(fluid_final, CFG12_FINAL))
+    # phase 22: config 12 as configured (its network rider) with the trace
+    launches["cfg12"], rep12 = run_leg(
+        "cfg12", with_obs(cfg12_config(False, CFG12_STOP), trace=True), CFG12_REF, CFG12_PATH,
+        final=(lambda sim, rep: {**fluid_final(sim, rep), **obs_final(sim, rep)},
+               {**CFG12_FINAL, **CFG12_OBS_REF}))
     emit("cfg12_launches_per_round",
          **{k: launches["cfg12"][k] / rep12["rounds"] for k in CFG12_PATH})
     small12 = card_vs_cpu("cfg12_small", cfg12_small_configs(),
@@ -3122,6 +3592,13 @@ def main() -> int:
             raise AssertionError(f"{name}: no regrow, or a drop under escalate")
     emit("pressure_checkpoint_cross_device",
          **phase_cross_device(small9["cfg9_small"], small["cfg9_small"], keys))
+
+    # phase 37: the anchor with all four observatories, uninterrupted and
+    # killed after a checkpoint and resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        res = phase_observed_resume(tmp)
+    launches["anchor_observed"] = res.pop("launches")
+    emit("anchor_observed_resume", **res)
     emit("total", seconds=round(time.monotonic() - t_start, 3))
 
     table = []
@@ -3145,7 +3622,8 @@ def main() -> int:
             **({"library_call": r["library_call"]} if "library_call" in r else {}),
             **{lane: {k: r[lane][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
                for lane in ("busy_floor", "cpu_delay", "merge_rows", "fault_floor", "fault_hold",
-                            "digest2", "fault_window") if lane in r},
+                            "digest2", "fault_window", "event_classes", "flow_lanes")
+               if lane in r},
         })
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -2,8 +2,10 @@
 
 The JAX package's interface: every `--section.key=value` flag overrides the
 matching config field, CLI winning. Runs on the CUDA device; `--device cpu`
-runs the plain PyTorch path on the CPU. Writes sim-stats.json (and
-processed-config.yaml) into the data directory. Exit code 2 on a config
+runs the plain PyTorch path on the CPU. Writes sim-stats.json,
+processed-config.yaml, hosts/<name>/host-stats.json and, with
+`observability.trace`, trace.json and metrics.prom into the data
+directory. Exit code 2 on a config
 error, including every knob the port does not support yet.
 """
 

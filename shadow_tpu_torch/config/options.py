@@ -9,8 +9,7 @@ never silently run with a plane switched off:
 
   - `general.parallelism > 1` (world > 1);
   - `experimental.scheduler: cpu-reference`;
-  - any non-empty `campaign` block and any enabled `observability` knob
-    (`trace`, `network`, ...);
+  - any non-empty `campaign` block;
   - `pcap_enabled`, managed processes (`path:`), and models other than
     phold, udp_echo, timer, tgen_tcp, gossip and circuit (checked when
     the simulation is built).
@@ -29,8 +28,10 @@ row bound or delay, which the JAX package reads as "off", is refused. The `fluid
 JAX package's `FluidOptions`, error texts included, and so are the `faults`
 block (`FaultOptions`: host churn, explicit crashes, loss windows, the
 supervisor, with its on-disk `checkpoint_file`), the `integrity` block
-(`IntegrityOptions`) and the `pressure` block (`PressureOptions`: drop,
-escalate or abort, the ceilings, the growth factor and the headroom).
+(`IntegrityOptions`), the `pressure` block (`PressureOptions`: drop,
+escalate or abort, the ceilings, the growth factor and the headroom) and
+the `observability` block (`ObservabilityOptions`: the round trace ring,
+the network observatory, the memory and runtime observatories).
 
 `ExperimentalOptions.resolve_shapes` is the JAX package's auto-sizing rule,
 copied verbatim, so both packages resolve a config to the same queue
@@ -705,8 +706,8 @@ class PressureOptions:
     # occupancy high-water reaches ceil(headroom * capacity) (and the outbox
     # once a chunk's send high-water fills the budget); 0 disables it
     headroom: float = 0.85
-    # the JAX package's memory guard's factor (its guard is not ported; the
-    # knob is parsed and validated as there)
+    # the memory guard's safety factor on a rung's predicted bytes (the
+    # guard runs with the memory observatory on: obs/memory.py MemoryGuard)
     memory_safety_factor: float = 1.25
 
     @property
@@ -755,15 +756,74 @@ class PressureOptions:
         return p
 
 
+@dataclass
+class ObservabilityOptions:
+    """The observability plane's knobs (the JAX package's, parsed and
+    validated as there, error texts included). Every knob is an observer:
+    digests, event counts and drop counters are bit-identical on or off."""
+
+    # the round trace ring (obs/tracer.py): one row per scheduling round,
+    # drained at chunk boundaries; exported to these paths under
+    # general.data_directory (null skips that export)
+    trace: bool = False
+    trace_file: str | None = "trace.json"  # Chrome-trace/Perfetto JSON
+    metrics_file: str | None = "metrics.prom"  # Prometheus text
+    # wrap the run loop in torch.profiler, writing its trace here
+    profile_dir: str | None = None
+    # the memory observatory (obs/memory.py): per-chunk device-memory
+    # samples, the byte model, the `memory{}` block and `hbm=`
+    memory: bool = False
+    # the network observatory (obs/netobs.py): event classes, the flow
+    # ledger (models with a flow port), per-link folds, the safe window
+    network: bool = False
+    # flow-ledger ring capacity in records (0 = no ledger)
+    network_flows: int = 4096
+    # the per-shape ledger in the memory{} block
+    memory_ledger: bool = True
+    # the runtime observatory (obs/runtime.py): wall-clock spans, the
+    # kernel-build ledger, the `runtime{}` block and `rt=`
+    runtime: bool = False
+
+    @staticmethod
+    def from_dict(d: dict[str, Any] | None) -> "ObservabilityOptions":
+        d = dict(d or {})
+        o = ObservabilityOptions(
+            trace=bool(d.pop("trace", False)),
+            trace_file=d.pop("trace_file", "trace.json"),
+            metrics_file=d.pop("metrics_file", "metrics.prom"),
+            profile_dir=d.pop("profile_dir", None),
+            memory=bool(d.pop("memory", False)),
+            network=bool(d.pop("network", False)),
+            network_flows=int(d.pop("network_flows", 4096)),
+            memory_ledger=bool(d.pop("memory_ledger", True)),
+            runtime=bool(d.pop("runtime", False)),
+        )
+        if o.network_flows < 0:
+            raise ConfigError(
+                f"observability.network_flows must be >= 0 (0 = no flow "
+                f"ledger, event classes and safe-window only), "
+                f"got {o.network_flows}"
+            )
+        # null disables an export; a non-null value must be a usable path
+        for f in ("trace_file", "metrics_file", "profile_dir"):
+            v = getattr(o, f)
+            if v is not None:
+                v = str(v)
+                setattr(o, f, v)
+                if not v:
+                    raise ConfigError(
+                        f"observability.{f} must be non-empty (use null "
+                        f"to disable)"
+                    )
+        if d:
+            raise ConfigError(f"unknown observability options: {sorted(d)}")
+        return o
+
+
 def _reject_block(name: str, d: Any) -> None:
     """Optional planes of the JAX package: an absent or empty block is the
     plane switched off; anything else names what the port cannot run."""
     if not d:
-        return
-    if name == "observability":
-        on = sorted(k for k, v in dict(d).items() if v)
-        if on:
-            raise _unsupported(f"observability.{on[0]}")
         return
     raise _unsupported(f"the `{name}` block")
 
@@ -863,14 +923,15 @@ class ConfigOptions:
     faults: FaultOptions = field(default_factory=FaultOptions)
     integrity: IntegrityOptions = field(default_factory=IntegrityOptions)
     pressure: PressureOptions = field(default_factory=PressureOptions)
+    observability: ObservabilityOptions = field(default_factory=ObservabilityOptions)
 
     @staticmethod
     def from_dict(d: dict[str, Any]) -> "ConfigOptions":
         d = dict(d)
         if "general" not in d:
             raise ConfigError("`general` section is required")
-        for block in ("campaign", "observability"):
-            _reject_block(block, d.pop(block, None))
+        _reject_block("campaign", d.pop("campaign", None))
+        observability = ObservabilityOptions.from_dict(d.pop("observability", None))
         pressure = PressureOptions.from_dict(d.pop("pressure", None))
         fluid = FluidOptions.from_dict(d.pop("fluid", None))
         faults = FaultOptions.from_dict(d.pop("faults", None))
@@ -897,6 +958,7 @@ class ConfigOptions:
             faults=faults,
             integrity=integrity,
             pressure=pressure,
+            observability=observability,
         )
         if d:
             raise ConfigError(f"unknown top-level sections: {sorted(d)}")

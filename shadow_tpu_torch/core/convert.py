@@ -12,12 +12,14 @@ as `BucketQueue`, a timer wheel (with its `wheel_spilled` and
 `FluidParams`, `FluidState` and `fl_bg_*` stats lanes as the port's, the
 fault plane's `FaultParams` and counters, and the integrity sentinel's
 lanes (`integrity`, `iv_mask`, `iv_round`, `digest2`, uint64 bit for bit)
-and the pressure plane's `pressure` lane. Queue and outbox planes come
+the pressure plane's `pressure` lane, and the observatories' lanes
+(`ec_*`, `fl_*`, `win_bound`) with the trace ring and the flow ledger
+(`trace`, `flows`). Queue and outbox planes come
 across at whatever shape they have, so an escalated state keeps its grown
 capacity and send budget.
 `engine_config_from` maps a JAX `EngineConfig` onto the port's (merge gear,
-scatter merge, merge-row bound, CPU delay, fluid, fault, integrity and
-pressure knobs included), refusing any knob the port does not run.
+scatter merge, merge-row bound, CPU delay, fluid, fault, integrity,
+pressure and observatory knobs included), refusing any knob the port does not run.
 `to_numpy` flattens either package's state into {"queue.t": array, ...} for a
 field-by-field comparison; the fault counters, which the JAX package always
 carries, read as zeros where the port's plane is off. Nothing here imports
@@ -43,6 +45,8 @@ from shadow_tpu_torch.core.engine import (
 )
 from shadow_tpu_torch.net import CodelState, TBParams, TBState
 from shadow_tpu_torch.net.fluid import FluidParams, FluidState
+from shadow_tpu_torch.obs.netobs import FlowLedger
+from shadow_tpu_torch.obs.tracer import TraceRing
 from shadow_tpu_torch.ops.events import BucketQueue, EventQueue
 from shadow_tpu_torch.ops.rng import RngState
 
@@ -50,8 +54,6 @@ from shadow_tpu_torch.ops.rng import RngState
 # value
 _OFF_FIELDS = {
     "world": 1,
-    "trace_rounds": 0,
-    "netobs": False,
 }
 
 
@@ -144,6 +146,10 @@ def state_from_jax_numpy(sim_state, model_state=None, *, device) -> SimState:
         wheel=None if getattr(s, "wheel", None) is None else _bq(s.wheel, device),
         fluid=(None if getattr(s, "fluid", None) is None
                else FluidState(*(_t(getattr(s.fluid, f), device) for f in FluidState._fields))),
+        trace=(None if getattr(s, "trace", None) is None
+               else TraceRing(_t(s.trace.rows, device), _t(s.trace.cursor, device))),
+        flows=(None if getattr(s, "flows", None) is None
+               else FlowLedger(_t(s.flows.rows, device), _t(s.flows.cursor, device))),
     )
 
 
@@ -192,6 +198,10 @@ def to_numpy(state) -> dict[str, np.ndarray]:
         groups["wheel"] = (state.wheel, BucketQueue._fields)
     if getattr(state, "fluid", None) is not None:
         groups["fluid"] = (state.fluid, FluidState._fields)
+    if getattr(state, "trace", None) is not None:
+        groups["trace"] = (state.trace, TraceRing._fields)
+    if getattr(state, "flows", None) is not None:
+        groups["flows"] = (state.flows, FlowLedger._fields)
     for g, (obj, fields) in groups.items():
         for f in fields:
             v = getattr(obj, f, None)

@@ -64,9 +64,18 @@ grew (read with the window, no extra sync); `run_chunk_resized` runs a
 chunk at the state's (capacity, send budget) when escalation regrew it,
 under `resized_cfg`'s pins.
 
+With the observatories, observers that change no result: the trace ring
+(`trace_rounds` > 0) gets one row per completed round from K27, whose
+scratch holds the round-entry counters (filled at each chunk's entry);
+the network observatory (`netobs`) counts executed events by class in K10
+and `win_bound` per round, and with a flow ledger (`flow_records` > 0)
+the model's handler writes each event column's flow records (K17) and
+K28 appends a microstep's to the ledger ring.
+
 The slice is the JAX package's single-device path: flat or bucketed queue,
 K >= 1, the timer wheel, merge gears, the scatter merge, the fluid plane,
-the fault plane, the integrity sentinel and the pressure plane, world 1.
+the fault plane, the integrity sentinel, the pressure plane and the
+observatories, world 1.
 `lax.while_loop` becomes a Python loop; each loop condition is one
 device-to-host read, counted in `Engine.host_syncs`. The window itself is
 computed on the device and read back with the `done` flag in the same
@@ -92,10 +101,13 @@ import torch
 
 from shadow_tpu_torch.core.faults import down_and_resume
 from shadow_tpu_torch.core.integrity import DIGEST2_OFFSET_I64, IntegrityCheck
+from shadow_tpu_torch.obs.netobs import make_flow_ledger
+from shadow_tpu_torch.obs.tracer import make_trace_ring
 from shadow_tpu_torch.ops.chain import (
     event_egress,
     event_ingress,
     outbox_append_multi,
+    timer_kind_mask,
 )
 from shadow_tpu_torch.models.base import KIND_MASK, KIND_PKT, HandlerCtx
 from shadow_tpu_torch.net import CodelState, TBParams, TBState, codel_init, tb_init
@@ -129,6 +141,15 @@ from shadow_tpu_torch.ops.events import (
     q_push_many,
 )
 from shadow_tpu_torch.ops.merge import gear_shed_count, merge_flat_events, merge_scatter_free
+from shadow_tpu_torch.ops.obs import (
+    FlowLanes,
+    RoundInputs,
+    flow_append,
+    make_flow_lanes,
+    make_trace_scratch,
+    trace_enter,
+    trace_round,
+)
 from shadow_tpu_torch.ops.pressure import pressure_total
 from shadow_tpu_torch.ops.rng import RngState, rng_init, u64
 from shadow_tpu_torch.ops.wheel import (
@@ -203,6 +224,18 @@ class Stats(NamedTuple):
     # the pressure plane's signal, None unless a policy is on (escalate or
     # abort): the run's cumulative capacity-drop total, written every round
     pressure: Any = None  # i64[1] | None
+    # network-observatory lanes, None unless it is on: executed events by
+    # class (timer / packet / app; they sum to the events), the flow
+    # ledger's cumulative completions, payload bytes and retransmits
+    # (None unless the ledger is on), and the rounds this device bound the
+    # barrier (every non-done round on one device)
+    ec_timer: Any = None  # i64[1] | None
+    ec_pkt: Any = None  # i64[1] | None
+    ec_app: Any = None  # i64[1] | None
+    fl_done: Any = None  # i64[1] | None
+    fl_bytes: Any = None  # i64[1] | None
+    fl_rtx: Any = None  # i64[1] | None
+    win_bound: Any = None  # i64[1] | None
 
 
 class SimState(NamedTuple):
@@ -224,6 +257,11 @@ class SimState(NamedTuple):
     stats: Stats
     wheel: Any = None  # TimerWheel | None (the [H, S] timer slab)
     fluid: Any = None  # FluidState | None (the fluid plane's rates and link_util)
+    # the round trace ring (obs/tracer.py TraceRing; None unless
+    # trace_rounds > 0) and the flow ledger (obs/netobs.py FlowLedger; None
+    # unless the ledger is on): observers, written by K27 and K28
+    trace: Any = None
+    flows: Any = None
 
 
 class EngineParams(NamedTuple):
@@ -314,6 +352,12 @@ class EngineConfig:
     # ops/pressure.py) and the chunk's first-drop stop; False (policy drop)
     # runs neither
     pressure_abort: bool = False
+    # the round trace ring's rounds (0 = off; the driver sizes it to the
+    # chunk), the network observatory and its flow ledger's records (0 = no
+    # ledger; models with a flow port only)
+    trace_rounds: int = 0
+    netobs: bool = False
+    flow_records: int = 0
 
     def __post_init__(self):
         check_order_limits(self.num_hosts)
@@ -380,6 +424,15 @@ class EngineConfig:
                 "integrity_dual requires integrity=True (the dual digest "
                 "is an integrity-sentinel lane)"
             )
+        if self.trace_rounds < 0:
+            raise ValueError(f"trace_rounds={self.trace_rounds} must be >= 0 (0 = off)")
+        if self.flow_records < 0:
+            raise ValueError(
+                f"flow_records={self.flow_records} must be >= 0 (0 = no flow ledger)")
+        if self.flow_records and not self.netobs:
+            raise ValueError(
+                "flow_records > 0 requires netobs=True (the flow ledger is a "
+                "network-observatory instrument)")
         if self.wheel_slots and self.microstep_events > 1:
             raise ValueError(
                 f"unsupported knob pair: wheel_slots={self.wheel_slots} x "
@@ -412,6 +465,16 @@ class EngineConfig:
         """Queue-clear crash faults: events executing while their host is
         down are consumed and counted in faults_dropped."""
         return self.fault_crash_windows > 0 and self.fault_queue_clear
+
+    @property
+    def flow_ledger_active(self) -> bool:
+        """The flow ledger runs (K17's record lanes, K28)."""
+        return self.netobs and self.flow_records > 0
+
+    @property
+    def effective_gear_cols(self) -> int:
+        """The merge width in force (0 resolves to full width)."""
+        return self.gear_cols or self.sends_per_host_round
 
     @property
     def gear_active(self) -> bool:
@@ -474,6 +537,13 @@ def _init_stats(cfg: EngineConfig, device) -> Stats:
         digest2=(torch.full((h,), DIGEST2_OFFSET_I64, dtype=torch.int64, device=device)
                  if cfg.integrity_dual else None),
         pressure=z1() if cfg.pressure_abort else None,
+        ec_timer=z1() if cfg.netobs else None,
+        ec_pkt=z1() if cfg.netobs else None,
+        ec_app=z1() if cfg.netobs else None,
+        fl_done=z1() if cfg.flow_ledger_active else None,
+        fl_bytes=z1() if cfg.flow_ledger_active else None,
+        fl_rtx=z1() if cfg.flow_ledger_active else None,
+        win_bound=z1() if cfg.netobs else None,
     )
 
 
@@ -577,6 +647,11 @@ class Engine:
         # the integrity sentinel's staged per-round check (None when off)
         self._iv = IntegrityCheck(cfg) if cfg.integrity else None
         self._host_gid = torch.arange(cfg.num_hosts, dtype=torch.int64, device=self.device)
+        # the trace ring's round-entry counter values (K27's scratch) and
+        # the model's timer kinds for K10's event-class lane
+        self._trace_scratch = make_trace_scratch(self.device) if cfg.trace_rounds else None
+        self._timer_mask = (timer_kind_mask(getattr(model, "timer_kinds", ()))
+                            if cfg.netobs else 0)
 
     # ---- build -------------------------------------------------------------
 
@@ -633,6 +708,8 @@ class Engine:
             wheel=wheel,
             fluid=(make_fluid_state(cfg.fluid_classes, cfg.fluid_links, dev)
                    if cfg.fluid_active else None),
+            trace=make_trace_ring(cfg.trace_rounds, dev) if cfg.trace_rounds else None,
+            flows=make_flow_ledger(cfg.flow_records, dev) if cfg.flow_ledger_active else None,
         )
         return state, params
 
@@ -652,6 +729,8 @@ class Engine:
             iv0 = st.stats.integrity.clone()
             if not st.done:
                 self._iv.enter(st)
+        if self._trace_scratch is not None and not st.done:
+            trace_enter(self._trace_scratch, st.stats)
         for _ in range(cfg.effective_rounds_per_chunk):
             if st.done:
                 break
@@ -797,6 +876,8 @@ class Engine:
     def round_step(self, st: SimState, params: EngineParams) -> SimState:
         if self._iv is not None:
             self._iv.enter(st)
+        if self._trace_scratch is not None:
+            trace_enter(self._trace_scratch, st.stats)
         window_end, done, _ = self.compute_window(st, params=params)
         return self.window_step(st, params, window_end, done)
 
@@ -875,6 +956,19 @@ class Engine:
             # the sentinel's guards on the post-exchange state (the
             # done-round is never judged)
             stats = self._iv.post_exchange(st_x, stats, window_end, done, st.now)
+        if cfg.netobs and not done:
+            # on one device this device binds every scheduling round
+            stats = stats._replace(win_bound=stats.win_bound + 1)
+        if cfg.trace_rounds and not done:
+            # the round's trace row (K27); the done-round writes none
+            q = st_x.queue
+            trace_round(st_x.trace, self._trace_scratch, stats, RoundInputs(
+                rounds=st.stats.rounds, window_start=st.now, window_end=window_end,
+                steps=steps, sends=st_m.outbox.count, occ=occ,
+                heads=q.bt if isinstance(q, BucketQueue) else q.t, ob_hwm=ob_hwm,
+                gear=cfg.effective_gear_cols, cap=cfg.queue_capacity,
+                crash=((params.faults.down_t, params.faults.up_t)
+                       if cfg.fault_crash_windows else None)))
         return st_x._replace(
             now=st.now if done else window_end, done=done, stats=stats
         )
@@ -893,8 +987,10 @@ class Engine:
             queue, ev, active = q_pop_min(st.queue, limit)
         else:
             queue, wheel, ev, active = pop_min_merged(st.queue, wheel, limit)
+        lanes = self._flow_lanes(1)
         c, push_list, entries, used_min = self.event_body(
             _ev_carry_of(st), params, window_end, ev, active, fluid_fx,
+            lanes.row(0) if lanes is not None else None,
         )
         if wheel is not None and push_list:
             push_list, push_w, spilled = self._route_timer_pushes(wheel, push_list)
@@ -905,7 +1001,7 @@ class Engine:
         if push_list:
             queue = q_push_many(queue, push_list)
         st = self._finish_microstep(st, c, queue, [entries] if entries is not None else [],
-                                    [used_min] if used_min is not None else [])
+                                    [used_min] if used_min is not None else [], lanes)
         return st if wheel is None else st._replace(wheel=wheel)
 
     def _route_timer_pushes(self, wheel: TimerWheel, push_list: list[Push]):
@@ -970,6 +1066,7 @@ class Engine:
         pm_t = torch.full((h,), TIME_MAX, dtype=torch.int64, device=dev)
         pm_o = torch.full((h,), ORDER_MAX, dtype=torch.int64, device=dev)
         cons_ks, push_lists, entries, used_mins = [], [], [], []
+        lanes = self._flow_lanes(popped.t.shape[1])
         for j in range(popped.t.shape[1]):
             ev = popped.event(j)
             if j > 0:
@@ -986,8 +1083,9 @@ class Engine:
                     down_j, resume_j = down_and_resume(params.faults, t_cand)
                     deferred = deferred | (down_j & (resume_j >= window_end))
             cons_j = popped.active[:, j] & ~deferred
-            c, push_list, ents, used_min = self.event_body(c, params, window_end, ev, cons_j,
-                                                           fluid_fx)
+            c, push_list, ents, used_min = self.event_body(
+                c, params, window_end, ev, cons_j, fluid_fx,
+                lanes.row(j) if lanes is not None else None)
             # an event's own pushes cannot defer it: fold them in after
             for push in push_list:
                 better = push.mask & _lex_less(push.t, push.order, pm_t, pm_o)
@@ -1011,11 +1109,21 @@ class Engine:
         c = c._replace(stats=c.stats._replace(
             popk_deferred=c.stats.popk_deferred + n_deferred
         ))
-        return self._finish_microstep(st, c, queue, entries, used_mins), m
+        return self._finish_microstep(st, c, queue, entries, used_mins, lanes), m
 
-    def _finish_microstep(self, st: SimState, c: "_EvCarry", queue, entries, used_mins):
+    def _flow_lanes(self, e: int) -> FlowLanes | None:
+        """The flow ledger's record lanes for a microstep of `e` event
+        columns, which the model's handler writes (None unless the ledger
+        is on and the model has a flow port: nothing is appended then)."""
+        if not (self.cfg.flow_ledger_active and getattr(self.model, "flow_ledger", False)):
+            return None
+        return make_flow_lanes(e, self.cfg.num_hosts, self.device)
+
+    def _finish_microstep(self, st: SimState, c: "_EvCarry", queue, entries, used_mins,
+                          lanes: FlowLanes | None = None):
         """Apply the microstep's outbox appends (its events' entry stacks in
-        one K9 pass), fold the used-latency lookahead, and reassemble the
+        one K9 pass) and flow-ledger appends (its events' record lanes in
+        one K28 pass), fold the used-latency lookahead, and reassemble the
         state."""
         outbox, min_used = st.outbox, st.min_used_lat
         stats = c.stats
@@ -1024,6 +1132,8 @@ class Engine:
             used = used_mins[0] if len(used_mins) == 1 else torch.stack(used_mins)
             min_used = torch.minimum(min_used, used.min())
             stats = stats._replace(ob_dropped=ob_dropped)
+        if lanes is not None:
+            flow_append(st.flows, lanes, stats.fl_done, stats.fl_bytes, stats.fl_rtx)
         return st._replace(
             queue=queue, rng=c.rng, seq=c.seq, sent_round=c.sent_round,
             tb_egress=c.tb_egress, tb_ingress=c.tb_ingress, codel=c.codel,
@@ -1032,14 +1142,16 @@ class Engine:
         )
 
     def event_body(self, c: _EvCarry, params: EngineParams, window_end: int, ev, active,
-                   fluid_fx=None):
+                   fluid_fx=None, flow: FlowLanes | None = None):
         """Execute one event per active host: ingress (the CPU model's
-        execution time, digest, shaping, dispatch; K10), the model's
-        handler, egress (pushes and sends, with the round's fluid coupling
-        `fluid_fx`; K11). Returns (carry', pushes, outbox entry stack |
-        None, per-host used-latency minimum | None)."""
+        execution time, digest, event classes, shaping, dispatch; K10), the
+        model's handler (with the flow ledger on, writing the event's flow
+        records into `flow`, a FlowLanes row), egress (pushes and sends,
+        with the round's fluid coupling `fluid_fx`; K11). Returns (carry',
+        pushes, outbox entry stack | None, per-host used-latency minimum |
+        None)."""
         cfg = self.cfg
-        c, ing = event_ingress(c, params, cfg, ev, active)
+        c, ing = event_ingress(c, params, cfg, ev, active, self._timer_mask)
         out = self.model.handle(HandlerCtx(
             t=ing.t,
             window_end=window_end,
@@ -1052,6 +1164,7 @@ class Engine:
             state=c.model,
             params=params.model,
             rng=c.rng,
+            flow=flow,
         ))
         c = c._replace(model=out.state, rng=out.rng)
         c, pushes, entries, used_min = event_egress(

@@ -31,10 +31,14 @@ When a grown shape's dispatch runs out of device memory
 above its base falls back one rung and the abandoned rungs are poisoned; a
 queue shrink is taken only to a rung the live events fit
 (`migration_fits`), otherwise the controller raises `PressureAbort`
-(cornered) with the last good pre-chunk snapshot kept. The JAX package's
-memory guard (`obs/memory.py`) is not ported: the controller runs as the
-JAX package's does without one, and its report keys (`memory_refusals`,
-`headroom_bytes`) are absent, as they are there.
+(cornered) with the last good pre-chunk snapshot kept. With the memory
+observatory on, `memory` (obs/memory.py `MemoryGuard`) admits a grown rung
+BEFORE its dispatch only when its predicted extra bytes fit the measured
+headroom: a refused reactive rung corners the escalation (`PressureAbort`),
+a refused proactive one is trimmed to a single axis or skipped; the report
+then carries `memory_refusals` and `headroom_bytes`, as the JAX package's
+does. `wall` (obs/runtime.py `WallLedger`) receives the snapshot and
+restore seconds, moved out of the dispatch span.
 
 The other two branches, in the JAX package's order:
 
@@ -65,6 +69,7 @@ The per-round signal the engine's chunk stop reads is K26
 from __future__ import annotations
 
 import math
+import time
 from typing import Any
 
 import torch
@@ -127,8 +132,12 @@ class ResilienceController:
     layout a migrated queue keeps."""
 
     def __init__(self, *, gearctl=None, pressure=None, integrity=None, queue_block: int = 0,
-                 log=None):
+                 log=None, memory=None, wall=None):
         self.gearctl = gearctl
+        self.memory = memory  # obs.memory.MemoryGuard | None
+        self.wall = wall  # obs.runtime.WallLedger | None
+        self.memory_refusals = 0  # rungs the memory guard refused pre-dispatch
+        self._proactive_refused = None  # the last skipped proactive regrow
         if pressure is not None and not getattr(pressure, "active", True):
             pressure = None  # policy drop: no pressure code runs
         self.pressure = pressure
@@ -208,6 +217,22 @@ class ResilienceController:
         if self._log is not None:
             print(f"[pressure] {msg}", file=self._log)
 
+    def _snap(self, state):
+        """A pre-chunk snapshot, its seconds moved to the snapshot span."""
+        t0 = time.perf_counter()
+        snap = snapshot_state(state)
+        if self.wall is not None:
+            self.wall.reattribute("dispatch", "snapshot", time.perf_counter() - t0)
+        return snap
+
+    def _restore(self, snap):
+        """A restored snapshot, its seconds moved to the replay span."""
+        t0 = time.perf_counter()
+        state = restore_snapshot(snap)
+        if self.wall is not None:
+            self.wall.reattribute("dispatch", "replay", time.perf_counter() - t0)
+        return state
+
     # ---- migration ---------------------------------------------------------
 
     def migrate(self, state, new_cap: int, new_budget: int):
@@ -261,7 +286,7 @@ class ResilienceController:
             cap = budget = 0
         need_snap = (gearctl is not None and gear < gearctl.top) or self.escalate \
             or self.integrity_on
-        snap = snapshot_state(state) if need_snap else None
+        snap = self._snap(state) if need_snap else None
         self._last_snap = snap
         iv_last_sig = None
         iv_attempts = 0
@@ -336,7 +361,7 @@ class ResilienceController:
                         f"invariant violation ({detail}); restoring the pre-chunk snapshot "
                         f"and replaying to classify (attempt {iv_attempts}/"
                         f"{self.integrity.max_replays})")
-                    state = restore_snapshot(snap)
+                    state = self._restore(snap)
                     continue
                 if iv_last_sig is not None:
                     # the replay came back clean: transient, counted, survived
@@ -347,7 +372,7 @@ class ResilienceController:
                 # a gear problem: the discarded attempt's high-water names the
                 # burst that shed it (read before the restore)
                 gear = gearctl.note_shed(int(hwm))
-                state = restore_snapshot(snap)
+                state = self._restore(snap)
                 continue
             if pressured:
                 n = len(_CATEGORIES)
@@ -443,15 +468,72 @@ class ResilienceController:
         if (new_cap, new_budget) == (cap, budget):
             self.aborted = True
             raise PressureAbort("pressure: drop detected but no growth axis identified")
+        self._admit_or_corner(cap, budget, new_cap, new_budget)
         self.regrows += 1
         self.replays += 1
         self._say(
             f"capacity drop at (cap={cap}, outbox={budget}); replaying chunk at "
             f"(cap={new_cap}, outbox={new_budget})")
-        state = self.migrate(restore_snapshot(snap), new_cap, new_budget)
-        snap = snapshot_state(state)
+        state = self.migrate(self._restore(snap), new_cap, new_budget)
+        snap = self._snap(state)
         self._last_snap = snap
         return state, new_cap, new_budget, snap
+
+    def _admit_or_corner(self, cap, budget, new_cap, new_budget):
+        """The memory guard's admission of a reactive rung: refused, it and
+        every rung above it on the grown axes are poisoned and the
+        escalation is cornered (every higher rung needs more bytes). No-op
+        without a guard or a measured limit."""
+        if self.memory is None or (new_cap, new_budget) == (cap, budget):
+            return
+        ok, need, headroom = self.memory.admit(cap, budget, new_cap, new_budget)
+        if ok:
+            return
+        self.memory_refusals += 1
+        if new_cap != cap:
+            self._cap_poisoned.update(r for r in self._cap_ladder if r >= new_cap)
+        if new_budget != budget:
+            self._box_poisoned.update(r for r in self._box_ladder if r >= new_budget)
+        self.aborted = True
+        self.last_error = (
+            f"memory guard refused rung (cap={new_cap}, outbox={new_budget}) before dispatch: "
+            f"predicted need {need} bytes (queue and outbox delta x replay concurrency x "
+            f"safety {self.memory.safety_factor}) exceeds measured headroom {headroom} bytes")
+        raise PressureAbort(f"pressure: cornered — {self.last_error}")
+
+    def _admitted_proactive(self, cap, budget, new_cap, new_budget):
+        """The memory guard's admission of a proactive regrow: when the
+        combined growth does not fit, each single axis is tried alone; a
+        full refusal skips the regrow (nothing has dropped yet), counted
+        once per distinct (shape, headroom). Returns the admitted shape."""
+        if self.memory is None or (new_cap, new_budget) == (cap, budget):
+            return new_cap, new_budget
+        candidates = [(new_cap, new_budget)]
+        for cand in ((new_cap, budget), (cap, new_budget)):
+            if cand != (cap, budget) and cand not in candidates:
+                candidates.append(cand)
+        need_all = headroom = None
+        for i, cand in enumerate(candidates):
+            ok, need, headroom = self.memory.admit(cap, budget, *cand)
+            if i == 0:
+                need_all = need
+            if ok:
+                if cand != (new_cap, new_budget):
+                    self.memory_refusals += 1
+                    self._say(
+                        f"memory guard trimmed proactive regrow (cap={new_cap}, "
+                        f"outbox={new_budget}) -> (cap={cand[0]}, outbox={cand[1]}): the "
+                        f"combined growth exceeds measured headroom")
+                return cand
+        key = (new_cap, new_budget, headroom)
+        if key != self._proactive_refused:
+            self._proactive_refused = key
+            self.memory_refusals += 1
+            self._say(
+                f"memory guard skipped proactive regrow to (cap={new_cap}, "
+                f"outbox={new_budget}): predicted need {need_all} bytes > measured "
+                f"headroom {headroom} bytes")
+        return cap, budget
 
     def _proactive(self, state, chunk_hwm: int, occ: int):
         """Boundary regrow BEFORE anything drops: the occupancy high-water
@@ -471,6 +553,7 @@ class ResilienceController:
             up = self._next_rung(self._box_ladder, budget, self._box_poisoned)
             if up is not None:
                 new_budget = up
+        new_cap, new_budget = self._admitted_proactive(cap, budget, new_cap, new_budget)
         if (new_cap, new_budget) != (cap, budget):
             self.proactive_regrows += 1
             self._say(
@@ -514,6 +597,12 @@ class ResilienceController:
             "replays": self.replays,
             "oom_fallbacks": self.oom_fallbacks,
         }
+        if self.memory_refusals:
+            out["memory_refusals"] = self.memory_refusals
+        if self.memory is not None and self.memory.monitor is not None:
+            hb = self.memory.monitor.headroom_bytes()
+            if hb is not None:
+                out["headroom_bytes"] = hb
         if self._cap_ladder is not None:
             out["capacity_ladder"] = list(self._cap_ladder)
             out["outbox_ladder"] = list(self._box_ladder)

@@ -14,7 +14,11 @@
 //       queue-clear faults (:2792-2803, :3020-3026) an event whose
 //       execution time is down is consumed, not dispatched, and counted in
 //       faults_dropped; with the integrity sentinel's dual digest (B15,
-//       :1093-1101, :2293-2297) the second per-host fold
+//       :1093-1101, :2293-2297) the second per-host fold; with the network
+//       observatory (B23, :2302-2318) each executed event's class (timer:
+//       the model's timer kinds, as a bitmask; packet; app) counted into
+//       the three [1] ec_* lanes, per block in shared memory, then one
+//       64-bit atomic add per class and block
 //   K11 shadow_tpu/core/engine.py:2415-2640 _event_body, egress half (B5):
 //       the model's local pushes (order keys, monotonic violations), then
 //       every send port and burst segment: route lookup, send budget,
@@ -181,11 +185,17 @@ struct IngressArgs {
   long long* faults_dropped;
   // the integrity sentinel's second digest (null when off), in place
   unsigned long long* digest2;
+  // the network observatory's event-class lane (null when off): each
+  // executed event counts once as timer (its model kind's bit set in
+  // timer_mask, no packet flag), packet or app, into [1] counters
+  unsigned long long timer_mask;
+  long long* ec[3];  // timer, packet, app
 };
 
-__global__ void event_ingress_kernel(const IngressArgs a) {
-  const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= a.H) return;
+// One host's ingress; returns the executed event's class (1 timer, 2
+// packet, 3 app) or 0 where no event executed.
+__device__ __forceinline__ int ingress_one(const IngressArgs& a, const int h) {
+  if (h >= a.H) return 0;
   const long long ei = (long long)h * a.es;
   bool act = a.active[h];
   long long t = a.ev_t[ei];
@@ -263,6 +273,25 @@ __global__ void event_ingress_kernel(const IngressArgs a) {
   a.is_pkt[h] = pkt;
   a.kind_out[h] = kind & kKindMask;
   a.src_out[h] = (order >> kSrcShift) & kSrcMask;
+  if (!act) return 0;
+  if (pkt) return 2;
+  const int mk = kind & kKindMask;
+  return (mk < 64 && ((a.timer_mask >> mk) & 1ull)) ? 1 : 3;
+}
+
+__global__ void event_ingress_kernel(const IngressArgs a) {
+  const int cls = ingress_one(a, blockIdx.x * blockDim.x + threadIdx.x);
+  if (a.ec[0] == nullptr) return;  // the same for every thread of the launch
+  // the event-class lane: counts in shared memory, then one 64-bit atomic
+  // add per class and block (integer sums: exact in any order)
+  __shared__ unsigned int cnt[3];
+  if (threadIdx.x < 3) cnt[threadIdx.x] = 0;
+  __syncthreads();
+  if (cls) atomicAdd(&cnt[cls - 1], 1u);
+  __syncthreads();
+  if (threadIdx.x < 3 && cnt[threadIdx.x])
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.ec[threadIdx.x]),
+              (unsigned long long)cnt[threadIdx.x]);
 }
 
 // ---------------------------------------------------------------------------
@@ -572,6 +601,8 @@ int event_ingress(const long long* args, void* stream) {
   a.faults_delayed = r.p<long long>();
   a.faults_dropped = r.p<long long>();
   a.digest2 = r.p<unsigned long long>();
+  a.timer_mask = (unsigned long long)r.v();
+  for (int k = 0; k < 3; ++k) a.ec[k] = r.p<long long>();
   if (a.P < 1 || a.interval <= 0 || a.fault_mode < 0 || a.fault_mode > 2 ||
       (a.fault_mode && (a.W < 1 || a.down_t == nullptr || a.up_t == nullptr)) ||
       (a.fault_mode == 1 && a.faults_delayed == nullptr) ||

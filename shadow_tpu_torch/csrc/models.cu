@@ -3,7 +3,8 @@
 // and returns cudaGetLastError().
 //
 // Replaces (JAX reference):
-//   K17 shadow_tpu/models/tgen.py:250  TgenTcpModel.handle  (B18)
+//   K17 shadow_tpu/models/tgen.py:250  TgenTcpModel.handle  (B18), with the
+//       flow ledger's FlowDone record lanes (:452, B17) where the ledger is on
 //   K18 shadow_tpu/models/phold.py:65  PholdModel.handle, :101 _exp_delay  (B19)
 //   K19 shadow_tpu/models/echo.py:104  UdpEchoModel.handle  (B19)
 //   K20 shadow_tpu/models/timer.py:41  TimerModel.handle  (B19)
@@ -521,6 +522,16 @@ struct TgenArgs {
   int* s_size;
   int* s_payload;
   int* s_count;
+  // the flow-ledger record lanes (null unless the ledger is on): the
+  // completion mask, peer, flow (phase), start and end times, payload
+  // bytes and retransmits of a flow completed at this event (FIN-ACK)
+  bool* f_mask;
+  long long* f_dst;
+  long long* f_flow;
+  long long* f_t0;
+  long long* f_t1;
+  long long* f_bytes;
+  long long* f_rtx;
 };
 
 __global__ void tgen_handle_kernel(const Ctx c, const TgenArgs a) {
@@ -682,8 +693,17 @@ __global__ void tgen_handle_kernel(const Ctx c, const TgenArgs a) {
   const bool all_acked = new_acked && snd_una >= L && c_state == kCstEst;
   c_state = all_acked ? kCstFin : c_state;
 
-  // ---- FIN-ACK: flow complete; next phase or done (the FlowDone record
-  // is the observatory's, which the port does not run)
+  // ---- FIN-ACK: flow complete; next phase or done. The flow ledger's
+  // record is taken here, before the phase and flow_t0 lanes advance
+  if (a.f_mask != nullptr) {
+    a.f_mask[h] = finack_in;
+    a.f_dst[h] = (long long)c_peer;
+    a.f_flow[h] = (long long)my_phase;
+    a.f_t0[h] = flow_t0;
+    a.f_t1[h] = t;
+    a.f_bytes[h] = (long long)L * (long long)a.mss[h];
+    a.f_rtx[h] = wsub(d_rtx, flow_rtx0);
+  }
   const int phase1 = finack_in ? wadd32(my_phase, 1) : my_phase;
   const bool more = finack_in && phase1 < a.flows[h];
   c_phase = phase1;
@@ -1027,6 +1047,13 @@ int tgen_handle(const long long* args, void* stream) {
   a.s_size = r.p<int>();
   a.s_payload = r.p<int>();
   a.s_count = r.p<int>();
+  a.f_mask = r.p<bool>();
+  a.f_dst = r.p<long long>();
+  a.f_flow = r.p<long long>();
+  a.f_t0 = r.p<long long>();
+  a.f_t1 = r.p<long long>();
+  a.f_bytes = r.p<long long>();
+  a.f_rtx = r.p<long long>();
   if (c.P < 4 || a.txb < 1) return (int)cudaErrorInvalidValue;
   if (c.H > 0)
     tgen_handle_kernel<<<blocks_for(c.H), kThreads, 0, (cudaStream_t)stream>>>(c, a);

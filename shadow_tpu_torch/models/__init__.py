@@ -6,7 +6,6 @@ PyTorch version."""
 
 from shadow_tpu_torch.models.base import (
     MODEL_REGISTRY,
-    FlowDone,
     HandlerCtx,
     HandlerOut,
     LocalPush,
@@ -28,7 +27,6 @@ KERNELS = {**_tgen.KERNELS, **_phold.KERNELS, **_echo.KERNELS, **_timer.KERNELS,
 
 __all__ = [
     "MODEL_REGISTRY",
-    "FlowDone",
     "HandlerCtx",
     "HandlerOut",
     "KERNELS",

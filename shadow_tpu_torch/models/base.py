@@ -61,6 +61,10 @@ class HandlerCtx:
     state: Any  # model state dict
     params: Any  # model param dict
     rng: RngState
+    # the flow ledger's record lanes for this event column (ops/obs.py
+    # FlowLanes row; None unless the ledger is on): a model with a flow
+    # port writes them in place, its kernel and its plain handler alike
+    flow: Any = None
 
 
 class LocalPush(NamedTuple):
@@ -92,26 +96,12 @@ class PacketSend(NamedTuple):
     count_max: int = 1  # static burst width
 
 
-class FlowDone(NamedTuple):
-    """A flow-completion record for the JAX package's flow ledger (a
-    network-observatory instrument). The port runs with the observatory off,
-    so the engine accepts and ignores it, as the JAX engine does when its
-    ledger is off."""
-
-    mask: torch.Tensor  # bool[H] this host completed a flow at this event
-    dst: torch.Tensor  # i32/i64[H] the peer (server) host id
-    flow: torch.Tensor  # i32[H] model flow index
-    t_start: torch.Tensor  # i64[H] flow start time (ns)
-    bytes: torch.Tensor  # i64[H] application payload bytes transferred
-    retransmits: torch.Tensor  # i64[H] retransmitted segments of this flow
-
-
 class HandlerOut(NamedTuple):
     state: Any
     rng: RngState
     pushes: tuple[LocalPush, ...] = ()
     sends: tuple[PacketSend, ...] = ()
-    flow: Any = None  # FlowDone | None
+    flow: Any = None  # the FlowLanes row the handler wrote (ctx.flow) | None
 
 
 class Model(Protocol):

@@ -22,9 +22,11 @@ counter is bit-identical. Two lanes need care in PyTorch:
     `torch.div(..., rounding_mode="floor")`.
 
 The handler is kernel K17 `tgen_handle` (csrc/models.cu) on CUDA and
-`handle_plain` on the CPU (models/base.py). The kernel path returns no
-`FlowDone` record: the port runs without the flow ledger, whose record
-lanes the observability slice will add to K17.
+`handle_plain` on the CPU (models/base.py). With the network observatory's
+flow ledger on, the engine hands the handler the record lanes of a flow
+completed at this event (`HandlerCtx.flow`, ops/obs.py FlowLanes): K17
+and `handle_plain` write them there in place, and K28 appends them to the
+ledger.
 """
 
 from __future__ import annotations
@@ -34,7 +36,6 @@ import torch
 
 from shadow_tpu_torch.config.units import TimeUnit, parse_time_ns
 from shadow_tpu_torch.models.base import (
-    FlowDone,
     HandlerCtx,
     HandlerOut,
     LocalPush,
@@ -101,6 +102,11 @@ _KERNEL_STATE = (
 )
 
 
+# the flow-ledger record lanes K17 writes (ops/obs.py FlowLanes)
+_FLOW_LANES = (("mask", _B), ("dst", _I64), ("flow", _I64), ("t_start", _I64),
+               ("t_end", _I64), ("bytes", _I64), ("retransmits", _I64))
+
+
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
     """Set bits of each value of an int64 tensor holding 0..2^32-1."""
     x = x - ((x >> 1) & 0x55555555)
@@ -131,7 +137,7 @@ class TgenTcpModel:
     # only push port B (timer chain, tick, delayed ACK) can carry a timer
     # kind: the wheel's router skips port A (always KIND_TX)
     timer_push_ports = (1,)
-    flow_ledger = True  # handle() emits FlowDone records at FIN-ACK
+    flow_ledger = True  # handle() writes flow records at FIN-ACK
     # (name, dtype) of the params and state lanes the kernel reads, in its
     # order
     kernel_params = _KERNEL_PARAMS
@@ -235,7 +241,9 @@ class TgenTcpModel:
     def handle(self, ctx: HandlerCtx) -> HandlerOut:
         """`handle_plain` as one kernel (K17) on CUDA, updating every state
         lane in place; port A's time is the event time, and the send
-        port's kind and payload increment are constants."""
+        port's kind and payload increment are constants. With `ctx.flow`
+        (the flow ledger on) K17 also writes the record lanes there and
+        `flow` returns them."""
         if on_cpu(ctx.t):
             return self.handle_plain(ctx)
         h, p = ctx.payload.shape
@@ -249,8 +257,12 @@ class TgenTcpModel:
         pb_t, s_dst = (torch.empty((h,), dtype=_I64, device=dev) for _ in range(2))
         pb_kind, s_size, s_count = (torch.empty((h,), dtype=_I32, device=dev) for _ in range(3))
         s_payload = torch.empty((h, p), dtype=_I32, device=dev)
+        flow = ctx.flow
+        if flow is not None:
+            check_lanes(flow._asdict(), _FLOW_LANES, h, "tgen_tcp flow")
         _handle_k(arg_block([*args, *(addr(x) for x in (
-            pa_mask, pb_mask, pb_t, pb_kind, s_mask, s_dst, s_size, s_payload, s_count))]))
+            pa_mask, pb_mask, pb_t, pb_kind, s_mask, s_dst, s_size, s_payload, s_count)),
+            *(addr(getattr(flow, name, None)) for name, _ in _FLOW_LANES)]))
         zeros = const_rows(h, p, dev)
         port_a = LocalPush(mask=pa_mask, t=ctx.t, kind=const_lane(KIND_TX, _I32, h, dev),
                            payload=zeros)
@@ -260,7 +272,8 @@ class TgenTcpModel:
             payload=s_payload, count=s_count, payload_inc=const_rows(h, p, dev, PW_SEQ, 1),
             count_max=self.tx_batch,
         )
-        return HandlerOut(state=ctx.state, rng=ctx.rng, pushes=(port_a, port_b), sends=(send,))
+        return HandlerOut(state=ctx.state, rng=ctx.rng, pushes=(port_a, port_b), sends=(send,),
+                          flow=flow)
 
     def handle_plain(self, ctx: HandlerCtx) -> HandlerOut:
         h = ctx.kind.shape[0]
@@ -408,15 +421,16 @@ class TgenTcpModel:
         all_acked = new_acked & (st["snd_una"] >= L) & (st["c_state"] == CST_EST)
         st["c_state"] = where(all_acked, CST_FIN, st["c_state"])
 
-        # ---- FIN-ACK: flow complete; next phase or done
-        flow_done = FlowDone(
-            mask=finack_in,
-            dst=st["c_peer"],
-            flow=my_phase,
-            t_start=st["flow_t0"],
-            bytes=L.to(torch.int64) * p["mss"].to(torch.int64),
-            retransmits=st["d_rtx"] - st["flow_rtx0"],
-        )
+        # ---- FIN-ACK: flow complete; next phase or done. The flow ledger's
+        # record is taken here, before the phase and flow_t0 lanes advance
+        flow = ctx.flow
+        if flow is not None:
+            for lane, v in ((flow.mask, finack_in), (flow.dst, st["c_peer"]),
+                            (flow.flow, my_phase), (flow.t_start, st["flow_t0"]),
+                            (flow.t_end, t),
+                            (flow.bytes, L.to(torch.int64) * p["mss"].to(torch.int64)),
+                            (flow.retransmits, st["d_rtx"] - st["flow_rtx0"])):
+                lane.copy_(v)
         phase1 = where(finack_in, my_phase + 1, my_phase)
         more = finack_in & (phase1 < p["flows"])
         st["c_phase"] = phase1
@@ -572,7 +586,7 @@ class TgenTcpModel:
             count_max=txb,
         )
         return HandlerOut(state=st, rng=ctx.rng, pushes=(port_a, port_b), sends=(send,),
-                          flow=flow_done)
+                          flow=flow)
 
     # ------------------------------------------------------------------ #
 

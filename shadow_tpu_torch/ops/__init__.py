@@ -3,9 +3,10 @@ ops (K1-K3, K5-K8: flat and bucketed queues, the K-way peek and clear;
 K25: the capacity migration), the
 exchange merge (K4), the per-event chain and outbox append (K9-K11), the
 timer wheel's cancel (K12; its other ops are the bucketed queue's), the
-pressure plane's drop total (K26) and the per-host RNG lanes."""
+pressure plane's drop total (K26), the observatories' trace row and flow
+append (K27, K28) and the per-host RNG lanes."""
 
-from shadow_tpu_torch.ops import chain, events, merge, pressure, wheel
+from shadow_tpu_torch.ops import chain, events, merge, obs, pressure, wheel
 from shadow_tpu_torch.ops.events import (
     EVENT_PAYLOAD_WORDS,
     ORDER_MAX,
@@ -35,7 +36,7 @@ from shadow_tpu_torch.ops.rng import RngState, rng_init, rng_next_u64, rng_unifo
 
 # every hand-written kernel's launch wrapper, by kernel name
 KERNELS = {**events.KERNELS, **merge.KERNELS, **chain.KERNELS, **wheel.KERNELS,
-           **pressure.KERNELS}
+           **pressure.KERNELS, **obs.KERNELS}
 
 __all__ = [
     "EVENT_PAYLOAD_WORDS",

@@ -188,11 +188,38 @@ def digest2_update(digest2, active, t, kind, order):
     return torch.where(active, (digest2 ^ x) * _DIGEST2_PRIME, digest2)
 
 
-def event_ingress_plain(c, params, cfg, ev, active):
+def timer_kind_mask(timer_kinds) -> int:
+    """The model's timer kinds as the bitmask K10's class lane takes."""
+    mask = 0
+    for k in timer_kinds:
+        if not 0 <= int(k) < 63:
+            raise ValueError(f"timer kind {k}: the event-class lane takes kinds 0..62")
+        mask |= 1 << int(k)
+    return mask
+
+
+def event_classes_plain(stats, active, kind, timer_mask: int):
+    """The network observatory's event-class lane: each executed event
+    counts once as timer (a model kind in `timer_mask`, no packet flag),
+    packet or app into the [1] ec_* lanes."""
+    is_pkt = (kind & KIND_PKT) != 0
+    mk = (kind & KIND_MASK).to(torch.int64)
+    in_mask = (mk < 63) & (((torch.full_like(mk, timer_mask) >> torch.clamp_max(mk, 62)) & 1) != 0)
+    timer = active & ~is_pkt & in_mask
+    return stats._replace(
+        ec_timer=stats.ec_timer + timer.sum(),
+        ec_pkt=stats.ec_pkt + (active & is_pkt).sum(),
+        ec_app=stats.ec_app + (active & ~is_pkt & ~timer).sum(),
+    )
+
+
+def event_ingress_plain(c, params, cfg, ev, active, timer_mask: int = 0):
     """The execution time (the CPU model's busy horizon; under queue-hold
     crash faults the restart of the window containing it), the queue-clear
-    fault drop, the digests, ingress shaping and dispatch for one event per
-    active host. Returns (carry', Ingress)."""
+    fault drop, the digests, the event classes (with the network
+    observatory; `timer_mask` is the model's timer kinds), ingress shaping
+    and dispatch for one event per active host. Returns (carry',
+    Ingress)."""
     from shadow_tpu_torch.core.faults import down_and_resume_plain
 
     stats = c.stats
@@ -223,6 +250,8 @@ def event_ingress_plain(c, params, cfg, ev, active):
     if cfg.integrity_dual:
         stats = stats._replace(
             digest2=digest2_update(stats.digest2, active, ev.t, ev.kind, ev.order))
+    if cfg.netobs:
+        stats = event_classes_plain(stats, active, ev.kind, timer_mask)
     is_pkt = (ev.kind & KIND_PKT) != 0
     codel, tb_in, requeue, dispatch = c.codel, c.tb_ingress, None, active
     if cfg.shaping:
@@ -272,15 +301,15 @@ def _event_stride(ev, h: int, p: int) -> int:
     return es
 
 
-def event_ingress(c, params, cfg, ev, active):
+def event_ingress(c, params, cfg, ev, active, timer_mask: int = 0):
     """`event_ingress_plain` as one kernel (K10) on CUDA, updating the
     carry's events, digest, CoDel, downlink bucket, codel-dropped and
     delivered lanes in place; under the CPU model also the busy horizon,
     under the CPU model or queue-hold faults the event's time lane (its
-    execution time), and the fault counters and the second digest where
-    their planes are on."""
+    execution time), and the fault counters, the second digest and the
+    event-class counters where their planes are on."""
     if on_cpu(ev.t):
-        return event_ingress_plain(c, params, cfg, ev, active)
+        return event_ingress_plain(c, params, cfg, ev, active, timer_mask)
     h = active.shape[0]
     p = ev.payload.shape[1]
     es = _event_stride(ev, h, p)
@@ -313,6 +342,10 @@ def event_ingress(c, params, cfg, ev, active):
     d2 = s.digest2 if cfg.integrity_dual else None
     if d2 is not None:
         check(d2, torch.int64, (h,), "digest2")
+    ec = (s.ec_timer, s.ec_pkt, s.ec_app) if cfg.netobs else (None, None, None)
+    if cfg.netobs:
+        for x, name in zip(ec, ("ec_timer", "ec_pkt", "ec_app")):
+            check(x, torch.int64, (1,), name)
     ing = Ingress(
         dispatch=torch.empty((h,), dtype=torch.bool, device=dev),
         is_pkt=torch.empty((h,), dtype=torch.bool, device=dev),
@@ -340,6 +373,7 @@ def event_ingress(c, params, cfg, ev, active):
         fault_mode, nw, addr(crash[0]), addr(crash[1]),
         addr(s.faults_delayed if fault_mode == 1 else None),
         addr(s.faults_dropped if fault_mode == 2 else None), addr(d2),
+        timer_mask if cfg.netobs else 0, *(addr(x) for x in ec),
     ]))
     return c, ing
 

@@ -28,13 +28,15 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("queue", "merge", "event", "fluid", "models", "faults", "integrity", "pressure")
+SOURCES = ("queue", "merge", "event", "fluid", "models", "faults", "integrity", "pressure",
+           "obs")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false",
@@ -42,6 +44,11 @@ NVCC_FLAGS = (
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# one record per library this process loaded, in load order: the source,
+# when the load started (time.monotonic), its seconds (the build included),
+# the nvcc seconds and whether the build directory already held it (a hit);
+# read by obs/runtime.py BuildLedger
+BUILD_LOG: list[dict] = []
 
 
 def _nvcc() -> str:
@@ -99,9 +106,14 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.monotonic()
             so, pending = _start_build(name)
             _finish_build(name, so, pending)
+            t1 = time.monotonic()
             lib = _libs[name] = ctypes.CDLL(so)
+            BUILD_LOG.append({"source": f"{name}.cu", "t0": t0, "seconds": time.monotonic() - t0,
+                              "nvcc_s": t1 - t0 if pending is not None else 0.0,
+                              "hit": pending is None})
         return lib
 
 

@@ -47,6 +47,21 @@ With `faults.supervisor.checkpoint_file` (relative to the data directory)
 every supervisor snapshot is also written to disk (core/checkpoint.py
 `save_checkpoint`); `load_checkpoint(path, sim)` resumes a freshly built
 simulation from it, on either device.
+
+The `observability` block runs the observatories (obs/): `trace` the round
+trace ring (K27 writes a row per round into a ring of `rounds_per_chunk`
+rows; the report gains `trace{}` and `per_host{}`, and `write_outputs`
+writes `trace.json` and `metrics.prom`), `network` the network observatory
+(K10's event classes; for a model with a flow port, K17's record lanes and
+K28's flow ledger; the report's `network{}` block, heartbeat `ek=` and
+`fct=`), `memory` the memory observatory (`memory{}`, `hbm=`, and under
+escalate the memory guard), `runtime` the runtime observatory (`runtime{}`,
+`rt=`) and `profile_dir` a torch.profiler trace of the run loop. The rings
+are drained at each chunk boundary in one device-to-host read; a run that
+ends on an abort keeps only the rows and records of the state it reports.
+On a CUDA device the build refuses configs the queue kernels cannot take
+(a base capacity above their slots, a bucketed queue above their blocks,
+K above their batch), naming the knob.
 """
 
 from __future__ import annotations
@@ -79,8 +94,27 @@ from shadow_tpu_torch.net import TBParams
 from shadow_tpu_torch.net.fluid import INACTIVE_SCHEDULE, assemble_fluid_report, compile_fluid
 from shadow_tpu_torch.net.fluid import KERNELS as FLUID_KERNELS
 from shadow_tpu_torch.net.graph import IpAssignment, NetworkGraph, load_graph
+from shadow_tpu_torch.obs.memory import (
+    MemoryGuard,
+    MemoryMonitor,
+    modeled_shard_bytes,
+    observatory_report,
+)
+from shadow_tpu_torch.obs.netobs import (
+    FlowCollector,
+    FlowLedger,
+    assemble_network_report,
+    node_map,
+)
+from shadow_tpu_torch.obs.runtime import (
+    BuildLedger,
+    WallLedger,
+    assemble_runtime_report,
+    span_or_null,
+)
+from shadow_tpu_torch.obs.tracer import RoundTracer, TraceRing
 from shadow_tpu_torch.ops import KERNELS as OPS_KERNELS
-from shadow_tpu_torch.ops.events import MAX_BLOCKS, MAX_CAPACITY
+from shadow_tpu_torch.ops.events import MAX_BATCH, MAX_BLOCKS, MAX_CAPACITY
 from shadow_tpu_torch.simtime import NS_PER_SEC
 
 MTU_BITS = 1500 * 8
@@ -167,19 +201,29 @@ def tb_params(bws: np.ndarray, interval_ns: int, device) -> TBParams:
 def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
                    rounds: int, q_hwm: int, host_syncs: int, gear: int | None = None,
                    bg: tuple[int, int] | None = None, fault: tuple[int, int] | None = None,
-                   iv: tuple[int, int] | None = None, cap: int | None = None) -> str:
+                   iv: tuple[int, int] | None = None, cap: int | None = None, *,
+                   hbm: int | None = None, ek: tuple[int, int] | None = None,
+                   fct: int | None = None, rt: float | None = None) -> str:
     """The `[heartbeat]` progress line, in the JAX package's format (ici_bytes
     is 0 on one device; `faults=<dropped>/<delayed>` only on fault-plane
     runs, after `q_hwm=`; `gear=` only on merge-gear runs, after `faults=`;
     `cap=<queue capacity>` only on pressure-plane runs, after `gear=`;
-    `bg=<bytes>/<dropped>` only on fluid runs, after `cap=`;
+    `hbm=<bytes>` only on memory-observatory runs, after `cap=`;
+    `ek=<timer>/<packet>` and `fct=<flows>` only on network-observatory
+    runs (`fct=` with the flow ledger), after `hbm=`;
+    `bg=<bytes>/<dropped>` only on fluid runs, after `fct=`;
     `iv=<transients>/<replays>` only on integrity-sentinel runs, after
-    `bg=`) plus the port's host-sync count."""
+    `bg=`; `rt=<last chunk's sim-s/wall-s>` only on runtime-observatory
+    runs, after `iv=`) plus the port's host-sync count."""
     fault_f = f"faults={fault[0]}/{fault[1]} " if fault is not None else ""
     gear_f = f"gear={gear} " if gear is not None else ""
     cap_f = f"cap={cap} " if cap is not None else ""
+    hbm_f = f"hbm={hbm} " if hbm is not None else ""
+    ek_f = f"ek={ek[0]}/{ek[1]} " if ek is not None else ""
+    fct_f = f"fct={fct} " if fct is not None else ""
     bg_f = f"bg={bg[0]}/{bg[1]} " if bg is not None else ""
     iv_f = f"iv={iv[0]}/{iv[1]} " if iv is not None else ""
+    rt_f = f"rt={rt:.2f} " if rt is not None else ""
     return (
         f"[heartbeat] sim_time={now_ns / NS_PER_SEC:.3f}s "
         f"wall={wall:.2f}s events={events} "
@@ -190,8 +234,12 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
         f"{fault_f}"
         f"{gear_f}"
         f"{cap_f}"
+        f"{hbm_f}"
+        f"{ek_f}"
+        f"{fct_f}"
         f"{bg_f}"
         f"{iv_f}"
+        f"{rt_f}"
         f"syncs={host_syncs} "
         f"ratio={now_ns / NS_PER_SEC / max(wall, 1e-9):.2f}x"
     )
@@ -221,6 +269,10 @@ class Simulation:
         self.model = get_model(name)()
         ex = cfg.experimental
         num_hosts = len(self.hosts)
+        qcap, send_budget, rpc = ex.resolve_shapes(num_hosts)
+        ex.check_queue_block(qcap)
+        if self.device.type == "cuda":
+            self._check_kernel_limits(qcap)
         # fluid traffic plane: the background classes on the graph's nodes
         # (zone ids are GML node ids, resolved as the hosts' are)
         try:
@@ -248,8 +300,6 @@ class Simulation:
         except ValueError as e:
             raise ConfigError(f"faults: {e}") from e
         fs = self._fault_sched
-        qcap, send_budget, rpc = ex.resolve_shapes(num_hosts)
-        ex.check_queue_block(qcap)
         self._check_pressure(qcap, send_budget)
         # the timer wheel: a model with no timer kinds fails here, at
         # config time, not when the engine is built
@@ -259,6 +309,7 @@ class Simulation:
                 f"timer_kinds — nothing would route to the wheel; drop the knob or "
                 f"use a model with timers"
             )
+        obs = cfg.observability
         self.engine_cfg = EngineConfig(
             num_hosts=num_hosts,
             stop_time=cfg.general.stop_time,
@@ -295,6 +346,13 @@ class Simulation:
             integrity=cfg.integrity.enabled,
             integrity_dual=cfg.integrity.enabled and cfg.integrity.dual_digest,
             pressure_abort=cfg.pressure.active,
+            # the observatories: the trace ring sized to the chunk (drained
+            # at every chunk boundary, so it never wraps); the flow ledger
+            # only for a model with a flow port
+            trace_rounds=rpc if obs.trace else 0,
+            netobs=obs.network,
+            flow_records=(obs.network_flows
+                          if obs.network and getattr(self.model, "flow_ledger", False) else 0),
         )
         # merge gears: the ladder resolved against the (auto-sized) send
         # budget; [] = off (a budget of 1 leaves no narrower width)
@@ -316,6 +374,31 @@ class Simulation:
         self._test_fail_dispatch: frozenset[int] = frozenset()
         self.engine = Engine(self.engine_cfg, self.model, self.device)
         self._build_state()
+
+    def _check_kernel_limits(self, qcap: int) -> None:
+        """The queue kernels' limits (csrc/queue.cu) against the base
+        shapes, checked at build on a CUDA device so that a config never
+        fails at its first launch: slots per host, blocks per host of a
+        bucketed queue, and K (clamped to the capacity) per microstep. The
+        CPU path runs any shape."""
+        ex = self.cfg.experimental
+        if qcap > MAX_CAPACITY:
+            raise ConfigError(
+                f"experimental.event_queue_capacity={qcap} exceeds the queue kernels' limit "
+                f"of {MAX_CAPACITY} slots per host (csrc/queue.cu); run it on the CPU "
+                f"(device='cpu') or lower the capacity")
+        block = ex.event_queue_block
+        if block and qcap // block > MAX_BLOCKS:
+            raise ConfigError(
+                f"experimental.event_queue_block={block}: capacity {qcap} makes "
+                f"{qcap // block} blocks per host, past the bucketed kernels' limit of "
+                f"{MAX_BLOCKS} (csrc/queue.cu); use blocks of at least "
+                f"{-(-qcap // MAX_BLOCKS)} slots")
+        if min(ex.microstep_events, qcap) > MAX_BATCH:
+            raise ConfigError(
+                f"experimental.microstep_events={ex.microstep_events} with capacity {qcap} "
+                f"exceeds the K-way kernels' limit of K = {MAX_BATCH} (csrc/queue.cu); set "
+                f"microstep_events to at most {MAX_BATCH}")
 
     def _check_pressure(self, qcap: int, send_budget: int) -> None:
         """The pressure plane's build-time refusals: the JAX package's
@@ -401,6 +484,8 @@ class Simulation:
         shed and replay, a drill of the replay path that changes no
         result."""
         cfg = self.cfg
+        ecfg = self.engine_cfg
+        obs = cfg.observability
         show_progress = cfg.general.progress if progress is None else progress
         hb_ns = cfg.general.heartbeat_interval
         next_hb = hb_ns
@@ -420,15 +505,49 @@ class Simulation:
         self._aborted = self._integrity_aborted = self._pressure_aborted = False
         integrity_on = cfg.integrity.enabled
         pressure_on = cfg.pressure.active
+        # the observatories: the collectors adopt the rings' current
+        # cursors (a restored checkpoint's rows are not fresh rounds)
+        tracer = flowcol = None
+        if ecfg.trace_rounds or ecfg.flow_ledger_active:
+            ring, ledger = self._read_rings()
+            if ring is not None:
+                tracer = RoundTracer(ecfg.trace_rounds)
+                tracer.sync_cursor(ring)
+            if ledger is not None:
+                flowcol = FlowCollector(ecfg.flow_records)
+                flowcol.sync_cursor(ledger)
+        self._tracer, self._flowcol = tracer, flowcol
+        monitor = MemoryMonitor([self.device]) if obs.memory else None
+        self._memmon = monitor
+        wallled = builds = None
+        if obs.runtime:
+            wallled = WallLedger()
+            wallled.sync_sim(self.state.now)
+            builds = BuildLedger(wallled)
+            builds.attach()
+        self._wallled, self._builds = wallled, builds
+        prof = None
+        if obs.profile_dir:
+            os.makedirs(obs.profile_dir, exist_ok=True)
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.__enter__()
         # the snapshot-replay seam: merge gears (a shed replays wider), the
         # pressure plane (a drop regrows and replays, or stops the run) and
         # the integrity sentinel (a violation replays to classify it)
         resil = None
         if gearctl is not None or integrity_on or pressure_on:
+            memguard = None
+            if pressure_on and monitor is not None:
+                # memory-informed escalation: rung admission before dispatch
+                memguard = MemoryGuard(ecfg, monitor,
+                                       safety_factor=cfg.pressure.memory_safety_factor)
             resil = ResilienceController(
                 gearctl=gearctl, pressure=cfg.pressure if pressure_on else None,
                 integrity=cfg.integrity if integrity_on else None,
-                queue_block=self.engine_cfg.queue_block, log=log)
+                queue_block=ecfg.queue_block, log=log, memory=memguard, wall=wallled)
             resil.test_scribble = self._integrity_test_scribble
         self._resil = resil
         sup = None
@@ -463,64 +582,96 @@ class Simulation:
                 return st
             return self.engine.run_chunk(st, self.params)
 
-        while not self.state.done:
-            try:
-                if sup is not None:
-                    self.state = sup.run_chunk(self.state, chunk_step)
-                else:
-                    self.state = chunk_step(self.state)
-            except (IntegrityAbort, PressureAbort) as e:
-                # an integrity abort or an escalation that is cornered
-                # discards its attempts: report the last good pre-chunk
-                # state; the abort policy reports the dropping state
-                kind = "integrity" if isinstance(e, IntegrityAbort) else "pressure"
-                print(f"[{kind}] aborting run: {e}", file=log)
-                good = resil.abort_export_state()
-                if good is not None:
-                    self.state = good
-                if kind == "integrity":
-                    self._integrity_aborted = True
-                else:
-                    self._pressure_aborted = True
-                break
-            except SupervisorAbort as e:
-                print(f"[supervisor] aborting run: {e}", file=log)
-                good = sup.abort_export_state()
-                if good is not None:
-                    self.state = good
-                self._aborted = True
-                break
-            chunks += 1
-            now_ns = self.state.now
-            if hb_ns and now_ns >= next_hb:
-                s = self.state.stats
-                lanes = [s.events.sum(), s.microsteps.sum(), s.rounds, s.q_occ_hwm.max()]
-                if s.faults_dropped is not None:
-                    lanes += [s.faults_dropped.sum(), s.faults_delayed.sum()]
-                if s.fl_bg_bytes is not None:
-                    lanes += [s.fl_bg_bytes, s.fl_bg_dropped]
-                # one device-to-host read for the counters
-                vals = torch.stack(lanes).tolist()
+        def drain(t_chunk):
+            # the trace ring and the flow ledger, in one device-to-host read
+            if tracer is None and flowcol is None:
+                return
+            ring, ledger = self._read_rings()
+            if tracer is not None:
+                tracer.drain(ring, wall_t0=t_chunk, wall_t1=time.monotonic())
+            if flowcol is not None and flowcol.drain(ledger) and tracer is not None:
+                tracer.note_flows(flowcol.last_drained)
+
+        def keep_reported_prefix():
+            # the reported state was rewound (the last good snapshot): keep
+            # only the rows and records its own prefix saw
+            if tracer is not None:
+                tracer.truncate_to_round(int(self.state.stats.rounds))
+            if flowcol is not None:
+                flowcol.truncate_to_cursor(self.state.flows.cursor.cpu().numpy())
                 self.engine.host_syncs += 1
-                fault = bg = None
-                if s.faults_dropped is not None:
-                    fault, vals = tuple(vals[4:6]), vals[:4] + vals[6:]
-                if s.fl_bg_bytes is not None:
-                    bg = tuple(vals[4:6])
-                iv = ((resil.iv_transients, resil.iv_replays) if integrity_on else None)
-                # the ACTIVE queue capacity (escalation regrows it)
-                cap = self.state.queue.t.shape[1] if pressure_on else None
-                print(
-                    heartbeat_line(
-                        now_ns, time.monotonic() - t0, *vals[:4],
-                        self._syncs_since(syncs0), gear, bg, fault, iv, cap,
-                    ),
-                    file=log,
-                )
-                next_hb = (now_ns // hb_ns + 1) * hb_ns
-            if show_progress:
-                pct = min(100.0, 100.0 * now_ns / max(cfg.general.stop_time, 1))
-                print(f"\rprogress: {pct:5.1f}% ", end="", file=log, flush=True)
+                if tracer is not None:
+                    tracer.reset_flows(flowcol.records())
+
+        try:
+            while not self.state.done:
+                t_chunk = time.monotonic()
+                if wallled is not None:
+                    wallled.chunk_start()
+                try:
+                    with span_or_null(wallled, "dispatch"):
+                        if sup is not None:
+                            self.state = sup.run_chunk(self.state, chunk_step)
+                        else:
+                            self.state = chunk_step(self.state)
+                        if wallled is not None and self.device.type == "cuda":
+                            # the chunk's device work belongs to its dispatch
+                            torch.cuda.synchronize(self.device)
+                            self.engine.host_syncs += 1
+                except (IntegrityAbort, PressureAbort) as e:
+                    # an integrity abort or an escalation that is cornered
+                    # discards its attempts: report the last good pre-chunk
+                    # state; the abort policy reports the dropping state
+                    kind = "integrity" if isinstance(e, IntegrityAbort) else "pressure"
+                    print(f"[{kind}] aborting run: {e}", file=log)
+                    good = resil.abort_export_state()
+                    if good is not None:
+                        self.state = good
+                    drain(t_chunk)
+                    keep_reported_prefix()
+                    if kind == "integrity":
+                        self._integrity_aborted = True
+                        if tracer is not None and resil.iv_deterministic is not None:
+                            tracer.note_violation(resil.iv_deterministic)
+                    else:
+                        self._pressure_aborted = True
+                    break
+                except SupervisorAbort as e:
+                    print(f"[supervisor] aborting run: {e}", file=log)
+                    good = sup.abort_export_state()
+                    if good is not None:
+                        self.state = good
+                        keep_reported_prefix()
+                    self._aborted = True
+                    break
+                if builds is not None:
+                    builds.collect()
+                with span_or_null(wallled, "export"):
+                    drain(t_chunk)
+                    if monitor is not None:
+                        t_s = time.monotonic()
+                        per = monitor.sample(
+                            modeled_bytes=modeled_shard_bytes(self.state, self.params),
+                            wall_t=t_s)
+                        if tracer is not None:
+                            tracer.note_memory(t_s, per)
+                chunks += 1
+                now_ns = self.state.now
+                if wallled is not None:
+                    # heartbeat and progress printing land in the next
+                    # chunk's host_python residual
+                    wallled.chunk_end(now_ns)
+                if hb_ns and now_ns >= next_hb:
+                    self._heartbeat(log, now_ns, time.monotonic() - t0, syncs0, gear,
+                                    resil, monitor, wallled)
+                    next_hb = (now_ns // hb_ns + 1) * hb_ns
+                if show_progress:
+                    pct = min(100.0, 100.0 * now_ns / max(cfg.general.stop_time, 1))
+                    print(f"\rprogress: {pct:5.1f}% ", end="", file=log, flush=True)
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                prof.export_chrome_trace(os.path.join(obs.profile_dir, "torch_profile.json"))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._wall_seconds = time.monotonic() - t0
@@ -530,6 +681,53 @@ class Simulation:
         self._host_syncs = self._syncs_since(syncs0)
         self._launches = {k: v.launches - launches0[k] for k, v in KERNELS.items()}
         return self.stats_report()
+
+    def _read_rings(self) -> tuple[TraceRing | None, FlowLedger | None]:
+        """The trace ring and the flow ledger as host arrays, in one
+        device-to-host read (None for a ring that is off)."""
+        st = self.state
+        parts = [x for r in (st.trace, st.flows) if r is not None for x in (r.cursor, r.rows)]
+        host = torch.cat([x.reshape(-1) for x in parts]).cpu().numpy()
+        self.engine.host_syncs += 1
+        out, at = [], 0
+        for r, kind in ((st.trace, TraceRing), (st.flows, FlowLedger)):
+            if r is None:
+                out.append(None)
+                continue
+            n = r.rows.numel()
+            out.append(kind(rows=host[at + 1:at + 1 + n].reshape(tuple(r.rows.shape)),
+                            cursor=host[at:at + 1]))
+            at += 1 + n
+        return out[0], out[1]
+
+    def _heartbeat(self, log, now_ns: int, wall: float, syncs0: int, gear, resil,
+                   monitor, wallled) -> None:
+        """One heartbeat line; its counters in one device-to-host read."""
+        s = self.state.stats
+        lanes = [s.events.sum(), s.microsteps.sum(), s.rounds, s.q_occ_hwm.max()]
+        extra = {}
+        for key, group in (("fault", (s.faults_dropped, s.faults_delayed)),
+                           ("bg", (s.fl_bg_bytes, s.fl_bg_dropped)),
+                           ("ek", (s.ec_timer, s.ec_pkt)), ("fct", (s.fl_done,))):
+            if group[0] is not None:
+                extra[key] = (len(lanes), len(group))
+                lanes += [x.sum() for x in group]
+        vals = torch.stack(lanes).tolist()
+        self.engine.host_syncs += 1
+        got = {k: tuple(int(v) for v in vals[i:i + n]) for k, (i, n) in extra.items()}
+        print(
+            heartbeat_line(
+                now_ns, wall, *vals[:4], self._syncs_since(syncs0), gear, got.get("bg"),
+                got.get("fault"),
+                (resil.iv_transients, resil.iv_replays) if self.cfg.integrity.enabled else None,
+                # the ACTIVE queue capacity (escalation regrows it)
+                self.state.queue.t.shape[1] if self.cfg.pressure.active else None,
+                hbm=monitor.hwm_bytes() if monitor is not None else None,
+                ek=got.get("ek"), fct=got["fct"][0] if "fct" in got else None,
+                rt=wallled.rt_last if wallled is not None else None,
+            ),
+            file=log,
+        )
 
     def _syncs_since(self, syncs0: int) -> int:
         """Device-to-host reads of this run: the engine's, the supervisor's
@@ -586,9 +784,27 @@ class Simulation:
             if self._integrity_aborted:
                 report["integrity_aborted"] = True
                 report["aborted"] = True
+        if self.engine_cfg.netobs:
+            # the network observatory: event classes, the safe window, the
+            # flow ledger and the per-link fold
+            h = self.engine_cfg.num_hosts
+            report["network"] = assemble_network_report(
+                stats=self.state.stats, num_real=h, rounds=report["rounds"],
+                node_of=node_map(self.hosts, h), model=self.model,
+                model_state=self._model_host_view(),
+                flow_ledger=self.engine_cfg.flow_ledger_active,
+                collector=getattr(self, "_flowcol", None))
         if self.engine_cfg.fluid_active:
             report["fluid"] = assemble_fluid_report(
                 stats=self.state.stats, fluid_state=self.state.fluid, cfg=self.engine_cfg)
+        if getattr(self, "_memmon", None) is not None:
+            report["memory"] = observatory_report(
+                self.engine, self.state, self.params, self._memmon,
+                ledger=self.cfg.observability.memory_ledger)
+        if self.cfg.observability.runtime:
+            report["runtime"] = assemble_runtime_report(
+                wall=getattr(self, "_wallled", None), compiles=getattr(self, "_builds", None),
+                total_wall_s=report["wall_seconds"])
         if self._supervisor is not None:
             report["supervisor"] = self._supervisor.report()
         if self._aborted:
@@ -597,7 +813,25 @@ class Simulation:
             report["aborted"] = True
             if self._supervisor is not None and self._supervisor.poisoned:
                 report["poisoned"] = True
+        tracer = getattr(self, "_tracer", None)
+        if tracer is not None:
+            s = self.state.stats
+            report["trace"] = tracer.summary()
+            report["per_host"] = {
+                "events_processed": s.events.tolist(),
+                "queue_occupancy_hwm": s.q_occ_hwm.tolist(),
+            }
         return report
+
+    def _model_host_view(self) -> dict:
+        """The model state as host arrays, read once per state."""
+        st = self.state.model
+        cached = getattr(self, "_model_view_cache", None)
+        if cached is not None and cached[0] is st:
+            return cached[1]
+        view = {k: v.cpu().numpy() for k, v in st.items()}
+        self._model_view_cache = (st, view)
+        return view
 
     def _base_report(self) -> dict:
         s = {k: v.cpu().numpy() for k, v in self.state.stats._asdict().items()
@@ -632,10 +866,7 @@ class Simulation:
             "outbox_send_hwm": max(int(s["outbox_hwm"].max()), self._ob_hwm_run),
             "monotonic_violations": int(s["monotonic_violations"].sum()),
             "determinism_digest": f"{digest:016x}",
-            "model_report": self.model.report(
-                {k: v.cpu().numpy() for k, v in self.state.model.items()},
-                self._model_hosts(),
-            ),
+            "model_report": self.model.report(self._model_host_view(), self._model_hosts()),
             "device": str(self.device),
             "host_syncs": getattr(self, "_host_syncs", None),
             "kernel_launches": getattr(self, "_launches", None),
@@ -649,13 +880,24 @@ class Simulation:
         os.makedirs(data_dir, exist_ok=True)
         with open(os.path.join(data_dir, "processed-config.yaml"), "w") as f:
             yaml.safe_dump(self.cfg.to_dict(), f, sort_keys=False)
+        if report is None:
+            report = self.stats_report()
         with open(os.path.join(data_dir, "sim-stats.json"), "w") as f:
-            json.dump(report if report is not None else self.stats_report(), f, indent=2)
+            json.dump(report, f, indent=2)
         st = self.state.stats
         lanes = {k: getattr(st, f).cpu().numpy() for k, f in (
             ("events_processed", "events"), ("packets_sent", "pkts_sent"),
             ("packets_delivered", "pkts_delivered"), ("packets_lost", "pkts_lost"),
             ("queue_occupancy_hwm", "q_occ_hwm"))}
+        if self.engine_cfg.netobs:
+            # the network observatory's per-host counters: drop lanes by
+            # cause and the model's per-host network counters
+            lanes.update({k: getattr(st, f).cpu().numpy() for k, f in (
+                ("packets_codel_dropped", "pkts_codel_dropped"),
+                ("packets_budget_dropped", "pkts_budget_dropped"),
+                ("packets_unreachable", "pkts_unreachable"))})
+            if hasattr(self.model, "per_host_network"):
+                lanes.update(self.model.per_host_network(self._model_host_view()))
         digests = self.host_digests()
         for h in self.hosts:
             hd = os.path.join(data_dir, "hosts", h.name)
@@ -667,6 +909,13 @@ class Simulation:
                     **{k: int(v[h.host_id]) for k, v in lanes.items()},
                     "determinism_digest": f"{int(digests[h.host_id]):016x}",
                 }, f, indent=2)
+        tracer = getattr(self, "_tracer", None)
+        if tracer is not None:
+            # the Chrome trace (with the kernel-build track) and the metrics
+            builds = getattr(self, "_builds", None)
+            if builds is not None:
+                tracer.note_compiles(builds.events())
+            tracer.write_artifacts(data_dir, self.cfg.observability, report)
         return data_dir
 
 

@@ -30,7 +30,7 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
                shaping: bool = True, jitter: bool = False, n_nodes: int = 4,
                budget: int = 8, stride: int = 1, cpu_delay: int = 0,
                restart_queue: str | None = None, loss_windows: int = 0,
-               dual_digest: bool = False) -> dict:
+               dual_digest: bool = False, netobs: bool = False) -> dict:
     """Random inputs of one event per host through ingress (K10), the
     handler's outputs (a synthetic HandlerOut) and egress (K11): a carry
     with every lane seeded, an event with packets, requeued packets and
@@ -44,8 +44,10 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
     and after the events' times; `restart_queue` ("hold" or "clear") adds
     crash windows (two per host, from `fault_case`, so that the events'
     times fall at their edges, inside and outside), `loss_windows` > 0
-    link-fault windows around the events' times, and `dual_digest` the
-    integrity sentinel's second digest. The extra lanes come from their own
+    link-fault windows around the events' times, `dual_digest` the
+    integrity sentinel's second digest, and `netobs` the network
+    observatory's event-class lanes (model kinds 1 and 3 are the timers:
+    `timer_mask` in the returned dict). The extra lanes come from their own
     generators: the other inputs do not change."""
     from shadow_tpu_torch.core.engine import EngineConfig, EngineParams, Stats, _EvCarry
     from shadow_tpu_torch.models.base import HandlerOut, LocalPush, PacketSend
@@ -87,7 +89,7 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
                        fault_crash_windows=2 if restart_queue else 0,
                        fault_loss_windows=loss_windows,
                        fault_queue_clear=restart_queue == "clear",
-                       integrity=dual_digest, integrity_dual=dual_digest)
+                       integrity=dual_digest, integrity_dual=dual_digest, netobs=netobs)
     t = r.integers(1_000, 1_200, h) * ms
     itv = t // ms
     active = r.random(h) < 0.85
@@ -157,9 +159,14 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
     out = HandlerOut(state=None, rng=carry.rng, pushes=pushes, sends=sends_out)
     if cfg.faults_active or dual_digest:
         params, carry = _fault_lanes(seed, h, dev, cfg, params, carry, t)
+    if netobs:
+        re = np.random.default_rng([seed, 23])  # the class lanes' own draws
+        carry = carry._replace(stats=carry.stats._replace(**{
+            k: T(re.integers(0, 1 << 40, 1)) for k in ("ec_timer", "ec_pkt", "ec_app")}))
     return dict(cfg=cfg, params=params, carry=carry, ev=ev, active=T(active),
                 dispatch=T(active & (r.random(h) < 0.9)), out=out,
-                window_end=int(t[active].min()) + 2 * ms if active.any() else 0)
+                window_end=int(t[active].min()) + 2 * ms if active.any() else 0,
+                timer_mask=0b1010)
 
 
 def _fault_lanes(seed: int, h: int, dev, cfg, params, carry, t: np.ndarray):
@@ -715,7 +722,7 @@ def handler_tensors(out) -> dict:
     """{name: array} over a handler's outputs (torch tensors, or the JAX
     package's arrays): every state lane, the RNG lanes, and every field of
     every push and send port (a port field that is None is left out; the
-    FlowDone record is not compared)."""
+    flow-record lanes a handler writes into `ctx.flow` are compared apart)."""
     got = {f"state.{k}": v for k, v in sorted(out.state.items())}
     got["rng"] = out.rng.s
     for kind, ports in (("push", out.pushes), ("send", out.sends)):
@@ -1112,3 +1119,91 @@ def integrity_case(seed: int, h: int, cap: int, block: int, dev, *, wheel: int =
         # where it had some at entry)
         st_x.stats.events[int(np.flatnonzero(events_x)[0])] = 0
     return dict(cfg=cfg, st0=base, st_m=st_m, st_x=st_x, window_end=window_end, done=done)
+
+
+def trace_case(seed: int, h: int, rounds: int, ring: int, dev, *, cap: int = 28,
+               block: int = 7, windows: int = 0, netobs: bool = True,
+               ledger: bool = True) -> dict:
+    """Random inputs of `rounds` consecutive trace rows (K27): the
+    cumulative counters at the first round's entry and after each round
+    (events and, with `windows` > 0, the fault counters per host; the [1]
+    lanes: popk_deferred, bq_rebuilds and, as the planes are on, ec_* and
+    fl_done), and each round's `RoundInputs` (a queue-head plane of a flat
+    [H, cap] slab or of a bucketed queue's [H, cap / block] minima with
+    empty hosts, occupancies, crash windows around the windows' ends).
+    Returns dict(stats=[rounds + 1 namespaces], inputs=[rounds], ring=R,
+    new_ring=a function making an empty ring on `dev`)."""
+    import types
+
+    from shadow_tpu_torch.obs.tracer import TRACE_COLS, TraceRing
+    from shadow_tpu_torch.ops.obs import RoundInputs
+
+    r = np.random.default_rng([seed, 27])
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    ms = 1_000_000
+    lanes = {"events": r.integers(0, 1 << 40, h), "popk_deferred": r.integers(0, 1 << 30, 1),
+             "bq_rebuilds": r.integers(0, 1 << 20, 1)}
+    if windows:
+        lanes.update(faults_dropped=r.integers(0, 1 << 30, h),
+                     faults_delayed=r.integers(0, 1 << 30, h))
+    if netobs:
+        lanes.update({k: r.integers(0, 1 << 40, 1) for k in ("ec_timer", "ec_pkt", "ec_app")})
+    if ledger:
+        lanes["fl_done"] = r.integers(0, 1 << 30, 1)
+    stats = [types.SimpleNamespace(**{k: T(v) for k, v in lanes.items()})]
+    now = int(r.integers(0, 10**9))
+    span = 400 * ms
+    down = np.sort(r.integers(now, now + rounds * span, (h, max(windows, 1))), axis=1)
+    up = down + r.integers(1, 3 * span, down.shape)
+    inputs = []
+    for i in range(rounds):
+        lanes = {k: v + r.integers(0, 1 << 12, v.shape) for k, v in lanes.items()}
+        stats.append(types.SimpleNamespace(**{k: T(v) for k, v in lanes.items()}))
+        we = now + int(r.integers(1, span))
+        width = cap // block if block else cap
+        heads = np.where(r.random((h, width)) < 0.6, r.integers(we, we + span, (h, width)),
+                         TIME_MAX)
+        inputs.append(RoundInputs(
+            rounds=torch.tensor(i + int(r.integers(0, 1 << 20)), dtype=torch.int64, device=dev),
+            window_start=now,
+            window_end=we, steps=int(r.integers(0, 64)),
+            sends=T(r.integers(0, 1 << 30, 1).astype(np.int32)),
+            occ=T(r.integers(0, cap + 1, h)), heads=T(heads),
+            ob_hwm=torch.tensor(int(r.integers(0, 25)), dtype=torch.int64, device=dev),
+            gear=int(r.integers(1, 25)), cap=cap,
+            crash=(T(down), T(up)) if windows else None))
+        now = we
+
+    def new_ring():
+        return TraceRing(torch.zeros((1, ring, TRACE_COLS), dtype=torch.int64, device=dev),
+                         torch.zeros((1,), dtype=torch.int64, device=dev))
+
+    return dict(stats=stats, inputs=inputs, ring=ring, new_ring=new_ring)
+
+
+def flow_case(seed: int, h: int, e: int, records: int, dev, *,
+              density: tuple = (0.05, 0.5, 0.0, 0.95)) -> dict:
+    """Random inputs of one flow-ledger append (K28): a microstep's `e`
+    event columns of FlowLanes (completion masks at the given densities,
+    column by column; a dense column past `records` exercises the wrap
+    rule), a ledger ring of `records` rows with stale rows and a cursor
+    past zero, and the three fl_* totals. Returns dict(lanes, ledger,
+    fl=[fl_done, fl_bytes, fl_rtx])."""
+    from shadow_tpu_torch.obs.netobs import FLOW_COLS, FlowLedger
+    from shadow_tpu_torch.ops.obs import FlowLanes
+
+    r = np.random.default_rng([seed, 28])
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    dens = np.resize(np.asarray(density, np.float64), e)[:, None]
+    lanes = FlowLanes(T(r.random((e, h)) < dens),
+                      *(T(r.integers(0, 1 << 40, (e, h))) for _ in range(6)))
+    ledger = FlowLedger(T(r.integers(0, 1 << 40, (1, records, FLOW_COLS))),
+                        T(r.integers(0, 1 << 30, 1)))
+    return dict(lanes=lanes, ledger=ledger,
+                fl=[T(r.integers(0, 1 << 40, 1)) for _ in range(3)])

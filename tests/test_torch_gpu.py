@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K26 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K28 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -38,7 +38,12 @@ in turn (flat, bucketed, with the wheel). The pressure plane: K25
 (`migrate_queue`, `migration_fits`, `migrate_wheel`) on
 `shadow_tpu_torch.testing.migrate_case` slabs (growth, shrink with
 compaction, flat and bucketed, wider than a warp), K26 (`pressure_total`)
-on random lanes.
+on random lanes. The observatories: K27 (`trace_round`) on
+`shadow_tpu_torch.testing.trace_case` rounds (flat and bucketed head
+planes, crash windows, a ring that wraps), K28 (`flow_append`) on
+`shadow_tpu_torch.testing.flow_case` columns (one denser than the ring:
+the wrap rule), K10's event-class lane on `chain_case` inputs and K17's
+flow-record lanes on `handler_case` inputs.
 Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
 repeats the check at the main path's shapes.
@@ -58,6 +63,7 @@ from shadow_tpu_torch.testing import (
     MERGE_LOADS,
     chain_case,
     clone_carry,
+    clone_ctx,
     flat_tensors,
     HANDLER_MODELS,
     fluid_case,
@@ -799,3 +805,117 @@ def test_pressure_total_kernel_matches_plain(dev, h):
     got = pressure_total(*lanes, ob)
     assert torch.equal(got, pressure_total_plain(*lanes, ob))
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("windows,block,netobs", [(0, 0, False), (3, 7, True)],
+                         ids=["flat", "bucketed_faults_netobs"])
+def test_trace_round_kernel_matches_plain(dev, windows, block, netobs):
+    """K27 (a chunk entry, then five rounds into a 3-row ring: it wraps)
+    against the plain version run on the same card: rows, cursor and the
+    scratch, every round."""
+    from shadow_tpu_torch.ops import obs as pobs
+    from shadow_tpu_torch.testing import trace_case
+
+    c = trace_case(3, 10_000, 5, 3, dev, block=block, windows=windows, netobs=netobs,
+                   ledger=netobs)
+    ring_k, ring_p = c["new_ring"](), c["new_ring"]()
+    sk, sp = pobs.make_trace_scratch(dev), pobs.make_trace_scratch(dev)
+    n0 = pobs.KERNELS["trace_round"].launches
+    pobs.trace_enter(sk, c["stats"][0])
+    sp.copy_(pobs.counter_values_plain(c["stats"][0]))
+    for st, ri in zip(c["stats"][1:], c["inputs"]):
+        pobs.trace_round(ring_k, sk, st, ri)
+        pobs.trace_round_plain(ring_p, sp, st, ri)
+        assert_all_equal([*ring_k, sk], [*ring_p, sp])
+    assert pobs.KERNELS["trace_round"].launches - n0 == 6
+    if windows:
+        assert int(ring_k.rows[0, :, 16].max()) > 0  # hosts down at a round's end
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("records", [8, 4096])
+def test_flow_append_kernel_matches_plain(dev, records):
+    """K28 on four event columns of 10,000 hosts (one 95% dense: past an
+    8-record ring, the newest records win) against the plain version on
+    the same card: ledger rows, cursor and the fl_* totals."""
+    from shadow_tpu_torch.ops import obs as pobs
+    from shadow_tpu_torch.testing import flow_case
+
+    for seed in range(2):
+        c = flow_case(seed, 10_000, 4, records, dev)
+        k = {"ledger": type(c["ledger"])(*(x.clone() for x in c["ledger"])),
+             "fl": [x.clone() for x in c["fl"]]}
+        pobs.flow_append(k["ledger"], c["lanes"], *k["fl"])
+        pobs.flow_append_plain(c["ledger"], c["lanes"], *c["fl"])
+        assert_all_equal([*k["ledger"], *k["fl"]], [*c["ledger"], *c["fl"]])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["anchor", "cfg6"])
+def test_ingress_event_classes_match_plain(dev, name):
+    """K10's event-class lane (timer kinds as a bitmask, packets, the rest)
+    against the plain version: the ec_* counters and every other lane."""
+    case = chain_case(4, 10_000, dev, **CHAIN_CASES[name], netobs=True)
+    cfg, params, ev, active = case["cfg"], case["params"], case["ev"], case["active"]
+    got = pchain.event_ingress(clone_carry(case["carry"]), params, cfg, ev, active,
+                               case["timer_mask"])
+    want = pchain.event_ingress_plain(clone_carry(case["carry"]), params, cfg, ev, active,
+                                      case["timer_mask"])
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    s0, s1 = case["carry"].stats, want[0].stats
+    assert all(bool(getattr(s1, k) > getattr(s0, k)) for k in ("ec_timer", "ec_pkt", "ec_app"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [1, 4])
+def test_tgen_flow_lanes_match_plain(dev, stride):
+    """K17's flow-record lanes against those `handle_plain` writes, over
+    three chained calls; the other outputs stay equal."""
+    import dataclasses
+
+    from shadow_tpu_torch.ops.obs import make_flow_lanes
+    from shadow_tpu_torch.testing import handler_case
+
+    case = handler_case("tgen_tcp", 9, 10_000, dev, stride=stride)
+    m, ck = case["model"], case["ctx"]
+    cp = clone_ctx(ck)
+    done = 0
+    for step in range(3):
+        if step:
+            ev = handler_case("tgen_tcp", 9_000 + step, 10_000, dev, stride=stride)["ctx"]
+            ck = dataclasses.replace(ev, state=got.state, rng=got.rng)
+            cp = dataclasses.replace(ev, state=want.state, rng=want.rng)
+        lanes, ref = make_flow_lanes(1, 10_000, dev), make_flow_lanes(1, 10_000, dev)
+        got = m.handle(dataclasses.replace(ck, flow=lanes.row(0)))
+        want = m.handle_plain(dataclasses.replace(cp, flow=ref.row(0)))
+        assert got.flow is not None and handler_diff(got, want) == []
+        assert_all_equal(list(lanes), list(ref))
+        done += int(lanes.mask.sum())
+    assert done > 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_memory_headroom_is_what_the_process_can_hold(dev):
+    """The monitor's headroom on the card is its free bytes plus the
+    allocator's reserved-but-unallocated bytes, and a live tensor of 1 GiB
+    takes 1 GiB of it (and at most 64 MiB more: the driver's own page
+    bookkeeping for a fresh allocation)."""
+    from shadow_tpu_torch.obs.memory import MemoryMonitor
+
+    mon = MemoryMonitor([dev])
+    torch.cuda.synchronize()
+    mon.sample()
+    free, _ = torch.cuda.mem_get_info(dev)
+    st = torch.cuda.memory_stats(dev)
+    want = free + st["reserved_bytes.all.current"] - st["allocated_bytes.all.current"]
+    assert mon.source == "device" and mon.headroom_bytes() == want
+    before = mon.headroom_bytes()
+    x = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    mon.sample()
+    assert before - (1 << 30) - (64 << 20) <= mon.headroom_bytes() <= before - (1 << 30)
+    del x

@@ -94,7 +94,7 @@ def test_yaml_run_matches_jax():
         "fluid_host_effects": 0, "tgen_handle": 0, "phold_handle": 0, "echo_handle": 0,
         "timer_handle": 0, "gossip_handle": 0, "circuit_handle": 0,
         "fault_down_resume": 0, "integrity_round_check": 0, "queue_migrate": 0,
-        "pressure_total": 0,
+        "pressure_total": 0, "trace_round": 0, "flow_append": 0,
     }  # the CPU path runs the plain versions, never a kernel
 
 
@@ -112,11 +112,13 @@ def test_anchor_shapes_resolve_like_jax():
 
 # knobs the port does not run yet, and (event_queue_block, microstep_events,
 # timer_wheel, merge_gears, merge_scatter, merge_rows, cpu_delay, fluid,
-# faults, pressure, integrity) values the JAX package rejects too: a block
+# faults, pressure, integrity, observability) values the JAX package
+# rejects too: a block
 # that does not divide the capacity (12 here), K < 1, the wheel with K > 1, a
 # gear of width 0; a fluid latency factor below 1.0; an empty checkpoint
 # file name; a pressure policy that does not exist; a sentinel with no
-# replay; and a negative merge-row bound (also
+# replay; an empty trace file name and a negative flow-ledger size; and a
+# negative merge-row bound (also
 # under the scatter merge) or CPU delay, which the JAX package reads as
 # "off" and the port refuses
 UNSUPPORTED = {
@@ -132,8 +134,8 @@ UNSUPPORTED = {
     "fluid": "fluid: {latency_factor_max: 0.5}",
     "pressure": "pressure: {policy: grow}",
     "integrity": "integrity: {enabled: true, max_replays: 0}",
-    "observability_trace": "observability: {trace: true}",
-    "observability_network": "observability: {network: true}",
+    "observability_trace": "observability: {trace: true, trace_file: ''}",
+    "observability_network": "observability: {network: true, network_flows: -1}",
     "pcap": "host_option_defaults: {pcap_enabled: true}",
 }
 
@@ -265,6 +267,9 @@ def _imports(path: pathlib.Path) -> set[str]:
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "shadow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    # the observatories are scanned too
+    assert {"tracer.py", "netobs.py", "memory.py", "runtime.py", "perf.py"} <= {
+        f.name for f in files if f.parent.name == "obs"}
     for f in files:
         for m in _imports(f):
             top = m.split(".")[0]

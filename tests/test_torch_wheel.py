@@ -263,14 +263,18 @@ def test_mid_run_carry_over_with_wheel(reference, case):
 
 
 def test_network_rider_leaves_jax_digest_unchanged(reference):
-    """Bench config 11 carries `observability: {network: true}`; the port
-    has no network observatory, and its legs run without it. On the JAX
-    package the rider changes no digest, event count or drop counter."""
-    rep = JaxSimulation(JaxConfig.from_dict(cfg11(loss=0.05, network=True)),
-                        world=1).run(progress=False)
+    """Bench config 11 carries `observability: {network: true}`. The rider
+    is an observer: the port's run with it gives the JAX package's report
+    without it (digest, events, every drop counter, the wheel block), held
+    port against the JAX reference this module computes; the observed run
+    itself is held to JAX's, network{} block included, in
+    tests/test_torch_obs.py."""
+    rep = Simulation(ConfigOptions.from_dict(cfg11(loss=0.05, network=True)),
+                     device="cpu").run(progress=False)
     base = reference["wheel4"]["rep"]
     same = ("determinism_digest", "events_processed", "packets_sent", "packets_delivered",
             "packets_lost", "packets_codel_dropped", "queue_overflow_dropped",
             "packets_budget_dropped", "outbox_overflow_dropped", "wheel", "model_report")
     assert {k: rep[k] for k in same} == {k: base[k] for k in same}
     assert "network" in rep and "network" not in base  # the rider was on, and only there
+    assert rep["network"]["event_classes"]["total"] == base["events_processed"]
