@@ -2,11 +2,18 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --observer-cost
+    python3 chip_smoke.py --world 4
 
 The second form runs only the cost of observation: the tgen leg (phase 8)
 and configs 11 and 12 (phases 13, 22), each without and with its riders in
 turns (without, with, with, without), every run checked against its JAX
 digest and events, printing each run's loop wall and host syncs.
+
+The third form needs four cards: it spawns four NCCL ranks on cuda:0-3
+(core/mesh.py) and runs the scaling legs across them (phase W below); with
+fewer cards it exits non-zero. One card cannot hold a NCCL communicator of
+four ranks, so the first form runs no world > 1 leg and says so on a line
+of its own (`world_gt1`).
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit. Phases, each printed as one JSON line; any failure exits
@@ -212,11 +219,40 @@ line reports it):
      the JAX keys (the card's allocator as the memory source); killed by
      SIGKILL after its second checkpoint in a child and resumed in
      another, whose report and drained trace rows equal the uninterrupted
-     run's.
+     run's;
+ 38. the exchange's pack and unpack, K29 (dshard_pack) and K30
+     (exchange_unpack), against their plain versions at the world-4 legs'
+     shard shapes (h_local = 10,000 and 20,000 hosts, 12 send columns) with
+     the block at the alltoall's auto size, at a geared hierarchical block
+     (3 columns) and at a block small enough to shed, on seeded outboxes
+     and on an outbox taken from a real anchor round (read as a world-4
+     shard), K30 on the blocks as the all-to-all moves them (with the
+     hierarchical fill counts) and on a gather buffer; exact equality, with
+     the timings of phase 2 at the 40k leg's shard.
+
+Phase W (`--world 4`, four cards, one NCCL rank each), after three short
+warm-up runs (one per exchange kind; their digests must agree): the
+40k-host PHOLD leg (tools/bench_scale.py leg_config(40000, 4, 2) without
+riders) under each of the gather, alltoall and hierarchical exchanges must
+give the JAX digest c2510c8c586dc77b and 1,395,073 events with no alltoall
+shed; the 80k-host leg (leg_config(80000, 4, 4): hierarchical, gears auto)
+the JAX digest a417264888416b71 and 5,352,303 events; bench config 6 cut
+to 5 sim-s over the alltoall with its block at a shard's outbox rows (the
+auto block sheds on config 6, in JAX too) the tgen leg's constants (phase
+8's, bucket-cache rebuilds counted once per shard); every leg's ici_bytes
+(with ici_intra and ici_inter on the hierarchical legs) equal to the cost
+model x exchanges x world, K29 and K30 launched on the alltoall and
+hierarchical legs and K30 on the gather leg. Each leg prints its run
+loop's wall, host syncs, collectives per round and the bytes rank 0 sent
+into them; then the 40k leg, the 80k leg and config 6 at world 1 on cuda:0
+(the comparison, in the same call, against the same constants), K29 and
+K30 against their plain versions on cuda:0 as phase 38 does, their kernel
+table, the cards' `nvidia-smi` lines and the contract line with the card
+count.
 
 Every leg checks that its model's handler kernel launched exactly as
 often as K10 (one launch per event_body call), and no other handler.
-The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 29, 32, 36,
+The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 29, 32, 36, 38,
 4-6, 8-10, 13, 14, 16-20, 22, 23, 26-28, 30, 31, 33-35, 37, so that every
 kernel's bound is counted before the profiles (5, 9) hold the kernels'
 in-path device times against it. A profiler reading below the
@@ -2258,6 +2294,133 @@ def phase_kernels_pressure(dev) -> dict[str, dict]:
     return results
 
 
+# the world-4 legs' shard shapes: hosts per shard of the 40k and 80k legs,
+# send columns, ranks
+H_W40, H_W80, B_W, WORLD_W = 10_000, 20_000, 12, 4
+
+
+def anchor_round_outbox(dev) -> dict:
+    """A real round's pre-exchange outbox: the anchor built on the card,
+    run until its first exchange with sends, which is read before the
+    merge (the planes as the exchange would read them)."""
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.sim import Simulation
+
+    sim = Simulation(ConfigOptions.from_dict(anchor_config()), device=dev)
+    got: dict = {}
+    eng = sim.engine
+    orig = eng.exchange
+
+    def capture(st, has_sends=True):
+        if not got and has_sends:
+            ob = st.outbox
+            got.update(dst=ob.dst.clone(), t=ob.t.clone(), order=ob.order.clone(),
+                       kind=ob.kind.clone(), payload=ob.payload.clone())
+        return orig(st, has_sends)
+
+    eng.exchange = capture
+    st = sim.state
+    while not got:
+        st = eng.run_chunk(st, sim.params)
+    return got
+
+
+def phase_kernels_exchange(dev) -> dict[str, dict]:
+    """K29 (dshard_pack) and K30 (exchange_unpack) against their plain
+    versions, exact equality. K29 at the world-4 legs' shard shapes (10,000
+    and 20,000 hosts, 12 columns) with the block at the alltoall's auto
+    size (2 x rows / 4), at a geared hierarchical block (3 columns, 2 x 3 x
+    hosts / 4) and at a block that sheds; seeded outboxes (70% of the slots
+    valid, times with ties) and the anchor's first round with sends read as
+    a world-4 shard of 2,500-host shards. K30 on the four shards' blocks
+    moved as the all-to-all moves them, with the hierarchical fill counts,
+    and on a gather buffer with its count row. Timings as phase 2's at the
+    40k leg's alltoall shape."""
+    from shadow_tpu_torch.ops import exchange as pex
+    from shadow_tpu_torch.testing import outbox_case
+
+    def pack_args(ob, h, k, cols=0):
+        return (ob["dst"], ob["t"], ob["order"], ob["kind"], ob["payload"], h, WORLD_W, k, cols)
+
+    err, checked, shed_seen = 0.0, 0, 0
+    for h in (H_W40, H_W80):
+        rows = h * B_W
+        ob = outbox_case(38 + h, h, B_W, WORLD_W, dev, fill=0.7)
+        for name, k, cols in (("alltoall", 2 * rows // WORLD_W, 0),
+                              ("hier_gear3", 2 * h * 3 // WORLD_W, 3),
+                              ("shed", rows // 40, 0)):
+            args = pack_args(ob, h, k, cols)
+            got = pex.dshard_pack(*args)
+            want = pex.dshard_pack_plain(*args)
+            err = max(err, check_equal(f"K29 {h} {name}", list(got), list(want)))
+            shed_seen += int(want[2][0])
+            checked += 1
+    if not shed_seen:
+        raise AssertionError("K29: no case shed")
+    anchor = anchor_round_outbox(dev)
+    for k in (2 * 2_500 * B_W // WORLD_W, 500):
+        args = pack_args(anchor, 2_500, k)
+        err = max(err, check_equal(f"K29 anchor round k={k}", list(pex.dshard_pack(*args)),
+                                   list(pex.dshard_pack_plain(*args))))
+        checked += 1
+    # K30: the 40k shape's blocks as the all-to-all moves them
+    k = 2 * H_W40 * B_W // WORLD_W
+    packs = [pex.dshard_pack(*pack_args(outbox_case(380 + i, H_W40, B_W, WORLD_W, dev, fill=0.7),
+                                        H_W40, k)) for i in range(WORLD_W)]
+    recv = [torch.stack([packs[i][0][j] for i in range(WORLD_W)]) for j in range(WORLD_W)]
+    err30 = 0.0
+    for j in range(WORLD_W):
+        counts = torch.stack([torch.clamp_max(packs[i][1][j], k) for i in range(WORLD_W)])
+        for c in (None, counts, torch.clamp_min(counts - 7, 0)):
+            err30 = max(err30, check_equal(f"K30 shard {j}",
+                                           list(pex.exchange_unpack(recv[j], j * H_W40, H_W40, c)),
+                                           list(pex.exchange_unpack_plain(recv[j], j * H_W40,
+                                                                          H_W40, c))))
+    buf = torch.cat([recv[0], recv[0][:, :1]], dim=1)
+    err30 = max(err30, check_equal("K30 gather buffer",
+                                   list(pex.exchange_unpack(buf, H_W40, H_W40, n=k)),
+                                   list(pex.exchange_unpack_plain(buf, H_W40, H_W40, n=k))))
+
+    results = {}
+    ob = outbox_case(38, H_W40, B_W, WORLD_W, dev, fill=0.7)
+    args = pack_args(ob, H_W40, k)
+    m = H_W40 * B_W
+    r = kernel_ms("dshard_pack", lambda: pex.dshard_pack(*args))
+    r["plain_ms"] = time_ms(lambda: pex.dshard_pack_plain(*args))
+    # what the pack must read: every slot's t (an empty slot, t =
+    # TIME_MAX, is known empty from it alone), a valid row's dst and order
+    # (its group and rank), and the kind and payload of a valid row that
+    # lands in a block (a shed row's never reach the output); the blocks,
+    # counts and shed written once. A comparison sort of M keys needs M
+    # log2 M comparisons
+    n_valid = int((ob["t"] != TIME_MAX).sum())
+    n_shed = int(pex.dshard_pack_plain(*args)[2][0])
+    r["bound"] = bound(m * 8 + n_valid * (4 + 8) + (n_valid - n_shed) * (4 + 4 * P)
+                       + WORLD_W * k * (6 + P) * 4 + WORLD_W * 4 + 8,
+                       m * float(np.ceil(np.log2(m))))
+    r["rows_valid"] = n_valid
+    r["library_ms"] = None
+    r["library_why"] = ("no single PyTorch call groups rows by a computed shard in (t, order) "
+                        "order and packs each group's prefix into fixed blocks: torch.sort "
+                        "orders one key, the grouping also needs counts and a gather")
+    r["shape"] = {"hosts": H_W40, "columns": B_W, "world": WORLD_W, "block": k}
+    r["max_abs_err"] = err
+    r["cases_checked"] = checked
+    results["dshard_pack"] = settle("dshard_pack", r, r["bound"][0])
+
+    rv = recv[1]
+    r = kernel_ms("exchange_unpack", lambda: pex.exchange_unpack(rv, H_W40, H_W40))
+    r["plain_ms"] = time_ms(lambda: pex.exchange_unpack_plain(rv, H_W40, H_W40))
+    n = WORLD_W * k
+    r["bound"] = bound(n * (6 + P) * 4 + n * (4 + 8 + 8 + 4 + 4 * P + 1), 4 * n)
+    r["library_ms"] = None
+    r["library_why"] = "no single PyTorch call splits, rebases and validates the wire words"
+    r["shape"] = {"rows": n, "world": WORLD_W, "hosts": H_W40}
+    r["max_abs_err"] = err30
+    results["exchange_unpack"] = settle("exchange_unpack", r, r["bound"][0])
+    return results
+
+
 def phase_kernels_obs(dev) -> dict[str, dict]:
     """The observatories' kernels against their plain versions (run on the
     same card), exact equality, at config 6's width (H = 10,000): K27
@@ -2562,6 +2725,8 @@ KERNEL_SYMBOLS = {
     "pressure_total": ("pressure_total_kernel",),
     "trace_round": ("trace_round_kernel",),
     "flow_append": ("flow_append_kernel",),
+    "dshard_pack": ("dshard_",),
+    "exchange_unpack": ("exchange_unpack_kernel",),
 }
 # the microstep's per-event steps, marked as profiler ranges in phases 5 and 9
 RANGES = ("ingress", "handler", "egress", "outbox_append")
@@ -2989,7 +3154,9 @@ SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
            "integrity_round_check": "shadow_tpu_torch/csrc/integrity.cu",
            "pressure_total": "shadow_tpu_torch/csrc/pressure.cu",
            "trace_round": "shadow_tpu_torch/csrc/obs.cu",
-           "flow_append": "shadow_tpu_torch/csrc/obs.cu"}
+           "flow_append": "shadow_tpu_torch/csrc/obs.cu",
+           "dshard_pack": "shadow_tpu_torch/csrc/exchange.cu",
+           "exchange_unpack": "shadow_tpu_torch/csrc/exchange.cu"}
 REPLACES = {
     "queue_next_time": "shadow_tpu/ops/events.py:129",
     "queue_pop_min": "shadow_tpu/ops/events.py:138",
@@ -3019,7 +3186,12 @@ REPLACES = {
     "pressure_total": "shadow_tpu/core/engine.py:1896",
     "trace_round": "shadow_tpu/core/engine.py:1971",
     "flow_append": "shadow_tpu/core/engine.py:2661",
+    "dshard_pack": "shadow_tpu/ops/merge.py:136",
+    "exchange_unpack": "shadow_tpu/core/engine.py:3379",
 }
+# the kernels only a world > 1 run launches (phase W, `--world 4`): the
+# one-card run's table gives them 0 launches, with that note
+WORLD_ONLY = ("dshard_pack", "exchange_unpack")
 # the path whose run each kernel's `launches` is read from: the one it was
 # ported for (wheel_cancel has no engine caller, in either package)
 PORTED_FOR = {
@@ -3042,6 +3214,8 @@ PORTED_FOR = {
     "pressure_total": "cfg9",
     "trace_round": "tgen",
     "flow_append": "tgen",
+    "dshard_pack": "scale40k_w4_alltoall",
+    "exchange_unpack": "scale40k_w4_alltoall",
 }
 
 
@@ -3305,6 +3479,188 @@ def phase_observer_cost() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase W: the world-4 legs (`--world 4`, four cards)
+# --------------------------------------------------------------------------
+
+
+def world_legs() -> dict[str, tuple[dict, dict]]:
+    """name: (config at world 4, the JAX constants its report must give)."""
+    def at(cfg: dict, **ex) -> dict:
+        cfg["general"]["parallelism"] = WORLD_W
+        cfg["experimental"].update(ex)
+        return cfg
+
+    s40 = {k: SCALE40K_REF[k] for k in ("determinism_digest", "events_processed")}
+    legs = {f"scale40k_w4_{kind}": (at(anchor_config(gears=True, hosts=40_000, stop_s=2),
+                                       exchange=kind), {**s40, "alltoall_shed_dropped": 0})
+            for kind in ("gather", "alltoall", "hierarchical")}
+    # leg_config(80000, 4, 4): its JAX digest is the 10k x world-8 row's
+    # (the same 80,000 hosts; digests do not depend on the world)
+    legs["scale80k_w4"] = (at(anchor_config(gears=True, hosts=80_000, stop_s=4),
+                              exchange="hierarchical"),
+                           {"determinism_digest": "a417264888416b71",
+                            "events_processed": 5_352_303, "alltoall_shed_dropped": 0})
+    # config 6 cut to 5 sim-s over the alltoall, its block pinned to a
+    # shard's outbox rows (2,500 x 24) so that nothing sheds and the
+    # world-1 constant holds: at the auto block (half of that) tgen's
+    # peers, the next host ids, overflow the block to the own and the next
+    # shard and rows shed. No JAX world-4 run of config 6 stands behind
+    # this leg. Microsteps and popk_deferred are sums over the shards, so
+    # not compared; every shard counts a bucket cache rebuild in a round
+    # where any shard sent (held to JAX's world-4 run on a small bucketed
+    # tgen at its auto block by tests/test_torch_mesh.py)
+    tref = {k: v for k, v in TGEN_REF.items() if k not in ("microsteps", "popk_deferred")}
+    tref["bucket_cache_rebuilds"] = TGEN_REF["bucket_cache_rebuilds"] * WORLD_W
+    tref["alltoall_shed_dropped"] = 0
+    legs["tgen_w4"] = (at(tgen_config(False, TGEN_STOP), exchange="alltoall",
+                          a2a_block=H6 // WORLD_W * 24), tref)
+    return legs
+
+
+def warmup_legs() -> list[dict]:
+    """Three short PHOLD runs at world 4 (4,000 hosts, 1 sim-s), one per
+    exchange kind, run first so that the measured legs do not carry the
+    ranks' first-use costs (each communicator's first collective of a
+    kind, the kernel libraries' loads); their digests must agree."""
+    out = []
+    for kind in ("gather", "alltoall", "hierarchical"):
+        cfg = anchor_config(hosts=4_000, stop_s=1)
+        cfg["general"]["parallelism"] = WORLD_W
+        cfg["experimental"]["exchange"] = kind
+        out.append(cfg)
+    return out
+
+
+def ici_check(name: str, rep: dict) -> dict:
+    """The exchange lanes against the cost model x exchanges x world: one
+    exchange per round plus the round that finds the run done, each at the
+    gear its chunk ran (exact when every accepted chunk ran at one gear;
+    else the lanes must lie between the narrowest and the widest gear's)."""
+    import dataclasses
+
+    from shadow_tpu_torch.core.engine import (
+        EngineConfig,
+        exchange_ici_bytes_per_round,
+        exchange_tier_bytes_per_round,
+    )
+
+    ecfg = EngineConfig(**rep["engine_cfg"])
+    budget = ecfg.sends_per_host_round
+    gears = [int(g) for g in (rep.get("gears") or {}).get("chunks_per_gear", {})] or [budget]
+    exchanges = rep["rounds"] + 1
+
+    def model(g):
+        c = dataclasses.replace(ecfg, gear_cols=g if g < budget else 0)
+        intra, inter = exchange_tier_bytes_per_round(c) if c.hier_active else (0, 0)
+        return (exchange_ici_bytes_per_round(c) * exchanges * ecfg.world,
+                intra * exchanges * ecfg.world, inter * exchanges * ecfg.world)
+
+    lo, hi = model(min(gears)), model(max(gears))
+    got = (rep["ici_bytes"], *((rep["exchange"]["ici_intra_bytes"],
+                                rep["exchange"]["ici_inter_bytes"])
+                               if ecfg.hier_active else (0, 0)))
+    if not all(a <= x <= b for x, a, b in zip(got, lo, hi)) or (len(gears) == 1 and got != lo):
+        raise AssertionError(f"{name}: exchange lanes {got} against the model {lo} .. {hi}")
+    return {"ici_bytes": got[0], "ici_intra": got[1], "ici_inter": got[2],
+            "model": lo if len(gears) == 1 else [lo, hi], "exact": len(gears) == 1,
+            "exchanges": exchanges}
+
+
+def main_world(world: int) -> int:
+    """Phase W: the world-4 legs over `world` NCCL ranks, one per card."""
+    from shadow_tpu_torch.core.mesh import launch
+    from shadow_tpu_torch.ops.cuda_build import build_all
+    from shadow_tpu_torch.testing import mesh_runs
+
+    cards = torch.cuda.device_count()
+    if cards < world:
+        print(f"chip_smoke: --world {world} needs {world} cards, {cards} visible",
+              file=sys.stderr)
+        return 1
+    smis = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    emit("env_world", cards=cards, nvidia_smi=smis,
+         devices=[torch.cuda.get_device_name(i) for i in range(cards)])
+    t0 = time.monotonic()
+    build_all()
+    emit("build", seconds=round(time.monotonic() - t0, 3))
+    legs = world_legs()
+    warm = warmup_legs()
+    t0 = time.monotonic()
+    reports = launch(mesh_runs, world, "cuda",
+                     ([(cfg, {}) for cfg in warm] + [(cfg, {}) for cfg, _ in legs.values()],),
+                     timeout_s=900)[0]
+    emit("world_launch", seconds=round(time.monotonic() - t0, 3))
+    warm_reps, reports = reports[:len(warm)], reports[len(warm):]
+    emit("world_warmup", **{f"{k}_{r['engine_cfg']['exchange']}": r[k] for r in warm_reps
+                            for k in ("determinism_digest", "wall_seconds")})
+    if len({r["determinism_digest"] for r in warm_reps}) != 1:
+        raise AssertionError("warm-up: the three exchanges gave different digests")
+    launches = {}
+    for (name, (_, ref)), rep in zip(legs.items(), reports):
+        diff = {k: (rep.get(k), v) for k, v in ref.items() if rep.get(k) != v}
+        kl = rep["kernel_launches"]
+        launches[name] = kl
+        ici = ici_check(name, rep)
+        calls = rep["mesh_calls"]
+        emit(name, **{k: rep.get(k) for k in (*ref, "rounds", "microsteps", "popk_deferred",
+                                              "gears", "exchange")},
+             wall_seconds=rep["wall_seconds"], sim_wall_ratio=rep["sim_wall_ratio"],
+             host_syncs=rep["host_syncs"], collectives=calls,
+             collectives_per_round=sum(calls.values()) / ici["exchanges"],
+             bytes_sent_rank0=rep["mesh_bytes_sent"], ici=ici,
+             launches={k: kl[k] for k in (*ANCHOR_PATH, *WORLD_ONLY) if k in kl})
+        if diff:
+            raise AssertionError(f"{name}: differs from the JAX reference (port, JAX): {diff}")
+        want = WORLD_ONLY if not name.endswith("gather") else ("exchange_unpack",)
+        if not all(kl[k] for k in want):
+            raise AssertionError(f"{name}: {want} did not all launch: {kl}")
+    dev = torch.device("cuda", 0)
+    # the same legs at world 1 on cuda:0, in this call: the comparison
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.sim import Simulation
+
+    one = {"scale40k_w1": (anchor_config(gears=True, hosts=40_000, stop_s=2),
+                           legs["scale40k_w4_gather"][1]),
+           "scale80k_w1": (anchor_config(gears=True, hosts=80_000, stop_s=4),
+                           legs["scale80k_w4"][1]),
+           "tgen_w1": (tgen_config(False, TGEN_STOP), TGEN_REF)}
+    # first-use costs (the kernel modules' loads) go to a short warm-up run
+    warm1 = warmup_legs()[0]
+    warm1["general"]["parallelism"] = 1
+    Simulation(ConfigOptions.from_dict(warm1), device=dev).run(progress=False)
+    for name, (cfg, ref) in one.items():
+        rep = Simulation(ConfigOptions.from_dict(cfg), device=dev).run(progress=False)
+        diff = {k: (rep.get(k), v) for k, v in ref.items() if rep.get(k) != v}
+        emit(name, **{k: rep.get(k) for k in (*ref, "rounds", "microsteps", "gears")},
+             wall_seconds=rep["wall_seconds"], sim_wall_ratio=rep["sim_wall_ratio"],
+             host_syncs=rep["host_syncs"])
+        if diff:
+            raise AssertionError(f"{name}: differs from the JAX reference (port, JAX): {diff}")
+    xres = phase_kernels_exchange(dev)
+    emit("kernels_exchange_vs_plain", ok=True, exact=True,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in xres.items()})
+    emit("total", seconds=round(time.monotonic() - T_START, 3))
+    table = []
+    for name, r in xres.items():
+        b_ms, b_by = r["bound"]
+        table.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[PORTED_FOR[name]][name],
+            "launches_by_path": {p: c[name] for p, c in launches.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "call_ms": r["call_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": table}), flush=True)
+    print("\n".join(smis), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3330,6 +3686,11 @@ def main() -> int:
         emit("total", seconds=round(time.monotonic() - t_start, 3))
         print(smi, flush=True)
         return 0
+    if sys.argv[1:2] == ["--world"]:
+        if len(sys.argv) != 3 or not sys.argv[2].isdigit() or int(sys.argv[2]) < 2:
+            print("chip_smoke: usage: chip_smoke.py --world N (N >= 2)", file=sys.stderr)
+            return 2
+        return main_world(int(sys.argv[2]))
 
     t0 = time.monotonic()
     ptxas = build_all()
@@ -3422,6 +3783,16 @@ def main() -> int:
         r["bound_ms"] = r.pop("bound")[0]
         kres[row][lane] = r
     kres.update(ores)
+
+    # phase 38: the exchange's pack and unpack (K29, K30) at the world-4
+    # shard shapes; the legs that launch them need four cards
+    xres = phase_kernels_exchange(dev)
+    emit("kernels_exchange_vs_plain", ok=True, exact=True,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in xres.items()})
+    kres.update(xres)
+    emit("world_gt1", started=False, cards=torch.cuda.device_count(),
+         reason="one card cannot hold a NCCL communicator of four ranks; the world-4 legs "
+                "run under `chip_smoke.py --world 4` on four cards")
 
     # least device time per call at each path's shapes: the kernel phases'
     # bounds; K1 and K4 on the tgen path (block caches, 24-wide outbox) get
@@ -3608,7 +3979,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": SOURCES.get(name, "shadow_tpu_torch/csrc/queue.cu"),
             "replaces": REPLACES[name],
-            "launches": launches[PORTED_FOR[name]][name],
+            "launches": 0 if name in WORLD_ONLY else launches[PORTED_FOR[name]][name],
+            **({"launches_note": "world > 1 only: `chip_smoke.py --world 4` on four cards"}
+               if name in WORLD_ONLY else {}),
             "launches_by_path": {p: c[name] for p, c in launches.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,

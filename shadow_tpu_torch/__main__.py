@@ -7,6 +7,10 @@ processed-config.yaml, hosts/<name>/host-stats.json and, with
 `observability.trace`, trace.json and metrics.prom into the data
 directory. Exit code 2 on a config
 error, including every knob the port does not support yet.
+
+With `general.parallelism: N` (N > 1; 0 = every visible card) the command
+launches N ranks itself (core/mesh.py): NCCL ranks on cuda:0..N-1, or with
+`--device cpu` N gloo processes; rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -62,17 +66,26 @@ def main(argv: list[str] | None = None) -> int:
             cfg = merge_cli_overrides(cfg, overrides)
         if args.progress:
             cfg.general.progress = True
-        from shadow_tpu_torch.sim import Simulation
+        from shadow_tpu_torch import resolve_device
+        from shadow_tpu_torch.core.mesh import resolve_world
+        from shadow_tpu_torch.sim import Simulation, run_mesh
 
-        sim = Simulation(cfg, device=args.device)
+        dev = resolve_device(args.device)
+        world = resolve_world(cfg.general.parallelism, dev)
+        cfg.check_world(world)
+        sim = Simulation(cfg, device=dev) if world == 1 else None
     except (ConfigError, OSError, yaml.YAMLError) as e:
         print(f"config error: {e}", file=sys.stderr)
         return 2
     except RuntimeError as e:  # no CUDA device and no --device cpu
         print(f"error: {e}", file=sys.stderr)
         return 1
-    report = sim.run()
-    data_dir = sim.write_outputs(report=report)
+    if sim is None:
+        data_dir = cfg.general.data_directory
+        report = run_mesh(cfg, device=dev, data_dir=data_dir)
+    else:
+        report = sim.run()
+        data_dir = sim.write_outputs(report=report)
     if args.print_stats:
         json.dump(report, sys.stdout, indent=2)
         print()

@@ -7,7 +7,10 @@ The schema is the JAX package's (`general`, `network.graph`,
 does not implement yet raises `ConfigError` naming the knob — a config is
 never silently run with a plane switched off:
 
-  - `general.parallelism > 1` (world > 1);
+  - at `general.parallelism > 1` (world > 1, core/mesh.py) the planes
+    that do not run sharded yet: the observatories (`observability.trace`,
+    `network`, `memory`, `runtime`, `profile_dir`), on-disk checkpoints
+    (`faults.supervisor.checkpoint_file`) and `pressure.policy: escalate`;
   - `experimental.scheduler: cpu-reference`;
   - any non-empty `campaign` block;
   - `pcap_enabled`, managed processes (`path:`), and models other than
@@ -88,7 +91,7 @@ class GeneralOptions:
     stop_time: int = 0  # ns (required)
     bootstrap_end_time: int = 0  # ns; loss disabled before this time
     seed: int = 1
-    parallelism: int = 0  # 0 or 1: one device (the only mode of this port)
+    parallelism: int = 0  # ranks (core/mesh.py resolve_world); 0 = every visible card
     data_directory: str = "shadow.data"
     heartbeat_interval: int | None = parse_time_ns("1 s")
     progress: bool = False
@@ -159,9 +162,11 @@ class ExperimentalOptions:
     microstep_limit: int = 0
     # events folded per host per microstep (K >= 1)
     microstep_events: int = 1
-    # the all-to-all exchange's block (multi-device only; world 1 ignores it,
-    # but the pressure plane's escalate refuses an explicit one, as in the
-    # JAX package)
+    # the exchange across ranks: auto | gather | alltoall | hierarchical
+    # (auto is alltoall when world > 1; world 1 always merges locally), and
+    # the all-to-all block (0 = auto; the pressure plane's escalate refuses
+    # an explicit one, as in the JAX package)
+    exchange: str = "auto"
     a2a_block: int = 0
     # timer wheel: slots per host for the model's timer events (0 = off;
     # needs microstep_events = 1) and slots per block of its caches (0 =
@@ -181,10 +186,26 @@ class ExperimentalOptions:
     # CPU model: simulated ns of CPU time charged per handled event (0 = off)
     cpu_delay: int = 0
 
+    def resolve_exchange(self, world: int) -> str:
+        """The engine's exchange kind for `world` ranks (the JAX package's
+        rule): `auto` is the destination-sharded alltoall across ranks and
+        the local gather on one device; an explicit kind wins."""
+        if self.exchange != "auto":
+            return self.exchange
+        return "alltoall" if world > 1 else "gather"
+
     def validate(self) -> None:
         """The JAX package's checks of the queue-shape knobs; the block's
         divisibility is checked here when the capacity is set explicitly,
         and by `check_queue_block` once an auto capacity is resolved."""
+        if self.exchange not in ("auto", "gather", "alltoall", "hierarchical"):
+            raise ConfigError(
+                f"experimental.exchange must be auto|gather|alltoall|"
+                f"hierarchical, got {self.exchange!r}"
+            )
+        if self.a2a_block < 0:
+            raise ConfigError(f"experimental.a2a_block must be >= 0 (0 = auto), "
+                              f"got {self.a2a_block}")
         if self.event_queue_block < 0:
             raise ConfigError(
                 f"experimental.event_queue_block must be >= 0 (0 = flat), "
@@ -252,17 +273,9 @@ class ExperimentalOptions:
                 v = d.pop(knob)
                 if v != off:
                     raise _unsupported(f"experimental.{knob}={v!r}")
-        # the exchange kind only matters across devices; world 1 always
-        # merges locally
-        ex = d.pop("exchange", "auto")
-        if ex not in ("auto", "gather", "alltoall", "hierarchical"):
-            raise ConfigError(
-                f"experimental.exchange must be auto|gather|alltoall|"
-                f"hierarchical, got {ex!r}"
-            )
-        a2a_block = int(d.pop("a2a_block", 0))
         e = ExperimentalOptions()
-        e.a2a_block = a2a_block
+        e.exchange = d.pop("exchange", "auto")
+        e.a2a_block = int(d.pop("a2a_block", 0))
         for f in ("runahead", "cpu_delay"):
             if f in d:
                 setattr(e, f, parse_time_ns(d.pop(f), TimeUnit.MS))
@@ -968,13 +981,32 @@ class ConfigOptions:
     def validate(self) -> None:
         """Checks that CLI overrides can also trip, re-run after merging."""
         if self.general.parallelism > 1:
-            raise _unsupported(
-                f"general.parallelism={self.general.parallelism}", "world > 1"
-            )
+            self.check_world(self.general.parallelism)
         if self.host_option_defaults.pcap_enabled:
             raise _unsupported("pcap_enabled")
         self.experimental.validate()
         self.fluid.validate()
+
+    def check_world(self, world: int) -> None:
+        """Refuse, at `world` > 1 ranks, the planes that run on one rank
+        only."""
+        if world <= 1:
+            return
+        world = f"world {world}"
+        obs = self.observability
+        for knob, on in (("trace", obs.trace), ("network", obs.network),
+                         ("memory", obs.memory), ("runtime", obs.runtime),
+                         ("profile_dir", obs.profile_dir)):
+            if on:
+                raise _unsupported(f"observability.{knob} with {world}",
+                                   "the observatories run on one rank only")
+        if self.faults.supervisor.checkpoint_file is not None:
+            raise _unsupported(f"faults.supervisor.checkpoint_file with {world}",
+                               "on-disk checkpoints and resume run on one rank only")
+        if self.pressure.policy == "escalate":
+            raise _unsupported(f"pressure.policy=escalate with {world}",
+                               "the capacity migration runs on one rank only; "
+                               "drop and abort run sharded")
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

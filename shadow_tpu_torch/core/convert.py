@@ -19,7 +19,8 @@ across at whatever shape they have, so an escalated state keeps its grown
 capacity and send budget.
 `engine_config_from` maps a JAX `EngineConfig` onto the port's (merge gear,
 scatter merge, merge-row bound, CPU delay, fluid, fault, integrity,
-pressure and observatory knobs included), refusing any knob the port does not run.
+pressure and observatory knobs and the mesh's world and exchange
+included), for one rank of its mesh.
 `to_numpy` flattens either package's state into {"queue.t": array, ...} for a
 field-by-field comparison; the fault counters, which the JAX package always
 carries, read as zeros where the port's plane is off. Nothing here imports
@@ -34,7 +35,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from shadow_tpu_torch.config.options import ConfigError
 from shadow_tpu_torch.core.faults import FaultParams
 from shadow_tpu_torch.core.engine import (
     EngineConfig,
@@ -50,27 +50,16 @@ from shadow_tpu_torch.obs.tracer import TraceRing
 from shadow_tpu_torch.ops.events import BucketQueue, EventQueue
 from shadow_tpu_torch.ops.rng import RngState
 
-# JAX EngineConfig fields of planes this port does not run, with their "off"
-# value
-_OFF_FIELDS = {
-    "world": 1,
-}
-
-
 # stats lanes the JAX package carries (as zeros) with their plane off
 _ZERO_WHEN_OFF = ("faults_dropped", "faults_delayed")
 
 
-def engine_config_from(jcfg) -> EngineConfig:
-    """The port's EngineConfig for a JAX EngineConfig of this slice."""
-    for name, off in _OFF_FIELDS.items():
-        if getattr(jcfg, name, off) != off:
-            raise ConfigError(
-                f"EngineConfig.{name}={getattr(jcfg, name)!r} is not supported "
-                f"by the PyTorch port yet"
-            )
-    return EngineConfig(**{
+def engine_config_from(jcfg, rank: int = 0) -> EngineConfig:
+    """The port's EngineConfig for a JAX EngineConfig of this slice (rank
+    `rank` of its mesh: the JAX config has no rank)."""
+    return EngineConfig(rank=rank, **{
         f.name: getattr(jcfg, f.name) for f in dataclasses.fields(EngineConfig)
+        if f.name != "rank"
     })
 
 

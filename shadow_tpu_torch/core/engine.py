@@ -72,10 +72,16 @@ and `win_bound` per round, and with a flow ledger (`flow_records` > 0)
 the model's handler writes each event column's flow records (K17) and
 K28 appends a microstep's to the ledger ring.
 
-The slice is the JAX package's single-device path: flat or bucketed queue,
-K >= 1, the timer wheel, merge gears, the scatter merge, the fluid plane,
-the fault plane, the integrity sentinel, the pressure plane and the
-observatories, world 1.
+The slice is the JAX package's round loop: flat or bucketed queue, K >= 1,
+the timer wheel, merge gears, the scatter merge, the fluid plane, the fault
+plane, the integrity sentinel, the pressure plane and the observatories on
+one device; across W ranks (`world` > 1, one process each, core/mesh.py)
+every rank runs its shard's microsteps alone, and only the barrier (one
+MIN of the next-event minimum, the used-latency minimum and the
+sentinel's entry floor), the exchange (`exchange_mesh`: an all-gather, or
+K29's blocks over an all-to-all, then K30 and the merge) and one SUM of the
+round's global counts (gear sheds, the send count, the pressure total, the
+sentinel's count, the fluid bytes) cross ranks.
 `lax.while_loop` becomes a Python loop; each loop condition is one
 device-to-host read, counted in `Engine.host_syncs`. The window itself is
 computed on the device and read back with the `done` flag in the same
@@ -140,6 +146,7 @@ from shadow_tpu_torch.ops.events import (
     q_pop_min,
     q_push_many,
 )
+from shadow_tpu_torch.ops.exchange import ROW_WORDS, dshard_pack, exchange_unpack, pack_words
 from shadow_tpu_torch.ops.merge import gear_shed_count, merge_flat_events, merge_scatter_free
 from shadow_tpu_torch.ops.obs import (
     FlowLanes,
@@ -236,6 +243,15 @@ class Stats(NamedTuple):
     fl_bytes: Any = None  # i64[1] | None
     fl_rtx: Any = None  # i64[1] | None
     win_bound: Any = None  # i64[1] | None
+    # the cross-shard exchange's lanes (the shard's own value of the JAX
+    # package's [world] lanes; 0 on one device): block-overflow sheds of the
+    # all-to-all exchanges, and the bytes the exchange collective moves per
+    # the cost model (exchange_ici_bytes_per_round); with the hierarchical
+    # exchange also its two tiers (None otherwise)
+    a2a_shed: Any = None  # i64[1]
+    ici_bytes: Any = None  # i64[1]
+    ici_intra: Any = None  # i64[1] | None
+    ici_inter: Any = None  # i64[1] | None
 
 
 class SimState(NamedTuple):
@@ -358,9 +374,28 @@ class EngineConfig:
     trace_rounds: int = 0
     netobs: bool = False
     flow_records: int = 0
+    # the host mesh (core/mesh.py): `world` ranks, this process being rank
+    # `rank`, which holds hosts [rank * hosts_per_shard, (rank + 1) *
+    # hosts_per_shard); `num_hosts` is the global count. The exchange kind
+    # across ranks (gather | alltoall | hierarchical) and the all-to-all
+    # block (0 = auto); world 1 merges locally whatever they say
+    world: int = 1
+    rank: int = 0
+    exchange: str = "gather"
+    a2a_block: int = 0
 
     def __post_init__(self):
         check_order_limits(self.num_hosts)
+        if self.world < 1 or not 0 <= self.rank < self.world:
+            raise ValueError(f"rank={self.rank} must be in [0, world={self.world})")
+        if self.num_hosts % self.world != 0:
+            raise ValueError(
+                f"num_hosts={self.num_hosts} must divide evenly over world={self.world} ranks")
+        if self.exchange not in ("gather", "alltoall", "hierarchical"):
+            raise ValueError(
+                f"exchange must be gather|alltoall|hierarchical, got {self.exchange!r}")
+        if self.a2a_block < 0:
+            raise ValueError(f"a2a_block must be >= 0 (0 = auto), got {self.a2a_block}")
         if self.queue_block < 0 or (
             self.queue_block and self.queue_capacity % self.queue_block
         ):
@@ -483,6 +518,40 @@ class EngineConfig:
         return 0 < self.gear_cols < self.sends_per_host_round
 
     @property
+    def hosts_per_shard(self) -> int:
+        """The hosts one rank holds (all of them on one device)."""
+        return self.num_hosts // self.world
+
+    @property
+    def host_base(self) -> int:
+        """The global id of this rank's first host."""
+        return self.rank * self.hosts_per_shard
+
+    @property
+    def a2a_block_size(self) -> int:
+        """Rows per destination shard of the all-to-all blocks: the explicit
+        `a2a_block`, else 2 x the shard's outbox rows / world, at least 64
+        and at most the rows."""
+        if self.a2a_block:
+            return self.a2a_block
+        rows = self.hosts_per_shard * self.sends_per_host_round
+        return min(rows, max(64, 2 * rows // self.world))
+
+    @property
+    def hier_active(self) -> bool:
+        """The two-tier hierarchical exchange runs (world > 1 only)."""
+        return self.exchange == "hierarchical" and self.world > 1
+
+    @property
+    def hier_block_size(self) -> int:
+        """The hierarchical exchange's block: `a2a_block_size`'s law over
+        the gear-sliced rows (an explicit `a2a_block` wins)."""
+        if self.a2a_block:
+            return self.a2a_block
+        rows_g = self.hosts_per_shard * self.effective_gear_cols
+        return min(rows_g, max(64, 2 * rows_g // self.world))
+
+    @property
     def effective_rounds_per_chunk(self) -> int:
         """The chunk's round bound: `rounds_per_chunk`, clamped to the
         microstep valve above 2^19 hosts as the JAX package clamps it (the
@@ -544,7 +613,43 @@ def _init_stats(cfg: EngineConfig, device) -> Stats:
         fl_bytes=z1() if cfg.flow_ledger_active else None,
         fl_rtx=z1() if cfg.flow_ledger_active else None,
         win_bound=z1() if cfg.netobs else None,
+        a2a_shed=z1(),
+        ici_bytes=z1(),
+        ici_intra=z1() if cfg.hier_active else None,
+        ici_inter=z1() if cfg.hier_active else None,
     )
+
+
+def exchange_ici_bytes_per_round(cfg: EngineConfig, kind: str | None = None) -> int:
+    """Bytes one exchange moves into the collective per shard, as the JAX
+    package's cost model counts them (its `exchange_ici_bytes_per_round`):
+    gather, the other shards' gear-sliced outboxes (dst, t, order, kind,
+    payload words per row) plus a 4-byte count word each; alltoall, (W - 1)
+    blocks of `a2a_block_size` packed rows; hierarchical, the inter tier of
+    `exchange_tier_bytes_per_round`. 0 on one device."""
+    kind = kind or cfg.exchange
+    if cfg.world <= 1:
+        return 0
+    rows_local = cfg.hosts_per_shard * cfg.effective_gear_cols
+    row_bytes = 4 + 8 + 8 + 4 + 4 * EVENT_PAYLOAD_WORDS
+    if kind == "gather":
+        return (cfg.world - 1) * (rows_local * row_bytes + 4)
+    if kind == "hierarchical":
+        return exchange_tier_bytes_per_round(cfg)[1]
+    return (cfg.world - 1) * cfg.a2a_block_size * (6 + EVENT_PAYLOAD_WORDS) * 4
+
+
+def exchange_tier_bytes_per_round(cfg: EngineConfig) -> tuple[int, int]:
+    """(intra, inter) bytes per shard of the hierarchical exchange's round:
+    the compaction tier repacks every gear-sliced row once at wire width;
+    the wire tier moves (W - 1) blocks of `hier_block_size` rows plus a
+    4-byte fill counter per peer (the JAX package's model)."""
+    if cfg.world <= 1:
+        return 0, 0
+    words = 6 + EVENT_PAYLOAD_WORDS
+    intra = cfg.hosts_per_shard * cfg.effective_gear_cols * words * 4
+    inter = (cfg.world - 1) * (cfg.hier_block_size * words + 1) * 4
+    return intra, inter
 
 
 def make_empty_outbox(num_hosts: int, send_budget: int, device) -> Outbox:
@@ -633,7 +738,9 @@ class Engine:
     until `state.done`. `host_syncs` counts the device-to-host reads the
     loop conditions cost."""
 
-    def __init__(self, cfg: EngineConfig, model, device):
+    def __init__(self, cfg: EngineConfig, model, device, coll=None):
+        if (coll is None) != (cfg.world == 1):
+            raise ValueError("a Collectives (core/mesh.py) must be given iff cfg.world > 1")
         if cfg.wheel_active and not tuple(getattr(model, "timer_kinds", ())):
             raise ValueError(
                 f"timer wheel enabled (wheel_slots={cfg.wheel_slots}) but model "
@@ -644,9 +751,12 @@ class Engine:
         self.model = model
         self.device = torch.device(device)
         self.host_syncs = 0
+        # the mesh's collectives (None on one device)
+        self.coll = coll
         # the integrity sentinel's staged per-round check (None when off)
         self._iv = IntegrityCheck(cfg) if cfg.integrity else None
-        self._host_gid = torch.arange(cfg.num_hosts, dtype=torch.int64, device=self.device)
+        self._host_gid = cfg.host_base + torch.arange(
+            cfg.hosts_per_shard, dtype=torch.int64, device=self.device)
         # the trace ring's round-entry counter values (K27's scratch) and
         # the model's timer kinds for K10's event-class lane
         self._trace_scratch = make_trace_scratch(self.device) if cfg.trace_rounds else None
@@ -711,6 +821,12 @@ class Engine:
             trace=make_trace_ring(cfg.trace_rounds, dev) if cfg.trace_rounds else None,
             flows=make_flow_ledger(cfg.flow_records, dev) if cfg.flow_ledger_active else None,
         )
+        if cfg.world > 1:
+            # built whole (deterministic on every rank), kept per shard
+            from shadow_tpu_torch.core.mesh import shard_params, shard_state
+
+            state = shard_state(state, cfg.num_hosts, cfg.world, cfg.rank)
+            params = shard_params(params, cfg.num_hosts, cfg.world, cfg.rank)
         return state, params
 
     # ---- the round loop ------------------------------------------------------
@@ -855,6 +971,22 @@ class Engine:
         chunk-entry values; False without them)."""
         cfg = self.cfg
         gmin = self.next_times(st, params).min()
+        if self.coll is not None:
+            # the barrier: one MIN over the ranks of the local minimum, with
+            # the dynamic lookahead's used-latency minimum and the
+            # sentinel's round-entry time floor riding along (the JAX
+            # package's pmins of the three)
+            lanes = [gmin]
+            if cfg.use_dynamic_runahead:
+                lanes.append(st.min_used_lat)
+            if self._iv is not None:
+                lanes.append(self._iv.entry_min())
+            red = self.coll.pmin(torch.stack(lanes))
+            gmin = red[0]
+            if cfg.use_dynamic_runahead:
+                st.min_used_lat.copy_(red[1])
+            if self._iv is not None:
+                self._iv.set_entry_min(red[-1])
         done = gmin >= cfg.stop_time
         gmin_safe = torch.clamp_max(gmin, cfg.stop_time)
         if cfg.use_dynamic_runahead:
@@ -896,7 +1028,7 @@ class Engine:
         if cfg.effective_microstep_events > 1:
             # the valve is a per-host executed-event vector bounded by its
             # max, read in the same device-to-host read as the loop test
-            valve = torch.zeros((cfg.num_hosts,), dtype=torch.int64, device=self.device)
+            valve = torch.zeros((cfg.hosts_per_shard,), dtype=torch.int64, device=self.device)
             while True:
                 pending = (self.next_times(st, params) < window_end).any().to(torch.int64)
                 go, vmax, sent = torch.stack(
@@ -918,20 +1050,24 @@ class Engine:
                     break
                 st = self.microstep(st, params, window_end, fx)
                 steps += 1
+        fg = None
         if fx is not None:
             # the packet -> fluid half: this round's outbox bytes per link,
             # then one ODE step over the committed window (before the
-            # exchange clears the outbox)
+            # exchange clears the outbox; across ranks after the round's
+            # sum has made the bytes global)
             fg = fluid_fg_link_bytes(cfg, st.outbox.dst, st.outbox.t, st.outbox.payload,
                                      params.node_of)
-            s = st.stats
-            fl, bgb, bgd = fluid_advance(cfg, params.fluid, st.fluid, fg, st.now, window_end,
-                                         done, s.fl_bg_bytes, s.fl_bg_dropped)
-            st = st._replace(fluid=fl, stats=s._replace(fl_bg_bytes=bgb, fl_bg_dropped=bgd))
+            if self.coll is None:
+                st = self._fluid_step(st, params, fg, window_end, done)
         st_m = st
         if self._iv is not None:
             self._iv.pre_exchange(st_m)
-        st_x = self.exchange(st_m, has_sends)
+        pend: dict[str, torch.Tensor] = {}
+        if self.coll is None:
+            st_x = self.exchange(st_m, has_sends)
+        else:
+            st_x, pend = self.exchange_mesh(st_m)
         occ = q_len(st_x.queue).to(torch.int64)
         ob_hwm = st_m.sent_round.max().to(torch.int64)
         s = st_x.stats
@@ -949,13 +1085,26 @@ class Engine:
         if cfg.pressure_abort:
             # the pressure signal (K26): the run's capacity-drop total after
             # the exchange (queue pushes and merge overflow, send budget,
-            # outbox)
-            stats = stats._replace(pressure=pressure_total(
-                st_x.queue.dropped, stats.pkts_budget_dropped, stats.ob_dropped))
+            # outbox; across ranks the all-to-all's sheds, summed over the
+            # ranks below)
+            total = pressure_total(st_x.queue.dropped, stats.pkts_budget_dropped,
+                                   stats.ob_dropped)
+            if self.coll is None:
+                stats = stats._replace(pressure=total)
+            else:
+                pend["pressure"] = total + stats.a2a_shed
         if self._iv is not None:
             # the sentinel's guards on the post-exchange state (the
-            # done-round is never judged)
+            # done-round is never judged); across ranks the count of failed
+            # checks is summed over the ranks below
+            iv_before = stats.integrity.clone() if self.coll is not None else None
             stats = self._iv.post_exchange(st_x, stats, window_end, done, st.now)
+            if iv_before is not None:
+                pend["integrity"] = stats.integrity - iv_before
+        if fg is not None and self.coll is not None:
+            pend["fluid"] = fg
+        if pend:
+            st_x, stats = self._mesh_sums(st_x, stats, pend, params, window_end, done)
         if cfg.netobs and not done:
             # on one device this device binds every scheduling round
             stats = stats._replace(win_bound=stats.win_bound + 1)
@@ -972,6 +1121,46 @@ class Engine:
         return st_x._replace(
             now=st.now if done else window_end, done=done, stats=stats
         )
+
+    def _fluid_step(self, st: SimState, params: EngineParams, fg, window_end: int,
+                    done: bool) -> SimState:
+        """One fluid ODE step (K15) over the round's committed window from
+        its foreground bytes per link `fg`."""
+        s = st.stats
+        fl, bgb, bgd = fluid_advance(self.cfg, params.fluid, st.fluid, fg, st.now, window_end,
+                                     done, s.fl_bg_bytes, s.fl_bg_dropped)
+        return st._replace(fluid=fl, stats=s._replace(fl_bg_bytes=bgb, fl_bg_dropped=bgd))
+
+    def _mesh_sums(self, st_x: SimState, stats: Stats, pend: dict, params, window_end: int,
+                   done: bool):
+        """The round's one SUM over the ranks (the JAX package's psums): the
+        gear sheds, the send count whose global value decides a bucketed
+        queue's rebuild count, the pressure total, the sentinel's failed
+        checks and the fluid bytes per link, packed into one i64 vector.
+        Returns (state, stats) with the global values applied; the fluid
+        ODE steps here, on the global bytes."""
+        names = list(pend)
+        flat = torch.cat([pend[k].to(torch.int64).reshape(-1) for k in names])
+        red = self.coll.psum(flat)
+        out, at = {}, 0
+        for k in names:
+            n = pend[k].numel()
+            out[k] = red[at:at + n].reshape(pend[k].shape)
+            at += n
+        if "gear" in out:
+            stats = stats._replace(gear_shed=stats.gear_shed + out["gear"])
+        if "count" in out:
+            stats = stats._replace(bq_rebuilds=stats.bq_rebuilds + (out["count"] > 0))
+        if "pressure" in out:
+            stats = stats._replace(pressure=out["pressure"])
+        if "integrity" in out:
+            stats = stats._replace(integrity=stats.integrity - pend["integrity"]
+                                   + out["integrity"])
+        if "fluid" in out:
+            st_x = self._fluid_step(st_x._replace(stats=stats), params, out["fluid"],
+                                    window_end, done)
+            stats = st_x.stats
+        return st_x, stats
 
     def microstep(self, st: SimState, params: EngineParams, window_end: int,
                   fluid_fx=None) -> SimState:
@@ -1058,7 +1247,7 @@ class Engine:
         the batch events that executed after it."""
         cfg = self.cfg
         k = cfg.effective_microstep_events
-        h = cfg.num_hosts
+        h = cfg.hosts_per_shard
         dev = self.device
         popped = pop_k(st.queue, self._pop_limit(st, window_end, params), k)
         c = _ev_carry_of(st)
@@ -1117,7 +1306,7 @@ class Engine:
         is on and the model has a flow port: nothing is appended then)."""
         if not (self.cfg.flow_ledger_active and getattr(self.model, "flow_ledger", False)):
             return None
-        return make_flow_lanes(e, self.cfg.num_hosts, self.device)
+        return make_flow_lanes(e, self.cfg.hosts_per_shard, self.device)
 
     def _finish_microstep(self, st: SimState, c: "_EvCarry", queue, entries, used_mins,
                           lanes: FlowLanes | None = None):
@@ -1200,9 +1389,85 @@ class Engine:
         return st._replace(
             queue=queue,
             stats=stats,
-            outbox=make_empty_outbox(cfg.num_hosts, cfg.sends_per_host_round, ob.t.device),
+            outbox=make_empty_outbox(cfg.hosts_per_shard, cfg.sends_per_host_round, ob.t.device),
             sent_round=torch.zeros_like(st.sent_round),
         )
+
+    def exchange_mesh(self, st: SimState) -> tuple[SimState, dict]:
+        """The exchange across ranks (the JAX package's `_exchange`,
+        `_exchange_alltoall` and `_exchange_hierarchical`), on the
+        gear-sliced outbox (its first `gear_cols` columns, read in place):
+
+          gather: the shard's rows packed at wire width (with its send
+            count as one trailing row) and all-gathered, rank-major, so the
+            merge sees the whole mesh's rows host-major as on one device;
+          alltoall: K29 groups the rows by destination shard in (t, order)
+            order into [world, a2a_block_size] blocks, one all-to-all moves
+            them; block overflow counts into `a2a_shed`;
+          hierarchical: the same at `hier_block_size`, after an all-to-all
+            of the blocks' fill counts; a geared run's block overflow counts
+            into `gear_shed` (the chunk replays wider), else into
+            `a2a_shed`.
+
+        K30 turns the received rows into the merge's planes (destinations
+        rebased to the shard, rows outside it or past a fill count invalid),
+        and K4 (K13 with `merge_scatter`) merges them every round; a
+        bucketed queue's caches are rebuilt (K8). The exchange adds its
+        modelled bytes to the ici lanes. Returns (state, the local values
+        the round's SUM makes global: the gear sheds and, for the
+        all-to-all kinds, the send count)."""
+        cfg, coll, ob = self.cfg, self.coll, st.outbox
+        h_local, base, world = cfg.hosts_per_shard, cfg.host_base, cfg.world
+        gc = cfg.gear_cols if cfg.gear_active else 0
+        cols = gc or ob.t.shape[1]
+        stats = st.stats
+        pend: dict[str, torch.Tensor] = {}
+        gear = gear_shed_count(st.sent_round, gc) if gc else None
+        if cfg.exchange == "gather":
+            n = h_local * cols
+            words = pack_words(ob.dst[:, :cols], ob.t[:, :cols], ob.order[:, :cols],
+                               ob.kind[:, :cols], ob.payload[:, :cols]).reshape(n, ROW_WORDS)
+            count_row = torch.zeros((1, ROW_WORDS), dtype=torch.int32, device=ob.t.device)
+            count_row[0, 0] = ob.count[0]
+            got = coll.all_gather(torch.cat([words, count_row]))  # [world, n + 1, W]
+            rows = exchange_unpack(got, base, h_local, n=n)
+            has_sends = got[:, n, 0].to(torch.int64).sum() > 0
+            if isinstance(st.queue, BucketQueue):
+                stats = stats._replace(bq_rebuilds=stats.bq_rebuilds + has_sends)
+            ici = exchange_ici_bytes_per_round(cfg, "gather")
+        else:
+            hier = cfg.exchange == "hierarchical"
+            k = cfg.hier_block_size if hier else cfg.a2a_block_size
+            blocks, seg_len, shed = dshard_pack(ob.dst, ob.t, ob.order, ob.kind, ob.payload,
+                                                h_local, world, k, cols=gc)
+            counts = coll.all_to_all(torch.clamp_max(seg_len, k)) if hier else None
+            recv = coll.all_to_all(blocks)  # [world, k, W]: block i from rank i
+            rows = exchange_unpack(recv, base, h_local, counts)
+            if isinstance(st.queue, BucketQueue):
+                pend["count"] = ob.count.to(torch.int64).sum()
+            if hier and cfg.gear_active:
+                gear = gear + shed[0]
+            else:
+                stats = stats._replace(a2a_shed=stats.a2a_shed + shed)
+            ici = exchange_ici_bytes_per_round(cfg)
+        if gear is not None:
+            pend["gear"] = gear
+        merge = merge_scatter_free if cfg.merge_scatter else merge_flat_events
+        queue = merge(as_flat(st.queue), *rows, cfg.max_round_inserts,
+                      shed_urgency=not cfg.cheap_shed, merge_rows=cfg.merge_rows)
+        if isinstance(st.queue, BucketQueue):
+            queue = bucket_rebuild(queue, st.queue.block)
+        stats = stats._replace(ici_bytes=stats.ici_bytes + ici)
+        if cfg.hier_active:
+            intra, inter = exchange_tier_bytes_per_round(cfg)
+            stats = stats._replace(ici_intra=stats.ici_intra + intra,
+                                   ici_inter=stats.ici_inter + inter)
+        return st._replace(
+            queue=queue,
+            stats=stats,
+            outbox=make_empty_outbox(h_local, ob.t.shape[1], ob.t.device),
+            sent_round=torch.zeros_like(st.sent_round),
+        ), pend
 
 
 def pop_min_merged(queue, wheel: TimerWheel, limit: int):

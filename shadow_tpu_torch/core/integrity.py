@@ -323,6 +323,20 @@ class IntegrityCheck:
         else:
             self._launch(0, st)
 
+    def entry_min(self) -> torch.Tensor:
+        """The round-entry raw time minimum (a 0-d device tensor), which a
+        mesh reduces over its ranks before the round's guards read it."""
+        if self._scratch is not None:
+            return self._scratch[0]
+        return self._entry.gmin_raw
+
+    def set_entry_min(self, value: torch.Tensor) -> None:
+        """Replace the round-entry minimum (with the mesh's)."""
+        if self._scratch is not None:
+            self._scratch[0] = value
+        else:
+            self._entry = self._entry._replace(gmin_raw=value)
+
     def pre_exchange(self, st_m) -> None:
         """Stage 1: the reads the exchange would erase (fill caches,
         outbox)."""

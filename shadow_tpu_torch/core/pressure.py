@@ -118,7 +118,19 @@ def _category_lanes(state) -> list[torch.Tensor]:
     order (the all-to-all's is 0 on one device)."""
     s = state.stats
     q = state.queue.dropped.sum()
-    return [q, s.pkts_budget_dropped.sum(), torch.zeros_like(q), s.ob_dropped.sum()]
+    return [q, s.pkts_budget_dropped.sum(), s.a2a_shed.sum(), s.ob_dropped.sum()]
+
+
+def read_rows(engine, lanes: list[torch.Tensor]) -> list[list[int]]:
+    """Device scalars as host ints in one device-to-host read, one row per
+    rank (every rank's row across a mesh, so that every rank takes the same
+    decision from them; counted in `engine.host_syncs`)."""
+    v = torch.stack([x.to(torch.int64) for x in lanes])
+    engine.host_syncs += 1
+    coll = getattr(engine, "coll", None)
+    if coll is None:
+        return [v.tolist()]
+    return coll.host_rows(v).tolist()
 
 
 class ResilienceController:
@@ -168,30 +180,12 @@ class ResilienceController:
         self._abort_state = None  # abort policy: the dropping state
         self._last_snap = None
 
-    # ---- host-side counter reads ------------------------------------------
+    # ---- the abort policy ---------------------------------------------------
 
     @staticmethod
-    def _pressure_categories(state) -> dict[str, int]:
-        """Per-category cumulative drop totals: queue-side pressure grows the
-        slab, outbox-side pressure the send budget."""
-        return dict(zip(_CATEGORIES, torch.stack(_category_lanes(state)).tolist()))
-
-    @classmethod
-    def _pressure_total(cls, state) -> int:
-        """The cumulative capacity-drop total: the K26 lane where the state
-        carries one, else the sum of the categories."""
-        p = getattr(state.stats, "pressure", None)
-        if p is not None:
-            return int(p.max())
-        return sum(cls._pressure_categories(state).values())
-
-    @classmethod
-    def raise_if_dropped(cls, state, baseline: dict | None = None):
-        """Raise PressureAbort naming the per-category drop deltas when
-        `state` carries capacity drops past `baseline` (None = zero)."""
-        if cls._pressure_total(state) <= (sum(baseline.values()) if baseline else 0):
-            return
-        cats = cls._pressure_categories(state)
+    def _raise_dropped(cats: dict, baseline: dict | None = None):
+        """Raise PressureAbort naming the categories that grew past
+        `baseline` (None = zero)."""
         base = baseline or {k: 0 for k in cats}
         detail = ", ".join(f"{k}+{v - base[k]}" for k, v in sorted(cats.items()) if v > base[k])
         raise PressureAbort(f"pressure: abort policy hit its first capacity drop ({detail})")
@@ -324,16 +318,27 @@ class ResilienceController:
                 lanes += [*cats0_lanes, *_category_lanes(out)]
                 if self.escalate:
                     lanes.append(s.q_occ_hwm.max())
-            vals = torch.stack(lanes).tolist()
-            engine.host_syncs += 1
-            shed, hwm, rounds = vals[:3]
-            rest = vals[3:]
+            rows = read_rows(engine, lanes)
+            # across ranks: the gear shed, the sentinel's count and the
+            # rounds are global already, the high-waters are maxima and the
+            # drop categories sums over the ranks
+            cols = list(zip(*rows))
+            shed, hwm, rounds = max(cols[0]), max(cols[1]), cols[2][0]
+            at = 3
             if self.integrity_on:
-                iv_vals, rest = rest[:3], rest[3:]
+                iv_vals = [max(cols[3]), cols[4], cols[5]]
+                at = 6
+            rest = [sum(c) for c in cols[at:]]
+            if self.escalate:
+                rest[-1] = max(cols[-1])
+            if self.integrity_on:
                 # integrity first: a violating attempt's other counters may
                 # themselves be corrupt; it is discarded whole either way
                 if iv_vals[0] > 0:
-                    sig = ((0, int(iv_vals[2]), int(iv_vals[1])),)
+                    # the (shard, first round, bits) of every violating shard
+                    sig = tuple((r, int(rnd), int(m)) for r, (m, rnd)
+                                in enumerate(zip(iv_vals[1], iv_vals[2]))
+                                if m or len(rows) == 1)
                     detail = describe_signature(sig)
                     if iv_last_sig is not None and sig == iv_last_sig:
                         self.aborted = True
@@ -386,7 +391,7 @@ class ResilienceController:
                         # dropping round, counters and all
                         self.aborted = True
                         self._abort_state = out
-                        self.raise_if_dropped(out, cats0)
+                        self._raise_dropped(cats1, cats0)
                     state, cap, budget, snap = self._escalate_replay(
                         cats1, cats0, snap, cap, budget)
                     continue

@@ -367,6 +367,9 @@ struct EgressArgs {
   const long long* win_lat;
   long long* faults_dropped;
   long long* faults_delayed;
+  // the mesh: this shard's first global host id and the global host count
+  // (a destination's range; one device: 0 and H)
+  long long host_base, n_hosts;
 };
 
 __device__ __forceinline__ void route(const EgressArgs& a, int h, long long dst, long long& lat,
@@ -383,7 +386,8 @@ __device__ __forceinline__ void route(const EgressArgs& a, int h, long long dst,
   if (a.route_mode == 1) {
     i = (long long)h * a.n_nodes + dst_node;
   } else {
-    const long long src_node = g > 0 ? floordiv(h, g) : (long long)a.node_of[h];
+    const long long gh = a.host_base + h;
+    const long long src_node = g > 0 ? floordiv(gh, g) : (long long)a.node_of[gh];
     i = src_node * a.n_nodes + dst_node;
   }
   lat = a.lat[i];
@@ -395,6 +399,7 @@ __global__ void event_egress_kernel(const EgressArgs a) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= a.H) return;
   const int H = a.H, P = a.P;
+  const long long gh = a.host_base + h;  // the global host id (order keys, draws)
   const long long t = a.ev_t[(long long)h * a.es];
   const bool disp = a.dispatch[h];
   long long seq = a.seq[h];
@@ -426,7 +431,7 @@ __global__ void event_egress_kernel(const EgressArgs a) {
     const long long o = (long long)p * H + h;
     a.op_mask[o] = mask;
     a.op_t[o] = imax(pt, t);
-    a.op_order[o] = pack_order(1, h, seq);
+    a.op_order[o] = pack_order(1, gh, seq);
     a.op_kind[o] = a.pkind[p][h * a.pkind_s[p]] & kKindMask;
     seq = wadd(seq, mask);
   }
@@ -440,8 +445,8 @@ __global__ void event_egress_kernel(const EgressArgs a) {
         a.scount[sp] == nullptr ? (int)mask0 : (mask0 ? a.scount[sp][h * a.scount_s[sp]] : 0);
     const int sz = a.ssize[sp][h * a.ssize_s[sp]];
     const long long dst_raw = a.sdst[sp][h * a.sdst_s[sp]];
-    const bool bad_dst = mask0 && (dst_raw < 0 || dst_raw >= H);
-    const long long dst = imin(imax(dst_raw, 0), H - 1);
+    const bool bad_dst = mask0 && (dst_raw < 0 || dst_raw >= a.n_hosts);
+    const long long dst = imin(imax(dst_raw, 0), a.n_hosts - 1);
     long long lat, jit;
     float lossp;
     route(a, h, dst, lat, lossp, jit);
@@ -479,7 +484,7 @@ __global__ void event_egress_kernel(const EgressArgs a) {
       bool bglost = false;
       if (fluid && a.fluid_draw)
         bglost = mask && !lost && !unreachable && !flost && t >= a.bootstrap_end &&
-                 fluid_uniform(a.fluid_seed, h, seq) < bg_loss;
+                 fluid_uniform(a.fluid_seed, gh, seq) < bg_loss;
       if (bg_inflate) lat_j = floordiv(wmul(lat_j, bg_lat), kLatScale);
       const bool send_ok = mask && !lost && !unreachable && !over && !bglost && !flost;
       const bool budget_dropped = mask && !lost && !unreachable && over && !bglost && !flost;
@@ -491,7 +496,7 @@ __global__ void event_egress_kernel(const EgressArgs a) {
       a.e_col[o] = sent;
       a.e_dst[o] = (int)dst;
       a.e_t[o] = imax(wadd(eg_depart, imax(lat_j, 0)), a.window_end);
-      a.e_order[o] = pack_order(0, h, seq);
+      a.e_order[o] = pack_order(0, gh, seq);
       a.e_kind[o] = port_kind;
       for (int w = 0; w < P; ++w) {
         int v = pay[w];
@@ -698,7 +703,10 @@ int event_egress(const long long* args, void* stream) {
   a.win_lat = r.p<const long long>();
   a.faults_dropped = r.p<long long>();
   a.faults_delayed = r.p<long long>();
+  a.host_base = r.v();
+  a.n_hosts = r.v();
   if (a.P < 1 || a.P > kMaxPayload || a.interval <= 0 || a.route_mode < 0 || a.route_mode > 2 ||
+      a.host_base < 0 || a.n_hosts < a.host_base + a.H ||
       a.n_win < 0 || (a.n_win > 0 && (a.win_start == nullptr || a.win_end == nullptr ||
                                       a.win_loss == nullptr || a.win_lat == nullptr ||
                                       a.faults_dropped == nullptr ||

@@ -77,8 +77,10 @@ struct FgArgs {
   const int* ob_dst;
   const long long* ob_t;
   const int* ob_payload;
-  const int* node_of;
+  const int* node_of;       // [n_hosts], by global host id
   unsigned long long* out;  // [N], zeroed before the launch
+  // the mesh: this shard's first global host id and the global host count
+  long long host_base, n_hosts;
 };
 
 __device__ __forceinline__ long long host_node(const int* node_of, int g, long long h) {
@@ -95,9 +97,9 @@ __global__ void fg_link_bytes_kernel(const FgArgs a) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < rows && a.ob_t[i] != kTimeMax) {
     const unsigned long long size = (unsigned long long)(long long)a.ob_payload[i * a.P + kSizeWord];
-    const long long h = i / a.B;
+    const long long h = a.host_base + i / a.B;
     const long long src = imin(imax(host_node(a.node_of, a.hosts_per_node, h), 0), a.N - 1);
-    const long long d = imin(imax((long long)a.ob_dst[i], 0), a.H - 1);
+    const long long d = imin(imax((long long)a.ob_dst[i], 0), a.n_hosts - 1);
     const long long dst = imin(imax(host_node(a.node_of, a.hosts_per_node, d), 0), a.N - 1);
     unsigned long long* acc = shared ? local : a.out;
     atomicAdd(acc + src, size);
@@ -222,6 +224,7 @@ __global__ void fluid_advance_kernel(const AdvanceArgs a) {
 
 struct EffectsArgs {
   int H, K, N, hosts_per_node;
+  long long host_base;  // this shard's first global host id (node_of is global)
   double thr, inv_span, loss_max, lat_span;  // lat_span = lat_max_x1000 - 1000
   const int* node_of;
   const int* src;
@@ -235,7 +238,8 @@ struct EffectsArgs {
 __global__ void fluid_host_effects_kernel(const EffectsArgs a) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= a.H) return;
-  const int n = (int)imin(imax(host_node(a.node_of, a.hosts_per_node, h), 0), a.N - 1);
+  const int n =
+      (int)imin(imax(host_node(a.node_of, a.hosts_per_node, a.host_base + h), 0), a.N - 1);
   // only the sign of the link's load is read: rates are never negative, so
   // it is positive exactly when a class on the link has a positive rate
   const bool bg = link_load(a.src, a.dst, a.rates, a.K, n) > 0.0;
@@ -264,7 +268,10 @@ int fluid_fg_link_bytes(const long long* args, void* stream) {
   a.ob_payload = r.p<const int>();
   a.node_of = r.p<const int>();
   a.out = r.p<unsigned long long>();
-  if (a.N < 1 || a.P < 1) return (int)cudaErrorInvalidValue;
+  a.host_base = r.v();
+  a.n_hosts = r.v();
+  if (a.N < 1 || a.P < 1 || a.host_base < 0 || a.n_hosts < a.host_base + a.H)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(a.out, 0, sizeof(unsigned long long) * a.N, s);
   if (e != cudaSuccess) return (int)e;
@@ -319,7 +326,9 @@ int fluid_host_effects(const long long* args, void* stream) {
   a.link_util = r.p<const double>();
   a.loss = r.p<float>();
   a.lat = r.p<long long>();
-  if (a.K < 1 || a.K > kMaxClasses || a.N < 1) return (int)cudaErrorInvalidValue;
+  a.host_base = r.v();
+  if (a.K < 1 || a.K > kMaxClasses || a.N < 1 || a.host_base < 0)
+    return (int)cudaErrorInvalidValue;
   if (a.H > 0)
     fluid_host_effects_kernel<<<(a.H + kThreads - 1) / kThreads, kThreads, 0,
                                 (cudaStream_t)stream>>>(a);

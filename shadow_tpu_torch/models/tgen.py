@@ -444,7 +444,11 @@ class TgenTcpModel:
         start = tick & (st["c_state"] == CST_IDLE) & (my_phase < p["flows"])
         nh = p["num_hosts"]
         hid = ctx.host_id.to(torch.int32)
-        peer = torch.remainder(hid + 1 + torch.remainder(my_phase, nh - 1), nh)
+        # a mesh's padding hosts carry num_hosts 0 and never start a flow:
+        # their divisors are replaced (integer remainder by 0 raises), as
+        # are those of a one-host run, where the result is 0 either way
+        peer = torch.remainder(hid + 1 + torch.remainder(my_phase, torch.where(nh > 1, nh - 1, 1)),
+                               torch.where(nh > 0, nh, 1))
         st["c_peer"] = where(start, peer, st["c_peer"])
         st["c_state"] = where(start, CST_SYN, st["c_state"])
         st["snd_una"] = where(start, 0, st["snd_una"])

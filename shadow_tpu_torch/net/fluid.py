@@ -199,13 +199,14 @@ def compile_fluid(fopts, *, num_links: int, default_seed: int = 1, zone_of=None,
     )
 
 
-def host_nodes(cfg, node_of: torch.Tensor, num_hosts: int) -> torch.Tensor:
-    """Per-host graph-node index (the fluid link id), i64[H]: the affine
-    divide when the host -> node map is uniform blocks, else node_of."""
+def host_nodes(cfg, node_of: torch.Tensor, num_hosts: int, host_base: int = 0) -> torch.Tensor:
+    """Graph-node index (the fluid link id) of hosts host_base ..
+    host_base + num_hosts - 1, i64[num_hosts]: the affine divide when the
+    host -> node map is uniform blocks, else the global `node_of`."""
+    h = host_base + torch.arange(num_hosts, dtype=torch.int64, device=node_of.device)
     if cfg.hosts_per_node > 0:
-        h = torch.arange(num_hosts, dtype=torch.int64, device=node_of.device)
         return torch.div(h, cfg.hosts_per_node, rounding_mode="floor")
-    return node_of.to(torch.int64)
+    return node_of[h].to(torch.int64)
 
 
 # ---------------------------------------------------------------- exact f64
@@ -293,7 +294,7 @@ def fluid_fg_link_bytes_plain(cfg, ob_dst, ob_t, ob_payload, node_of) -> torch.T
     access link and its destination's (JAX `_fluid_fg_link_bytes`)."""
     n, h = cfg.fluid_links, cfg.num_hosts
     size = torch.where(ob_t != TIME_MAX, ob_payload[:, :, _PAYLOAD_SIZE_WORD].to(torch.int64), 0)
-    src = torch.clamp(host_nodes(cfg, node_of, h), 0, n - 1)
+    src = torch.clamp(host_nodes(cfg, node_of, ob_t.shape[0], cfg.host_base), 0, n - 1)
     dst = torch.clamp(ob_dst.reshape(-1).to(torch.int64), 0, h - 1)
     dnode = (torch.div(dst, cfg.hosts_per_node, rounding_mode="floor") if cfg.hosts_per_node > 0
              else node_of[dst].to(torch.int64))
@@ -313,10 +314,10 @@ def fluid_fg_link_bytes(cfg, ob_dst, ob_t, ob_payload, node_of) -> torch.Tensor:
     check(ob_dst, torch.int32, (h, b), "outbox dst")
     check(ob_t, torch.int64, (h, b), "outbox t")
     check(ob_payload, torch.int32, (h, b, p), "outbox payload")
-    check(node_of, torch.int32, (h,), "node_of")
+    check(node_of, torch.int32, (cfg.num_hosts,), "node_of")
     out = torch.empty((cfg.fluid_links,), dtype=torch.int64, device=ob_t.device)
     _fg_k(arg_block([h, b, p, cfg.fluid_links, cfg.hosts_per_node, addr(ob_dst), addr(ob_t),
-                      addr(ob_payload), addr(node_of), addr(out)]))
+                      addr(ob_payload), addr(node_of), addr(out), cfg.host_base, cfg.num_hosts]))
     return out
 
 
@@ -414,11 +415,11 @@ def fluid_host_effects_plain(cfg, fp: FluidParams, st: FluidState, node_idx):
 def fluid_host_effects(cfg, fp: FluidParams, st: FluidState, node_of):
     """`fluid_host_effects_plain` for every host (node by the affine divide
     or `node_of`) as K16 on CUDA, one thread per host."""
-    h = cfg.num_hosts
+    h = cfg.hosts_per_shard
     if on_cpu(st.rates):
-        return fluid_host_effects_plain(cfg, fp, st, host_nodes(cfg, node_of, h))
+        return fluid_host_effects_plain(cfg, fp, st, host_nodes(cfg, node_of, h, cfg.host_base))
     k, n = cfg.fluid_classes, cfg.fluid_links
-    check(node_of, torch.int32, (h,), "node_of")
+    check(node_of, torch.int32, (cfg.num_hosts,), "node_of")
     check(st.rates, torch.float64, (k,), "rates")
     check(st.link_util, torch.float64, (n,), "link_util")
     check(fp.src_zone, torch.int32, (k,), "src_zone")
@@ -430,7 +431,7 @@ def fluid_host_effects(cfg, fp: FluidParams, st: FluidState, node_of):
         h, k, n, cfg.hosts_per_node, _as_i64(thr), _as_i64(1.0 / max(1.0 - thr, 1e-9)),
         _as_i64(cfg.fluid_loss_max), _as_i64(float(cfg.fluid_lat_max_x1000 - LAT_SCALE)),
         addr(node_of), addr(fp.src_zone), addr(fp.dst_zone), addr(st.rates), addr(st.link_util),
-        addr(loss), addr(lat),
+        addr(loss), addr(lat), cfg.host_base,
     ]))
     return loss, lat
 

@@ -399,7 +399,7 @@ def route_plain(params, cfg, host_gid: torch.Tensor, dst: torch.Tensor):
         src_node = torch.div(host_gid, cfg.hosts_per_node, rounding_mode="floor")
     else:
         dst_node = params.node_of[dst].to(torch.int64)
-        src_node = params.node_of.to(torch.int64)
+        src_node = params.node_of[host_gid].to(torch.int64)
     if params.lat_rows is not None:
         col = dst_node[:, None]
         return (params.lat_rows.gather(1, col)[:, 0], params.loss_rows.gather(1, col)[:, 0],
@@ -420,7 +420,8 @@ def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out, flu
     from shadow_tpu_torch.net.fluid import fluid_send_uniform
 
     h = dispatch.shape[0]
-    host_gid = torch.arange(h, dtype=torch.int64, device=dispatch.device)
+    # global host ids: the shard's rows start at cfg.host_base
+    host_gid = cfg.host_base + torch.arange(h, dtype=torch.int64, device=dispatch.device)
     stats, rng, seq, sent_round, tb_eg = c.stats, c.rng, c.seq, c.sent_round, c.tb_egress
     pushes = []
     for p in out.pushes:
@@ -671,6 +672,7 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=
         n_send, *send_args, *(addr(x) for x in (entries or [None] * 7)), addr(used_min),
         nl, *(addr(getattr(fp, f, None)) for f in ("win_start", "win_end", "win_loss", "win_lat")),
         addr(s.faults_dropped if nl else None), addr(s.faults_delayed if nl else None),
+        cfg.host_base, cfg.num_hosts,
     ]))
     del keep
     pushes = [Push(op[0][i], op[1][i], op[2][i], op[3][i], p.payload.to(torch.int32))

@@ -62,11 +62,22 @@ ends on an abort keeps only the rows and records of the state it reports.
 On a CUDA device the build refuses configs the queue kernels cannot take
 (a base capacity above their slots, a bucketed queue above their blocks,
 K above their batch), naming the knob.
+
+With `general.parallelism` above 1 (0 = every visible card) the run spans
+that many ranks, one process each (core/mesh.py): `run_mesh` (and the CLI)
+launch them, each builds the whole simulation and keeps its shard of the
+hosts (the host count padded to a multiple of the world with inert hosts,
+as the JAX package pads it), and rank 0 reports and writes the outputs
+from the mesh's gathered state; its report has the JAX package's
+`ici_bytes` and `alltoall_shed_dropped` and, for the hierarchical
+exchange, its `exchange{}` block. The observatories, on-disk checkpoints
+and `pressure: escalate` are refused across ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
 import sys
@@ -86,7 +97,13 @@ from shadow_tpu_torch.core.faults import KERNELS as FAULT_KERNELS
 from shadow_tpu_torch.core.gears import GearController, resolve_gear_ladder
 from shadow_tpu_torch.core.integrity import KERNELS as INTEGRITY_KERNELS
 from shadow_tpu_torch.core.integrity import IntegrityAbort
-from shadow_tpu_torch.core.pressure import PressureAbort, ResilienceController, capacity_ladder
+from shadow_tpu_torch.core.mesh import gather_view, launch, resolve_world
+from shadow_tpu_torch.core.pressure import (
+    PressureAbort,
+    ResilienceController,
+    capacity_ladder,
+    read_rows,
+)
 from shadow_tpu_torch.core.supervisor import ChunkSupervisor, SupervisorAbort
 from shadow_tpu_torch.models import KERNELS as MODEL_KERNELS
 from shadow_tpu_torch.models import get_model
@@ -203,9 +220,10 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
                    bg: tuple[int, int] | None = None, fault: tuple[int, int] | None = None,
                    iv: tuple[int, int] | None = None, cap: int | None = None, *,
                    hbm: int | None = None, ek: tuple[int, int] | None = None,
-                   fct: int | None = None, rt: float | None = None) -> str:
+                   fct: int | None = None, rt: float | None = None, ici: int = 0) -> str:
     """The `[heartbeat]` progress line, in the JAX package's format (ici_bytes
-    is 0 on one device; `faults=<dropped>/<delayed>` only on fault-plane
+    the exchange's modelled bytes over the ranks, 0 on one device;
+    `faults=<dropped>/<delayed>` only on fault-plane
     runs, after `q_hwm=`; `gear=` only on merge-gear runs, after `faults=`;
     `cap=<queue capacity>` only on pressure-plane runs, after `gear=`;
     `hbm=<bytes>` only on memory-observatory runs, after `cap=`;
@@ -230,7 +248,7 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
         f"rounds={rounds} "
         f"msteps/round={microsteps / max(rounds, 1):.1f} "
         f"ev/mstep={events / max(microsteps, 1):.2f} "
-        f"ici_bytes=0 q_hwm={q_hwm} "
+        f"ici_bytes={ici} q_hwm={q_hwm} "
         f"{fault_f}"
         f"{gear_f}"
         f"{cap_f}"
@@ -246,11 +264,27 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
 
 
 class Simulation:
-    """Built simulation: engine + host specs + run loop, on one device."""
+    """Built simulation: engine + host specs + run loop, on one device, or
+    one rank's part of a run across ranks (with the rank's Collectives,
+    whose world it takes)."""
 
-    def __init__(self, cfg: ConfigOptions, *, device=None):
+    def __init__(self, cfg: ConfigOptions, *, device=None, coll=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the mesh (core/mesh.py): a rank built inside `launch` takes its
+        # world from its Collectives; without them the simulation runs on
+        # one device, and an explicit `general.parallelism` above 1 is
+        # refused (`run_simulation` and the CLI launch the ranks)
+        if coll is None and cfg.general.parallelism > 1:
+            resolve_world(cfg.general.parallelism, self.device)
+            raise ValueError(
+                f"general.parallelism={cfg.general.parallelism}: a Simulation at world > 1 is "
+                f"one rank of a mesh, built with its Collectives inside core/mesh.py launch "
+                f"(run_simulation and the CLI launch the ranks)")
+        self.world = coll.world if coll is not None else 1
+        self.coll = coll
+        self.rank = coll.rank if coll is not None else 0
+        cfg.check_world(self.world)
         self.graph = load_graph(cfg.network.graph)
         self.hosts = expand_hosts(cfg, self.graph)
         if not self.hosts:
@@ -268,7 +302,10 @@ class Simulation:
             )
         self.model = get_model(name)()
         ex = cfg.experimental
-        num_hosts = len(self.hosts)
+        # pad the host count to a multiple of the world with inert hosts
+        # (empty queues never run; the report reads the real prefix)
+        self._num_real = len(self.hosts)
+        num_hosts = -(-self._num_real // self.world) * self.world
         qcap, send_budget, rpc = ex.resolve_shapes(num_hosts)
         ex.check_queue_block(qcap)
         if self.device.type == "cuda":
@@ -289,7 +326,7 @@ class Simulation:
         # static dims the round specializes on
         try:
             self._fault_sched = (
-                compile_faults(cfg.faults, num_hosts=num_hosts,
+                compile_faults(cfg.faults, num_hosts=num_hosts, num_real=self._num_real,
                                stop_time=cfg.general.stop_time,
                                bootstrap_end=cfg.general.bootstrap_end_time,
                                default_seed=cfg.general.seed,
@@ -353,6 +390,10 @@ class Simulation:
             netobs=obs.network,
             flow_records=(obs.network_flows
                           if obs.network and getattr(self.model, "flow_ledger", False) else 0),
+            world=self.world,
+            rank=self.rank,
+            exchange=ex.resolve_exchange(self.world),
+            a2a_block=ex.a2a_block,
         )
         # merge gears: the ladder resolved against the (auto-sized) send
         # budget; [] = off (a budget of 1 leaves no narrower width)
@@ -372,7 +413,8 @@ class Simulation:
         # raise before dispatching
         self._integrity_test_scribble = None
         self._test_fail_dispatch: frozenset[int] = frozenset()
-        self.engine = Engine(self.engine_cfg, self.model, self.device)
+        self.engine = Engine(self.engine_cfg, self.model, self.device, coll)
+        self._view_cache = None  # the mesh's gathered state for the report
         self._build_state()
 
     def _check_kernel_limits(self, qcap: int) -> None:
@@ -449,6 +491,14 @@ class Simulation:
             for h in self.hosts
         ]
 
+    def _pad(self, tree: dict) -> dict:
+        """Model arrays [H_real, ...] zero-padded to the engine's host count
+        (the JAX package's `_pad`)."""
+        pad = self.engine_cfg.num_hosts - self._num_real
+        if pad == 0:
+            return tree
+        return {k: torch.cat([v, v.new_zeros((pad, *v.shape[1:]))]) for k, v in tree.items()}
+
     def _build_state(self):
         ecfg, dev = self.engine_cfg, self.device
         try:
@@ -457,9 +507,11 @@ class Simulation:
             )
         except (ValueError, KeyError) as e:
             raise ConfigError(f"model {self.model.name!r}: {e}") from e
-        node_of = np.array([s.node_index for s in self.hosts], np.int32)
-        bw_up = np.array([s.bw_up_bits for s in self.hosts], np.int64)
-        bw_down = np.array([s.bw_down_bits for s in self.hosts], np.int64)
+        mparams, mstate = self._pad(mparams), self._pad(mstate)
+        pad = np.zeros((ecfg.num_hosts - self._num_real,))
+        node_of = np.concatenate([[s.node_index for s in self.hosts], pad]).astype(np.int32)
+        bw_up = np.concatenate([[s.bw_up_bits for s in self.hosts], pad]).astype(np.int64)
+        bw_down = np.concatenate([[s.bw_down_bits for s in self.hosts], pad]).astype(np.int64)
         params = EngineParams(
             node_of=torch.as_tensor(node_of, device=dev),
             lat_ns=torch.as_tensor(self.graph.lat_ns, device=dev),
@@ -487,6 +539,9 @@ class Simulation:
         ecfg = self.engine_cfg
         obs = cfg.observability
         show_progress = cfg.general.progress if progress is None else progress
+        if self.rank != 0:
+            # rank 0 speaks for the mesh
+            log, show_progress = io.StringIO(), False
         hb_ns = cfg.general.heartbeat_interval
         next_hb = hb_ns
         launches0 = {k: v.launches for k, v in KERNELS.items()}
@@ -675,6 +730,10 @@ class Simulation:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self._wall_seconds = time.monotonic() - t0
+        if self.coll is not None:
+            # the run loop's collectives, before the report gathers the mesh
+            self.run_calls = dict(self.coll.calls)
+            self.run_bytes_sent = self.coll.bytes_sent
         if show_progress:
             print(file=log)
         self._chunks = chunks
@@ -704,7 +763,8 @@ class Simulation:
                    monitor, wallled) -> None:
         """One heartbeat line; its counters in one device-to-host read."""
         s = self.state.stats
-        lanes = [s.events.sum(), s.microsteps.sum(), s.rounds, s.q_occ_hwm.max()]
+        lanes = [s.events.sum(), s.microsteps.sum(), s.rounds, s.q_occ_hwm.max(),
+                 s.ici_bytes.sum()]
         extra = {}
         for key, group in (("fault", (s.faults_dropped, s.faults_delayed)),
                            ("bg", (s.fl_bg_bytes, s.fl_bg_dropped)),
@@ -712,8 +772,16 @@ class Simulation:
             if group[0] is not None:
                 extra[key] = (len(lanes), len(group))
                 lanes += [x.sum() for x in group]
-        vals = torch.stack(lanes).tolist()
-        self.engine.host_syncs += 1
+        rows = read_rows(self.engine, lanes)
+        # across ranks: sums, except the replicated rounds and background
+        # bytes (rank 0's) and the occupancy high-water (the maximum)
+        vals = [sum(c) for c in zip(*rows)]
+        vals[2], vals[3] = rows[0][2], max(r[3] for r in rows)
+        if "bg" in extra:
+            i, n = extra["bg"]
+            vals[i:i + n] = rows[0][i:i + n]
+        if self.rank != 0:
+            return
         got = {k: tuple(int(v) for v in vals[i:i + n]) for k, (i, n) in extra.items()}
         print(
             heartbeat_line(
@@ -724,7 +792,7 @@ class Simulation:
                 self.state.queue.t.shape[1] if self.cfg.pressure.active else None,
                 hbm=monitor.hwm_bytes() if monitor is not None else None,
                 ek=got.get("ek"), fct=got["fct"][0] if "fct" in got else None,
-                rt=wallled.rt_last if wallled is not None else None,
+                rt=wallled.rt_last if wallled is not None else None, ici=int(vals[4]),
             ),
             file=log,
         )
@@ -736,23 +804,46 @@ class Simulation:
         return (self.engine.host_syncs - syncs0 + (sup.syncs if sup is not None else 0)
                 + (resil.syncs if resil is not None else 0))
 
+    def _view(self):
+        """The state the report reads: this state on one device; across a
+        mesh every rank's shard gathered (a collective: every rank calls
+        it, the first time for each state)."""
+        if self.coll is None:
+            return self.state
+        cached = self._view_cache
+        if cached is None or cached[0] is not self.state:
+            cached = (self.state, gather_view(self.state, self.coll,
+                                              self.engine_cfg.hosts_per_shard))
+            self._view_cache = cached
+        return cached[1]
+
     def host_digests(self) -> np.ndarray:
-        """Per-host event digests as uint64."""
-        return self.state.stats.digest.cpu().numpy().view(np.uint64)
+        """Per-host event digests as uint64 (the real hosts)."""
+        d = self._view().stats.digest.cpu().numpy().view(np.uint64)
+        return d[:self._num_real]
 
     def stats_report(self) -> dict:
         report = self._base_report()
+        view, n = self._view(), self._num_real
+        if self.engine_cfg.hier_active:
+            # the hierarchical exchange's two tiers (the JAX package's block)
+            report["exchange"] = {
+                "kind": "hierarchical",
+                "block": self.engine_cfg.hier_block_size,
+                "ici_intra_bytes": int(view.stats.ici_intra.sum()),
+                "ici_inter_bytes": int(view.stats.ici_inter.sum()),
+            }
         if self.engine_cfg.wheel_active:
             # occupancy high-water and spills: the slot-sizing signal; the
             # wheel's own drop lane is zero by construction (spills route
             # around a full wheel)
-            s, w = self.state.stats, self.state.wheel
+            s, w = view.stats, view.wheel
             report["wheel"] = {
                 "slots": self.engine_cfg.wheel_slots,
                 "block": w.block,
-                "occupancy_hwm": int(s.wheel_occ_hwm.max()),
-                "spilled": int(s.wheel_spilled.sum()),
-                "dropped": int(w.dropped.sum()),
+                "occupancy_hwm": int(s.wheel_occ_hwm[:n].max()),
+                "spilled": int(s.wheel_spilled[:n].sum()),
+                "dropped": int(w.dropped[:n].sum()),
             }
         if self._gearctl is not None:
             report["gears"] = self._gearctl.report()
@@ -778,7 +869,7 @@ class Simulation:
                      else {"transients": 0, "replays": 0,
                            "max_replays": self.cfg.integrity.max_replays})
             if self.engine_cfg.integrity_dual:
-                d2 = self.state.stats.digest2.cpu().numpy().view(np.uint64)
+                d2 = view.stats.digest2.cpu().numpy().view(np.uint64)[:n]
                 block["determinism_digest2"] = f"{int(np.bitwise_xor.reduce(d2)):016x}"
             report["integrity"] = block
             if self._integrity_aborted:
@@ -796,7 +887,7 @@ class Simulation:
                 collector=getattr(self, "_flowcol", None))
         if self.engine_cfg.fluid_active:
             report["fluid"] = assemble_fluid_report(
-                stats=self.state.stats, fluid_state=self.state.fluid, cfg=self.engine_cfg)
+                stats=view.stats, fluid_state=view.fluid, cfg=self.engine_cfg)
         if getattr(self, "_memmon", None) is not None:
             report["memory"] = observatory_report(
                 self.engine, self.state, self.params, self._memmon,
@@ -825,16 +916,18 @@ class Simulation:
 
     def _model_host_view(self) -> dict:
         """The model state as host arrays, read once per state."""
-        st = self.state.model
+        st = self._view().model
         cached = getattr(self, "_model_view_cache", None)
         if cached is not None and cached[0] is st:
             return cached[1]
-        view = {k: v.cpu().numpy() for k, v in st.items()}
+        n = self._num_real
+        view = {k: v.cpu().numpy()[:n] for k, v in st.items()}
         self._model_view_cache = (st, view)
         return view
 
     def _base_report(self) -> dict:
-        s = {k: v.cpu().numpy() for k, v in self.state.stats._asdict().items()
+        state, n = self._view(), self._num_real
+        s = {k: v.cpu().numpy() for k, v in state.stats._asdict().items()
              if v is not None}
         wall = getattr(self, "_wall_seconds", None)
         sim_s = self.state.now / NS_PER_SEC
@@ -845,26 +938,29 @@ class Simulation:
             "sim_wall_ratio": (sim_s / wall) if wall else None,
             "rounds": int(s["rounds"]),
             "microsteps": int(s["microsteps"].sum()),
-            "events_processed": int(s["events"].sum()),
-            "packets_sent": int(s["pkts_sent"].sum()),
-            "packets_delivered": int(s["pkts_delivered"].sum()),
-            "packets_lost": int(s["pkts_lost"].sum()),
-            "packets_unreachable": int(s["pkts_unreachable"].sum()),
-            "packets_codel_dropped": int(s["pkts_codel_dropped"].sum()),
-            "queue_overflow_dropped": int(self.state.queue.dropped.sum()),
-            "packets_budget_dropped": int(s["pkts_budget_dropped"].sum()),
-            "faults_dropped": int(s["faults_dropped"].sum()) if "faults_dropped" in s else 0,
-            "faults_delayed": int(s["faults_delayed"].sum()) if "faults_delayed" in s else 0,
+            "events_processed": int(s["events"][:n].sum()),
+            "packets_sent": int(s["pkts_sent"][:n].sum()),
+            "packets_delivered": int(s["pkts_delivered"][:n].sum()),
+            "packets_lost": int(s["pkts_lost"][:n].sum()),
+            "packets_unreachable": int(s["pkts_unreachable"][:n].sum()),
+            "packets_codel_dropped": int(s["pkts_codel_dropped"][:n].sum()),
+            "queue_overflow_dropped": int(state.queue.dropped[:n].sum()),
+            "packets_budget_dropped": int(s["pkts_budget_dropped"][:n].sum()),
+            "faults_dropped": (int(s["faults_dropped"][:n].sum()) if "faults_dropped" in s
+                               else 0),
+            "faults_delayed": (int(s["faults_delayed"][:n].sum()) if "faults_delayed" in s
+                               else 0),
             "outbox_overflow_dropped": int(s["ob_dropped"].sum()),
-            # the all-to-all exchange's block sheds: none on one device
-            "alltoall_shed_dropped": 0,
+            # the all-to-all exchanges' block sheds (none on one device)
+            "alltoall_shed_dropped": int(s["a2a_shed"].sum()),
             "bucket_cache_rebuilds": int(s["bq_rebuilds"].sum()),
             "popk_deferred": int(s["popk_deferred"].sum()),
-            "queue_occupancy_hwm": int(s["q_occ_hwm"].max()),
+            "ici_bytes": int(s["ici_bytes"].sum()),
+            "queue_occupancy_hwm": int(s["q_occ_hwm"][:n].max()),
             # a geared run resets the device lane every chunk: fold in the
             # run-wide maximum kept here
             "outbox_send_hwm": max(int(s["outbox_hwm"].max()), self._ob_hwm_run),
-            "monotonic_violations": int(s["monotonic_violations"].sum()),
+            "monotonic_violations": int(s["monotonic_violations"][:n].sum()),
             "determinism_digest": f"{digest:016x}",
             "model_report": self.model.report(self._model_host_view(), self._model_hosts()),
             "device": str(self.device),
@@ -884,7 +980,7 @@ class Simulation:
             report = self.stats_report()
         with open(os.path.join(data_dir, "sim-stats.json"), "w") as f:
             json.dump(report, f, indent=2)
-        st = self.state.stats
+        st = self._view().stats
         lanes = {k: getattr(st, f).cpu().numpy() for k, f in (
             ("events_processed", "events"), ("packets_sent", "pkts_sent"),
             ("packets_delivered", "pkts_delivered"), ("packets_lost", "pkts_lost"),
@@ -919,6 +1015,36 @@ class Simulation:
         return data_dir
 
 
-def run_simulation(cfg: ConfigOptions, *, device=None) -> tuple[Simulation, dict]:
-    sim = Simulation(cfg, device=device)
+def _rank_run(coll, cfg: ConfigOptions, device_type: str, data_dir: str | None):
+    """One rank of a mesh run (core/mesh.py launch): build, run and, on rank
+    0, write the outputs; returns rank 0's report."""
+    dev = torch.device("cuda", coll.rank) if device_type == "cuda" else torch.device("cpu")
+    sim = Simulation(cfg, device=dev, coll=coll)
+    report = sim.run()
+    if coll.rank != 0:
+        return None
+    if data_dir is not None:
+        sim.write_outputs(data_dir, report)
+    return report
+
+
+def run_mesh(cfg: ConfigOptions, *, device=None, data_dir: str | None = None) -> dict:
+    """Run `cfg` over `general.parallelism` ranks (0: every visible card),
+    one process each: NCCL ranks on cuda:0..world-1, or gloo ranks on the
+    CPU. Rank 0 writes the outputs into `data_dir` (None: none) and its
+    report is returned."""
+    dev = resolve_device(device)
+    world = resolve_world(cfg.general.parallelism, dev)
+    cfg.check_world(world)
+    return launch(_rank_run, world, dev.type, (cfg, dev.type, data_dir))[0]
+
+
+def run_simulation(cfg: ConfigOptions, *, device=None) -> tuple[Simulation | None, dict]:
+    """Build and run `cfg` over `general.parallelism` ranks (0: every
+    visible card): (simulation, report) on one device; across ranks
+    (core/mesh.py) (None, rank 0's report)."""
+    dev = resolve_device(device)
+    if resolve_world(cfg.general.parallelism, dev) > 1:
+        return None, run_mesh(cfg, device=dev)
+    sim = Simulation(cfg, device=dev)
     return sim, sim.run()

@@ -12,8 +12,10 @@ churn, a lossy window and the supervisor) and 10 (tgen-TCP on a torus with
 the integrity sentinel) at any size, `fault_case` the fault plane's and
 `integrity_case` the sentinel's kernel inputs (K23, K24 and the lanes of
 K1, K10, K11), and `scribble_hook` a state change for the sentinel's replay
-seam. Used by chip_smoke.py and the tests; nothing on the simulation path
-imports it."""
+seam; `outbox_case` a shard's outbox for the exchange's pack (K29), and
+`mesh_runs` one rank's part of a series of runs across ranks
+(core/mesh.py). Used by chip_smoke.py and the tests; nothing on the
+simulation path imports it."""
 
 from __future__ import annotations
 
@@ -1207,3 +1209,53 @@ def flow_case(seed: int, h: int, e: int, records: int, dev, *,
                         T(r.integers(0, 1 << 30, 1)))
     return dict(lanes=lanes, ledger=ledger,
                 fl=[T(r.integers(0, 1 << 40, 1)) for _ in range(3)])
+
+
+def outbox_case(seed: int, h_local: int, b: int, world: int, dev="cpu", *, fill: float = 0.6,
+                shards=None, num_real: int | None = None) -> dict:
+    """A shard's random [h_local, b] outbox for the exchange's pack (K29):
+    a fraction `fill` of the slots valid (the rest t = TIME_MAX),
+    destinations drawn over the shards `shards` (default all) and capped
+    below `num_real` (padded hosts receive nothing), unique order keys and
+    times with many ties. Returns dict(dst, t, order, kind, payload) of
+    tensors on `dev`."""
+    r = np.random.default_rng([seed, 29])
+    shards = list(range(world)) if shards is None else list(shards)
+    dst = r.choice(shards, (h_local, b)) * h_local + r.integers(0, h_local, (h_local, b))
+    if num_real is not None:
+        dst = np.minimum(dst, num_real - 1)
+    valid = r.random((h_local, b)) < fill
+    t = np.where(valid, 1_000 + r.integers(0, 40, (h_local, b)) * 1_000_000, TIME_MAX)
+    src = np.arange(h_local)[:, None] + 3 * h_local
+    order = (src << 40) | (r.permutation(h_local * b).reshape(h_local, b) + 7)
+    arrays = {"dst": dst.astype(np.int32), "t": t.astype(np.int64),
+              "order": order.astype(np.int64),
+              "kind": r.integers(0, 1 << 17, (h_local, b)).astype(np.int32),
+              "payload": r.integers(-(1 << 31), 1 << 31, (h_local, b, 4)).astype(np.int32)}
+    return {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+
+
+def mesh_runs(coll, cases: list) -> list | None:
+    """One rank's part of a series of mesh runs (core/mesh.py launch
+    calls it in every rank): each case is (config dict, `Simulation.run`
+    keywords), built and run in turn over the rank's Collectives. Returns
+    rank 0's reports (None elsewhere), each with the run's collective
+    calls per kind in `mesh_calls` (the run loop's, the report's gather
+    excluded), the bytes this rank sent into them in `mesh_bytes_sent` and
+    the engine config as a dict in `engine_cfg`."""
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.sim import Simulation
+
+    dev = torch.device("cuda", coll.rank) if coll.device.type == "cuda" else coll.device
+    reports = []
+    for cfg, run_kw in cases:
+        sim = Simulation(ConfigOptions.from_dict(cfg), device=dev, coll=coll)
+        calls0, bytes0 = dict(coll.calls), coll.bytes_sent
+        rep = sim.run(progress=False, **run_kw)
+        # the run loop's collectives (the report's own gather excluded)
+        rep["mesh_calls"] = {k: v - calls0.get(k, 0) for k, v in sim.run_calls.items()
+                             if v > calls0.get(k, 0)}
+        rep["mesh_bytes_sent"] = sim.run_bytes_sent - bytes0
+        rep["engine_cfg"] = dataclasses.asdict(sim.engine_cfg)
+        reports.append(rep)
+    return reports if coll.rank == 0 else None

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K28 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K30 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -43,7 +43,12 @@ on random lanes. The observatories: K27 (`trace_round`) on
 planes, crash windows, a ring that wraps), K28 (`flow_append`) on
 `shadow_tpu_torch.testing.flow_case` columns (one denser than the ring:
 the wrap rule), K10's event-class lane on `chain_case` inputs and K17's
-flow-record lanes on `handler_case` inputs.
+flow-record lanes on `handler_case` inputs. The exchange across ranks: K29
+(`dshard_pack`) on `shadow_tpu_torch.testing.outbox_case` outboxes (rows
+that fit, a shed, empty shards, one shard, padded hosts, a gear slice, many
+sort tiles, the 40k leg's shard width), K30 (`exchange_unpack`) on the
+blocks of four shards and on a gather buffer, and K10, K11, K14 and K16 at
+a shard whose hosts start past 0 (`host_base`).
 Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
 repeats the check at the main path's shapes.
@@ -919,3 +924,128 @@ def test_memory_headroom_is_what_the_process_can_hold(dev):
     mon.sample()
     assert before - (1 << 30) - (64 << 20) <= mon.headroom_bytes() <= before - (1 << 30)
     del x
+
+
+# --------------------------------------------------------------------------
+# the exchange across ranks: K29 dshard_pack, K30 exchange_unpack, and the
+# chain's and the fluid plane's kernels on a shard that does not start at
+# host 0
+# --------------------------------------------------------------------------
+
+# (seed, h_local, budget, world, block, gear columns, outbox_case keywords):
+# rows that fit, a block small enough to shed, empty shards, every row to
+# one shard, padded hosts, a gear slice, and a sort over many 256-key tiles
+# (24,000 rows: the merge passes run) at the 40k leg's shard width
+PACK_GPU_CASES = {
+    "fit": (0, 12, 6, 4, 72, 0, {}),
+    "shed": (1, 12, 6, 4, 5, 0, {"fill": 0.9}),
+    "empty_shards": (2, 10, 4, 4, 40, 0, {"shards": [1, 3]}),
+    "all_to_one": (3, 16, 5, 4, 30, 0, {"shards": [2], "fill": 0.95}),
+    "padded": (4, 8, 6, 4, 48, 0, {"num_real": 29}),
+    "gear_slice": (5, 12, 8, 4, 24, 3, {"fill": 0.8}),
+    "many_tiles": (6, 2_000, 12, 4, 6_000, 0, {"fill": 0.7}),
+    "shard_width_40k": (7, 10_000, 12, 4, 30_000, 6, {"fill": 0.5}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(PACK_GPU_CASES))
+def test_dshard_pack_kernel_matches_plain(dev, case):
+    from shadow_tpu_torch.ops import exchange as pex
+    from shadow_tpu_torch.testing import outbox_case
+
+    seed, h, b, world, k, cols, kw = PACK_GPU_CASES[case]
+    ob = outbox_case(seed, h, b, world, dev, **kw)
+    args = (ob["dst"], ob["t"], ob["order"], ob["kind"], ob["payload"], h, world, k, cols)
+    got = pex.dshard_pack(*args)
+    want = pex.dshard_pack_plain(*args)
+    torch.cuda.synchronize()
+    assert_all_equal(got, want)
+    if case in ("shed", "all_to_one"):
+        assert int(want[2]) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hier", [False, True], ids=["alltoall", "hierarchical"])
+def test_exchange_unpack_kernel_matches_plain(dev, hier):
+    """Four shards' blocks exchanged as the all-to-all moves them (with
+    fill counts below the blocks' rows on the hierarchical path), and the
+    gather path's buffer with its trailing count row."""
+    from shadow_tpu_torch.ops import exchange as pex
+    from shadow_tpu_torch.testing import outbox_case
+
+    world, h, b, k = 4, 300, 6, 500
+    packs = [pex.dshard_pack_plain(*outbox_case(10 + i, h, b, world, dev, fill=0.8).values(),
+                                   h, world, k) for i in range(world)]
+    for j in range(world):
+        recv = torch.stack([packs[i][0][j] for i in range(world)])
+        counts = None
+        if hier:
+            counts = torch.stack([torch.clamp_max(packs[i][1][j], k) for i in range(world)])
+            counts = torch.clamp_min(counts - torch.arange(world, device=dev, dtype=torch.int32), 0)
+        got = pex.exchange_unpack(recv, j * h, h, counts)
+        want = pex.exchange_unpack_plain(recv, j * h, h, counts)
+        assert_all_equal(got, want)
+    buf = torch.cat([recv.reshape(world, k, -1), recv[:, :1]], dim=1)  # a trailing row
+    assert_all_equal(pex.exchange_unpack(buf, 2 * h, h, n=k),
+                     pex.exchange_unpack_plain(buf, 2 * h, h, n=k))
+    torch.cuda.synchronize()
+
+
+def _on_shard(cfg, params, world: int, rank: int):
+    """A case's config and params as rank `rank` of `world` equal shards:
+    the global host count, the host -> node map tiled over the shards (the
+    affine divide off, so every shard's nodes exist)."""
+    import dataclasses
+
+    h = cfg.num_hosts
+    cfg = dataclasses.replace(cfg, num_hosts=world * h, world=world, rank=rank,
+                              hosts_per_node=0)
+    return cfg, params._replace(node_of=params.node_of.repeat(world))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cfg6", "echo_jitter", "bursts_table"])
+def test_chain_kernels_on_a_shard_match_plain(dev, name):
+    """K10 and K11 at rank 2 of 4 (host_base = 300): order keys, route
+    sources (the 2-D table's source node) and the destination range read
+    global host ids."""
+    case = chain_case(3, 150, dev, **CHAIN_CASES[name])
+    cfg, params = _on_shard(case["cfg"], case["params"], 4, 2)
+    ev, active = case["ev"], case["active"]
+    got = pchain.event_ingress(clone_carry(case["carry"]), params, cfg, ev, active)
+    want = pchain.event_ingress_plain(clone_carry(case["carry"]), params, cfg, ev, active)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    args = (params, cfg, ev.t, case["dispatch"], case["window_end"], case["out"])
+    got = pchain.event_egress(clone_carry(case["carry"]), *args)
+    want = pchain.event_egress_plain(clone_carry(case["carry"]), *args)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    src = (want[2].order >> 40) & ((1 << 22) - 1)
+    assert int(src.min()) == 300
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("loss_max", [0.0, 0.3])
+def test_fluid_kernels_on_a_shard_match_plain(dev, loss_max):
+    """K14 (foreground bytes per link: source links and the destination
+    range global), K16 (per-host coupling at the shard's hosts) and K11's
+    counter draw keyed on the global host id, at rank 1 of 4."""
+    c = fluid_case(11, 64, 6, 4, dev, affine=False, loss_max=loss_max)
+    ch = c["chain"]
+    cfg, _ = _on_shard(c["cfg"], ch["params"], 4, 1)
+    node_of = c["node_of"].repeat(4)
+    ob = (c["ob_dst"], c["ob_t"], c["ob_payload"])
+    assert_all_equal([pfl.fluid_fg_link_bytes(cfg, *ob, node_of)],
+                     [pfl.fluid_fg_link_bytes_plain(cfg, *ob, node_of)])
+    st, fp = c["st"], c["fp"]
+    got = pfl.fluid_host_effects(cfg, fp, st, node_of)
+    want = pfl.fluid_host_effects_plain(cfg, fp, st, pfl.host_nodes(cfg, node_of, 64, 64))
+    assert_all_equal(bits(got), bits(want))
+    ccfg, params = _on_shard(ch["cfg"], ch["params"], 4, 1)
+    args = (params, ccfg, ch["ev"].t, ch["dispatch"], ch["window_end"], ch["out"],
+            ch["fluid_fx"])
+    got = pchain.event_egress(clone_carry(ch["carry"]), *args)
+    want = pchain.event_egress_plain(clone_carry(ch["carry"]), *args)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    torch.cuda.synchronize()

@@ -94,7 +94,8 @@ def test_yaml_run_matches_jax():
         "fluid_host_effects": 0, "tgen_handle": 0, "phold_handle": 0, "echo_handle": 0,
         "timer_handle": 0, "gossip_handle": 0, "circuit_handle": 0,
         "fault_down_resume": 0, "integrity_round_check": 0, "queue_migrate": 0,
-        "pressure_total": 0, "trace_round": 0, "flow_append": 0,
+        "pressure_total": 0, "trace_round": 0, "flow_append": 0, "dshard_pack": 0,
+        "exchange_unpack": 0,
     }  # the CPU path runs the plain versions, never a kernel
 
 
@@ -122,7 +123,17 @@ def test_anchor_shapes_resolve_like_jax():
 # under the scatter merge) or CPU delay, which the JAX package reads as
 # "off" and the port refuses
 UNSUPPORTED = {
-    "world": "general: {parallelism: 2}",
+    # world > 1 runs (tests/test_torch_mesh.py), except the planes that run
+    # on one rank only
+    "world": "general: {parallelism: 2}\npressure: {policy: escalate}",
+    "world_trace": "general: {parallelism: 2}\nobservability: {trace: true}",
+    "world_network": "general: {parallelism: 4}\nobservability: {network: true}",
+    "world_memory": "general: {parallelism: 2}\nobservability: {memory: true}",
+    "world_runtime": "general: {parallelism: 2}\nobservability: {runtime: true}",
+    "world_profile": "general: {parallelism: 2}\nobservability: {profile_dir: prof}",
+    "world_checkpoint": ("general: {parallelism: 2}\nfaults: {supervisor: "
+                         "{snapshot_every_chunks: 2, checkpoint_file: ck.npz}}"),
+    "exchange": "experimental: {exchange: ring}",
     "event_queue_block": "experimental: {event_queue_block: 5}",
     "microstep_events": "experimental: {microstep_events: 0}",
     "merge_gears": "experimental: {merge_gears: [0]}",
@@ -157,7 +168,7 @@ def test_unsupported_knob_raises(knob):
 
 
 @pytest.mark.parametrize("override", [
-    {"general.parallelism": "4"},
+    {"general.parallelism": "4", "observability.trace": "true"},
     {"experimental.microstep_events": "0"},
     {"experimental.merge_gears": "fast"},
 ])
@@ -221,6 +232,60 @@ def test_timer_wheel_rejects_kway_and_models_without_timers(monkeypatch):
         Simulation(load_config(text, is_text=True), device="cpu")
     with pytest.raises(ValueError, match="timer_kinds"):
         Engine(EngineConfig(num_hosts=4, stop_time=1, wheel_slots=4), PholdModel(), "cpu")
+
+
+def test_world_accepted_and_too_many_cards_refused(monkeypatch, tmp_path):
+    """`general.parallelism > 1` is accepted; more ranks than visible cards
+    is the JAX package's ConfigError, raised before anything is built (by
+    the Simulation, the run entry point and the CLI, exit code 2); an
+    in-process Simulation is one rank and needs the mesh's Collectives."""
+    cfg = load_config(_with("general: {parallelism: 4}"), is_text=True)
+    assert cfg.general.parallelism == 4
+    with pytest.raises(ValueError, match="Collectives"):
+        Simulation(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(ConfigError, match="parallelism=4 exceeds 2 available devices"):
+        Simulation(cfg)
+    with pytest.raises(ConfigError, match="exceeds 2"):
+        run_simulation(cfg)
+    path = tmp_path / "w.yaml"
+    path.write_text(_with("general: {parallelism: 4}"))
+    assert port_main([str(path)]) == 2
+
+
+def test_default_parallelism_on_four_cards(monkeypatch):
+    """`general.parallelism: 0` with four visible cards: an in-process
+    Simulation is one device's run (its world comes from its Collectives,
+    one without them), while `run_simulation` launches a rank on every
+    card. The card is faked: the kernel-limit check, the build's first
+    step on a card, reads the world and stops the build."""
+    import shadow_tpu_torch.sim as sim_mod
+
+    cfg = load_config(_with("general: {parallelism: 0}"), is_text=True)
+    assert cfg.general.parallelism == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(sim_mod, "resolve_device", lambda device=None: torch.device("cuda"))
+    seen = []
+
+    class Built(Exception):
+        pass
+
+    def limits(self, qcap):
+        seen.append(self.world)
+        raise Built
+
+    monkeypatch.setattr(Simulation, "_check_kernel_limits", limits)
+    with pytest.raises(Built):
+        Simulation(cfg)
+    assert seen == [1]
+    launched = []
+    monkeypatch.setattr(sim_mod, "launch",
+                        lambda fn, world, device_type, args: launched.append(
+                            (world, device_type)) or [{"ranks": world}])
+    assert run_simulation(cfg) == (None, {"ranks": 4})
+    assert launched == [(4, "cuda")]
 
 
 def test_unsupported_model_raises():
