@@ -228,7 +228,30 @@ line reports it):
      and on an outbox taken from a real anchor round (read as a world-4
      shard), K30 on the blocks as the all-to-all moves them (with the
      hierarchical fill counts) and on a gather buffer; exact equality, with
-     the timings of phase 2 at the 40k leg's shard.
+     the timings of phase 2 at the 40k leg's shard;
+ 39. the ensemble plane's kernels against their plain versions at bench
+     config 8's shape (R = 4 replicas of H = 4,096 rows, one replica done
+     and frozen): K31 (replica_window) in round and loop-test modes, static
+     and dynamic runahead, with and without per-row valves, and K32
+     (replica_fold) over the ledger's counter planes; and the replica lanes
+     of K2 (per-row pop limits), K4 and K13 (replica-local destinations,
+     the merge_rows bound and K13's fits flag per replica), K9, K10 and K11
+     (replica-local ids, per-replica window ends and link-fault windows),
+     a frozen replica's rows unchanged; exact equality, with the timings of
+     phase 2 and `torch.amin` over [R, H] as K31's yardstick;
+ 40. bench config 8 as configured (four PHOLD replicas of 4,096 hosts, 30
+     sim-s, seeds 1-4) through `shadow_tpu_torch.campaign.run_campaign`:
+     every replica's ledger row and the per-chunk signatures of the JAX
+     repo's tools/campaign.py, every kernel of the path launched once per
+     lockstep step; then the four seeds as solo Simulations, each with its
+     replica's digest and events, and fewer launches of every kernel and
+     fewer host syncs in the campaign than in the four solos together,
+     with both sides' walls and replica-rounds per wall-second;
+ 41. small campaigns card == CPU: a fault-schedule sweep (crash windows
+     padded, two loss windows) and a pair diverging by crash schedules (the
+     CPU's first divergent chunk); a seed sweep checkpointed every chunk,
+     killed by SIGKILL after its second checkpoint in a child and resumed
+     in another: the uninterrupted campaign's rows.
 
 Phase W (`--world 4`, four cards, one NCCL rank each), after three short
 warm-up runs (one per exchange kind; their digests must agree): the
@@ -251,9 +274,11 @@ table, the cards' `nvidia-smi` lines and the contract line with the card
 count.
 
 Every leg checks that its model's handler kernel launched exactly as
-often as K10 (one launch per event_body call), and no other handler.
+often as K10 (one launch per event_body call), and no other handler. The
+CPU sides of the card == CPU phases run in four spawned worker processes
+(one intra-op thread each) beside the card's runs, and end with the phase.
 The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 29, 32, 36, 38,
-4-6, 8-10, 13, 14, 16-20, 22, 23, 26-28, 30, 31, 33-35, 37, so that every
+39, 4-6, 8-10, 13, 14, 16-20, 22, 23, 26-28, 30, 31, 33-35, 37, 40, 41, so that every
 kernel's bound is counted before the profiles (5, 9) hold the kernels'
 in-path device times against it. A profiler reading below the
 kernel's bound (the least time the card needs for the work) is a
@@ -267,6 +292,7 @@ The last lines are the kernel table (one JSON object), the card's
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import subprocess
 import sys
@@ -612,6 +638,33 @@ N12, K12 = 100, 4
 # config 6's queue shapes: hosts, slots, block, K, push ports of a K = 4
 # tgen microstep (ingress requeue + the model's two pushes, per event)
 H6, C6, BLK6, K6, NP6 = 10_000, 28, 7, 4, 12
+# bench config 8 (the ensemble plane: a seed sweep of four PHOLD replicas
+# of 4,096 hosts, 30 sim-s) through the JAX repo's tools/campaign.py on the
+# CPU (PERF.md section 4): each replica's ledger row and the per-chunk xor
+# digest signatures
+_CFG8_SAME = {"rounds": 600, "done": True, "simulated_seconds": 30.0, "packets_lost": 0,
+              "packets_unreachable": 0, "packets_codel_dropped": 0, "queue_overflow_dropped": 0,
+              "faults_dropped": 0, "faults_delayed": 0, "monotonic_violations": 0}
+_CFG8_VARY = ("digest", "events_processed", "packets_sent", "packets_delivered",
+               "packets_budget_dropped", "microsteps")
+CFG8_ROWS = [{**_CFG8_SAME, "replica": i, "label": f"seed={i + 1}", **dict(zip(_CFG8_VARY, v))}
+             for i, v in enumerate([("0949a530f48fb0c6", 1977141, 989381, 987760, 2, 3770),
+                                    ("45971788d1356ee2", 1977656, 989641, 988015, 1, 3775),
+                                    ("a954ed6b019c6784", 1979003, 990299, 988704, 1, 3766),
+                                    ("3c7990e580582579", 1978389, 990016, 988373, 0, 3754)])]
+CFG8_SIGS = [
+    ["9ff6118d79cec361", "94dd2afe7a4f2cdf", "67f929273c063a6b", "e1f3b8ab2a03d49d"],
+    ["ff57fb9c1cc1382b", "9f902a988916b280", "a89f5fb39ee6b2a8", "491127d77903caf1"],
+    ["4c6e9fa7138f793f", "77b2c6f1b02d4227", "e82a62a8c5593ad8", "d5760c7f3250d772"],
+    ["5818e40f319162dd", "842d127b2ad8fe4f", "4766c7600ae83c82", "093c11fe96a553e1"],
+    ["8e76e0e871eede43", "17d8b092e7430829", "273db6e383b8f7f0", "1331f41a1322aee2"],
+    ["93f31ae3d57a9fe5", "244171ddc02106be", "75d82753e8f08094", "b5d6245e4ff600d2"],
+    ["1f241b758539d4f2", "bf0a16fbf42c9f71", "f4c42aadf445f402", "48fbffa65e7aa9d5"],
+    ["295f54d556d08af8", "725edecd0b07265a", "817e0c022ea4db19", "d6f19ff30d031f11"],
+    ["c89c0c76b3275c5e", "52811134af6a4637", "20b9d608c3bdf07b", "24a9ea1d85c5d5c1"],
+    ["0949a530f48fb0c6", "45971788d1356ee2", "a954ed6b019c6784", "3c7990e580582579"]
+]
+H8, R8 = 4096, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (fp32 table entry)
 # NP: push ports per microstep on the anchor's path (ingress requeue + PHOLD's one
@@ -2727,6 +2780,8 @@ KERNEL_SYMBOLS = {
     "flow_append": ("flow_append_kernel",),
     "dshard_pack": ("dshard_",),
     "exchange_unpack": ("exchange_unpack_kernel",),
+    "replica_window": ("replica_window_kernel",),
+    "replica_fold": ("replica_fold_kernel",),
 }
 # the microstep's per-event steps, marked as profiler ranges in phases 5 and 9
 RANGES = ("ingress", "handler", "egress", "outbox_append")
@@ -3029,25 +3084,41 @@ def run_config(cfg_dict: dict, device, **run_kw) -> dict:
     return sim.run(progress=False, **run_kw)
 
 
+def _one_thread() -> None:
+    """A CPU worker's set-up: one intra-op thread (tiny tensors)."""
+    torch.set_num_threads(1)
+
+
+# processes that run card_vs_cpu's CPU sides while this one runs the card's
+CPU_WORKERS = 4
+
+
 def card_vs_cpu(phase: str, configs: dict, keys: tuple) -> dict:
     """Run each config (a dict, or (dict, run arguments)) on the card and on
     the CPU (one intra-op thread: tiny tensors); their reports must agree
-    on `keys`. Returns the card's reports."""
+    on `keys`. The CPU runs go to a pool of spawned worker processes, all
+    submitted before the card's first run, so they overlap the card's runs
+    and each other. Returns the card's reports."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     out = {}
-    prev_threads = torch.get_num_threads()
-    for name, cfg in configs.items():
-        cfg, run_kw = cfg if isinstance(cfg, tuple) else (cfg, {})
-        a = run_config(cfg, None, **run_kw)
-        torch.set_num_threads(1)
-        try:
-            b = run_config(cfg, "cpu", **run_kw)
-        finally:
-            torch.set_num_threads(prev_threads)
-        same = {k: a.get(k) == b.get(k) for k in keys}
-        emit(phase, name=name, cuda={k: a.get(k) for k in keys}, equal_to_cpu=all(same.values()))
-        if not all(same.values()):
-            raise AssertionError(f"{name}: card and CPU reports differ: {same}")
-        out[name] = a
+    items = [(name, *(cfg if isinstance(cfg, tuple) else (cfg, {})))
+             for name, cfg in configs.items()]
+    with ProcessPoolExecutor(max_workers=min(len(items), CPU_WORKERS),
+                             mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_one_thread) as pool:
+        cpu = {name: pool.submit(run_config, cfg, "cpu", **run_kw)
+               for name, cfg, run_kw in items}
+        for name, cfg, run_kw in items:
+            a = run_config(cfg, None, **run_kw)
+            b = cpu[name].result()
+            same = {k: a.get(k) == b.get(k) for k in keys}
+            emit(phase, name=name, cuda={k: a.get(k) for k in keys},
+                 equal_to_cpu=all(same.values()))
+            if not all(same.values()):
+                raise AssertionError(f"{name}: card and CPU reports differ: {same}")
+            out[name] = a
     return out
 
 
@@ -3156,7 +3227,9 @@ SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
            "trace_round": "shadow_tpu_torch/csrc/obs.cu",
            "flow_append": "shadow_tpu_torch/csrc/obs.cu",
            "dshard_pack": "shadow_tpu_torch/csrc/exchange.cu",
-           "exchange_unpack": "shadow_tpu_torch/csrc/exchange.cu"}
+           "exchange_unpack": "shadow_tpu_torch/csrc/exchange.cu",
+           "replica_window": "shadow_tpu_torch/csrc/ensemble.cu",
+           "replica_fold": "shadow_tpu_torch/csrc/ensemble.cu"}
 REPLACES = {
     "queue_next_time": "shadow_tpu/ops/events.py:129",
     "queue_pop_min": "shadow_tpu/ops/events.py:138",
@@ -3188,6 +3261,8 @@ REPLACES = {
     "flow_append": "shadow_tpu/core/engine.py:2661",
     "dshard_pack": "shadow_tpu/ops/merge.py:136",
     "exchange_unpack": "shadow_tpu/core/engine.py:3379",
+    "replica_window": "shadow_tpu/core/ensemble.py:272",
+    "replica_fold": "shadow_tpu/core/ensemble.py:319",
 }
 # the kernels only a world > 1 run launches (phase W, `--world 4`): the
 # one-card run's table gives them 0 launches, with that note
@@ -3216,6 +3291,8 @@ PORTED_FOR = {
     "flow_append": "tgen",
     "dshard_pack": "scale40k_w4_alltoall",
     "exchange_unpack": "scale40k_w4_alltoall",
+    "replica_window": "cfg8",
+    "replica_fold": "cfg8",
 }
 
 
@@ -3441,6 +3518,361 @@ def phase_cross_device(cfg_dict: dict, want: dict, keys: tuple) -> dict:
                     raise AssertionError(f"checkpoint {src} -> {dst}: {got} != {want}")
     finally:
         torch.set_num_threads(prev_threads)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phases 39-41: the ensemble plane
+# --------------------------------------------------------------------------
+
+
+def phase_kernels_ensemble(dev) -> dict[str, dict]:
+    """K31 (replica_window) and K32 (replica_fold) against their plain
+    versions at bench config 8's shape (R = 4 replicas of H = 4,096 rows;
+    one replica done and frozen, one empty), K31 in round and loop-test
+    modes (static and dynamic runahead, with and without per-row valves),
+    K32 over the ledger's 11 counter planes and the digest alone; and the
+    replica lanes of K2 (per-row pop limits), K4, K13 (replica-local
+    destinations, per-replica merge_rows bound and fits flag), K9 (per-
+    replica counters), K10 and K11 (replica-local ids, per-replica window
+    ends and link-fault windows, route rows held once) at R = 4, H = 4,096,
+    with a frozen replica whose rows must come out unchanged. Exact
+    equality; timings as phase 2's, with `torch.amin` over [R, H] as K31's
+    library yardstick."""
+    from shadow_tpu_torch.core.engine import make_empty_outbox
+    from shadow_tpu_torch.ops import chain
+    from shadow_tpu_torch.ops import ensemble as ens
+    from shadow_tpu_torch.ops import events as ev
+    from shadow_tpu_torch.ops import merge
+    from shadow_tpu_torch.testing import (
+        clone_carry,
+        ensemble_case,
+        flat_tensors,
+        replica_chain_case,
+        replica_merge_case,
+    )
+
+    n = R8 * H8
+    results = {}
+    case = ensemble_case(39, R8, H8, dev)
+    err = 0.0
+    for dynamic in (False, True):
+        kw = dict(rows=H8, stop=case["stop"], runahead=50_000_000, floor=1_000_000,
+                  dynamic=dynamic, min_used=case["min_used"], limit=32)
+        got = [case["lanes"].clone(), torch.full((n,), -1, dtype=torch.int64, device=dev)]
+        want = [x.clone() for x in got]
+        ens.replica_window(ens.ROUND, case["nt"], *got, **kw)
+        ens.replica_window_plain(ens.ROUND, case["nt"], *want, **kw)
+        err = max(err, check_equal(f"K31 round dynamic={dynamic}", got, want))
+        for valve in (None, case["valve"]):
+            for step in range(3):
+                ens.replica_window(ens.LOOP, case["nt"], *got, valve=valve,
+                                   ob_count=case["ob_count"], **kw)
+                ens.replica_window_plain(ens.LOOP, case["nt"], *want, valve=valve,
+                                         ob_count=case["ob_count"], **kw)
+                err = max(err, check_equal(f"K31 loop {dynamic} {valve is None} {step}", got,
+                                           want))
+        if bool(got[1].view(R8, H8)[R8 - 1].any()) or int(got[0][ens.WEND, R8 - 1]) != 12_345:
+            raise AssertionError("K31: the frozen replica's rows or lanes changed")
+    kw = dict(rows=H8, stop=case["stop"], runahead=50_000_000, floor=1_000_000, dynamic=False,
+              min_used=case["min_used"], limit=32)
+    lanes0 = case["lanes"].clone()
+    ens.replica_window(ens.ROUND, case["nt"], lanes0, None, **kw)
+
+    def loop_setup():
+        return lanes0.clone(), torch.empty((n,), dtype=torch.int64, device=dev)
+
+    r = kernel_ms("replica_window", lambda la, po: ens.replica_window(
+        ens.LOOP, case["nt"], la, po, ob_count=case["ob_count"], **kw), loop_setup)
+    r["plain_ms"] = time_ms(lambda la, po: ens.replica_window_plain(
+        ens.LOOP, case["nt"], la, po, ob_count=case["ob_count"], **kw), loop_setup)
+    r["library_ms"] = time_ms(lambda: torch.amin(case["nt"].view(R8, H8), 1))
+    r["library_call"] = "torch.amin(nt.view(R, H), 1)"
+    # the loop test's work: the next times read, the pop limits written, the
+    # lane block read and written, the counts read; one compare per row
+    r["bound"] = bound(n * 8 + n * 8 + 2 * ens.LANES * R8 * 8 + R8 * 4, n)
+    r["round_mode"] = kernel_ms("replica_window", lambda la: ens.replica_window(
+        ens.ROUND, case["nt"], la, None, **kw), lambda: (case["lanes"].clone(),))
+    r["round_mode"]["bound_ms"] = bound(n * 8 + 2 * ens.LANES * R8 * 8, n)[0]
+    r["shape"] = {"replicas": R8, "rows_per_replica": H8, "mode": "loop test, K = 1"}
+    r["max_abs_err"] = err
+    results["replica_window"] = settle("replica_window", r, r["bound"][0])
+
+    err = 0.0
+    for f in (0, 11):
+        c = ensemble_case(40 + f, R8, H8, dev, fields=f)
+        for n_real in (H8, H8 - H8 // 32):
+            err = max(err, check_equal(
+                f"K32 fields={f} n_real={n_real}",
+                [ens.replica_fold(c["digest"], c["fields"], R8, n_real)],
+                [ens.replica_fold_plain(c["digest"], c["fields"], R8, n_real)]))
+    c = ensemble_case(51, R8, H8, dev)
+    r = kernel_ms("replica_fold", lambda: ens.replica_fold(c["digest"], c["fields"], R8))
+    r["plain_ms"] = time_ms(lambda: ens.replica_fold_plain(c["digest"], c["fields"], R8, H8))
+    r["library_ms"] = None
+    r["library_why"] = "no PyTorch call xor-reduces; the sums alone need a stack first"
+    r["bound"] = bound(12 * n * 8 + R8 * 12 * 8, 12 * n)
+    r["shape"] = {"replicas": R8, "rows_per_replica": H8, "fields": 11}
+    r["max_abs_err"] = err
+    results["replica_fold"] = settle("replica_fold", r, r["bound"][0])
+
+    # the replica lanes of the round's other kernels, at config 8's shape
+    lanes = {}
+    q_np, ob_np = replica_merge_case(39, R8, H8, 16, 6, 6, ("fit", "hot", "full", "empty"))
+    rows = [torch.as_tensor(a, device=dev) for a in ob_np]
+    queue = ev.EventQueue(*(torch.as_tensor(a, device=dev) for a in q_np))
+    for name, fn, plain in (("merge_insert", merge.merge_flat_events,
+                             merge.merge_flat_events_plain),
+                            ("merge_scatter", merge.merge_scatter_free,
+                             merge.merge_scatter_free_plain)):
+        e = 0.0
+        for urgency in (True, False):
+            for merge_rows in (0, 9000):
+                got = fn(clone_q(queue), *rows, None, 16, urgency, merge_rows=merge_rows,
+                         rows_per_rep=H8)
+                want = plain(clone_q(queue), *rows, None, 16, urgency, merge_rows=merge_rows,
+                             rows_per_rep=H8)
+                e = max(e, check_equal(f"{name} replicas {urgency} {merge_rows}", got, want))
+                check_equal(f"{name} frozen replica", [x[3 * H8:] for x in got],
+                            [x[3 * H8:] for x in queue])
+        t = kernel_ms(name, lambda qq: fn(qq, *rows, None, 16, rows_per_rep=H8),
+                      lambda: (clone_q(queue),))
+        t["plain_ms"] = time_ms(lambda qq: plain(qq, *rows, None, 16, rows_per_rep=H8),
+                                lambda: (clone_q(queue),))
+        t["bound"] = bound(io_bytes(reads=[*rows, queue.t]) + int(
+            (want.t != queue.t).sum()) * (8 + 8 + 4 + 4 * P), n * 6)
+        t["max_abs_err"] = e
+        lanes[name] = t
+    lim = torch.as_tensor(np.repeat([10**9, 0, 5 * 10**8, 0], H8), device=dev)
+    qp = ev.EventQueue(*(torch.as_tensor(a, device=dev) for a in q_np))
+    got = ev.pop_min(clone_q(qp), lim, rows=True)
+    want = ev.pop_min_plain(clone_q(qp), lim)
+    t = kernel_ms("queue_pop_min", lambda qq: ev.pop_min(qq, lim, rows=True),
+                  lambda: (clone_q(qp),))
+    t["plain_ms"] = time_ms(lambda qq: ev.pop_min_plain(qq, lim), lambda: (clone_q(qp),))
+    t["bound"] = bound(io_bytes(reads=[qp.t, qp.order, lim], writes=flat_tensors(got[1:])), n)
+    t["max_abs_err"] = check_equal("K2 per-row limits", flat_tensors(got), flat_tensors(want))
+    lanes["queue_pop_min"] = t
+
+    for name, kw in (("anchor", dict(n_push=1, sends=((1, False, False),), route="const",
+                                     budget=6)),
+                     ("faults", dict(n_push=1, sends=((1, False, False),), route="node_of",
+                                     budget=6, restart_queue="hold", loss_windows=2))):
+        case = replica_chain_case(39, R8, H8, dev, frozen=(R8 - 1,), **kw)
+        cfg, params, e, act = case["cfg"], case["params"], case["ev"], case["active"]
+        c0 = case["carry"]
+
+        def fresh():  # K10's hold lane writes the time lane in place
+            return e._replace(t=e.t.clone())
+
+        gi = chain.event_ingress(clone_carry(c0), params, cfg, fresh(), act)
+        wi = chain.event_ingress_plain(clone_carry(c0), params, cfg, fresh(), act)
+        e10 = check_equal(f"K10 replicas {name}", flat_tensors(gi), flat_tensors(wi))
+        et = e._replace(t=wi[1].t)
+        out, disp, we = case["out"], case["dispatch"], case["window_end"]
+        go = chain.event_egress(clone_carry(wi[0]), params, cfg, et.t, disp, we, out)
+        wo = chain.event_egress_plain(clone_carry(wi[0]), params, cfg, et.t, disp, we, out)
+        e11 = check_equal(f"K11 replicas {name}", flat_tensors(go), flat_tensors(wo))
+        frozen = slice((R8 - 1) * H8, R8 * H8)
+        for x, y in zip(flat_tensors(go[0]), flat_tensors(c0)):
+            if x.shape[:1] == (n,) and not torch.equal(x[frozen], y[frozen]):
+                raise AssertionError(f"K10/K11 replicas {name}: a frozen row changed")
+        ob = make_empty_outbox(n, 6, dev, R8)
+        lost = torch.zeros((R8,), dtype=torch.int64, device=dev)
+        g9 = chain.outbox_append_multi(clone_carry(ob), [go[2]], lost.clone())
+        w9 = chain.outbox_append_multi_plain(clone_carry(ob), [wo[2]], lost.clone())
+        e9 = check_equal(f"K9 replicas {name}", flat_tensors(g9), flat_tensors(w9))
+        if int(g9[0].count[R8 - 1]):
+            raise AssertionError("K9 replicas: the frozen replica appended")
+        if name != "anchor":
+            continue
+        t = kernel_ms("event_ingress", lambda cc: chain.event_ingress(cc, params, cfg, e, act),
+                      lambda: (clone_carry(c0),))
+        t["plain_ms"] = time_ms(lambda cc: chain.event_ingress_plain(cc, params, cfg, e, act),
+                                lambda: (clone_carry(c0),))
+        t["bound"] = bound(io_bytes(reads=[e.t, e.order, e.kind, act],
+                                    inplace=list(zip(flat_tensors(c0.stats),
+                                                     flat_tensors(wi[0].stats)))), 300 * n)
+        t["max_abs_err"] = e10
+        lanes["event_ingress"] = t
+        t = kernel_ms("event_egress", lambda cc: chain.event_egress(
+            cc, params, cfg, et.t, disp, we, out), lambda: (clone_carry(wi[0]),))
+        t["plain_ms"] = time_ms(lambda cc: chain.event_egress_plain(
+            cc, params, cfg, et.t, disp, we, out), lambda: (clone_carry(wi[0]),))
+        t["bound"] = bound(io_bytes(reads=[et.t, disp], writes=[*wo[2], wo[3]],
+                                    inplace=list(zip(flat_tensors([wi[0].stats, wi[0].rng]),
+                                                     flat_tensors([wo[0].stats, wo[0].rng])))),
+                           600 * n)
+        t["max_abs_err"] = e11
+        lanes["event_egress"] = t
+        t = kernel_ms("outbox_append", lambda o, lo: chain.outbox_append_multi(
+            o, [go[2]], lo), lambda: (clone_carry(ob), lost.clone()))
+        t["plain_ms"] = time_ms(lambda o, lo: chain.outbox_append_multi_plain(
+            o, [wo[2]], lo), lambda: (clone_carry(ob), lost.clone()))
+        t["bound"] = bound(io_bytes(reads=[go[2].mask, go[2].col],
+                                    writes=[x[:int(go[2].mask.sum())] for x in
+                                            (go[2].dst, go[2].t, go[2].order, go[2].kind)]), n)
+        t["max_abs_err"] = e9
+        lanes["outbox_append"] = t
+    for k, t in lanes.items():
+        t["bound_ms"] = t.pop("bound")[0]
+        t["shape"] = {"replicas": R8, "rows_per_replica": H8}
+        results[f"{k}_replicas"] = t
+    return results
+
+
+def phase_cfg8() -> tuple[dict, dict]:
+    """Bench config 8 as configured through `run_campaign` on the card,
+    every launch counter set to 0 just before and read just after: each
+    replica's ledger row and the per-chunk signatures must equal the JAX
+    repo's tools/campaign.py (the constants), every kernel of the path must
+    have launched, each per lockstep step (K10's launches between the
+    busiest replica's microsteps and their sum, K31's one per round and
+    loop test). Then the four seeds as solo Simulations, whose digests and
+    events must equal their replicas'; the campaign's launches of every
+    kernel and its host syncs must be below the solos' sums. Prints the
+    walls, syncs and launches and the replica-rounds per wall-second of
+    both. Returns (the campaign's launches, the summary)."""
+    from shadow_tpu_torch.campaign import expand_replicas, replica_config_dict, run_campaign
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.sim import KERNELS, Simulation
+    from shadow_tpu_torch.testing import cfg8_config
+
+    cfg = cfg8_config()
+    for k in KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    led = run_campaign(cfg, log=io.StringIO())
+    total = time.monotonic() - t0
+    launches = {k: v.launches for k, v in KERNELS.items()}
+    camp = led["campaign"]
+    rr = sum(row["rounds"] for row in led["replicas"])
+    out = {"campaign": {"wall_seconds": camp["wall_seconds"],
+                        "build_seconds": camp["build_seconds"],
+                        "build_and_run_seconds": total, "host_syncs": camp["host_syncs"],
+                        "replica_rounds": rr, "replica_rounds_per_s": rr / camp["wall_seconds"],
+                        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                        "launches": {k: v for k, v in launches.items() if v}}}
+    emit("cfg8_campaign", rows_equal_to_jax=led["replicas"] == CFG8_ROWS,
+         chunk_sigs_equal_to_jax=led["chunk_digest_sigs"] == CFG8_SIGS,
+         digests=[row["digest"] for row in led["replicas"]], **out["campaign"])
+    if led["replicas"] != CFG8_ROWS or led["chunk_digest_sigs"] != CFG8_SIGS:
+        raise AssertionError(f"cfg8: the campaign's ledger differs from JAX's: {led['replicas']}")
+    path = ("queue_next_time", "queue_pop_min", "queue_push_many", "merge_insert",
+            *CHAIN_PATH, "phold_handle", "replica_window", "replica_fold")
+    steps = [row["microsteps"] for row in led["replicas"]]
+    if not all(launches[k] for k in path) or not (
+            max(steps) <= launches["event_ingress"] <= sum(steps)):
+        raise AssertionError(f"cfg8: a kernel of the path never launched, or not once per "
+                             f"lockstep step: {launches}")
+    solo_launch = {k: 0 for k in launches}
+    solo = {"wall_seconds": 0.0, "host_syncs": 0, "replica_rounds": 0}
+    for spec in expand_replicas(ConfigOptions.from_dict(cfg)):
+        sim = Simulation(ConfigOptions.from_dict(replica_config_dict(cfg, spec)))
+        rep = sim.run(progress=False)
+        row = led["replicas"][spec.index]
+        if (rep["determinism_digest"], rep["events_processed"]) != (
+                row["digest"], row["events_processed"]):
+            raise AssertionError(f"cfg8 solo {spec.label}: differs from its replica")
+        solo["wall_seconds"] += rep["wall_seconds"]
+        solo["host_syncs"] += rep["host_syncs"]
+        solo["replica_rounds"] += rep["rounds"]
+        for k, v in rep["kernel_launches"].items():
+            solo_launch[k] += v
+        emit("cfg8_solo", label=spec.label, digest=rep["determinism_digest"],
+             events=rep["events_processed"], wall_seconds=rep["wall_seconds"],
+             host_syncs=rep["host_syncs"], rounds=rep["rounds"], microsteps=rep["microsteps"])
+    solo["replica_rounds_per_s"] = solo["replica_rounds"] / solo["wall_seconds"]
+    solo["launches"] = {k: v for k, v in solo_launch.items() if v}
+    out["solos"] = solo
+    out["campaign_over_solos"] = out["campaign"]["replica_rounds_per_s"] / solo[
+        "replica_rounds_per_s"]
+    more = [k for k, v in solo_launch.items() if v and launches[k] >= v]
+    emit("cfg8_vs_solos", solos=solo, campaign_over_solos=out["campaign_over_solos"],
+         launches_not_below_solos=more)
+    if more or out["campaign"]["host_syncs"] >= solo["host_syncs"]:
+        raise AssertionError(f"cfg8: the campaign launches {more} or syncs no less than the "
+                             f"four solos together")
+    return launches, out
+
+
+# a child process of phase 41: run a campaign from a JSON file through the
+# campaign entry point (resuming from its checkpoint where asked)
+CAMPAIGN_CHILD = """
+import json, sys
+from shadow_tpu_torch.campaign import run_campaign
+with open(sys.argv[1]) as f:
+    cfg = json.load(f)
+led = run_campaign(cfg, resume=len(sys.argv) > 2)
+print(json.dumps(led["replicas"]))
+"""
+
+
+def phase_campaigns_small(tmp: str) -> dict:
+    """Small campaigns, card == CPU (the ledger's rows, per-chunk
+    signatures, identical pairs and divergences): the fault-schedule sweep
+    (crash windows padded, two loss windows on every replica) and the
+    forced divergence by crash schedules, whose first divergent chunk must
+    be the CPU's; then a seed sweep with a checkpoint every chunk, in a
+    child process killed by SIGKILL after its second checkpoint and resumed
+    by a second child: the uninterrupted CPU campaign's rows."""
+    import os
+
+    from shadow_tpu_torch.campaign import run_campaign
+    from shadow_tpu_torch.testing import CAMPAIGNS, campaign_base
+
+    out = {}
+    prev = torch.get_num_threads()
+    for name in ("fault_sweep", "crash_ab"):
+        cfg = campaign_base(CAMPAIGNS[name])
+        a = run_campaign(cfg, log=io.StringIO())
+        torch.set_num_threads(1)
+        try:
+            b = run_campaign(cfg, log=io.StringIO(), device="cpu")
+        finally:
+            torch.set_num_threads(prev)
+        keys = ("replicas", "chunk_digest_sigs", "identical", "divergences")
+        same = {k: a[k] == b[k] for k in keys}
+        out[name] = {"digests": [r["digest"] for r in a["replicas"]],
+                     "faults_dropped": [r["faults_dropped"] for r in a["replicas"]],
+                     "faults_delayed": [r["faults_delayed"] for r in a["replicas"]],
+                     "divergences": a["divergences"], "equal_to_cpu": all(same.values())}
+        emit("campaign_small", name=name, **out[name])
+        if not all(same.values()):
+            raise AssertionError(f"{name}: the card's ledger differs from the CPU's: {same}")
+    if not out["crash_ab"]["divergences"][0]["first_divergent_chunk"]:
+        raise AssertionError("crash_ab: the pair did not diverge")
+    sweep = out["fault_sweep"]
+    if not (any(sweep["faults_dropped"]) and any(sweep["faults_delayed"])):
+        raise AssertionError("fault_sweep: no fault drop or delay was exercised")
+    cfg = campaign_base({"seeds": [1, 2, 3]}, data_directory=os.path.join(tmp, "data"))
+    cfg["faults"] = {"supervisor": {"snapshot_every_chunks": 1, "checkpoint_file": "camp"}}
+    torch.set_num_threads(1)
+    try:
+        want = run_campaign(cfg, log=io.StringIO(), device="cpu")["replicas"]
+    finally:
+        torch.set_num_threads(prev)
+    cfg_file = os.path.join(tmp, "camp.json")
+    with open(cfg_file, "w") as f:
+        json.dump(cfg, f)
+    cmd = [sys.executable, "-c", CAMPAIGN_CHILD, cfg_file]
+    env = {**os.environ, "SHADOW_TPU_TORCH_TEST_KILL_AT_CHECKPOINT": "2"}
+    killed = subprocess.run(cmd, env=env, capture_output=True, text=True)
+    ck = os.path.join(tmp, "data", "camp.npz")
+    if killed.returncode != -9 or not os.path.exists(ck):
+        raise AssertionError(f"the campaign child was not killed at its checkpoint: "
+                             f"rc {killed.returncode}\n{killed.stderr[-2000:]}")
+    resumed = subprocess.run(cmd + ["--resume"], capture_output=True, text=True)
+    if resumed.returncode != 0:
+        raise AssertionError(f"the resumed campaign failed:\n{resumed.stderr[-2000:]}")
+    got = json.loads(resumed.stdout.strip().splitlines()[-1])
+    out["kill_and_resume"] = {"killed_rc": killed.returncode,
+                              "digests": [r["digest"] for r in got],
+                              "equal_to_uninterrupted_cpu": got == want}
+    emit("campaign_kill_and_resume", **out["kill_and_resume"])
+    if got != want:
+        raise AssertionError("the resumed campaign differs from the uninterrupted one")
     return out
 
 
@@ -3790,6 +4222,16 @@ def main() -> int:
     emit("kernels_exchange_vs_plain", ok=True, exact=True,
          **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in xres.items()})
     kres.update(xres)
+
+    # phase 39: the ensemble plane's kernels (K31, K32) and the replica
+    # lanes of the round's kernels at bench config 8's shape
+    eres = phase_kernels_ensemble(dev)
+    emit("kernels_ensemble_vs_plain", ok=True, exact=True,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in eres.items()})
+    for row in ("queue_pop_min", "merge_insert", "merge_scatter", "outbox_append",
+                "event_ingress", "event_egress"):
+        kres[row]["replicas"] = eres.pop(f"{row}_replicas")
+    kres.update(eres)
     emit("world_gt1", started=False, cards=torch.cuda.device_count(),
          reason="one card cannot hold a NCCL communicator of four ranks; the world-4 legs "
                 "run under `chip_smoke.py --world 4` on four cards")
@@ -3970,6 +4412,15 @@ def main() -> int:
         res = phase_observed_resume(tmp)
     launches["anchor_observed"] = res.pop("launches")
     emit("anchor_observed_resume", **res)
+
+    # phase 40: bench config 8 as configured through the campaign driver,
+    # against the JAX ledger, and its four seeds as solo runs
+    launches["cfg8"], _ = phase_cfg8()
+
+    # phase 41: small campaigns card == CPU, and a campaign killed and
+    # resumed
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_campaigns_small(tmp)
     emit("total", seconds=round(time.monotonic() - t_start, 3))
 
     table = []
@@ -3995,7 +4446,7 @@ def main() -> int:
             **({"library_call": r["library_call"]} if "library_call" in r else {}),
             **{lane: {k: r[lane][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
                for lane in ("busy_floor", "cpu_delay", "merge_rows", "fault_floor", "fault_hold",
-                            "digest2", "fault_window", "event_classes", "flow_lanes")
+                            "digest2", "fault_window", "event_classes", "flow_lanes", "replicas")
                if lane in r},
         })
     print(json.dumps({"kernels": table}), flush=True)

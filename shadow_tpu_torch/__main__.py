@@ -11,6 +11,10 @@ error, including every knob the port does not support yet.
 With `general.parallelism: N` (N > 1; 0 = every visible card) the command
 launches N ranks itself (core/mesh.py): NCCL ranks on cuda:0..N-1, or with
 `--device cpu` N gloo processes; rank 0 writes the outputs.
+
+A config with a `campaign:` block (a sweep of replicas) exits 2 with a
+pointer to `python -m shadow_tpu_torch.campaign CONFIG.yaml`, which runs
+it; no replica runs alone here.
 """
 
 from __future__ import annotations

@@ -12,7 +12,8 @@ never silently run with a plane switched off:
     `network`, `memory`, `runtime`, `profile_dir`), on-disk checkpoints
     (`faults.supervisor.checkpoint_file`) and `pressure.policy: escalate`;
   - `experimental.scheduler: cpu-reference`;
-  - any non-empty `campaign` block;
+  - a `campaign` block at world > 1 (the ensemble plane, `campaign.py`,
+    runs on one device; `CampaignOptions` is the JAX package's parse);
   - `pcap_enabled`, managed processes (`path:`), and models other than
     phold, udp_echo, timer, tgen_tcp, gossip and circuit (checked when
     the simulation is built).
@@ -833,12 +834,143 @@ class ObservabilityOptions:
         return o
 
 
-def _reject_block(name: str, d: Any) -> None:
-    """Optional planes of the JAX package: an absent or empty block is the
-    plane switched off; anything else names what the port cannot run."""
-    if not d:
-        return
-    raise _unsupported(f"the `{name}` block")
+@dataclass
+class CampaignOptions:
+    """The ensemble plane's sweep declaration (the JAX package's, copied:
+    core/ensemble.py + campaign.py): one folded round loop advances R
+    replicas — seed sweeps, fault-schedule sweeps, A/B override pairs —
+    with each replica bit-identical to its solo run.
+
+    Replicas are the CROSS PRODUCT of the declared axes (an omitted axis
+    contributes the base config), in (seed, fault_schedule, override)
+    nesting order — so replica indices are stable and documentable:
+    index = ((seed_i * len(fault_schedules)) + fault_i) * len(overrides)
+    + override_i."""
+
+    # seed axis: explicit list, or {start: S, count: N} for a range;
+    # empty = [general.seed]
+    seeds: list[int] = field(default_factory=list)
+    # fault-schedule axis: each entry is a full `faults:` block (injection
+    # fields only — the campaign's supervisor comes from the top-level
+    # faults block), kept as the RAW mapping (validated at parse) because
+    # the campaign driver expands replicas at the config-dict level;
+    # empty = [the top-level faults block]
+    fault_schedules: list[dict] = field(default_factory=list)
+    # override axis: each entry maps dotted config paths to values
+    # (the merge_cli_overrides syntax), e.g. {"experimental.cpu_delay": 2}.
+    # Only values that change ARRAYS may vary — anything that changes an
+    # EngineConfig static (shapes, queue layout, K, policies) is rejected
+    # at build time. empty = [{}]
+    overrides: list[dict] = field(default_factory=list)
+    # replica index pairs expected to end bit-identical (A/A controls, or
+    # A/B pairs whose delta should be inert); a pair that diverges is
+    # reported in the ledger and — when `bisect` is on — pinpointed to
+    # its first divergent chunk by snapshot-replay binary search
+    expect_identical: list[list[int]] = field(default_factory=list)
+    # per-replica digest ledger, written into general.data_directory
+    # (null disables)
+    ledger_file: str | None = "campaign-ledger.json"
+    bisect: bool = True
+    # replica-COUNT cap (cheap parse-time line of defense). The real memory
+    # guard is memory-informed at build time: campaign.py computes R x
+    # per-replica state bytes (obs/memory.py) against the measured device
+    # capacity and rejects with the predicted numbers.
+    max_replicas: int = 64
+
+    @property
+    def active(self) -> bool:
+        """True when the block declares any sweep axis."""
+        return bool(self.seeds or self.fault_schedules or self.overrides)
+
+    @property
+    def num_replicas(self) -> int:
+        return (
+            max(len(self.seeds), 1)
+            * max(len(self.fault_schedules), 1)
+            * max(len(self.overrides), 1)
+        )
+
+    @staticmethod
+    def from_dict(d: dict[str, Any] | None) -> "CampaignOptions":
+        d = dict(d or {})
+        seeds_raw = d.pop("seeds", []) or []
+        if isinstance(seeds_raw, dict):
+            sd = dict(seeds_raw)
+            start, count = int(sd.pop("start", 1)), int(sd.pop("count", 0))
+            if sd:
+                raise ConfigError(f"unknown campaign.seeds keys: {sorted(sd)}")
+            if count < 1:
+                raise ConfigError(
+                    f"campaign.seeds.count must be >= 1, got {count}"
+                )
+            seeds = list(range(start, start + count))
+        else:
+            seeds = [int(s) for s in seeds_raw]
+        scheds = []
+        for i, f in enumerate(d.pop("fault_schedules", []) or []):
+            f = dict(f or {})
+            parsed = FaultOptions.from_dict(f)  # loud validation up front
+            if parsed.supervisor.enabled or parsed.supervisor.checkpoint_file:
+                raise ConfigError(
+                    f"campaign.fault_schedules[{i}]: supervisor settings "
+                    f"belong in the top-level faults block (the supervisor "
+                    f"wraps the whole campaign, not one replica)"
+                )
+            scheds.append(f)
+        overrides = []
+        for i, ov in enumerate(d.pop("overrides", []) or []):
+            if ov is None:
+                ov = {}
+            if not isinstance(ov, dict):
+                raise ConfigError(
+                    f"campaign.overrides[{i}] must be a mapping of dotted "
+                    f"config paths to values, got {ov!r}"
+                )
+            overrides.append(dict(ov))
+        pairs = []
+        for i, p in enumerate(d.pop("expect_identical", []) or []):
+            if (
+                not isinstance(p, (list, tuple))
+                or len(p) != 2
+                or not all(isinstance(x, int) and x >= 0 for x in p)
+            ):
+                raise ConfigError(
+                    f"campaign.expect_identical[{i}] must be a pair of "
+                    f"replica indices, got {p!r}"
+                )
+            pairs.append([int(p[0]), int(p[1])])
+        c = CampaignOptions(
+            seeds=seeds,
+            fault_schedules=scheds,
+            overrides=overrides,
+            expect_identical=pairs,
+            ledger_file=d.pop("ledger_file", "campaign-ledger.json"),
+            bisect=bool(d.pop("bisect", True)),
+            max_replicas=int(d.pop("max_replicas", 64)),
+        )
+        if c.ledger_file is not None and not str(c.ledger_file):
+            raise ConfigError(
+                "campaign.ledger_file must be non-empty (use null to disable)"
+            )
+        if c.max_replicas < 1:
+            raise ConfigError(
+                f"campaign.max_replicas must be >= 1, got {c.max_replicas}"
+            )
+        if c.active and c.num_replicas > c.max_replicas:
+            raise ConfigError(
+                f"campaign declares {c.num_replicas} replicas, over "
+                f"max_replicas={c.max_replicas} (each replica holds a full "
+                f"SimState in device memory; raise the guard deliberately)"
+            )
+        for p in c.expect_identical:
+            if max(p) >= c.num_replicas:
+                raise ConfigError(
+                    f"campaign.expect_identical pair {p} references a "
+                    f"replica >= num_replicas={c.num_replicas}"
+                )
+        if d:
+            raise ConfigError(f"unknown campaign options: {sorted(d)}")
+        return c
 
 
 @dataclass
@@ -937,13 +1069,14 @@ class ConfigOptions:
     integrity: IntegrityOptions = field(default_factory=IntegrityOptions)
     pressure: PressureOptions = field(default_factory=PressureOptions)
     observability: ObservabilityOptions = field(default_factory=ObservabilityOptions)
+    campaign: CampaignOptions = field(default_factory=CampaignOptions)
 
     @staticmethod
     def from_dict(d: dict[str, Any]) -> "ConfigOptions":
         d = dict(d)
         if "general" not in d:
             raise ConfigError("`general` section is required")
-        _reject_block("campaign", d.pop("campaign", None))
+        campaign = CampaignOptions.from_dict(d.pop("campaign", None))
         observability = ObservabilityOptions.from_dict(d.pop("observability", None))
         pressure = PressureOptions.from_dict(d.pop("pressure", None))
         fluid = FluidOptions.from_dict(d.pop("fluid", None))
@@ -972,6 +1105,7 @@ class ConfigOptions:
             integrity=integrity,
             pressure=pressure,
             observability=observability,
+            campaign=campaign,
         )
         if d:
             raise ConfigError(f"unknown top-level sections: {sorted(d)}")
@@ -1007,6 +1141,12 @@ class ConfigOptions:
             raise _unsupported(f"pressure.policy=escalate with {world}",
                                "the capacity migration runs on one rank only; "
                                "drop and abort run sharded")
+        if self.campaign.active:
+            raise ConfigError(
+                "campaign: the ensemble plane runs world=1 this round "
+                "(a replica axis over a device mesh is a 2-D mesh "
+                "program); set general.parallelism to 1 or shard the "
+                "campaign across processes")
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)

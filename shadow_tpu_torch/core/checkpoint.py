@@ -1,8 +1,10 @@
 """Pre-chunk snapshots and on-disk checkpoints (port of the JAX package's
 `core/checkpoint.py`: `snapshot_state` / `restore_snapshot`, which the merge
 gears, the pressure plane, the integrity sentinel's replays and the run
-supervisor restore from, and `save_checkpoint` / `load_checkpoint` with the
-cross-capacity restore; its ensemble and hybrid functions are not ported).
+supervisor restore from, `save_checkpoint` / `load_checkpoint` with the
+cross-capacity restore, and the ensemble plane's `ensemble_fingerprint`,
+`save_ensemble_checkpoint` and `load_ensemble_checkpoint`; its hybrid
+functions are not ported).
 
 The queue, wheel, merge and per-event chain kernels update the state's
 tensors IN PLACE on CUDA (K3-K13). A snapshot that shared storage with the
@@ -18,7 +20,8 @@ copies again, so one snapshot survives any number of replays (a replay at
 a middle gear can shed again and need another restore).
 
 A checkpoint is the port's own format: one .npz of numpy arrays (every
-leaf of the state, the host scalars `now` and `done` included) with a
+leaf of the state, the host scalars `now` and `done` included, or on an
+ensemble state their [R] arrays) with a
 guard record (a sha256 of the engine config, the state's structure and the
 parameters; no device) and the state's shapes. A checkpoint whose config
 differs only in the capacity shapes resumes through the pressure plane's
@@ -73,8 +76,9 @@ class CheckpointError(Exception):
 
 def _leaves(x: Any, path: str = ""):
     """(path, leaf) over a tree of NamedTuples and dicts (dict keys in sorted
-    order); leaves are tensors, host ints and bools, and None."""
-    if x is None or isinstance(x, (torch.Tensor, bool, int, np.integer, np.bool_)):
+    order); leaves are tensors, numpy arrays, host ints and bools, and
+    None."""
+    if x is None or isinstance(x, (torch.Tensor, np.ndarray, bool, int, np.integer, np.bool_)):
         yield path, x
     elif isinstance(x, tuple) and hasattr(x, "_fields"):
         for f in x._fields:
@@ -91,6 +95,8 @@ def _kind(v: Any) -> str:
         return "none"
     if isinstance(v, torch.Tensor):
         return "tensor"
+    if isinstance(v, np.ndarray):
+        return "array"
     return "bool" if isinstance(v, (bool, np.bool_)) else "int"
 
 
@@ -103,8 +109,8 @@ def _treedef(state) -> str:
 def _rebuild(template: Any, values):
     """`template` with its leaves replaced, in `_leaves` order, from the
     iterator `values`."""
-    if template is None or isinstance(template, (torch.Tensor, bool, int, np.integer,
-                                                 np.bool_)):
+    if template is None or isinstance(template, (torch.Tensor, np.ndarray, bool, int,
+                                                 np.integer, np.bool_)):
         return next(values)
     if isinstance(template, tuple) and hasattr(template, "_fields"):
         return type(template)(*(_rebuild(getattr(template, f), values)
@@ -214,6 +220,10 @@ def _restore_leaves(data, template):
             if (arr.shape, arr.dtype) != want:
                 raise CheckpointError(f"leaf {i} ({path}): shape/dtype mismatch")
             values.append(torch.from_numpy(np.array(arr)).to(ref.device))
+        elif isinstance(ref, np.ndarray):
+            if (arr.shape, arr.dtype) != (ref.shape, ref.dtype):
+                raise CheckpointError(f"leaf {i} ({path}): shape/dtype mismatch")
+            values.append(np.array(arr))
         else:
             values.append(type(ref)(arr.item()))
     out = _rebuild(template, iter(values))
@@ -328,3 +338,53 @@ def load_checkpoint(path: str, sim) -> None:
                 "engine version — beyond the migratable capacity shapes)")
         restored = _restore_leaves(data, _shaped_template(sim.state, meta))
     sim.state = _migrate_restored(restored, sim)
+
+
+# --------------------------------------------------------------------------
+# ensemble checkpoints
+# --------------------------------------------------------------------------
+
+
+def ensemble_fingerprint(engine_cfg, state, params, replica_meta) -> str:
+    """Guard record of a campaign checkpoint (the JAX package's): the
+    reconciled EngineConfig, the folded state's structure, the folded
+    params' digest and the replicas' metadata (labels, seeds, schedules),
+    so a checkpoint of one campaign refuses to restore into a differently
+    composed one even where the shapes match."""
+    blob = json.dumps({
+        "cfg": dataclasses.asdict(engine_cfg),
+        "treedef": _treedef(state),
+        "params": _params_digest(params),
+        "replicas": replica_meta,
+    }, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def save_ensemble_checkpoint(path: str, state, fingerprint: str) -> str:
+    """Write a folded ensemble state as one .npz (the solo layout: every
+    leaf as `leaf_<i>`) guarded by `ensemble_fingerprint`. Returns the file
+    name (".npz" appended where missing)."""
+    arrays = {}
+    for i, (_, v) in enumerate(_leaves(state)):
+        if v is None:
+            continue
+        arrays[f"leaf_{i}"] = (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                               else np.asarray(v))
+    arrays["__guard__"] = np.frombuffer(fingerprint.encode(), dtype=np.uint8)
+    if not path.endswith(".npz"):
+        path += ".npz"
+    np.savez_compressed(path, **arrays)
+    return path
+
+
+def load_ensemble_checkpoint(path: str, state, fingerprint: str):
+    """Restore a folded ensemble state saved by `save_ensemble_checkpoint`
+    into a freshly built campaign of the same composition; `state` is its
+    fresh folded state (the template). Bucket caches are rebuilt from the
+    restored slabs, as on the solo path."""
+    with np.load(path, allow_pickle=False) as data:
+        if bytes(data["__guard__"]).decode() != fingerprint:
+            raise CheckpointError(
+                "ensemble checkpoint does not match this campaign (different "
+                "config, replica composition, or engine version)")
+        return _restore_leaves(data, state)

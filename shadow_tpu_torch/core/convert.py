@@ -56,10 +56,11 @@ _ZERO_WHEN_OFF = ("faults_dropped", "faults_delayed")
 
 def engine_config_from(jcfg, rank: int = 0) -> EngineConfig:
     """The port's EngineConfig for a JAX EngineConfig of this slice (rank
-    `rank` of its mesh: the JAX config has no rank)."""
+    `rank` of its mesh: the JAX config has no rank; one replica: the JAX
+    ensemble keeps its replicas outside the config)."""
     return EngineConfig(rank=rank, **{
         f.name: getattr(jcfg, f.name) for f in dataclasses.fields(EngineConfig)
-        if f.name != "rank"
+        if f.name not in ("rank", "replicas")
     })
 
 

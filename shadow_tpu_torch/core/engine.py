@@ -72,6 +72,17 @@ and `win_bound` per round, and with a flow ledger (`flow_records` > 0)
 the model's handler writes each event column's flow records (K17) and
 K28 appends a microstep's to the ledger ring.
 
+With `replicas` R > 1 (the ensemble plane, core/ensemble.py) the engine
+runs R replicas of one configuration folded into R x H rows of every
+per-host plane, so each kernel of a round launches once for all of them.
+Host ids, order keys, draws and destinations stay replica-local (K4, K9,
+K11, K13 take the rows per replica), and each replica keeps its own window,
+done flag, microstep count, used-latency minimum and scalar counters ([R]
+lanes; `now` and `done` host arrays): K31 computes every replica's barrier
+and loop test in one launch read back in one copy, and a replica that is
+done or past its loop test is frozen by a pop limit of 0 on its rows, so
+it keeps its carry bit for bit. Replica r equals its solo run.
+
 The slice is the JAX package's round loop: flat or bucketed queue, K >= 1,
 the timer wheel, merge gears, the scatter merge, the fluid plane, the fault
 plane, the integrity sentinel, the pressure plane and the observatories on
@@ -146,6 +157,18 @@ from shadow_tpu_torch.ops.events import (
     q_pop_min,
     q_push_many,
 )
+from shadow_tpu_torch.ops.ensemble import (
+    DONE,
+    LIVE,
+    LOOP,
+    PENDING,
+    ROUND,
+    SENDS,
+    STEPS,
+    WEND,
+    make_lanes,
+    replica_window,
+)
 from shadow_tpu_torch.ops.exchange import ROW_WORDS, dshard_pack, exchange_unpack, pack_words
 from shadow_tpu_torch.ops.merge import gear_shed_count, merge_flat_events, merge_scatter_free
 from shadow_tpu_torch.ops.obs import (
@@ -173,7 +196,8 @@ _FNV_OFFSET = u64(0xCBF29CE484222325)
 
 
 class Outbox(NamedTuple):
-    """This round's staged sends, [H, B]: host h's k-th send in column k."""
+    """This round's staged sends, [H, B]: host h's k-th send in column k
+    (with replicas, `count` holds one lane per replica)."""
 
     dst: torch.Tensor  # i32[H, B]
     t: torch.Tensor  # i64[H, B] arrival time; TIME_MAX = empty
@@ -255,7 +279,9 @@ class Stats(NamedTuple):
 
 
 class SimState(NamedTuple):
-    now: int  # completed-up-to time (host scalar)
+    # completed-up-to time and the done flag (host scalars; with replicas,
+    # int64 and bool numpy arrays [R])
+    now: int
     done: bool
     queue: EventQueue | BucketQueue
     rng: RngState
@@ -383,9 +409,23 @@ class EngineConfig:
     rank: int = 0
     exchange: str = "gather"
     a2a_block: int = 0
+    # the ensemble plane (core/ensemble.py): replicas of this configuration
+    # folded into replicas x hosts_per_shard rows (1 = a solo run)
+    replicas: int = 1
 
     def __post_init__(self):
         check_order_limits(self.num_hosts)
+        if self.replicas < 1:
+            raise ValueError(f"replicas={self.replicas} must be >= 1")
+        if self.replicas > 1:
+            off = [name for name, on in (
+                ("world > 1", self.world > 1), ("fluid_classes", self.fluid_classes),
+                ("integrity", self.integrity), ("pressure_abort", self.pressure_abort),
+                ("gear_cols", self.gear_cols), ("trace_rounds", self.trace_rounds),
+                ("netobs", self.netobs)) if on]
+            if off:
+                raise ValueError(f"replicas={self.replicas}: the ensemble fold does not run "
+                                 f"{', '.join(off)}")
         if self.world < 1 or not 0 <= self.rank < self.world:
             raise ValueError(f"rank={self.rank} must be in [0, world={self.world})")
         if self.num_hosts % self.world != 0:
@@ -523,6 +563,12 @@ class EngineConfig:
         return self.num_hosts // self.world
 
     @property
+    def rows(self) -> int:
+        """Rows of every per-host plane: the shard's hosts, times the
+        replicas."""
+        return self.replicas * self.hosts_per_shard
+
+    @property
     def host_base(self) -> int:
         """The global id of this rank's first host."""
         return self.rank * self.hosts_per_shard
@@ -652,7 +698,7 @@ def exchange_tier_bytes_per_round(cfg: EngineConfig) -> tuple[int, int]:
     return intra, inter
 
 
-def make_empty_outbox(num_hosts: int, send_budget: int, device) -> Outbox:
+def make_empty_outbox(num_hosts: int, send_budget: int, device, replicas: int = 1) -> Outbox:
     h, b = num_hosts, send_budget
     return Outbox(
         dst=torch.zeros((h, b), dtype=torch.int32, device=device),
@@ -660,7 +706,7 @@ def make_empty_outbox(num_hosts: int, send_budget: int, device) -> Outbox:
         order=torch.zeros((h, b), dtype=torch.int64, device=device),
         kind=torch.zeros((h, b), dtype=torch.int32, device=device),
         payload=torch.zeros((h, b, EVENT_PAYLOAD_WORDS), dtype=torch.int32, device=device),
-        count=torch.zeros((1,), dtype=torch.int32, device=device),
+        count=torch.zeros((replicas,), dtype=torch.int32, device=device),
     )
 
 
@@ -725,6 +771,20 @@ def _ev_carry_of(st: SimState) -> _EvCarry:
                     st.tb_ingress, st.codel, st.model, st.cpu_busy_until)
 
 
+class FoldWindow(NamedTuple):
+    """The round's window with replicas: each replica's window end (K31's
+    lane) and every row's pop limit (its replica's window end while the
+    replica runs this microstep, else 0)."""
+
+    lane: torch.Tensor  # i64[R]
+    rows: torch.Tensor  # i64[R x H]
+
+
+def _limit_of(window_end):
+    """The per-host form of a window end: the int itself, or the rows."""
+    return window_end.rows if isinstance(window_end, FoldWindow) else window_end
+
+
 def _lex_less(at, ao, bt, bo):
     """(at, ao) < (bt, bo) on the (time, order) total key."""
     return (at < bt) | ((at == bt) & (ao < bo))
@@ -755,8 +815,9 @@ class Engine:
         self.coll = coll
         # the integrity sentinel's staged per-round check (None when off)
         self._iv = IntegrityCheck(cfg) if cfg.integrity else None
+        # each row's host id (within its replica)
         self._host_gid = cfg.host_base + torch.arange(
-            cfg.hosts_per_shard, dtype=torch.int64, device=self.device)
+            cfg.hosts_per_shard, dtype=torch.int64, device=self.device).repeat(cfg.replicas)
         # the trace ring's round-entry counter values (K27's scratch) and
         # the model's timer kinds for K10's event-class lane
         self._trace_scratch = make_trace_scratch(self.device) if cfg.trace_rounds else None
@@ -838,6 +899,8 @@ class Engine:
         first round that follows a violation; with a pressure policy, before
         the first round that follows a capacity drop."""
         cfg = self.cfg
+        if cfg.replicas > 1:
+            return self._run_chunk_fold(st, params)
         shed0 = st.stats.gear_shed.clone() if cfg.gear_active else None
         press0 = st.stats.pressure.clone() if cfg.pressure_abort else None
         iv0 = None
@@ -855,6 +918,72 @@ class Engine:
                 break
             st = self.window_step(st, params, window_end, done)
         return st
+
+    # ---- the ensemble fold (replicas > 1) ------------------------------------
+
+    def _run_chunk_fold(self, st: SimState, params: EngineParams) -> SimState:
+        """Up to `effective_rounds_per_chunk` lockstep rounds of every
+        replica not yet done (the vmapped chunk loop: a replica that
+        finishes is frozen for the rest of the chunk)."""
+        cfg = self.cfg
+        lanes = make_lanes(st.done, self.device)
+        pop = torch.empty((cfg.rows,), dtype=torch.int64, device=self.device)
+        for _ in range(cfg.effective_rounds_per_chunk):
+            if st.done.all():
+                break
+            st = self._fold_round(st, params, lanes, pop)
+        return st
+
+    def _fold_round(self, st: SimState, params: EngineParams, lanes: torch.Tensor,
+                    pop: torch.Tensor) -> SimState:
+        """One round of every replica: K31's barrier (one read of every
+        replica's window end, done and live flags), the microsteps while any
+        replica is pending (one K31 loop test and one read each; frozen
+        replicas pop under a limit of 0), the exchange, and the per-replica
+        counters ([R] lanes, masked by the live flags)."""
+        cfg = self.cfg
+        r, h = cfg.replicas, cfg.hosts_per_shard
+        kw = dict(rows=h, stop=cfg.stop_time,
+                  runahead=max(cfg.runahead_floor, cfg.static_min_latency, 1),
+                  floor=max(cfg.runahead_floor, 1), dynamic=cfg.use_dynamic_runahead,
+                  min_used=st.min_used_lat, limit=cfg.effective_microstep_limit)
+        replica_window(ROUND, self.next_times(st, params), lanes, pop, **kw)
+        vals = lanes.cpu().numpy().copy()  # the CPU path's lanes stay live
+        self.host_syncs += 1
+        live = vals[LIVE] != 0
+        has_sends = False
+        if live.any():
+            win = FoldWindow(lanes[WEND], pop)
+            k_way = cfg.effective_microstep_events > 1
+            valve = (torch.zeros((cfg.rows,), dtype=torch.int64, device=self.device) if k_way
+                     else None)
+            while True:
+                replica_window(LOOP, self.next_times(st, params), lanes, pop, valve=valve,
+                               ob_count=st.outbox.count, **kw)
+                loop = lanes.cpu().numpy().copy()
+                self.host_syncs += 1
+                if not loop[PENDING].any():
+                    has_sends = bool(loop[SENDS].any())
+                    break
+                if k_way:
+                    st, executed = self.microstep_k(st, params, win)
+                    valve = valve + executed
+                else:
+                    st = self.microstep(st, params, win)
+        st_x = self.exchange(st, has_sends)
+        s = st_x.stats
+        stats = s._replace(
+            rounds=s.rounds + lanes[LIVE],
+            microsteps=s.microsteps + lanes[STEPS],
+            q_occ_hwm=torch.maximum(s.q_occ_hwm, q_len(st_x.queue).to(torch.int64)),
+            outbox_hwm=torch.maximum(s.outbox_hwm,
+                                     st.sent_round.view(r, h).amax(1).to(torch.int64)),
+        )
+        if st_x.wheel is not None:
+            stats = stats._replace(wheel_occ_hwm=torch.maximum(
+                stats.wheel_occ_hwm, q_len(st_x.wheel).to(torch.int64)))
+        return st_x._replace(now=np.where(live, vals[WEND], st.now), done=vals[DONE] != 0,
+                             stats=stats)
 
     def _run_chunk_at(self, cfg: EngineConfig, st: SimState, params: EngineParams) -> SimState:
         """One chunk under `cfg` in place of the engine's config (the
@@ -1171,9 +1300,9 @@ class Engine:
         queue-clear faults K10 consumes an event whose host is down without
         dispatching it."""
         wheel = st.wheel
-        limit = self._pop_limit(st, window_end, params)
+        limit = self._pop_limit(st, _limit_of(window_end), params)
         if wheel is None:
-            queue, ev, active = q_pop_min(st.queue, limit)
+            queue, ev, active = q_pop_min(st.queue, limit, isinstance(window_end, FoldWindow))
         else:
             queue, wheel, ev, active = pop_min_merged(st.queue, wheel, limit)
         lanes = self._flow_lanes(1)
@@ -1247,9 +1376,12 @@ class Engine:
         the batch events that executed after it."""
         cfg = self.cfg
         k = cfg.effective_microstep_events
-        h = cfg.hosts_per_shard
+        h = cfg.rows
         dev = self.device
-        popped = pop_k(st.queue, self._pop_limit(st, window_end, params), k)
+        popped = pop_k(st.queue, self._pop_limit(st, _limit_of(window_end), params), k)
+        # the per-host window ends the deferral tests read (with replicas,
+        # 0 on frozen rows, which pop nothing)
+        w_end = _limit_of(window_end)
         c = _ev_carry_of(st)
         deferred = torch.zeros((h,), dtype=torch.bool, device=dev)
         pm_t = torch.full((h,), TIME_MAX, dtype=torch.int64, device=dev)
@@ -1261,7 +1393,7 @@ class Engine:
             if j > 0:
                 deferred = deferred | _lex_less(pm_t, pm_o, ev.t, ev.order)
                 if cfg.cpu_delay_ns > 0:
-                    deferred = deferred | (c.cpu_busy_until >= window_end)
+                    deferred = deferred | (c.cpu_busy_until >= w_end)
                 if cfg.fault_hold:
                     # a later batch event entering a crash window whose
                     # restart is past the horizon: the one-event microstep
@@ -1270,7 +1402,7 @@ class Engine:
                     t_cand = (torch.maximum(ev.t, c.cpu_busy_until) if cfg.cpu_delay_ns > 0
                               else ev.t)
                     down_j, resume_j = down_and_resume(params.faults, t_cand)
-                    deferred = deferred | (down_j & (resume_j >= window_end))
+                    deferred = deferred | (down_j & (resume_j >= w_end))
             cons_j = popped.active[:, j] & ~deferred
             c, push_list, ents, used_min = self.event_body(
                 c, params, window_end, ev, cons_j, fluid_fx,
@@ -1294,7 +1426,10 @@ class Engine:
             all_pushes += [p._replace(reserve=reserve) for p in push_list]
         if all_pushes:
             queue = q_push_many(queue, all_pushes)
-        n_deferred = popped.active.sum() - m.sum()
+        if cfg.replicas == 1:
+            n_deferred = popped.active.sum() - m.sum()
+        else:
+            n_deferred = (popped.active.sum(1) - m).view(cfg.replicas, -1).sum(1)
         c = c._replace(stats=c.stats._replace(
             popk_deferred=c.stats.popk_deferred + n_deferred
         ))
@@ -1319,7 +1454,9 @@ class Engine:
         if entries:
             outbox, ob_dropped = outbox_append_multi(outbox, entries, stats.ob_dropped)
             used = used_mins[0] if len(used_mins) == 1 else torch.stack(used_mins)
-            min_used = torch.minimum(min_used, used.min())
+            r = self.cfg.replicas
+            min_used = torch.minimum(min_used, used.min() if r == 1
+                                     else used.view(-1, r, used.shape[-1] // r).amin((0, 2)))
             stats = stats._replace(ob_dropped=ob_dropped)
         if lanes is not None:
             flow_append(st.flows, lanes, stats.fl_done, stats.fl_bytes, stats.fl_rtx)
@@ -1340,6 +1477,8 @@ class Engine:
         pushes, outbox entry stack | None, per-host used-latency minimum |
         None)."""
         cfg = self.cfg
+        if isinstance(window_end, FoldWindow):
+            window_end = window_end.lane
         c, ing = event_ingress(c, params, cfg, ev, active, self._timer_mask)
         out = self.model.handle(HandlerCtx(
             t=ing.t,
@@ -1382,6 +1521,7 @@ class Engine:
                 as_flat(st.queue), ob.dst, ob.t, ob.order, ob.kind, ob.payload, None,
                 cfg.max_round_inserts, shed_urgency=not cfg.cheap_shed, cols=gc,
                 merge_rows=cfg.merge_rows,
+                rows_per_rep=cfg.hosts_per_shard if cfg.replicas > 1 else 0,
             )
             if isinstance(st.queue, BucketQueue):
                 queue = bucket_rebuild(queue, st.queue.block)
@@ -1389,7 +1529,8 @@ class Engine:
         return st._replace(
             queue=queue,
             stats=stats,
-            outbox=make_empty_outbox(cfg.hosts_per_shard, cfg.sends_per_host_round, ob.t.device),
+            outbox=make_empty_outbox(cfg.rows, cfg.sends_per_host_round, ob.t.device,
+                                     cfg.replicas),
             sent_round=torch.zeros_like(st.sent_round),
         )
 

@@ -285,11 +285,19 @@ def down_and_resume(fp: FaultParams, t: torch.Tensor):
 def window_effects_plain(fp: FaultParams, t: torch.Tensor):
     """Link-fault effects active at per-host times `t` (i64[H]): (loss f32[H],
     lat_x1000 i64[H]), the max loss probability and the max latency
-    multiplier over the active windows (at least 1000)."""
-    act = (fp.win_start[None, :] <= t[:, None]) & (t[:, None] < fp.win_end[None, :])  # [H, L]
-    loss = torch.where(act, fp.win_loss[None, :], torch.zeros((), dtype=torch.float32,
-                                                               device=t.device)).max(dim=1).values
-    lat = torch.where(act, fp.win_lat[None, :], LAT_SCALE).max(dim=1).values
+    multiplier over the active windows (at least 1000). Replicas' windows
+    ([R, L]) apply to their replica's rows, R equal blocks of `t`."""
+    if fp.win_start.dim() == 2:
+        per = t.shape[0] // fp.win_start.shape[0]
+        ws, we, wl, wt = (x.repeat_interleave(per, 0) for x in (
+            fp.win_start, fp.win_end, fp.win_loss, fp.win_lat))
+    else:
+        ws, we, wl, wt = (x[None, :] for x in (fp.win_start, fp.win_end, fp.win_loss,
+                                                fp.win_lat))
+    act = (ws <= t[:, None]) & (t[:, None] < we)  # [H, L]
+    loss = torch.where(act, wl, torch.zeros((), dtype=torch.float32,
+                                            device=t.device)).max(dim=1).values
+    lat = torch.where(act, wt, LAT_SCALE).max(dim=1).values
     return loss, torch.clamp_min(lat, LAT_SCALE)
 
 

@@ -53,6 +53,15 @@
 // writes are K9's two integer totals (atomicAdd: integer sums commute, so
 // they are exact and order-free).
 //
+// Replicas (the ensemble plane): the H rows may be R replicas of HR hosts
+// (replica r in rows [r * HR, (r + 1) * HR)). K9 then counts each row's
+// appends and losses into its replica's [R] lanes; K11 uses the host's id
+// within its replica (row % HR, plus host_base) for order keys and draws,
+// a destination's range [0, HR), its replica's window end (an [R] lane in
+// place of the scalar) and link-fault windows ([R, L]: row r / HR), and
+// per-host route rows held once ([HR, N]) or per row ([H, N]). K10 reads no
+// host id and no window: its rows are replica-blind. HR = H is one replica.
+//
 // Argument blocks: K9-K11 take their pointers and scalars as one int64
 // array read in a fixed order (`Args` below); the Python wrappers
 // (ops/chain.py) build it in the same order.
@@ -91,7 +100,7 @@ constexpr int kMaxStacks = 16;  // entry stacks per launch (the wrapper chunks p
 // The microstep's events' [E_s, H] stacks, in event order: together the
 // microstep's [sum E_s, H] entries, read where K11 wrote them.
 struct AppendArgs {
-  int H, B, P, n;
+  int H, B, P, HR, n;
   int E[kMaxStacks];
   const bool* mask[kMaxStacks];
   const int* col[kMaxStacks];
@@ -133,8 +142,10 @@ __global__ void outbox_append_kernel(const AppendArgs a) {
       }
     }
   }
-  if (total) atomicAdd(a.ob_count, total);
-  if (lost) atomicAdd(reinterpret_cast<unsigned long long*>(a.ob_lost), (unsigned long long)lost);
+  const int rep = h / a.HR;  // the replica's count and loss lanes
+  if (total) atomicAdd(a.ob_count + rep, total);
+  if (lost)
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.ob_lost + rep), (unsigned long long)lost);
 }
 
 // ---------------------------------------------------------------------------
@@ -370,10 +381,15 @@ struct EgressArgs {
   // the mesh: this shard's first global host id and the global host count
   // (a destination's range; one device: 0 and H)
   long long host_base, n_hosts;
+  // replicas: rows per replica (H: one), the [R] window ends (null: the
+  // scalar window_end), the rows of the mode-1 route tables (HR or H)
+  int hr;
+  const long long* wend;
+  long long route_rows;
 };
 
-__device__ __forceinline__ void route(const EgressArgs& a, int h, long long dst, long long& lat,
-                                      float& lossp, long long& jit) {
+__device__ __forceinline__ void route(const EgressArgs& a, int h, long long gh, long long dst,
+                                      long long& lat, float& lossp, long long& jit) {
   if (a.route_mode == 0) {
     lat = a.lat[0];
     lossp = a.loss[0];
@@ -384,9 +400,8 @@ __device__ __forceinline__ void route(const EgressArgs& a, int h, long long dst,
   const long long dst_node = g > 0 ? floordiv(dst, g) : (long long)a.node_of[dst];
   long long i;
   if (a.route_mode == 1) {
-    i = (long long)h * a.n_nodes + dst_node;
+    i = (long long)(h % a.route_rows) * a.n_nodes + dst_node;
   } else {
-    const long long gh = a.host_base + h;
     const long long src_node = g > 0 ? floordiv(gh, g) : (long long)a.node_of[gh];
     i = src_node * a.n_nodes + dst_node;
   }
@@ -399,7 +414,10 @@ __global__ void event_egress_kernel(const EgressArgs a) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= a.H) return;
   const int H = a.H, P = a.P;
-  const long long gh = a.host_base + h;  // the global host id (order keys, draws)
+  // the global host id within the replica (order keys, draws)
+  const long long gh = a.host_base + h % a.hr;
+  const int rep = h / a.hr;
+  const long long window_end = a.wend != nullptr ? a.wend[rep] : a.window_end;
   const long long t = a.ev_t[(long long)h * a.es];
   const bool disp = a.dispatch[h];
   long long seq = a.seq[h];
@@ -418,8 +436,11 @@ __global__ void event_egress_kernel(const EgressArgs a) {
   // port and segment below
   float f_loss = 0.0f;
   long long f_lat = kLatScale;
-  if (a.n_win > 0)
-    flt::window_effects(a.win_start, a.win_end, a.win_loss, a.win_lat, a.n_win, t, f_loss, f_lat);
+  if (a.n_win > 0) {
+    const long long w0 = (long long)rep * a.n_win;  // the replica's windows
+    flt::window_effects(a.win_start + w0, a.win_end + w0, a.win_loss + w0, a.win_lat + w0,
+                        a.n_win, t, f_loss, f_lat);
+  }
   const bool f_inflate = f_lat > kLatScale && t >= a.bootstrap_end;
   long long n_fdrop = 0, n_fdelay = 0;
 
@@ -449,7 +470,7 @@ __global__ void event_egress_kernel(const EgressArgs a) {
     const long long dst = imin(imax(dst_raw, 0), a.n_hosts - 1);
     long long lat, jit;
     float lossp;
-    route(a, h, dst, lat, lossp, jit);
+    route(a, h, gh, dst, lat, lossp, jit);
     const long long lat_bound0 = a.use_jitter ? wsub(lat, jit) : lat;
     const int port_kind = a.skind[sp][h * a.skind_s[sp]] | kKindPkt;
     const int* pay = a.spayload[sp] + h * a.spayload_s[sp];
@@ -495,7 +516,7 @@ __global__ void event_egress_kernel(const EgressArgs a) {
       a.e_mask[o] = send_ok;
       a.e_col[o] = sent;
       a.e_dst[o] = (int)dst;
-      a.e_t[o] = imax(wadd(eg_depart, imax(lat_j, 0)), a.window_end);
+      a.e_t[o] = imax(wadd(eg_depart, imax(lat_j, 0)), window_end);
       a.e_order[o] = pack_order(0, gh, seq);
       a.e_kind[o] = port_kind;
       for (int w = 0; w < P; ++w) {
@@ -540,6 +561,8 @@ int event_outbox_append(const long long* args, void* stream) {
   a.H = (int)r.v();
   a.B = (int)r.v();
   a.P = (int)r.v();
+  a.HR = (int)r.v();
+  if (a.HR < 1 || a.H % a.HR != 0) return (int)cudaErrorInvalidValue;
   a.ob_dst = r.p<int>();
   a.ob_t = r.p<long long>();
   a.ob_order = r.p<long long>();
@@ -705,8 +728,13 @@ int event_egress(const long long* args, void* stream) {
   a.faults_delayed = r.p<long long>();
   a.host_base = r.v();
   a.n_hosts = r.v();
+  a.hr = (int)r.v();
+  a.wend = r.p<const long long>();
+  a.route_rows = r.v();
   if (a.P < 1 || a.P > kMaxPayload || a.interval <= 0 || a.route_mode < 0 || a.route_mode > 2 ||
-      a.host_base < 0 || a.n_hosts < a.host_base + a.H ||
+      a.hr < 1 || a.H % a.hr != 0 || (a.hr != a.H && a.wend == nullptr) ||
+      (a.route_mode == 1 && (a.route_rows < 1 || a.H % a.route_rows != 0)) ||
+      a.host_base < 0 || a.n_hosts < a.host_base + a.hr ||
       a.n_win < 0 || (a.n_win > 0 && (a.win_start == nullptr || a.win_end == nullptr ||
                                       a.win_loss == nullptr || a.win_lat == nullptr ||
                                       a.faults_dropped == nullptr ||

@@ -37,6 +37,15 @@
 // per-host check counts failing hosts into a flag word, and two inserts
 // gated on that word follow — no host sync, no host-side branch.
 //
+// Replicas (the ensemble plane, `HR` < H): the queue's H rows are R = H / HR
+// replicas of HR hosts each and the rows are the [H, B] outbox, so row (h, k)
+// comes from replica h / HR. Destinations are replica-local: a row is valid
+// where 0 <= dst < HR and lands in queue row (h / HR) * HR + dst, so a row of
+// replica r never reaches replica r'. The merge_rows bound counts within the
+// replica (offsets from its first row, the host index within it), and K13's
+// fits flag is one word per replica, so each replica takes the fast path or
+// K4's insert on its own, as its solo run would. HR = H is one replica.
+//
 // What bounds it on an H100: at the main path's shapes (H = 10,000 hosts,
 // C = 16-64 slots, R x gc = 10,000-120,000 rows of which a few thousand
 // are valid per round) the work is a few passes over the row columns plus
@@ -81,18 +90,24 @@ __device__ __forceinline__ long long elem_of(long long i, int B, int gc) {
 }
 
 __device__ __forceinline__ bool row_ok(const bool* valid, const long long* t, const int* dst,
-                                       long long e, int H) {
+                                       long long e, int HR) {
   const bool live = valid != nullptr ? valid[e] : t[e] != kTimeMax;
-  return live && dst[e] >= 0 && dst[e] < H;
+  return live && dst[e] >= 0 && dst[e] < HR;
+}
+
+// The queue row a valid row at element e lands in: its destination, offset
+// to its replica's rows when the rows are replicas of HR hosts (HR < H).
+__device__ __forceinline__ int dest_row(const int* dst, long long e, int B, int H, int HR) {
+  return HR == H ? dst[e] : (int)(e / B / HR) * HR + dst[e];
 }
 
 __global__ void histogram_kernel(const int* __restrict__ dst, const long long* __restrict__ t,
                                  const bool* __restrict__ valid, int* __restrict__ counts,
-                                 long long N, int B, int gc, int H) {
+                                 long long N, int B, int gc, int H, int HR) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
   const long long e = elem_of(i, B, gc);
-  if (row_ok(valid, t, dst, e, H)) atomicAdd(&counts[dst[e]], 1);
+  if (row_ok(valid, t, dst, e, HR)) atomicAdd(&counts[dest_row(dst, e, B, H, HR)], 1);
 }
 
 __global__ void scan_kernel(const int* __restrict__ counts, int* __restrict__ offsets, int H) {
@@ -129,32 +144,35 @@ __global__ void scan_kernel(const int* __restrict__ counts, int* __restrict__ of
 __global__ void scatter_kernel(const int* __restrict__ dst, const long long* __restrict__ t,
                                const bool* __restrict__ valid, const int* __restrict__ offsets,
                                int* __restrict__ fill, long long* __restrict__ bucket,
-                               long long N, int B, int gc, int H) {
+                               long long N, int B, int gc, int H, int HR) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
   const long long e = elem_of(i, B, gc);
-  if (row_ok(valid, t, dst, e, H)) {
-    const int d = dst[e];
+  if (row_ok(valid, t, dst, e, HR)) {
+    const int d = dest_row(dst, e, B, H, HR);
     bucket[offsets[d] + atomicAdd(&fill[d], 1)] = e;
   }
 }
 
 // K13's admission: host h fits iff its valid rows are at most min(free
-// slots, r_cap); under a merge_rows bound thread 0 also counts a failure
-// when n_valid + H + 1 > merge_rows. Runs before either insert writes;
-// counts failing hosts.
+// slots, r_cap); under a merge_rows bound the replica's first thread also
+// counts a failure when its n_valid + HR + 1 > merge_rows. Runs before
+// either insert writes; counts failing hosts into their replica's word.
 __global__ void fits_kernel(const long long* __restrict__ qt, const int* __restrict__ counts,
-                            const int* __restrict__ offsets, int* __restrict__ over, int H, int C,
-                            int r_cap, int merge_rows) {
+                            const int* __restrict__ offsets, int* __restrict__ over, int H, int HR,
+                            int C, int r_cap, int merge_rows) {
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
   if (h >= H) return;
-  if (h == 0 && merge_rows > 0 && (long long)offsets[H] + H + 1 > merge_rows) atomicAdd(over, 1);
+  int* flag = over + h / HR;
+  if (h % HR == 0 && merge_rows > 0 &&
+      (long long)offsets[h + HR] - offsets[h] + HR + 1 > merge_rows)
+    atomicAdd(flag, 1);
   const int seg = counts[h];
   if (seg == 0) return;
   const long long base = (long long)h * C;
   int free_count = 0;
   for (int c = 0; c < C; ++c) free_count += qt[base + c] == kTimeMax;
-  if (seg > min(free_count, r_cap)) atomicAdd(over, 1);
+  if (seg > min(free_count, r_cap)) atomicAdd(flag, 1);
 }
 
 enum KeyMode { kAppend = 0, kUrgency = 1, kDescending = 2 };
@@ -173,14 +191,15 @@ __global__ void insert_kernel(long long* qt, long long* qo, int* qk, int* qp,
                               const long long* __restrict__ t, const long long* __restrict__ order,
                               const int* __restrict__ kind, const int* __restrict__ payload,
                               const int* __restrict__ counts, const int* __restrict__ offsets,
-                              const long long* __restrict__ bucket, int H, int C, int P,
+                              const long long* __restrict__ bucket, int H, int HR, int C, int P,
                               int r_cap, int merge_rows, int mode, const int* __restrict__ gate,
                               int run_if_over) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int h = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (h >= H) return;
-  // K13: each of the two inserts runs only on its side of the fits flag
-  if (gate != nullptr && ((*gate != 0) != (run_if_over != 0))) return;
+  // K13: each of the two inserts runs only on its side of its replica's
+  // fits flag
+  if (gate != nullptr && ((gate[h / HR] != 0) != (run_if_over != 0))) return;
   const int seg = counts[h];
   if (seg == 0) return;
   const int off = offsets[h];
@@ -192,7 +211,9 @@ __global__ void insert_kernel(long long* qt, long long* qo, int* qk, int* qp,
   }
   int r = min(seg, min(r_cap, free_count));
   if (merge_rows > 0) {  // the positional bound: rank k sits at off + h + 1 + k
-    const long long bound = (long long)merge_rows - 1 - off - h;
+    // (counted from the replica's first row)
+    const int first = h - h % HR;
+    const long long bound = (long long)merge_rows - 1 - (off - offsets[first]) - (h - first);
     if (bound < r) r = bound > 0 ? (int)bound : 0;
   }
   if (lane == 0 && seg > r) dropped[h] += seg - r;
@@ -239,29 +260,33 @@ inline unsigned cdiv(long long a, int b) { return (unsigned)((a + b - 1) / b); }
 int launch_merge(long long* qt, long long* qo, int* qk, int* qp, long long* dropped,
                  const int* dst, const long long* t, const long long* order, const int* kind,
                  const int* payload, const bool* valid, int* counts, int* offsets, int* fill,
-                 long long* bucket, int* over, int H, int C, int P, int R, int B, int gc,
+                 long long* bucket, int* over, int H, int HR, int C, int P, int R, int B, int gc,
                  int r_cap, int urgency, int merge_rows, cudaStream_t s) {
-  if (P > kWarp || gc > B || gc < 0 || merge_rows < 0) return (int)cudaErrorInvalidValue;
+  if (P > kWarp || gc > B || gc < 0 || merge_rows < 0 || HR < 1 || H % HR != 0 ||
+      (HR != H && R != H))
+    return (int)cudaErrorInvalidValue;
   if (H <= 0) return (int)cudaGetLastError();
   const long long N = (long long)R * gc;
   const int mode = urgency ? kUrgency : kAppend;
   cudaMemsetAsync(counts, 0, sizeof(int) * H, s);
   cudaMemsetAsync(fill, 0, sizeof(int) * H, s);
-  if (N > 0) histogram_kernel<<<cdiv(N, 256), 256, 0, s>>>(dst, t, valid, counts, N, B, gc, H);
+  if (N > 0)
+    histogram_kernel<<<cdiv(N, 256), 256, 0, s>>>(dst, t, valid, counts, N, B, gc, H, HR);
   scan_kernel<<<1, kScanThreads, 0, s>>>(counts, offsets, H);
   if (N > 0)
-    scatter_kernel<<<cdiv(N, 256), 256, 0, s>>>(dst, t, valid, offsets, fill, bucket, N, B, gc, H);
+    scatter_kernel<<<cdiv(N, 256), 256, 0, s>>>(dst, t, valid, offsets, fill, bucket, N, B, gc, H,
+                                                HR);
   const unsigned blocks = cdiv(H, kWarpsPerBlock), threads = kWarpsPerBlock * kWarp;
   if (over != nullptr) {
-    cudaMemsetAsync(over, 0, sizeof(int), s);
-    fits_kernel<<<cdiv(H, 256), 256, 0, s>>>(qt, counts, offsets, over, H, C, r_cap,
+    cudaMemsetAsync(over, 0, sizeof(int) * (H / HR), s);
+    fits_kernel<<<cdiv(H, 256), 256, 0, s>>>(qt, counts, offsets, over, H, HR, C, r_cap,
                                               merge_rows);
     insert_kernel<<<blocks, threads, 0, s>>>(qt, qo, qk, qp, dropped, t, order, kind, payload,
-                                             counts, offsets, bucket, H, C, P, r_cap, merge_rows,
-                                             kDescending, over, 0);
+                                             counts, offsets, bucket, H, HR, C, P, r_cap,
+                                             merge_rows, kDescending, over, 0);
   }
   insert_kernel<<<blocks, threads, 0, s>>>(qt, qo, qk, qp, dropped, t, order, kind, payload,
-                                           counts, offsets, bucket, H, C, P, r_cap, merge_rows,
+                                           counts, offsets, bucket, H, HR, C, P, r_cap, merge_rows,
                                            mode, over, 1);
   return (int)cudaGetLastError();
 }
@@ -273,22 +298,22 @@ extern "C" int merge_insert(long long* qt, long long* qo, int* qk, int* qp, long
                             const int* dst, const long long* t, const long long* order,
                             const int* kind, const int* payload, const bool* valid,
                             int* counts, int* offsets, int* fill, long long* bucket,
-                            int H, int C, int P, int R, int B, int gc, int r_cap, int urgency,
-                            int merge_rows, void* stream) {
+                            int H, int HR, int C, int P, int R, int B, int gc, int r_cap,
+                            int urgency, int merge_rows, void* stream) {
   return launch_merge(qt, qo, qk, qp, dropped, dst, t, order, kind, payload, valid, counts,
-                      offsets, fill, bucket, nullptr, H, C, P, R, B, gc, r_cap, urgency,
+                      offsets, fill, bucket, nullptr, H, HR, C, P, R, B, gc, r_cap, urgency,
                       merge_rows, (cudaStream_t)stream);
 }
 
-// K13: the scatter merge; `over` receives the count of hosts whose rows did
-// not fit (0: the fast path ran).
+// K13: the scatter merge; `over` (one word per replica) receives the count
+// of the replica's hosts whose rows did not fit (0: its fast path ran).
 extern "C" int merge_scatter(long long* qt, long long* qo, int* qk, int* qp, long long* dropped,
                              const int* dst, const long long* t, const long long* order,
                              const int* kind, const int* payload, const bool* valid,
                              int* counts, int* offsets, int* fill, long long* bucket, int* over,
-                             int H, int C, int P, int R, int B, int gc, int r_cap, int urgency,
-                             int merge_rows, void* stream) {
+                             int H, int HR, int C, int P, int R, int B, int gc, int r_cap,
+                             int urgency, int merge_rows, void* stream) {
   return launch_merge(qt, qo, qk, qp, dropped, dst, t, order, kind, payload, valid, counts,
-                      offsets, fill, bucket, over, H, C, P, R, B, gc, r_cap, urgency,
+                      offsets, fill, bucket, over, H, HR, C, P, R, B, gc, r_cap, urgency,
                       merge_rows, (cudaStream_t)stream);
 }

@@ -130,13 +130,17 @@ __global__ void next_time_kernel(const long long* __restrict__ t,
 // cleared to the empty sentinel in place. Inactive hosts get the dummy event.
 __global__ void pop_min_kernel(long long* __restrict__ t, long long* __restrict__ order,
                                const int* __restrict__ kind, const int* __restrict__ payload,
-                               long long limit, long long* __restrict__ ev_t,
+                               long long limit, const long long* __restrict__ limits,
+                               long long* __restrict__ ev_t,
                                long long* __restrict__ ev_order, int* __restrict__ ev_kind,
                                int* __restrict__ ev_payload, bool* __restrict__ active,
                                int H, int C, int P) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int h = host_of_warp();
   if (h >= H) return;
+  // per-host limits (the ensemble plane's frozen replicas pop under 0), or
+  // one for every host
+  if (limits != nullptr) limit = limits[h];
   const long long base = (long long)h * C;
   long long bt = kTimeMax, bo = kOrderMax;
   int bi = -1;
@@ -542,12 +546,14 @@ int queue_next_time(const long long* t, const long long* floor, long long* out, 
 }
 
 int queue_pop_min(long long* t, long long* order, const int* kind, const int* payload,
-                  long long limit, long long* ev_t, long long* ev_order, int* ev_kind,
-                  int* ev_payload, bool* active, int H, int C, int P, void* stream) {
+                  long long limit, const long long* limits, long long* ev_t, long long* ev_order,
+                  int* ev_kind, int* ev_payload, bool* active, int H, int C, int P,
+                  void* stream) {
   if (P > kWarp) return (int)cudaErrorInvalidValue;
   if (H > 0)
     pop_min_kernel<<<blocks_for(H), kThreads, 0, (cudaStream_t)stream>>>(
-        t, order, kind, payload, limit, ev_t, ev_order, ev_kind, ev_payload, active, H, C, P);
+        t, order, kind, payload, limit, limits, ev_t, ev_order, ev_kind, ev_payload, active, H,
+        C, P);
   return (int)cudaGetLastError();
 }
 

@@ -170,6 +170,30 @@ def device_memory_stats(device) -> dict | None:
     }
 
 
+def device_capacity_bytes(device=None) -> int | None:
+    """The memory this process could hold on a device (the JAX package's
+    `device_capacity_bytes`): on a CUDA device the card's free bytes plus
+    the allocator's reserved ones (`torch.cuda.mem_get_info`), on the CPU
+    the host's MemAvailable; None where neither is known (guards that need
+    a capacity stay inert). The default device is the card where there is
+    one."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = torch.device(device)
+    st = device_memory_stats(device)
+    if st and st.get("bytes_limit"):
+        return int(st["bytes_limit"])
+    if device.type == "cpu":
+        try:
+            with open("/proc/meminfo") as f:
+                for line in f:
+                    if line.startswith("MemAvailable:"):
+                        return int(line.split()[1]) * 1024
+        except OSError:
+            return None
+    return None
+
+
 class MemoryMonitor:
     """Live device-memory telemetry, sampled at chunk boundaries (one
     device). `stats_fn` injects a fake `device_memory_stats` for tests.

@@ -28,6 +28,14 @@ One executed event per host runs in three steps:
 
 `outbox_append_multi` (K9) then writes the stack into the [H, B] outbox.
 
+Replicas (the ensemble plane, `EngineConfig.replicas` R > 1): the H rows
+are R replicas of `hosts_per_shard` hosts. The outbox's `count` and the
+`ob_dropped` lane are then [R], counted per replica; egress uses each host's
+id within its replica, a destination range of one replica's hosts, the
+replica's window end (`window_end` an i64[R] lane) and link-fault windows
+([R, L]), and reads per-host route rows held once for all replicas or per
+row. Ingress reads no host id and no window.
+
 This module holds the hand-written CUDA kernels (csrc/event.cu) and their
 plain PyTorch versions beside them. As in ops/events.py, each public
 function dispatches on where its tensors live: CPU tensors run the plain
@@ -114,7 +122,8 @@ _MAX_STACKS = 16  # entry stacks per K9 launch (csrc/event.cu kMaxStacks)
 def outbox_append_multi_plain(ob, stacks, ob_dropped: torch.Tensor):
     """The reference's chained one-hot writes, one entry row at a time, over
     a microstep's entry stacks (one per event, in event order); a row with
-    col >= B is counted lost. Returns (outbox', ob_dropped')."""
+    col >= B is counted lost, into its replica's lane (`ob.count` and
+    `ob_dropped` hold one per replica). Returns (outbox', ob_dropped')."""
     h, b = ob.t.shape
     cols = torch.arange(b, dtype=torch.int32, device=ob.t.device)[None, :]
     dst_n, t_n, order_n, kind_n, payload_n = ob.dst, ob.t, ob.order, ob.kind, ob.payload
@@ -132,10 +141,11 @@ def outbox_append_multi_plain(ob, stacks, ob_dropped: torch.Tensor):
                                     payload_n)
             lost = lost + (mask & (col >= b))
             total = total + mask
+    reps = ob.count.shape[0]
     return (
         type(ob)(dst_n, t_n, order_n, kind_n, payload_n,
-                 ob.count + total.sum(dtype=torch.int32)[None]),
-        ob_dropped + lost.sum(),
+                 ob.count + total.view(reps, -1).sum(1, dtype=torch.int32)),
+        ob_dropped + lost.view(reps, -1).sum(1),
     )
 
 
@@ -156,9 +166,12 @@ def outbox_append_multi(ob, stacks, ob_dropped: torch.Tensor):
     check(ob.order, torch.int64, (h, b), "outbox order")
     check(ob.kind, torch.int32, (h, b), "outbox kind")
     check(ob.payload, torch.int32, (h, b, p), "outbox payload")
-    check(ob.count, torch.int32, (1,), "outbox count")
-    check(ob_dropped, torch.int64, (1,), "ob_dropped")
-    head = [h, b, p, *(addr(x) for x in ob), addr(ob_dropped)]
+    reps = ob.count.shape[0]
+    if h % reps:
+        raise ValueError(f"outbox count: {reps} replica lanes for {h} rows")
+    check(ob.count, torch.int32, (reps,), "outbox count")
+    check(ob_dropped, torch.int64, (reps,), "ob_dropped")
+    head = [h, b, p, h // reps, *(addr(x) for x in ob), addr(ob_dropped)]
     for i in range(0, len(stacks), _MAX_STACKS):
         chunk = stacks[i : i + _MAX_STACKS]
         args = [*head, len(chunk)]
@@ -389,7 +402,8 @@ def route_plain(params, cfg, host_gid: torch.Tensor, dst: torch.Tensor):
     """(latency, loss, jitter) from each sender to `dst`, in the three
     forms of the reference: a constant for single-node graphs, a row
     lookup (affine or node_of destination node) when the per-host rows
-    exist, else a 2-D table gather."""
+    exist (rows held once for all replicas are read at row % their
+    count), else a 2-D table gather."""
     h = dst.shape[0]
     if tuple(params.lat_ns.shape) == (1, 1):
         return (params.lat_ns[0, 0].expand(h), params.loss[0, 0].expand(h),
@@ -402,16 +416,20 @@ def route_plain(params, cfg, host_gid: torch.Tensor, dst: torch.Tensor):
         src_node = params.node_of[host_gid].to(torch.int64)
     if params.lat_rows is not None:
         col = dst_node[:, None]
-        return (params.lat_rows.gather(1, col)[:, 0], params.loss_rows.gather(1, col)[:, 0],
-                params.jit_rows.gather(1, col)[:, 0])
+        tables = (params.lat_rows, params.loss_rows, params.jit_rows)
+        if tables[0].shape[0] != h:
+            row = torch.arange(h, device=dst.device) % tables[0].shape[0]
+            tables = tuple(x[row] for x in tables)
+        return tuple(x.gather(1, col)[:, 0] for x in tables)
     return (params.lat_ns[src_node, dst_node], params.loss[src_node, dst_node],
             params.jitter_ns[src_node, dst_node])
 
 
-def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=None):
+def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx=None):
     """The model's pushes and sends for one event per dispatched host.
     `c.rng` is the handler's RNG state; `fluid_fx` is the round's (bg_loss
-    f32[H], bg_lat i64[H]) when the fluid plane is on. Returns (carry',
+    f32[H], bg_lat i64[H]) when the fluid plane is on; `window_end` is an
+    int, or the replicas' i64[R] lane. Returns (carry',
     pushes, entries, used_min): `entries` is None when the model has no
     send port; `used_min[h]` is the least pre-jitter latency among the
     host's sends that landed (TIME_MAX where none), None without send
@@ -420,8 +438,12 @@ def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out, flu
     from shadow_tpu_torch.net.fluid import fluid_send_uniform
 
     h = dispatch.shape[0]
-    # global host ids: the shard's rows start at cfg.host_base
-    host_gid = cfg.host_base + torch.arange(h, dtype=torch.int64, device=dispatch.device)
+    # global host ids: the shard's rows start at cfg.host_base; a replica's
+    # rows count from its first row
+    hr = cfg.hosts_per_shard
+    host_gid = cfg.host_base + torch.arange(h, dtype=torch.int64, device=dispatch.device) % hr
+    if isinstance(window_end, torch.Tensor):
+        window_end = window_end.repeat_interleave(hr)
     stats, rng, seq, sent_round, tb_eg = c.stats, c.rng, c.seq, c.sent_round, c.tb_egress
     pushes = []
     for p in out.pushes:
@@ -519,7 +541,9 @@ def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out, flu
                     lat_j)
             ob_col = sent_round
             sent_round = sent_round + send_ok.to(torch.int32)
-            arrive = torch.clamp_min(eg_depart + torch.clamp_min(lat_j, 0), window_end)
+            arrive = eg_depart + torch.clamp_min(lat_j, 0)
+            arrive = (torch.maximum(arrive, window_end) if isinstance(window_end, torch.Tensor)
+                      else torch.clamp_min(arrive, window_end))
             order = pack_order(0, host_gid, seq)
             seq = seq + mask
             payload = s.payload.to(torch.int32)
@@ -542,7 +566,8 @@ def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end: int, out, flu
 
 
 def _route_args(params, cfg) -> list[int]:
-    """(mode, hosts_per_node, n_nodes, node_of, lat, loss, jit) for K11."""
+    """(mode, hosts_per_node, n_nodes, node_of, lat, loss, jit, rows of the
+    mode-1 tables) for K11."""
     if tuple(params.lat_ns.shape) == (1, 1):
         mode, tables = 0, (params.lat_ns, params.loss, params.jitter_ns)
     elif params.lat_rows is not None:
@@ -554,7 +579,7 @@ def _route_args(params, cfg) -> list[int]:
                            ("latency", "loss", "jitter")):
         check(x, dt, (rows, n), f"route {name}")
     check(params.node_of, torch.int32, (cfg.num_hosts,), "node_of")
-    return [mode, cfg.hosts_per_node, n, addr(params.node_of), *(addr(x) for x in tables)]
+    return [mode, cfg.hosts_per_node, n, addr(params.node_of), *(addr(x) for x in tables), rows]
 
 
 def _lane(x: torch.Tensor, dt: torch.dtype, h: int, keep: list) -> tuple[int, int]:
@@ -583,7 +608,7 @@ def _rows(x: torch.Tensor, h: int, p: int, keep: list) -> tuple[int, int]:
     return x.data_ptr(), x.stride(0)
 
 
-def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=None):
+def event_egress(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx=None):
     """`event_egress_plain` as one kernel (K11) on CUDA, updating the
     carry's seq, send cursor, RNG, uplink bucket and packet-counter lanes in
     place (with link-fault windows also the fault counters); the pushes'
@@ -619,6 +644,14 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=
     ):
         check(x, dt, (h,), name)
     check(c.rng.s, torch.int64, (h, 4), "rng")
+    hr = cfg.hosts_per_shard
+    reps = h // hr
+    wend = None
+    if isinstance(window_end, torch.Tensor):
+        check(window_end, torch.int64, (reps,), "replica window ends")
+        wend, window_end = window_end, 0
+    elif reps != 1:
+        raise ValueError(f"event_egress: {reps} replicas need an i64[{reps}] window end lane")
     nl = cfg.fault_loss_windows
     fp = params.faults if nl else None
     if nl:
@@ -626,7 +659,7 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=
                             (fp.win_end, torch.int64, "win_end"),
                             (fp.win_loss, torch.float32, "win_loss"),
                             (fp.win_lat, torch.int64, "win_lat")):
-            check(x, dt, (nl,), f"fault {name}")
+            check(x, dt, (nl,) if reps == 1 else (reps, nl), f"fault {name}")
         check(s.faults_dropped, torch.int64, (h,), "faults_dropped")
         check(s.faults_delayed, torch.int64, (h,), "faults_delayed")
     bg_loss = bg_lat = None
@@ -661,7 +694,7 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=
     _egress_k(arg_block([
         h, n_words or 1, es, cfg.sends_per_host_round, int(cfg.shaping), int(cfg.use_jitter),
         *route[:3], int(window_end), cfg.bootstrap_end_time, cfg.tb_interval_ns,
-        addr(ev_t), addr(dispatch), *route[3:],
+        addr(ev_t), addr(dispatch), *route[3:7],
         addr(params.eg_tb.capacity), addr(params.eg_tb.refill),
         addr(c.seq), addr(c.sent_round), addr(c.rng.s), addr(c.tb_egress.tokens),
         addr(c.tb_egress.last_itv), addr(s.pkts_sent), addr(s.pkts_lost), addr(s.pkts_unreachable),
@@ -672,7 +705,7 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end: int, out, fluid_fx=
         n_send, *send_args, *(addr(x) for x in (entries or [None] * 7)), addr(used_min),
         nl, *(addr(getattr(fp, f, None)) for f in ("win_start", "win_end", "win_loss", "win_lat")),
         addr(s.faults_dropped if nl else None), addr(s.faults_delayed if nl else None),
-        cfg.host_base, cfg.num_hosts,
+        cfg.host_base, cfg.num_hosts, hr, addr(wend), route[7],
     ]))
     del keep
     pushes = [Push(op[0][i], op[1][i], op[2][i], op[3][i], p.payload.to(torch.int32))

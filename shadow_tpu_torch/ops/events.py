@@ -264,7 +264,7 @@ def bq_next_time(q: BucketQueue, floor: torch.Tensor | None = None,
 
 _pop_min_k = CudaKernel(
     "queue", "queue_pop_min",
-    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
     + [ctypes.c_int, ctypes.c_int, ctypes.c_int],
 )
 
@@ -295,7 +295,7 @@ def pop_min_plain(q: EventQueue, limit: int) -> tuple[EventQueue, Event, torch.T
     )
 
 
-def pop_min(q: EventQueue, limit) -> tuple[EventQueue, Event, torch.Tensor]:
+def pop_min(q: EventQueue, limit, rows: bool = False) -> tuple[EventQueue, Event, torch.Tensor]:
     """Pop each host's earliest event strictly before `limit` (an int, or
     an i64[H] tensor of per-host limits).
 
@@ -304,10 +304,15 @@ def pop_min(q: EventQueue, limit) -> tuple[EventQueue, Event, torch.Tensor]:
     clears the popped slot's time and order IN PLACE, so the returned queue
     shares (and the input queue sees) the updated planes; kind and payload
     stay as they were, exactly as in the reference. With per-host limits it
-    runs as K5 at k = 1 and K6 (the same event and clear)."""
+    runs as K5 at k = 1 and K6 (the same event and clear), or with `rows`
+    (the ensemble plane's per-replica limits) as K2 reading them."""
     if on_cpu(q.t):
         return pop_min_plain(q, limit)
-    if isinstance(limit, torch.Tensor):
+    limits = None
+    if isinstance(limit, torch.Tensor) and rows:
+        check(limit, torch.int64, (q.t.shape[0],), "pop limits")
+        limits, limit = limit, 0
+    elif isinstance(limit, torch.Tensor):
         popped = pop_k(q, limit, 1)
         active = popped.active[:, 0]
         return clear_popped(q, popped, active.to(torch.int32)), popped.event(0), active
@@ -322,6 +327,7 @@ def pop_min(q: EventQueue, limit) -> tuple[EventQueue, Event, torch.Tensor]:
     active = torch.empty((h,), dtype=torch.bool, device=dev)
     _pop_min_k(
         ptr(q.t), ptr(q.order), ptr(q.kind), ptr(q.payload), int(limit),
+        None if limits is None else ptr(limits),
         ptr(ev.t), ptr(ev.order), ptr(ev.kind), ptr(ev.payload), ptr(active),
         h, c, p,
     )
@@ -788,8 +794,8 @@ def q_next_time(q, floor: torch.Tensor | None = None, crash=None) -> torch.Tenso
             else next_time(q, floor, crash))
 
 
-def q_pop_min(q, limit):
-    return bq_pop_min(q, limit) if isinstance(q, BucketQueue) else pop_min(q, limit)
+def q_pop_min(q, limit, rows: bool = False):
+    return bq_pop_min(q, limit) if isinstance(q, BucketQueue) else pop_min(q, limit, rows)
 
 
 def q_head(q) -> tuple[torch.Tensor, torch.Tensor]:

@@ -38,6 +38,13 @@ into its i-th free slot, and `dropped` is unchanged; otherwise the result
 is `merge_flat_events`'s. Both place the same events; the slots differ,
 and slot positions are never observed, so digests agree either way.
 
+Replicas (the ensemble plane): with `rows_per_rep` HR below the queue's H
+rows, the queue is R = H / HR replicas of HR hosts and the rows are the
+[H, B] outbox, whose row h belongs to replica h / HR. Destinations are
+replica-local ids in [0, HR): a row lands in queue row (h / HR) * HR + dst,
+and both contracts hold per replica (the `merge_rows` bound and K13's fits
+test count within the replica), so each replica's result is its own merge's.
+
 This module holds kernels K4 `merge_insert` and K13 `merge_scatter`
 (csrc/merge.cu, sort-free bucket merges); `merge_flat_events_plain` and
 `merge_scatter_free_plain` beside them are the plain PyTorch versions
@@ -57,11 +64,11 @@ from shadow_tpu_torch.simtime import TIME_MAX
 
 _merge_k = CudaKernel(
     "merge", "merge_insert",
-    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9,
+    [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10,
 )
 _scatter_k = CudaKernel(
     "merge", "merge_scatter",
-    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9,
+    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10,
 )
 
 
@@ -139,10 +146,39 @@ def _insert(q: EventQueue, slot_of_rank, perm, dst_key, n_take,
     return EventQueue(new_t, new_order, new_kind, new_payload, dropped)
 
 
+def _per_replica(plain, q: EventQueue, dst, t, order, kind, payload, valid, max_inserts: int,
+                 shed_urgency: bool, cols: int, merge_rows: int, rows_per_rep: int) -> EventQueue:
+    """A plain merge run on each replica's rows of the queue and the [H, B]
+    outbox, the results stacked back: replica r's merge sees only its own
+    rows, as its solo run does."""
+    outs = []
+    for a in range(0, q.t.shape[0], rows_per_rep):
+        sl = slice(a, a + rows_per_rep)
+        outs.append(plain(EventQueue(*(x[sl] for x in q)), dst[sl], t[sl], order[sl], kind[sl],
+                          payload[sl], None if valid is None else valid[sl], max_inserts,
+                          shed_urgency, cols, merge_rows))
+    return EventQueue(*(torch.cat(xs) for xs in zip(*outs)))
+
+
+def _check_replicas(q: EventQueue, dst, rows_per_rep: int) -> bool:
+    """Whether `rows_per_rep` splits the queue into replicas (False: one)."""
+    h = q.t.shape[0]
+    if not rows_per_rep or rows_per_rep == h:
+        return False
+    if h % rows_per_rep or dst.dim() != 2 or dst.shape[0] != h:
+        raise ValueError(f"rows_per_rep={rows_per_rep}: the queue's {h} rows and the rows "
+                         f"{tuple(dst.shape)} must be whole replicas of an [H, B] outbox")
+    return True
+
+
 def merge_flat_events_plain(
     q: EventQueue, dst, t, order, kind, payload, valid,
     max_inserts: int, shed_urgency: bool = True, cols: int = 0, merge_rows: int = 0,
+    rows_per_rep: int = 0,
 ) -> EventQueue:
+    if _check_replicas(q, dst, rows_per_rep):
+        return _per_replica(merge_flat_events_plain, q, dst, t, order, kind, payload, valid,
+                            max_inserts, shed_urgency, cols, merge_rows, rows_per_rep)
     num_hosts, cap = q.t.shape
     dst, t, order, kind, payload, valid = _flat_rows(
         dst, t, order, kind, payload, valid, cols, num_hosts)
@@ -162,7 +198,11 @@ def merge_flat_events_plain(
 def merge_scatter_free_plain(
     q: EventQueue, dst, t, order, kind, payload, valid,
     max_inserts: int, shed_urgency: bool = True, cols: int = 0, merge_rows: int = 0,
+    rows_per_rep: int = 0,
 ) -> EventQueue:
+    if _check_replicas(q, dst, rows_per_rep):
+        return _per_replica(merge_scatter_free_plain, q, dst, t, order, kind, payload, valid,
+                            max_inserts, shed_urgency, cols, merge_rows, rows_per_rep)
     num_hosts, cap = q.t.shape
     rows = _flat_rows(dst, t, order, kind, payload, valid, cols, num_hosts)
     dst, t, order, kind, payload, valid = rows
@@ -185,8 +225,9 @@ def merge_scatter_free_plain(
 
 def _launch(kernel, q: EventQueue, dst, t, order, kind, payload, valid,
             max_inserts: int, shed_urgency: bool, cols: int, scatter: bool,
-            merge_rows: int) -> EventQueue:
+            merge_rows: int, rows_per_rep: int) -> EventQueue:
     h, c = q.t.shape
+    hr = rows_per_rep if _check_replicas(q, dst, rows_per_rep) else h
     p = q.payload.shape[2]
     if dst.dim() == 1:  # N flat rows: an [N, 1] outbox
         r, b, gc = dst.shape[0], 1, 1
@@ -218,42 +259,47 @@ def _launch(kernel, q: EventQueue, dst, t, order, kind, payload, valid,
             None if valid is None else ptr(valid),
             ptr(counts), ptr(offsets), ptr(fill), ptr(bucket)]
     if scatter:
-        args.append(ptr(torch.empty((1,), dtype=torch.int32, device=dev)))
+        args.append(ptr(torch.empty((h // hr,), dtype=torch.int32, device=dev)))
     if merge_rows < 0:
         raise ValueError(f"merge_rows={merge_rows} must be >= 0 (0 = none)")
-    kernel(*args, h, c, p, r, b, gc, min(max_inserts, c), int(bool(shed_urgency)), merge_rows)
+    kernel(*args, h, hr, c, p, r, b, gc, min(max_inserts, c), int(bool(shed_urgency)),
+           merge_rows)
     return q
 
 
 def merge_flat_events(
     q: EventQueue, dst, t, order, kind, payload, valid,
     max_inserts: int, shed_urgency: bool = True, cols: int = 0, merge_rows: int = 0,
+    rows_per_rep: int = 0,
 ) -> EventQueue:
     """Insert the rows (flat [N] or the first `cols` columns of an [H, B]
     outbox; `valid` may be None: time not TIME_MAX) into the [H, C] queue,
-    under the `merge_rows` bound where it is > 0. On CUDA, K4 updates the
-    queue planes and `dropped` IN PLACE and returns the same queue."""
+    under the `merge_rows` bound where it is > 0, per replica of
+    `rows_per_rep` rows where it is given (0: one replica). On CUDA, K4
+    updates the queue planes and `dropped` IN PLACE and returns the same
+    queue."""
     if on_cpu(q.t):
         return merge_flat_events_plain(
-            q, dst, t, order, kind, payload, valid, max_inserts, shed_urgency, cols, merge_rows
-        )
+            q, dst, t, order, kind, payload, valid, max_inserts, shed_urgency, cols, merge_rows,
+            rows_per_rep)
     return _launch(_merge_k, q, dst, t, order, kind, payload, valid, max_inserts,
-                   shed_urgency, cols, False, merge_rows)
+                   shed_urgency, cols, False, merge_rows, rows_per_rep)
 
 
 def merge_scatter_free(
     q: EventQueue, dst, t, order, kind, payload, valid,
     max_inserts: int, shed_urgency: bool = True, cols: int = 0, merge_rows: int = 0,
+    rows_per_rep: int = 0,
 ) -> EventQueue:
     """The scatter merge of the same rows (module docstring). On CUDA, K13
-    decides between its fast path and K4's insert on the device and
-    updates the queue IN PLACE."""
+    decides between its fast path and K4's insert on the device, per
+    replica, and updates the queue IN PLACE."""
     if on_cpu(q.t):
         return merge_scatter_free_plain(
-            q, dst, t, order, kind, payload, valid, max_inserts, shed_urgency, cols, merge_rows
-        )
+            q, dst, t, order, kind, payload, valid, max_inserts, shed_urgency, cols, merge_rows,
+            rows_per_rep)
     return _launch(_scatter_k, q, dst, t, order, kind, payload, valid, max_inserts,
-                   shed_urgency, cols, True, merge_rows)
+                   shed_urgency, cols, True, merge_rows, rows_per_rep)
 
 
 KERNELS = {"merge_insert": _merge_k, "merge_scatter": _scatter_k}

@@ -220,7 +220,8 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
                    bg: tuple[int, int] | None = None, fault: tuple[int, int] | None = None,
                    iv: tuple[int, int] | None = None, cap: int | None = None, *,
                    hbm: int | None = None, ek: tuple[int, int] | None = None,
-                   fct: int | None = None, rt: float | None = None, ici: int = 0) -> str:
+                   fct: int | None = None, rt: float | None = None, ici: int = 0,
+                   rep: tuple[int, int] | None = None) -> str:
     """The `[heartbeat]` progress line, in the JAX package's format (ici_bytes
     the exchange's modelled bytes over the ranks, 0 on one device;
     `faults=<dropped>/<delayed>` only on fault-plane
@@ -232,7 +233,8 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
     `bg=<bytes>/<dropped>` only on fluid runs, after `fct=`;
     `iv=<transients>/<replays>` only on integrity-sentinel runs, after
     `bg=`; `rt=<last chunk's sim-s/wall-s>` only on runtime-observatory
-    runs, after `iv=`) plus the port's host-sync count."""
+    runs, after `iv=`; `rep=<replicas done>/<total>` only on ensemble
+    campaign runs, after `rt=`) plus the port's host-sync count."""
     fault_f = f"faults={fault[0]}/{fault[1]} " if fault is not None else ""
     gear_f = f"gear={gear} " if gear is not None else ""
     cap_f = f"cap={cap} " if cap is not None else ""
@@ -242,6 +244,7 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
     bg_f = f"bg={bg[0]}/{bg[1]} " if bg is not None else ""
     iv_f = f"iv={iv[0]}/{iv[1]} " if iv is not None else ""
     rt_f = f"rt={rt:.2f} " if rt is not None else ""
+    rep_f = f"rep={rep[0]}/{rep[1]} " if rep is not None else ""
     return (
         f"[heartbeat] sim_time={now_ns / NS_PER_SEC:.3f}s "
         f"wall={wall:.2f}s events={events} "
@@ -258,6 +261,7 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
         f"{bg_f}"
         f"{iv_f}"
         f"{rt_f}"
+        f"{rep_f}"
         f"syncs={host_syncs} "
         f"ratio={now_ns / NS_PER_SEC / max(wall, 1e-9):.2f}x"
     )
@@ -285,6 +289,11 @@ class Simulation:
         self.coll = coll
         self.rank = coll.rank if coll is not None else 0
         cfg.check_world(self.world)
+        if cfg.campaign.active:
+            raise ConfigError(
+                "this config declares a campaign: block (a sweep of replicas); run it with "
+                "`python -m shadow_tpu_torch.campaign CONFIG.yaml` (shadow_tpu_torch.campaign "
+                "run_campaign), not as one simulation")
         self.graph = load_graph(cfg.network.graph)
         self.hosts = expand_hosts(cfg, self.graph)
         if not self.hosts:

@@ -1259,3 +1259,158 @@ def mesh_runs(coll, cases: list) -> list | None:
         rep["engine_cfg"] = dataclasses.asdict(sim.engine_cfg)
         reports.append(rep)
     return reports if coll.rank == 0 else None
+
+
+# --------------------------------------------------------------------------
+# the ensemble plane (K31, K32 and the replica lanes of K2, K4, K9-K11, K13)
+# --------------------------------------------------------------------------
+
+
+def ensemble_case(seed: int, reps: int, h: int, dev, *, fields: int = 11) -> dict:
+    """Random inputs of the ensemble kernels over `reps` replicas of `h`
+    rows: next times (replica 1 all empty, so done; the rest spread around
+    a stop time with some rows right at it), used-latency minima, the lane
+    block with replica `reps - 1` already done (frozen), per-row valves,
+    outbox counts, a digest plane and `fields` counter planes."""
+    from shadow_tpu_torch.ops.ensemble import WEND, make_lanes
+
+    r = np.random.default_rng(seed)
+    stop = 30 * 10**9
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    nt = r.integers(0, 2 * stop, (reps, h))
+    nt[r.random((reps, h)) < 0.3] = TIME_MAX
+    nt[min(1, reps - 1)] = TIME_MAX
+    nt[0, : h // 7] = stop
+    lanes = make_lanes([i == reps - 1 for i in range(reps)], dev)
+    lanes[WEND, reps - 1] = 12_345
+    return dict(
+        nt=T(nt.reshape(-1)), stop=stop, lanes=lanes,
+        min_used=T(r.integers(1, 90, reps) * 1_000_000),
+        valve=T(r.integers(0, 40, reps * h)),
+        ob_count=T(r.integers(0, 1_000, reps).astype(np.int32)),
+        digest=T(r.integers(-(1 << 63), (1 << 63) - 1, reps * h)),
+        fields=[T(r.integers(0, 1 << 40, reps * h)) for _ in range(fields)],
+    )
+
+
+def replica_chain_case(seed: int, reps: int, h: int, dev, *, frozen: tuple = (),
+                       **chain_kw) -> dict:
+    """`chain_case` over reps x h rows laid out as `reps` replicas of `h`
+    hosts: the config's hosts per replica and replica count, `node_of` and
+    the route rows held once (replica-local ids index them), destinations
+    drawn around one replica's range, link-fault windows per replica
+    ([reps, L], each replica's shifted), the window ends an i64[reps] lane,
+    and the outbox counters [reps]. Replicas in `frozen` have no active
+    event and dispatch nothing: the kernels must leave their rows as they
+    were."""
+    from shadow_tpu_torch.core.faults import FaultParams
+
+    case = chain_case(seed, reps * h, dev, **chain_kw)
+    cfg, params, out = case["cfg"], case["params"], case["out"]
+    n = params.lat_ns.shape[0]
+    g = -(-h // n) if cfg.hosts_per_node else 0
+    cfg = dataclasses.replace(cfg, num_hosts=h, replicas=reps, hosts_per_node=g)
+    node_of = params.node_of[:h].contiguous()
+    if g:
+        node_of = (torch.arange(h, device=node_of.device) // g).to(torch.int32)
+    params = params._replace(
+        node_of=node_of,
+        lat_rows=None if params.lat_rows is None else params.lat_rows[:h].contiguous(),
+        loss_rows=None if params.loss_rows is None else params.loss_rows[:h].contiguous(),
+        jit_rows=None if params.jit_rows is None else params.jit_rows[:h].contiguous(),
+    )
+    fp = params.faults
+    if fp is not None and fp.win_start is not None:
+        shift = torch.arange(reps, device=fp.win_start.device)[:, None] * 7_000_000
+        params = params._replace(faults=FaultParams(
+            fp.down_t, fp.up_t, fp.win_start[None] + shift, fp.win_end[None] + shift,
+            fp.win_loss[None].repeat(reps, 1), fp.win_lat[None].repeat(reps, 1)))
+    r = np.random.default_rng([seed, 40])
+    sends = tuple(sp._replace(dst=torch.as_tensor(r.integers(-2, h + 2, reps * h),
+                                                  device=sp.dst.device))
+                  for sp in out.sends)
+    keep = torch.ones((reps, h), dtype=torch.bool, device=case["active"].device)
+    for i in frozen:
+        keep[i] = False
+    keep = keep.reshape(-1)
+    we = case["window_end"]
+    carry = case["carry"]
+    carry = carry._replace(stats=carry.stats._replace(
+        ob_dropped=torch.zeros((reps,), dtype=torch.int64, device=keep.device)))
+    return dict(case, cfg=cfg, params=params, out=out._replace(sends=sends), carry=carry,
+                active=case["active"] & keep, dispatch=case["dispatch"] & keep,
+                window_end=torch.as_tensor([we + i * 3_000_000 for i in range(reps)],
+                                           device=keep.device))
+
+
+def replica_merge_case(seed: int, reps: int, h: int, cap: int, b: int, gc: int, loads: tuple,
+                       p: int = 4):
+    """`merge_case` per replica (its load from `loads`; "empty" stages no
+    send, so the replica's queue rows must come out unchanged), stacked
+    into reps x h rows: numpy (queue planes, outbox planes) whose
+    destinations are replica-local ids."""
+    parts = [merge_case(seed + i, h, cap, b, gc, loads[i], p) for i in range(reps)]
+    queue = tuple(np.concatenate([q[k] for q, _ in parts]) for k in range(5))
+    outbox = tuple(np.concatenate([o[k] for _, o in parts]) for k in range(5))
+    return queue, outbox
+
+
+def cfg8_config(hosts: int = 4096, stop: str = "30 s", *, seeds=(1, 2, 3, 4),
+                **campaign) -> dict:
+    """bench.py baseline_config(8): a seed sweep of PHOLD replicas (4,096
+    hosts each, 30 sim-s; the small form 8 hosts for 40 s) on the 50 ms
+    graph, capacity 16, send budget 6, 64-round chunks, `campaign: {seeds:
+    [1, 2, 3, 4], ledger_file: null}`. The arguments vary the host count,
+    the horizon, the seeds and (`campaign`) any other campaign key."""
+    return {
+        "general": {"stop_time": stop, "seed": 1},
+        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "experimental": {"event_queue_capacity": 16, "sends_per_host_round": 6,
+                         "rounds_per_chunk": 64},
+        "campaign": {"seeds": list(seeds), "ledger_file": None, **campaign},
+        "hosts": {"node": {"count": hosts, "network_node_id": 0, "processes": [{
+            "model": "phold",
+            "model_args": {"population": 2, "mean_delay": "200 ms", "size_bytes": 64},
+        }]}},
+    }
+
+
+def campaign_base(campaign: dict, **general) -> dict:
+    """The JAX repo's campaign smoke (tools/campaign.py `_smoke_base`): 8
+    PHOLD hosts on the 50 ms graph for 2 sim-s, chunks of 8 rounds,
+    capacity 16, budget 4, heartbeats every sim-second, with `campaign`
+    (ledger file off unless given) and extra `general` keys."""
+    return {
+        "general": {"stop_time": "2 s", "seed": 1, "heartbeat_interval": "1 s", **general},
+        "network": {"graph": {"type": "gml", "inline": PHOLD_GML}},
+        "experimental": {"event_queue_capacity": 16, "sends_per_host_round": 4,
+                         "rounds_per_chunk": 8},
+        "hosts": {"node": {"count": 8, "network_node_id": 0, "processes": [{
+            "model": "phold",
+            "model_args": {"population": 2, "mean_delay": "200 ms", "size_bytes": 64}}]}},
+        "campaign": {"ledger_file": None, **campaign},
+    }
+
+
+# campaigns of the CPU tests and the card-vs-CPU phase: two crash schedules
+# under a repeated seed (an A/A pair, replicas 0 and 2, and a pair that
+# diverges mid-run, 0 and 1); the same forced divergence alone; a
+# fault-schedule sweep that pads crash windows and carries two loss windows
+_CRASH_AB = [{"crashes": [{"host": 1, "down_at": "0.6 s", "up_at": "0.9 s"}]},
+             {"crashes": [{"host": 1, "down_at": "1.4 s", "up_at": "1.7 s"}]}]
+CAMPAIGNS = {
+    "ab_pairs": {"seeds": [1, 1], "fault_schedules": _CRASH_AB,
+                 "expect_identical": [[0, 2], [0, 1]]},
+    "crash_ab": {"seeds": [1], "expect_identical": [[0, 1]], "fault_schedules": _CRASH_AB},
+    "fault_sweep": {"seeds": [1, 2, 3], "fault_schedules": [
+        {"crashes": [{"host": 2, "down_at": "0.1 s", "up_at": "0.25 s"},
+                     {"host": 2, "down_at": "0.3 s", "up_at": "0.35 s"}],
+         "loss_windows": [{"start": "0.05 s", "end": "0.2 s", "loss": 0.3}]},
+        {"host_churn": {"prob": 0.5, "mean_downtime": "0.1 s"}, "seed": 9,
+         "loss_windows": [{"start": "0.1 s", "end": "0.3 s", "loss": 0.1,
+                           "latency_factor": 2.0},
+                          {"start": "0.32 s", "end": "0.36 s", "loss": 0.5}]}]},
+}

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K30 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K32 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -48,7 +48,13 @@ flow-record lanes on `handler_case` inputs. The exchange across ranks: K29
 that fit, a shed, empty shards, one shard, padded hosts, a gear slice, many
 sort tiles, the 40k leg's shard width), K30 (`exchange_unpack`) on the
 blocks of four shards and on a gather buffer, and K10, K11, K14 and K16 at
-a shard whose hosts start past 0 (`host_base`).
+a shard whose hosts start past 0 (`host_base`). The ensemble plane: K31
+(`replica_window`, round and loop-test modes, static and dynamic
+runahead, with and without per-row valves) and K32 (`replica_fold`) on
+`shadow_tpu_torch.testing.ensemble_case` lanes, and K2 (per-row limits),
+K4, K9, K10, K11 and K13 over replicas (`replica_chain_case`,
+`replica_merge_case`) with a frozen replica whose rows must come out
+unchanged.
 Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
 repeats the check at the main path's shapes.
@@ -61,6 +67,7 @@ import torch
 from shadow_tpu_torch.core.engine import make_empty_outbox
 from shadow_tpu_torch.net import fluid as pfl
 from shadow_tpu_torch.ops import chain as pchain
+from shadow_tpu_torch.ops import ensemble as pens
 from shadow_tpu_torch.ops import events as pev
 from shadow_tpu_torch.ops import merge as pmerge
 from shadow_tpu_torch.ops import wheel as pwheel
@@ -76,6 +83,9 @@ from shadow_tpu_torch.testing import (
     handler_steps,
     merge_case,
     merge_fits,
+    ensemble_case,
+    replica_chain_case,
+    replica_merge_case,
 )
 
 H, C, P = 24, 16, 4
@@ -1049,3 +1059,128 @@ def test_fluid_kernels_on_a_shard_match_plain(dev, loss_max):
     want = pchain.event_egress_plain(clone_carry(ch["carry"]), *args)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# the ensemble plane
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [1, 300, 4096])
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_replica_window_kernel_matches_plain(dev, h, dynamic):
+    """K31 in both modes: the lane block and the pop limits equal the plain
+    version's, a done replica stays frozen (its window end kept), and the
+    valve is the microstep count or, given, the rows' largest count."""
+    case = ensemble_case(3, 4, h, dev)
+    kw = dict(rows=h, stop=case["stop"], runahead=50_000_000, floor=2_000_000,
+              dynamic=dynamic, min_used=case["min_used"], limit=25)
+    lanes_k, lanes_p = case["lanes"].clone(), case["lanes"].clone()
+    pop_k = torch.full((4 * h,), -1, dtype=torch.int64, device=dev)
+    pop_p = pop_k.clone()
+    pens.replica_window(pens.ROUND, case["nt"], lanes_k, pop_k, **kw)
+    pens.replica_window_plain(pens.ROUND, case["nt"], lanes_p, pop_p, **kw)
+    assert torch.equal(lanes_k, lanes_p) and lanes_k[pens.WEND, 3] == 12_345
+    for valve in (None, case["valve"]):
+        for _ in range(3):  # chained tests: the microstep lane counts
+            pens.replica_window(pens.LOOP, case["nt"], lanes_k, pop_k, valve=valve,
+                                ob_count=case["ob_count"], **kw)
+            pens.replica_window_plain(pens.LOOP, case["nt"], lanes_p, pop_p, valve=valve,
+                                      ob_count=case["ob_count"], **kw)
+            assert torch.equal(lanes_k, lanes_p) and torch.equal(pop_k, pop_p)
+    assert not bool(pop_k.view(4, h)[3].any())  # the frozen replica pops nothing
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,n_real", [(1, 1), (300, 300), (4096, 4096), (4096, 4000)])
+@pytest.mark.parametrize("fields", [0, 11])
+def test_replica_fold_kernel_matches_plain(dev, h, n_real, fields):
+    """K32: the xor of each replica's digest rows and the sums of its
+    counter rows over its first n_real rows."""
+    case = ensemble_case(4, 4, h, dev, fields=fields)
+    got = pens.replica_fold(case["digest"], case["fields"], 4, n_real)
+    want = pens.replica_fold_plain(case["digest"], case["fields"], 4, n_real)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("urgency", [True, False])
+@pytest.mark.parametrize("merge_rows", [0, 40])
+def test_replica_merge_kernels_match_plain(dev, urgency, merge_rows):
+    """K4 and K13 with four replicas of 48 hosts (loads that fit, a hot
+    destination, full queues; one replica frozen, with nothing sent): each
+    replica's rows equal the plain version's, the frozen replica's are
+    unchanged, and K13 decides its branch per replica."""
+    q, ob = replica_merge_case(11, 4, 48, 8, 6, 6, ("fit", "hot", "full", "empty"))
+    rows = [torch.as_tensor(a, device=dev) for a in ob]
+    queue = pev.EventQueue(*(torch.as_tensor(a, device=dev) for a in q))
+    for fn, plain in ((pmerge.merge_flat_events, pmerge.merge_flat_events_plain),
+                      (pmerge.merge_scatter_free, pmerge.merge_scatter_free_plain)):
+        got = fn(clone(queue), *rows, None, 8, urgency, merge_rows=merge_rows, rows_per_rep=48)
+        want = plain(clone(queue), *rows, None, 8, urgency, merge_rows=merge_rows,
+                     rows_per_rep=48)
+        assert_all_equal(got, want)
+        for x, y in zip(got, queue):
+            assert torch.equal(x[3 * 48:], y[3 * 48:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fill", ["mixed", "full"])
+def test_pop_min_per_row_limits_matches_plain(dev, fill):
+    """K2 reading per-row limits (the ensemble's frozen replicas pop under
+    0): the plain version's event, mask and slab."""
+    q = slab(9, fill, dev)
+    lim = torch.as_tensor(np.repeat([3000, 0, 6000, 0], H // 4), device=dev)
+    got = pev.pop_min(clone(q), lim, rows=True)
+    want = pev.pop_min_plain(clone(q), lim)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    assert not bool(got[2].view(4, -1)[1].any())
+
+
+REPLICA_CHAIN_CASES = {
+    "anchor": CHAIN_CASES["anchor"],
+    "echo_jitter": CHAIN_CASES["echo_jitter"],
+    "cfg6": CHAIN_CASES["cfg6"],
+    "faults": dict(CHAIN_CASES["anchor"], restart_queue="hold", loss_windows=2),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(REPLICA_CHAIN_CASES))
+def test_replica_chain_kernels_match_plain(dev, name):
+    """K10, K11 and K9 over four replicas of 75 hosts (replica-local ids and
+    destinations, per-replica window ends and link-fault windows, route
+    rows held once, per-replica outbox counters): the plain version's
+    outputs, with replica 2 frozen, its carry rows unchanged."""
+    from shadow_tpu_torch.ops.events import Event
+
+    case = replica_chain_case(5, 4, 75, dev, frozen=(2,), **REPLICA_CHAIN_CASES[name])
+    cfg, params, ev, active = case["cfg"], case["params"], case["ev"], case["active"]
+    c0 = clone_carry(case["carry"])
+
+    def fresh_event():  # K10's hold lane writes the time lane in place
+        k = ev.t.stride(0)
+        wide = torch.zeros((300, k), dtype=torch.int64, device=dev)
+        wide[:, -1] = ev.t
+        return Event(wide[:, -1], ev.order, ev.kind, ev.payload)
+
+    c_k, ing_k = pchain.event_ingress(clone_carry(c0), params, cfg, fresh_event(), active)
+    c_p, ing_p = pchain.event_ingress_plain(clone_carry(c0), params, cfg, fresh_event(), active)
+    assert_all_equal(flat_tensors([c_k, ing_k]), flat_tensors([c_p, ing_p]))
+    ev = ev._replace(t=ing_p.t)
+    out, dispatch, we = case["out"], case["dispatch"], case["window_end"]
+    got = pchain.event_egress(clone_carry(c_p), params, cfg, ev.t, dispatch, we, out)
+    want = pchain.event_egress_plain(clone_carry(c_p), params, cfg, ev.t, dispatch, we, out)
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    frozen = slice(2 * 75, 3 * 75)
+    for x, y in zip(flat_tensors(got[0]), flat_tensors(c0)):
+        if x.shape[:1] == (300,):
+            assert torch.equal(x[frozen], y[frozen])
+    ob = make_empty_outbox(300, cfg.sends_per_host_round, dev, 4)
+    lost0 = torch.arange(4, dtype=torch.int64, device=dev)
+    a = pchain.outbox_append_multi(type(ob)(*(x.clone() for x in ob)), [got[2]] * 2,
+                                   lost0.clone())
+    b = pchain.outbox_append_multi_plain(ob, [want[2]] * 2, lost0)
+    assert_all_equal(flat_tensors(a), flat_tensors(b))
+    assert int(a[0].count[2]) == 0 and int(a[0].count.sum()) > 0
