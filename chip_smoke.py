@@ -251,7 +251,32 @@ line reports it):
      padded, two loss windows) and a pair diverging by crash schedules (the
      CPU's first divergent chunk); a seed sweep checkpointed every chunk,
      killed by SIGKILL after its second checkpoint in a child and resumed
-     in another: the uninterrupted campaign's rows.
+     in another: the uninterrupted campaign's rows;
+ 42. the co-simulation bridge's kernels against their plain versions at
+     the mixed leg's shape (H = 4,096): K33 (hybrid_handle) on rings that
+     are empty, partly full, full (overflow into cap_lost) and random, 4
+     and 128 slots, flat and as a K = 4 column, over chained calls; K34
+     (mixed_plane, both modes, inside the mixed handler with K33 and the
+     inner model's kernel) with native tables all, none and mixed over
+     udp_echo (sanitising off) and gossip (on); K35 (guarded_window) with a
+     probe that fires on the first round and one that never fires, stop
+     lanes grown and not; and K4 over the
+     prepare step's 4,096-row flat insert at max_round_inserts = capacity
+     (256); exact equality, with the timings of phase 2, a CUDA-graph
+     replay of the plain version as K33's and K34's yardstick and
+     `torch.amin` plus `Tensor.any` as K35's;
+ 43. the co-sim legs at full width through `HybridSimulation`:
+     examples/tgen.yaml as configured (five coroutine hosts, four 1 MB TCP
+     flows, 30 sim-s, deterministic strace) and the mixed leg
+     (`testing.cosim_mixed_config()`: 4,096 modeled udp_echo servers and
+     32 coroutine udp_ping clients, 6 sim-s); each must give the JAX
+     package's report results and the SHA-256 of every stdout, stderr,
+     strace and host-stats file, with K33 launched once per K10 launch (and
+     K34 twice and K19 once on the mixed leg); each prints its run loop's
+     wall, windows, device rounds, host syncs per window and launches;
+ 44. the small co-sim configs (`testing.cosim_small_configs()`: the JAX
+     package's co-sim tests' configs and a send budget that drops echoes)
+     card == CPU, files included.
 
 Phase W (`--world 4`, four cards, one NCCL rank each), after three short
 warm-up runs (one per exchange kind; their digests must agree): the
@@ -278,7 +303,7 @@ often as K10 (one launch per event_body call), and no other handler. The
 CPU sides of the card == CPU phases run in four spawned worker processes
 (one intra-op thread each) beside the card's runs, and end with the phase.
 The phases run in the order 1-3, 7, 11, 12, 15, 21, 24, 25, 29, 32, 36, 38,
-39, 4-6, 8-10, 13, 14, 16-20, 22, 23, 26-28, 30, 31, 33-35, 37, 40, 41, so that every
+39, 42, 4-6, 8-10, 13, 14, 16-20, 22, 23, 26-28, 30, 31, 33-35, 37, 40, 41, 43, 44, so that every
 kernel's bound is counted before the profiles (5, 9) hold the kernels'
 in-path device times against it. A profiler reading below the
 kernel's bound (the least time the card needs for the work) is a
@@ -2782,6 +2807,9 @@ KERNEL_SYMBOLS = {
     "exchange_unpack": ("exchange_unpack_kernel",),
     "replica_window": ("replica_window_kernel",),
     "replica_fold": ("replica_fold_kernel",),
+    "hybrid_handle": ("hybrid_handle_kernel",),
+    "mixed_plane": ("mixed_in_kernel", "mixed_out_kernel"),
+    "guarded_window": ("guarded_window_kernel",),
 }
 # the microstep's per-event steps, marked as profiler ranges in phases 5 and 9
 RANGES = ("ingress", "handler", "egress", "outbox_append")
@@ -3229,7 +3257,10 @@ SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
            "dshard_pack": "shadow_tpu_torch/csrc/exchange.cu",
            "exchange_unpack": "shadow_tpu_torch/csrc/exchange.cu",
            "replica_window": "shadow_tpu_torch/csrc/ensemble.cu",
-           "replica_fold": "shadow_tpu_torch/csrc/ensemble.cu"}
+           "replica_fold": "shadow_tpu_torch/csrc/ensemble.cu",
+           "hybrid_handle": "shadow_tpu_torch/csrc/models.cu",
+           "mixed_plane": "shadow_tpu_torch/csrc/models.cu",
+           "guarded_window": "shadow_tpu_torch/csrc/cosim.cu"}
 REPLACES = {
     "queue_next_time": "shadow_tpu/ops/events.py:129",
     "queue_pop_min": "shadow_tpu/ops/events.py:138",
@@ -3263,6 +3294,9 @@ REPLACES = {
     "exchange_unpack": "shadow_tpu/core/engine.py:3379",
     "replica_window": "shadow_tpu/core/ensemble.py:272",
     "replica_fold": "shadow_tpu/core/ensemble.py:319",
+    "hybrid_handle": "shadow_tpu/models/hybrid.py:73",
+    "mixed_plane": "shadow_tpu/models/mixed.py:83",
+    "guarded_window": "shadow_tpu/core/engine.py:1664",
 }
 # the kernels only a world > 1 run launches (phase W, `--world 4`): the
 # one-card run's table gives them 0 launches, with that note
@@ -3293,6 +3327,9 @@ PORTED_FOR = {
     "exchange_unpack": "scale40k_w4_alltoall",
     "replica_window": "cfg8",
     "replica_fold": "cfg8",
+    "hybrid_handle": "cosim_tgen",
+    "mixed_plane": "cosim_mixed",
+    "guarded_window": "cosim_tgen",
 }
 
 
@@ -4093,6 +4130,344 @@ def main_world(world: int) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# the co-simulation bridge (phases 42-44)
+# --------------------------------------------------------------------------
+
+# phase 43's legs: the JAX package's HybridSimulation on the CPU, its
+# `testing.cosim_final` (report results, the files' count and one SHA-256
+# over them); examples/tgen.yaml as configured, and
+# `testing.cosim_mixed_config()` (4,096 modeled udp_echo servers, 32
+# coroutine udp_ping clients, 6 sim-s)
+COSIM_TGEN_REF = {
+    "windows": 191, "device_rounds": 215, "events_processed": 13_552, "packets_sent": 4_619,
+    "packets_delivered": 4_431, "packets_lost": 0, "packets_budget_dropped": 188,
+    "packets_codel_dropped": 0, "faults_dropped": 0, "faults_delayed": 0,
+    "queue_overflow_dropped": 0, "queue_occupancy_hwm": 96, "outbox_send_hwm": 32,
+    "unreachable_ips": 0, "model_pkts_unrouted": 0, "syscalls": 262, "process_failures": 0,
+    "processes_exited": 5, "determinism_digest": "4a6d306f64b24d37",
+    "model_report": {"capture_overflow_lost": 0}, "files": 21,
+    "files_sha256": "6aaa8d5baee284076ca628983d745fb5ab0efc8590893635b0ebb9c457e3b916",
+}
+COSIM_MIXED_REF = {
+    "windows": 100, "device_rounds": 150, "events_processed": 11_168, "packets_sent": 3_200,
+    "packets_delivered": 3_200, "packets_lost": 0, "packets_budget_dropped": 0,
+    "packets_codel_dropped": 0, "faults_dropped": 0, "faults_delayed": 0,
+    "queue_overflow_dropped": 0, "queue_occupancy_hwm": 32, "outbox_send_hwm": 32,
+    "unreachable_ips": 0, "model_pkts_unrouted": 0, "syscalls": 11_328, "process_failures": 0,
+    "processes_exited": 32, "determinism_digest": "dfad55be3cb42820",
+    "model_report": {"capture_overflow_lost": 0, "model_udp_echo": {
+        "requests_sent": 0, "responses_received": 0, "requests_served": 1_600,
+        "mean_rtt_ms": 0.0, "max_rtt_ms": 0.0}},
+    "files": 97,
+    "files_sha256": "bcd887307f462774f2318aaad65ad372390449048de52d7b2bf6350855ab3bc4",
+}
+
+COSIM_H = 4096  # the mixed leg's host count
+COSIM_RING = 128  # the bridge's capture ring (models/hybrid.py)
+# the kernels every co-sim leg runs: the solo round's (flat queue, K = 1),
+# K4 also for the prepare step's staged sends, K33 and K35; the mixed leg
+# also K34 and its inner model's handler
+COSIM_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "merge_insert",
+              *CHAIN_PATH, "hybrid_handle", "guarded_window")
+COSIM_MIXED_PATH = COSIM_PATH + ("mixed_plane", "echo_handle")
+
+
+def phase_kernels_cosim(dev) -> dict[str, dict]:
+    """K33 (hybrid_handle), K34 (mixed_plane) and K35 (guarded_window)
+    against their plain versions at the mixed leg's shape (H = 4,096):
+    K33 on `hybrid_case` rings of 4 slots that are empty, partly full, full
+    (every delivery overflows into cap_lost) and random, and on rings of the
+    bridge's 128, each flat and as a K = 4 column, over two chained calls;
+    the mixed handler (K34 in mode, K33, the inner model's kernel, K34 out
+    mode) on `mixed_case` with native tables all, none and mixed, over
+    udp_echo (sanitising off) and gossip (on); K35 on `guarded_case` lanes
+    with a probe that fires on the first round and one that never fires,
+    0-2 stop lanes (the last grown); and K4 over a
+    4,096-row flat insert of staged send requests into a 256-slot queue at
+    max_round_inserts = capacity (the prepare step). Exact equality. Timings
+    as phase 2's; the library yardstick is a CUDA-graph replay of the plain
+    version for K33 and K34 (no one PyTorch call computes a handler), and
+    `torch.amin` plus `Tensor.any` for K35."""
+    import dataclasses
+
+    from shadow_tpu_torch.models.hybrid import KIND_DATA
+    from shadow_tpu_torch.models.mixed import mixed_in, mixed_in_plain, mixed_out, mixed_out_plain
+    from shadow_tpu_torch.ops import merge
+    from shadow_tpu_torch.ops.cosim import guarded_window, guarded_window_plain
+    from shadow_tpu_torch.testing import (
+        COSIM_FILLS,
+        NATIVE_PATTERNS,
+        clone_ctx,
+        guarded_case,
+        handler_diff,
+        handler_tensors,
+        hybrid_case,
+        mixed_case,
+    )
+
+    h = COSIM_H
+    results = {}
+    # K33: chained calls, the rings and counters written in place
+    err, checked = 0.0, 0
+    for cap, fills in ((4, COSIM_FILLS), (COSIM_RING, ("partial", "random"))):
+        for fill in fills:
+            for stride in (1, K6):
+                case = hybrid_case(42, h, dev, cap=cap, fill=fill, stride=stride)
+                m, ck = case["model"], case["ctx"]
+                cp = clone_ctx(ck)
+                lost0 = int(ck.state["cap_lost"].sum())
+                for step in range(2):
+                    if step:
+                        ev = hybrid_case(43 + step, h, dev, cap=cap, fill=fill,
+                                         stride=stride)["ctx"]
+                        ck = dataclasses.replace(ev, state=got.state, rng=got.rng)
+                        cp = dataclasses.replace(ev, state=want.state, rng=want.rng)
+                    got, want = m.handle(ck), m.handle_plain(cp)
+                    diff = handler_diff(got, want)
+                    if diff:
+                        raise AssertionError(f"hybrid_handle {cap}/{fill}/{stride}/{step}: "
+                                             f"{diff} differ from the plain version")
+                    a, b = handler_tensors(got), handler_tensors(want)
+                    err = max(err, max_abs_err([a[x] for x in b], list(b.values())))
+                    checked += 1
+                if fill == "full" and not int(got.state["cap_lost"].sum()) > lost0:
+                    raise AssertionError("hybrid_handle full rings: no overflow into cap_lost")
+    case = hybrid_case(45, h, dev, cap=COSIM_RING, fill="partial")
+    m, ctx = case["model"], case["ctx"]
+    r = kernel_ms("hybrid_handle", lambda c: m.handle(c), lambda: (clone_ctx(ctx),))
+    r["plain_ms"] = time_ms(lambda c: m.handle_plain(c), lambda: (clone_ctx(ctx),))
+    g = graph_of(lambda: m.handle_plain(ctx))
+    r["library_ms"] = time_ms(g.replay)
+    r["library_call"] = "torch.cuda.CUDAGraph replay of handle_plain (static inputs)"
+    want = m.handle_plain(ctx)
+    # bytes this input needs: every lane's active, is_packet and kind; the
+    # send port's mask and destination (from payload word 1) on every lane;
+    # t, src, payload words 0, 2, 3 and cap_n of the delivery rows only;
+    # one ring slot (28 B) and cap_n written where a delivery lands,
+    # cap_lost read and written where it overflows. The port's size,
+    # payload and kind are the event's words and a constant, passed through
+    is_data = ctx.active & ctx.is_packet & (ctx.kind == KIND_DATA)
+    n_data = int(is_data.sum())
+    landed = int((want.state["cap_n"] != ctx.state["cap_n"]).sum())
+    r["bound"] = bound(h * (1 + 1 + 4) + h * (4 + 8 + 1)
+                       + n_data * (8 + 8 + 4 + 4 + 4 + 4) + landed * (28 + 4)
+                       + (n_data - landed) * 16, 24 * h)
+    r.update(shape=[h, COSIM_RING], checked_calls=checked, max_abs_err=err)
+    results["hybrid_handle"] = settle("hybrid_handle", r, r["bound"][0])
+
+    # K34 inside the mixed handler, every lane against the plain handler
+    err, checked = 0.0, 0
+    for inner in ("udp_echo", "gossip"):
+        for native in NATIVE_PATTERNS:
+            for stride in (1, K6):
+                case = mixed_case(inner, 44, h, dev, native=native, stride=stride)
+                got = case["model"].handle(clone_ctx(case["ctx"]))
+                want = case["model"].handle_plain(clone_ctx(case["ctx"]))
+                diff = handler_diff(got, want)
+                if diff:
+                    raise AssertionError(f"mixed_plane {inner}/{native}/{stride}: {diff} differ "
+                                         "from the plain version")
+                a, b = handler_tensors(got), handler_tensors(want)
+                err = max(err, max_abs_err([a[x] for x in b], list(b.values())))
+                checked += 1
+    # timed: both modes over udp_echo's lanes (its two send ports), mixed table
+    case = mixed_case("udp_echo", 46, h, dev, native="mixed")
+    mm, ctx = case["model"], case["ctx"]
+    native = ctx.params["global_is_native"]
+    sends = list(mm.inner.handle_plain(dataclasses.replace(
+        ctx, state=ctx.state["inner"], params=ctx.params["inner"])).sends)
+
+    def both(fin, fout):
+        return fin(ctx, native, mm.wire_kind, mm.sanitize), fout(sends, native)
+
+    r = kernel_ms("mixed_plane", lambda: both(mixed_in, mixed_out))
+    plain_out = (lambda ss, nat: [mixed_out_plain(x, nat) for x in ss])
+    r["plain_ms"] = time_ms(lambda: both(mixed_in_plain, plain_out))
+    g = graph_of(lambda: both(mixed_in_plain, plain_out))
+    r["library_ms"] = time_ms(g.replay)
+    r["library_call"] = "torch.cuda.CUDAGraph replay of the plain in and out modes"
+    # bytes this input needs. In mode: host_id and active read, the two
+    # active lanes written, the native table read once; where the inner
+    # model has a wire kind, is_packet and kind read, the kind lane written
+    # and src read on packet rows only; the payload only where it is
+    # sanitised (udp_echo passes it through). Out mode, per port: mask read,
+    # dst where the mask is set, the kind lane (one word where constant)
+    # read and the translated lane written
+    nb = h * (ctx.host_id.element_size() + 1 + 2) + native.numel()
+    if mm.wire_kind is not None:
+        nb += h * (1 + 4 + 4) + int(ctx.is_packet.sum()) * ctx.src.element_size()
+        if mm.sanitize:
+            nb += 2 * ctx.payload.numel() * ctx.payload.element_size()
+    for sp in sends:
+        nb += (h + int(sp.mask.sum()) * sp.dst.element_size()
+               + (sp.kind.element_size() if sp.kind.stride(0) == 0
+                  else sp.kind.numel() * sp.kind.element_size()) + 4 * h)
+    r["bound"] = bound(nb, 20 * h)
+    r.update(shape=[h, len(sends)], checked_calls=checked, max_abs_err=err)
+    results["mixed_plane"] = settle("mixed_plane", r, r["bound"][0])
+
+    # K35
+    err, checked = 0.0, 0
+    for probe in ("never", "first"):
+        for stops in (0, 1, 2):
+            for seed in range(6):
+                kw = guarded_case(seed, h, dev, probe=probe, stops=stops)
+                got, want = guarded_window(**kw), guarded_window_plain(**kw)
+                err = max(err, check_equal(f"guarded_window {probe}/{stops}", [got], [want]))
+                if bool(got[2]) != (probe == "first"):
+                    raise AssertionError(f"guarded_window: probe {probe} read {got.tolist()}")
+                checked += 1
+    kw = guarded_case(7, h, dev, probe="never", stops=0)
+    r = kernel_ms("guarded_window", lambda: guarded_window(**kw))
+    r["plain_ms"] = time_ms(lambda: guarded_window_plain(**kw))
+    r["library_ms"] = time_ms(lambda: (torch.amin(kw["next_t"]), (kw["cap_n"] > 0).any()))
+    r["library_call"] = "torch.amin of the next times plus Tensor.any of cap_n > 0"
+    r["bound"] = bound(io_bytes(reads=[kw["next_t"], kw["cap_n"]],
+                                writes=[guarded_window_plain(**kw)]), 2 * h)
+    r.update(shape=[h], checked_calls=checked, max_abs_err=err)
+    results["guarded_window"] = settle("guarded_window", r, r["bound"][0])
+
+    # the prepare step: K4 over a full staging batch (4,096 flat rows, each
+    # a local send request on its source host) into a 256-slot queue
+    rng = np.random.default_rng(47)
+    cap = 256
+    q0 = random_queue(rng, rng.integers(0, 40, h), dev, cap=cap)
+    n = 4096
+    staged = int(rng.integers(3_000, n))
+    src = rng.integers(0, h, n)
+    src[: staged // 8] = 5  # one host's burst
+    t = np.full(n, TIME_MAX, np.int64)
+    t[:staged] = rng.integers(0, 50, staged) * 1_000_000
+    order = (1 << 62) | (src.astype(np.int64) << 40) | np.arange(n, dtype=np.int64)
+    rows = [torch.as_tensor(a, device=dev) for a in (
+        src.astype(np.int32), t, order, np.ones(n, np.int32),
+        rng.integers(-(1 << 31), 1 << 31, (n, P)).astype(np.int32), np.arange(n) < staged)]
+    got = merge.merge_flat_events(clone_q(q0), *rows, cap)
+    want = merge.merge_flat_events_plain(clone_q(q0), *rows, cap)
+    perr = check_equal("merge_insert cosim prepare", list(got), list(want))
+    pr = kernel_ms("merge_insert", lambda q: merge.merge_flat_events(q, *rows, cap),
+                   lambda: (clone_q(q0),))
+    pr["plain_ms"] = time_ms(lambda q: merge.merge_flat_events_plain(q, *rows, cap),
+                             lambda: (clone_q(q0),))
+    # bytes this input needs, as phase 2 counts K4's: every valid flag;
+    # dst/t/order/kind/payload of the valid rows; the time plane of the
+    # hosts that get a row; one slot written per inserted row; dropped read
+    # and written where rows shed
+    seg = torch.bincount(rows[0][rows[5]].long(), minlength=h)
+    free = torch.clamp((q0.t == TIME_MAX).sum(dim=1), max=cap)
+    n_ins = int(torch.minimum(seg, free).sum())
+    n_shed = int((seg > free).sum())
+    pr["bound_ms"] = bound(n + staged * (4 + 8 + 8 + 4 + 4 * P) + int((seg > 0).sum()) * cap * 8
+                           + n_ins * (8 + 8 + 4 + 4 * P) + n_shed * 16, n + staged)[0]
+    pr["max_abs_err"] = perr
+    settle("merge_insert cosim prepare", pr, pr["bound_ms"])
+    results["merge_insert_cosim_prepare"] = pr
+    return results
+
+
+def _cosim_cpu(cfg: dict) -> dict:
+    """A CPU worker's side of phase 44: one co-sim run's `cosim_final`."""
+    import tempfile
+
+    from shadow_tpu_torch.testing import run_cosim
+
+    with tempfile.TemporaryDirectory() as d:
+        return run_cosim(cfg, "cpu", d)[1]
+
+
+def cosim_legs() -> dict[str, tuple[dict, dict, tuple]]:
+    """Phase 43's legs: (config, JAX constants, kernel path)."""
+    import yaml
+
+    from shadow_tpu_torch.testing import cosim_mixed_config
+
+    with open("examples/tgen.yaml") as f:
+        tgen = yaml.safe_load(f)
+    return {"cosim_tgen": (tgen, COSIM_TGEN_REF, COSIM_PATH),
+            "cosim_mixed": (cosim_mixed_config(), COSIM_MIXED_REF, COSIM_MIXED_PATH)}
+
+
+def phase_cosim_legs() -> dict[str, dict]:
+    """Phase 43: each co-sim leg at full width with every launch counter set
+    to 0 just before and read just after; its `cosim_final` (report results
+    and the SHA-256 of every stdout, stderr, strace and host-stats file)
+    must equal the JAX package's, every kernel of its path must have
+    launched, K33 once per K10 launch (one handler launch per event) and,
+    on the mixed leg, K34 twice and the inner model's kernel once."""
+    import tempfile
+
+    from shadow_tpu_torch.sim import KERNELS
+    from shadow_tpu_torch.testing import run_cosim
+
+    launches = {}
+    for name, (cfg, ref, path) in cosim_legs().items():
+        for k in KERNELS.values():
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        with tempfile.TemporaryDirectory() as d:
+            report, final = run_cosim(cfg, None, d)
+        total = time.monotonic() - t0
+        got = {k: v.launches for k, v in KERNELS.items()}
+        files_equal = final["files_sha256"] == ref["files_sha256"]
+        want = {k: v for k, v in ref.items() if k != "files_sha256"}
+        emit(name, **final, files_equal_to_jax=files_equal,
+             wall_seconds=report["wall_seconds"], build_and_run_seconds=total,
+             sim_wall_ratio=report["sim_wall_ratio"], host_syncs=report["host_syncs"],
+             host_syncs_per_window=report["host_syncs_per_window"], perf=report["perf"],
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             launches={k: got[k] for k in ("hybrid_handle", "mixed_plane", "guarded_window",
+                                           "event_ingress", "merge_insert")},
+             all_launches=got)
+        diff = {k: (final.get(k), v) for k, v in want.items() if final.get(k) != v}
+        if diff or not files_equal:
+            raise AssertionError(f"{name}: differs from the JAX reference (port, JAX): {diff}"
+                                 f"{'' if files_equal else '; output files differ'}")
+        if not all(got[k] for k in path):
+            raise AssertionError(f"{name}: a kernel of the path never launched: {got}")
+        per_event = {"hybrid_handle": 1, **({"mixed_plane": 2, "echo_handle": 1}
+                                            if "mixed_plane" in path else {})}
+        if any(got[k] != c * got["event_ingress"] for k, c in per_event.items()):
+            raise AssertionError(f"{name}: handler launches {got} against "
+                                 f"{got['event_ingress']} ingress launches")
+        launches[name] = got
+    return launches
+
+
+def phase_cosim_small() -> dict[str, dict]:
+    """Phase 44: the small co-sim configs (`testing.cosim_small_configs`,
+    the JAX package's co-sim tests' configs and the budget case) on the
+    card and on the CPU (in the worker pool): `cosim_final` equal, files
+    included."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from shadow_tpu_torch.testing import cosim_small_configs, run_cosim
+
+    configs = cosim_small_configs()
+    out = {}
+    with ProcessPoolExecutor(max_workers=CPU_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn"),
+                             initializer=_one_thread) as pool:
+        cpu = {name: pool.submit(_cosim_cpu, cfg) for name, cfg in configs.items()}
+        for name, cfg in configs.items():
+            with tempfile.TemporaryDirectory() as d:
+                report, a = run_cosim(cfg, None, d)
+            b = cpu[name].result()
+            same = a == b
+            emit("cosim_small", name=name, equal_to_cpu=same, cuda=a)
+            if not same:
+                raise AssertionError(f"{name}: card and CPU differ: "
+                                     f"{[k for k in a if a[k] != b.get(k)]}")
+            out[name] = report
+    if not (out["mixed_budget_drops"]["packets_budget_dropped"]
+            and out["mixed_budget_drops"]["process_failures"]):
+        raise AssertionError("mixed_budget_drops: the send budget dropped nothing")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4232,6 +4607,15 @@ def main() -> int:
                 "event_ingress", "event_egress"):
         kres[row]["replicas"] = eres.pop(f"{row}_replicas")
     kres.update(eres)
+
+    # phase 42: the co-simulation bridge's kernels
+    t42 = time.monotonic()
+    cres = phase_kernels_cosim(dev)
+    kres["merge_insert"]["cosim_prepare"] = cres.pop("merge_insert_cosim_prepare")
+    emit("kernels_cosim_vs_plain", ok=True, exact=True, seconds=time.monotonic() - t42,
+         **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in cres.items()},
+         merge_insert_cosim_prepare=kres["merge_insert"]["cosim_prepare"])
+    kres.update(cres)
     emit("world_gt1", started=False, cards=torch.cuda.device_count(),
          reason="one card cannot hold a NCCL communicator of four ranks; the world-4 legs "
                 "run under `chip_smoke.py --world 4` on four cards")
@@ -4421,6 +4805,15 @@ def main() -> int:
     # resumed
     with tempfile.TemporaryDirectory() as tmp:
         phase_campaigns_small(tmp)
+
+    # phase 43: the co-sim legs at full width against the JAX constants
+    t43 = time.monotonic()
+    launches.update(phase_cosim_legs())
+    emit("cosim_legs_seconds", seconds=time.monotonic() - t43)
+    # phase 44: small co-sim configs, card == CPU
+    t44 = time.monotonic()
+    phase_cosim_small()
+    emit("cosim_small_seconds", seconds=time.monotonic() - t44)
     emit("total", seconds=round(time.monotonic() - t_start, 3))
 
     table = []
@@ -4446,7 +4839,8 @@ def main() -> int:
             **({"library_call": r["library_call"]} if "library_call" in r else {}),
             **{lane: {k: r[lane][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
                for lane in ("busy_floor", "cpu_delay", "merge_rows", "fault_floor", "fault_hold",
-                            "digest2", "fault_window", "event_classes", "flow_lanes", "replicas")
+                            "digest2", "fault_window", "event_classes", "flow_lanes", "replicas",
+                            "cosim_prepare")
                if lane in r},
         })
     print(json.dumps({"kernels": table}), flush=True)

@@ -4,7 +4,8 @@ round loop, for NVIDIA Hopper (H100).
 The JAX package `shadow_tpu` is the reference: same configs, same per-host
 event digests, event counts and drop counters, bit for bit. This package
 imports neither JAX nor anything of `shadow_tpu`; it carries its own copies
-of the JAX-free modules it needs (config, graph, simulated time).
+of the JAX-free modules it needs (config, graph, simulated time, and the
+co-simulation bridge's CPU host plane: host/, tcp/, programs/).
 
 Entry points run on the CUDA device unless the caller passes
 `device="cpu"` (the CPU path runs every kernel's plain PyTorch version and

@@ -12,6 +12,11 @@ With `general.parallelism: N` (N > 1; 0 = every visible card) the command
 launches N ranks itself (core/mesh.py): NCCL ranks on cuda:0..N-1, or with
 `--device cpu` N gloo processes; rank 0 writes the outputs.
 
+A config with a managed process (`path:` naming a registered coroutine
+program) runs the co-simulation bridge (cosim.py): the CPU host plane over
+the device network, writing each process's stdout, stderr and, with
+`experimental.strace_logging_mode`, strace under hosts/<name>/.
+
 A config with a `campaign:` block (a sweep of replicas) exits 2 with a
 pointer to `python -m shadow_tpu_torch.campaign CONFIG.yaml`, which runs
 it; no replica runs alone here.
@@ -72,12 +77,13 @@ def main(argv: list[str] | None = None) -> int:
             cfg.general.progress = True
         from shadow_tpu_torch import resolve_device
         from shadow_tpu_torch.core.mesh import resolve_world
-        from shadow_tpu_torch.sim import Simulation, run_mesh
+        from shadow_tpu_torch.config.options import config_is_cosim
+        from shadow_tpu_torch.sim import build_simulation, run_mesh
 
         dev = resolve_device(args.device)
-        world = resolve_world(cfg.general.parallelism, dev)
+        world = 1 if config_is_cosim(cfg) else resolve_world(cfg.general.parallelism, dev)
         cfg.check_world(world)
-        sim = Simulation(cfg, device=dev) if world == 1 else None
+        sim = build_simulation(cfg, device=dev) if world == 1 else None
     except (ConfigError, OSError, yaml.YAMLError) as e:
         print(f"config error: {e}", file=sys.stderr)
         return 2

@@ -14,9 +14,25 @@ never silently run with a plane switched off:
   - `experimental.scheduler: cpu-reference`;
   - a `campaign` block at world > 1 (the ensemble plane, `campaign.py`,
     runs on one device; `CampaignOptions` is the JAX package's parse);
-  - `pcap_enabled`, managed processes (`path:`), and models other than
-    phold, udp_echo, timer, tgen_tcp, gossip and circuit (checked when
-    the simulation is built).
+  - models other than phold, udp_echo, timer, tgen_tcp, gossip and
+    circuit (checked when the simulation is built);
+  - `pcap_enabled` and `general.log_file` on a config with no managed
+    process: they capture the CPU host plane, which only the co-simulation
+    bridge runs.
+
+Managed processes (`path:` naming a registered coroutine program, with
+`args`, `environment`, `expected_final_state` and `shutdown_time`) make a
+co-simulation config (`config_is_cosim`): the CPU host plane over the
+device network (cosim.py). Its knobs are the JAX package's: the hosts'
+`tcp_*` socket options, `pcap_enabled` and `pcap_capture_size`,
+`general.log_file`, `log_level` and `model_unblocked_syscall_latency`, and
+`experimental.host_workers`, `host_scheduler`, `use_cpu_pinning`,
+`interface_qdisc`, `strace_logging_mode` and `packet_breadcrumbs`.
+`ConfigOptions.check_cosim` refuses what the bridge does not run in the
+port yet, naming the knob: a real binary (a `path:` holding `/`, the
+native plane), `general.parallelism` above 1, merge gears, the
+supervisor, the integrity sentinel, `pressure.policy: abort` and every
+observability knob.
 
 `experimental.event_queue_block` (the bucketed queue),
 `microstep_events` (K events per host per microstep), `timer_wheel`,
@@ -96,6 +112,12 @@ class GeneralOptions:
     data_directory: str = "shadow.data"
     heartbeat_interval: int | None = parse_time_ns("1 s")
     progress: bool = False
+    # the co-simulation bridge's sim-time-stamped log (None = off; a
+    # relative path lands inside data_directory) and its level
+    log_file: str | None = None
+    log_level: str = "info"
+    # the CPU host plane charges simulated time to syscalls that do not block
+    model_unblocked_syscall_latency: bool = False
 
     @staticmethod
     def from_dict(d: dict[str, Any]) -> "GeneralOptions":
@@ -103,12 +125,8 @@ class GeneralOptions:
         if "stop_time" not in d:
             raise ConfigError("general.stop_time is required")
         heartbeat = d.pop("heartbeat_interval", "1 s")
-        # accepted for schema compatibility, no effect on the device path
-        for k in ("template_directory", "log_level",
-                  "model_unblocked_syscall_latency"):
-            d.pop(k, None)
-        if d.pop("log_file", None) is not None:
-            raise _unsupported("general.log_file")
+        # accepted for schema compatibility, no effect
+        d.pop("template_directory", None)
         g = GeneralOptions(
             stop_time=parse_time_ns(d.pop("stop_time"), TimeUnit.SEC),
             bootstrap_end_time=parse_time_ns(d.pop("bootstrap_end_time", 0), TimeUnit.SEC),
@@ -119,6 +137,9 @@ class GeneralOptions:
                 parse_time_ns(heartbeat, TimeUnit.SEC) if heartbeat is not None else None
             ),
             progress=bool(d.pop("progress", False)),
+            log_file=d.pop("log_file", None),
+            log_level=d.pop("log_level", "info"),
+            model_unblocked_syscall_latency=bool(d.pop("model_unblocked_syscall_latency", False)),
         )
         if d:
             raise ConfigError(f"unknown general options: {sorted(d)}")
@@ -186,6 +207,18 @@ class ExperimentalOptions:
     merge_rows: int = 0
     # CPU model: simulated ns of CPU time charged per handled event (0 = off)
     cpu_delay: int = 0
+    # the co-simulation bridge's CPU host plane: the order a managed host's
+    # same-window sends enter the network ("fifo" | "round-robin", one per
+    # socket), strace-style per-process syscall logs ("off" | "standard" |
+    # "deterministic"), packet-drop breadcrumbs in host-stats.json, and the
+    # host plane's worker threads, their policy ("steal" | "per-host") and
+    # pinning
+    interface_qdisc: str = "fifo"
+    strace_logging_mode: str = "off"
+    packet_breadcrumbs: bool = False
+    host_workers: int = 1
+    host_scheduler: str = "steal"
+    use_cpu_pinning: bool = False
 
     def resolve_exchange(self, world: int) -> str:
         """The engine's exchange kind for `world` ranks (the JAX package's
@@ -231,6 +264,12 @@ class ExperimentalOptions:
                 f"(auto) or divide timer_wheel={self.timer_wheel} evenly"
             )
         self.merge_gears = parse_merge_gears(self.merge_gears)
+        for knob, allowed in (("interface_qdisc", ("fifo", "round-robin")),
+                              ("strace_logging_mode", ("off", "standard", "deterministic")),
+                              ("host_scheduler", ("steal", "per-host"))):
+            if getattr(self, knob) not in allowed:
+                raise ConfigError(f"experimental.{knob} must be {'|'.join(allowed)}, "
+                                  f"got {getattr(self, knob)!r}")
         for knob in ("merge_rows", "cpu_delay"):
             if getattr(self, knob) < 0:
                 raise ConfigError(
@@ -289,7 +328,11 @@ class ExperimentalOptions:
             )
         if "merge_gears" in d:
             e.merge_gears = d.pop("merge_gears")
-        for f in ("use_dynamic_runahead", "use_codel", "merge_scatter"):
+        for f in ("interface_qdisc", "strace_logging_mode", "host_scheduler"):
+            if f in d:
+                setattr(e, f, str(d.pop(f)))
+        for f in ("use_dynamic_runahead", "use_codel", "merge_scatter", "packet_breadcrumbs",
+                  "use_cpu_pinning"):
             if f in d:
                 setattr(e, f, bool(d.pop(f)))
         for f in (
@@ -303,6 +346,7 @@ class ExperimentalOptions:
             "timer_wheel",
             "timer_wheel_block",
             "merge_rows",
+            "host_workers",
         ):
             if f in d:
                 setattr(e, f, int(d.pop(f)))
@@ -975,54 +1019,104 @@ class CampaignOptions:
 
 @dataclass
 class ProcessOptions:
+    """A device model (`model`, `model_args`) or a managed process (`path`
+    naming a registered program, with `args`, `environment` and
+    `expected_final_state`: "running" | {"exited": code} | {"signaled":
+    sig})."""
+
     start_time: int = 0  # ns
     shutdown_time: int | None = None
-    model: str = ""
+    model: str | None = None
     model_args: dict[str, Any] = field(default_factory=dict)
+    path: str | None = None
+    args: list[str] = field(default_factory=list)
+    environment: dict[str, str] = field(default_factory=dict)
+    expected_final_state: Any = "running"
 
     @staticmethod
     def from_dict(d: dict[str, Any]) -> "ProcessOptions":
         d = dict(d)
-        if d.get("path") is not None:
-            raise _unsupported("a managed process (`path:`)", "device models only")
-        d.pop("path", None)
-        for k in ("args", "environment", "expected_final_state"):
-            d.pop(k, None)
-        if d.get("model") is None:
-            raise ConfigError("process needs a device `model`")
         p = ProcessOptions(
+            path=d.pop("path", None),
+            args=_split_args(d.pop("args", [])),
+            environment=dict(d.pop("environment", {}) or {}),
             start_time=parse_time_ns(d.pop("start_time", 0), TimeUnit.SEC),
             shutdown_time=(
                 parse_time_ns(d["shutdown_time"], TimeUnit.SEC)
                 if d.get("shutdown_time") is not None
                 else None
             ),
-            model=str(d.pop("model")),
+            expected_final_state=d.pop("expected_final_state", "running"),
+            model=d.pop("model", None),
             model_args=dict(d.pop("model_args", {}) or {}),
         )
         d.pop("shutdown_time", None)
+        if p.path is None and p.model is None:
+            raise ConfigError("process needs either `path` (managed) or `model` (device)")
+        if p.model is not None:
+            p.model = str(p.model)
         if d:
             raise ConfigError(f"unknown process options: {sorted(d)}")
         return p
 
 
+def _split_args(args: Any) -> list[str]:
+    if isinstance(args, str):
+        return args.split()
+    return [str(a) for a in (args or [])]
+
+
 @dataclass
 class HostDefaultOptions:
+    """Per-host options, cascaded from `host_option_defaults` to each
+    host's `host_options`: the CPU host plane's pcap capture and TCP socket
+    knobs (device models ignore them)."""
+
+    log_level: str | None = None
     pcap_enabled: bool = False
+    pcap_capture_size: int = 65535
+    tcp_send_buffer: int = 256 * 1024  # bytes ("256 KiB" accepted)
+    tcp_recv_buffer: int = 256 * 1024
+    tcp_autotune: bool = True  # grow buffers under pressure up to buf_max
+    tcp_buffer_max: int = 4 * 1024 * 1024
+    tcp_sack: bool = True
+    tcp_delayed_ack: bool = True
+    tcp_nagle: bool = False
 
     @staticmethod
     def from_dict(d: dict[str, Any] | None) -> "HostDefaultOptions":
+        from shadow_tpu_torch.config.units import parse_bytes
+
         d = dict(d or {})
-        h = HostDefaultOptions(pcap_enabled=bool(d.pop("pcap_enabled", False)))
-        if h.pcap_enabled:
-            raise _unsupported("pcap_enabled")
-        # the CPU host plane's socket knobs do not apply to device models
-        for k in list(d):
-            if k == "log_level" or k.startswith("tcp_") or k == "pcap_capture_size":
-                d.pop(k)
+        h = HostDefaultOptions(
+            log_level=d.pop("log_level", None),
+            pcap_enabled=bool(d.pop("pcap_enabled", False)),
+            pcap_capture_size=int(d.pop("pcap_capture_size", 65535)),
+            tcp_send_buffer=parse_bytes(d.pop("tcp_send_buffer", 256 * 1024)),
+            tcp_recv_buffer=parse_bytes(d.pop("tcp_recv_buffer", 256 * 1024)),
+            tcp_autotune=bool(d.pop("tcp_autotune", True)),
+            tcp_buffer_max=parse_bytes(d.pop("tcp_buffer_max", 4 * 1024 * 1024)),
+            tcp_sack=bool(d.pop("tcp_sack", True)),
+            tcp_delayed_ack=bool(d.pop("tcp_delayed_ack", True)),
+            tcp_nagle=bool(d.pop("tcp_nagle", False)),
+        )
         if d:
             raise ConfigError(f"unknown host default options: {sorted(d)}")
         return h
+
+    def tcp_config(self):
+        """The per-host TcpConfig these options describe."""
+        from shadow_tpu_torch.tcp import TcpConfig
+
+        return TcpConfig(
+            send_buf=self.tcp_send_buffer,
+            recv_buf=self.tcp_recv_buffer,
+            autotune=self.tcp_autotune,
+            buf_max=self.tcp_buffer_max,
+            sack=self.tcp_sack,
+            delayed_ack=self.tcp_delayed_ack,
+            nagle=self.tcp_nagle,
+        )
 
 
 @dataclass
@@ -1034,13 +1128,16 @@ class HostOptions:
     bandwidth_down: int | None = None  # bits/sec; falls back to graph node
     bandwidth_up: int | None = None
     processes: list[ProcessOptions] = field(default_factory=list)
+    host_options: HostDefaultOptions = field(default_factory=HostDefaultOptions)
 
     @staticmethod
     def from_dict(name: str, d: dict[str, Any], defaults: HostDefaultOptions) -> "HostOptions":
         d = dict(d)
-        HostDefaultOptions.from_dict(
-            {**dataclasses.asdict(defaults), **(d.pop("host_options", {}) or {})}
-        )
+        overrides = d.pop("host_options", {}) or {}
+        for k in overrides:
+            if not hasattr(defaults, k):
+                raise ConfigError(f"unknown host option {k!r}")
+        merged = HostDefaultOptions.from_dict({**dataclasses.asdict(defaults), **overrides})
         bw_down = d.pop("bandwidth_down", None)
         bw_up = d.pop("bandwidth_up", None)
         h = HostOptions(
@@ -1051,6 +1148,7 @@ class HostOptions:
             bandwidth_down=parse_bits_per_sec(bw_down) if bw_down is not None else None,
             bandwidth_up=parse_bits_per_sec(bw_up) if bw_up is not None else None,
             processes=[ProcessOptions.from_dict(p) for p in d.pop("processes", [])],
+            host_options=merged,
         )
         if d:
             raise ConfigError(f"unknown host options for {name!r}: {sorted(d)}")
@@ -1116,10 +1214,44 @@ class ConfigOptions:
         """Checks that CLI overrides can also trip, re-run after merging."""
         if self.general.parallelism > 1:
             self.check_world(self.general.parallelism)
-        if self.host_option_defaults.pcap_enabled:
-            raise _unsupported("pcap_enabled")
+        if config_is_cosim(self):
+            self.check_cosim()
+        else:
+            # the CPU host plane's captures: a modeled config has none
+            if self.host_option_defaults.pcap_enabled or any(
+                    h.host_options.pcap_enabled for h in self.hosts):
+                raise _unsupported("pcap_enabled", "on a config with no managed process")
+            if self.general.log_file is not None:
+                raise _unsupported("general.log_file", "on a config with no managed process")
         self.experimental.validate()
         self.fluid.validate()
+
+    def check_cosim(self) -> None:
+        """Refuse, on a co-simulation config, what the port's bridge does
+        not run yet (each names its knob)."""
+        for h in self.hosts:
+            for p in h.processes:
+                if p.path is not None and "/" in p.path:
+                    raise _unsupported(
+                        f"host {h.name!r}: a real binary (`path: {p.path}`)",
+                        "the native managed-process plane; registered coroutine programs run")
+        if self.general.parallelism > 1:
+            raise _unsupported(f"general.parallelism={self.general.parallelism} with a "
+                               f"managed process", "the co-simulation bridge runs on one device")
+        if parse_merge_gears(self.experimental.merge_gears):
+            raise _unsupported("experimental.merge_gears with a managed process")
+        if self.faults.supervisor.enabled:
+            raise _unsupported("faults.supervisor with a managed process")
+        if self.integrity.enabled:
+            raise _unsupported("integrity with a managed process")
+        if self.pressure.policy == "abort":
+            raise _unsupported("pressure.policy=abort with a managed process")
+        obs = self.observability
+        for knob, on in (("trace", obs.trace), ("network", obs.network),
+                         ("memory", obs.memory), ("runtime", obs.runtime),
+                         ("profile_dir", obs.profile_dir)):
+            if on:
+                raise _unsupported(f"observability.{knob} with a managed process")
 
     def check_world(self, world: int) -> None:
         """Refuse, at `world` > 1 ranks, the planes that run on one rank
@@ -1150,6 +1282,11 @@ class ConfigOptions:
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+def config_is_cosim(cfg: ConfigOptions) -> bool:
+    """True if any host runs a managed process (`path:`)."""
+    return any(p.path is not None for h in cfg.hosts for p in h.processes)
 
 
 def load_config(path_or_text: str, *, is_text: bool = False) -> ConfigOptions:

@@ -14,7 +14,9 @@ fault plane's `FaultParams` and counters, and the integrity sentinel's
 lanes (`integrity`, `iv_mask`, `iv_round`, `digest2`, uint64 bit for bit)
 the pressure plane's `pressure` lane, and the observatories' lanes
 (`ec_*`, `fl_*`, `win_bound`) with the trace ring and the flow ledger
-(`trace`, `flows`). Queue and outbox planes come
+(`trace`, `flows`). Model params and state may nest (the mixed plane's
+`inner` dict, its capture rings and `global_is_native` table come across
+as they are). Queue and outbox planes come
 across at whatever shape they have, so an escalated state keeps its grown
 capacity and send budget.
 `engine_config_from` maps a JAX `EngineConfig` onto the port's (merge gear,
@@ -199,6 +201,15 @@ def to_numpy(state) -> dict[str, np.ndarray]:
                 v = np.zeros_like(_np(state.stats.events))
             if v is not None:
                 out[f"{g}.{f}"] = _np(v)
-    for k, v in state.model.items():
-        out[f"model.{k}"] = _np(v)
+    _flat_model(state.model, "model", out)
     return out
+
+
+def _flat_model(tree: dict, prefix: str, out: dict) -> None:
+    """Model state lanes into `out` as "model.lane", a nested dict's (the
+    mixed plane's inner model) as "model.inner.lane"."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _flat_model(v, f"{prefix}.{k}", out)
+        else:
+            out[f"{prefix}.{k}"] = _np(v)

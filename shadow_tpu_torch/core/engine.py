@@ -169,6 +169,7 @@ from shadow_tpu_torch.ops.ensemble import (
     make_lanes,
     replica_window,
 )
+from shadow_tpu_torch.ops.cosim import GO, WEND, DONE, guarded_window
 from shadow_tpu_torch.ops.exchange import ROW_WORDS, dshard_pack, exchange_unpack, pack_words
 from shadow_tpu_torch.ops.merge import gear_shed_count, merge_flat_events, merge_scatter_free
 from shadow_tpu_torch.ops.obs import (
@@ -917,6 +918,41 @@ class Engine:
             if stop:
                 break
             st = self.window_step(st, params, window_end, done)
+        return st
+
+    def run_guarded_chunk(self, st: SimState, params: EngineParams, until: int,
+                          probe_lane) -> SimState:
+        """The co-simulation bridge's guarded round loop (the JAX package's
+        `_run_guarded_chunk`): up to `effective_rounds_per_chunk` rounds,
+        each run only while the state is not done, the global minimum of
+        the effective next event times is below `until`, the stop probe's
+        lane (`probe_lane(model_state)`, i32[H]: any > 0 stops) is all zero
+        and no stop lane grew (the first merge-gear shed, sentinel violation
+        or capacity drop, as `run_chunk` stops). K35 computes the loop test
+        and the admitted round's window in one launch, read once per round;
+        the round count stays on the host. A co-sim config refuses the knobs
+        behind the stop lanes (merge gears, pressure abort, integrity):
+        lifting integrity also needs the sentinel's entry check here."""
+        cfg = self.cfg
+        if cfg.replicas > 1 or self.coll is not None or cfg.use_dynamic_runahead:
+            raise ValueError("the guarded round loop runs one replica on one device, with a "
+                             "static runahead")
+        names = [n for n, on in (("gear_shed", cfg.gear_active),
+                                 ("pressure", cfg.pressure_abort),
+                                 ("integrity", self._iv is not None)) if on]
+        entry = {n: getattr(st.stats, n).clone() for n in names}
+        runahead = max(cfg.runahead_floor, cfg.static_min_latency, 1)
+        for _ in range(cfg.effective_rounds_per_chunk):
+            if st.done:
+                break
+            lane = guarded_window(self.next_times(st, params), probe_lane(st.model), until,
+                                  cfg.stop_time, runahead,
+                                  [(getattr(st.stats, n), entry[n]) for n in names])
+            vals = lane.tolist()
+            self.host_syncs += 1
+            if not vals[GO]:
+                break
+            st = self.window_step(st, params, int(vals[WEND]), bool(vals[DONE]))
         return st
 
     # ---- the ensemble fold (replicas > 1) ------------------------------------

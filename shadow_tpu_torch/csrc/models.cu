@@ -10,6 +10,9 @@
 //   K20 shadow_tpu/models/timer.py:41  TimerModel.handle  (B19)
 //   K21 shadow_tpu/models/gossip.py:89  GossipModel.handle  (B19)
 //   K22 shadow_tpu/models/circuit.py:99  CircuitModel.handle  (B19)
+//   K33 shadow_tpu/models/hybrid.py:73  HybridModel.handle  (B25)
+//   K34 shadow_tpu/models/mixed.py:83  MixedModel.handle, with translate :135
+//       (B25): the plane boundary around K33 and the inner model's kernel
 // In the JAX package the handler is traced into `_event_body`
 // (shadow_tpu/core/engine.py:2381) and fused with the round; the port runs
 // it between K10 (ingress) and K11 (egress), which reads the port fields
@@ -863,6 +866,141 @@ __global__ void tgen_handle_kernel(const Ctx c, const TgenArgs a) {
   a.done_t[h] = done_t;
 }
 
+
+// ---------------------------------------------------------------------------
+// K33 hybrid_handle (models/hybrid.py handle_plain): the co-simulation
+// bridge's device lane of a CPU-plane host
+// ---------------------------------------------------------------------------
+
+constexpr int kHybSendReq = 1, kHybData = 2;
+constexpr int kPwSize = 0, kPwDst = 1, kPwKey = 2, kPwFlags = 3;
+
+struct HybridArgs {
+  int C;  // capture ring slots per host
+  // the capture rings [H, C] and their counters [H], in place
+  long long* cap_t;
+  long long* cap_src;
+  int* cap_key;
+  int* cap_size;
+  int* cap_flags;
+  int* cap_n;
+  long long* cap_lost;
+  // the send port: mask, destination, size and the payload [H, P]
+  // (contiguous: the event's words, copied, so that the port does not
+  // alias a column of the K-way peek)
+  bool* s_mask;
+  long long* s_dst;
+  int* s_size;
+  int* s_payload;
+};
+
+// A delivery (an active KIND_DATA packet) takes ring slot cap_n if one is
+// free, else counts into cap_lost; a send request (an active local
+// KIND_SENDREQ) becomes a KIND_DATA send to payload word 1 of payload word
+// 0 bytes, its payload passed through. Ring slots past cap_n are not
+// touched.
+__global__ void hybrid_handle_kernel(const Ctx c, const HybridArgs a) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= c.H) return;
+  const int P = c.P;
+  const int* pl = c.payload + (long long)h * c.es * P;
+  const bool act = c.active[h];
+  const bool pkt = c.is_pkt[h];
+  const int kind = c.kind[h];
+  const bool is_send = act && !pkt && kind == kHybSendReq;
+  const bool is_data = act && pkt && kind == kHybData;
+  const int n = a.cap_n[h];
+  const bool slot_ok = is_data && n < a.C;
+  if (slot_ok) {
+    const long long i = (long long)h * a.C + n;
+    a.cap_t[i] = c.t[(long long)h * c.es];
+    a.cap_src[i] = c.src[h];
+    a.cap_key[i] = pl[kPwKey];
+    a.cap_size[i] = pl[kPwSize];
+    a.cap_flags[i] = pl[kPwFlags];
+  }
+  a.cap_n[h] = n + (slot_ok ? 1 : 0);
+  a.cap_lost[h] = wadd(a.cap_lost[h], (is_data && !slot_ok) ? 1 : 0);
+  a.s_mask[h] = is_send;
+  a.s_dst[h] = (long long)pl[kPwDst];
+  a.s_size[h] = pl[kPwSize];
+  int* sp = a.s_payload + (long long)h * P;
+  for (int w = 0; w < P; ++w) sp[w] = pl[w];
+}
+
+// ---------------------------------------------------------------------------
+// K34 mixed_plane (models/mixed.py mixed_in_plain / mixed_out_plain): the
+// plane boundary of a mixed co-simulation, by the replicated
+// global_is_native table of N hosts
+// ---------------------------------------------------------------------------
+
+constexpr int kKindMask = 0xFFFF;
+constexpr int kMaxMixedPorts = 8;
+
+__device__ __forceinline__ long long clamp_id(long long x, int n) {
+  return x < 0 ? 0 : (x > n - 1 ? n - 1 : x);
+}
+
+struct MixedInArgs {
+  int N;
+  const bool* native;
+  int wire_kind;  // the inner model's wire kind, -1 for none
+  int sanitize;   // keep only payload word 0 of a packet from a native source
+  bool* hyb_active;
+  bool* in_active;
+  int* in_kind;
+  int* in_payload;  // row stride es * P, as the event's payload
+};
+
+// In mode: the hybrid lanes (active & native) and the inner lanes (active
+// & ~native); a packet from a native source arrives under the inner
+// model's wire kind, with only word 0 of its payload where it sanitizes.
+__global__ void mixed_in_kernel(const Ctx c, const MixedInArgs a) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= c.H) return;
+  const int P = c.P;
+  const long long row = (long long)h * c.es * P;
+  const int* pl = c.payload + row;
+  int* out = a.in_payload + row;
+  const bool native = a.native[clamp_id(c.host_id[h], a.N)];
+  const bool act = c.active[h];
+  a.hyb_active[h] = act && native;
+  a.in_active[h] = act && !native;
+  bool from_native = false;
+  if (a.wire_kind >= 0) from_native = c.is_pkt[h] && a.native[clamp_id(c.src[h], a.N)];
+  a.in_kind[h] = from_native ? a.wire_kind : c.kind[h];
+  const bool keep0 = from_native && a.sanitize;
+  for (int w = 0; w < P; ++w) out[w] = (keep0 && w > 0) ? 0 : pl[w];
+}
+
+struct MixedPort {
+  const bool* mask;
+  const long long* dst;
+  const int* kind;
+  long long mask_s, dst_s, kind_s;  // host strides (0: a broadcast lane)
+  int* out_kind;
+};
+
+struct MixedOutArgs {
+  int H, N, ports;
+  const bool* native;
+  MixedPort port[kMaxMixedPorts];
+};
+
+// Out mode: each inner send port's kind becomes KIND_DATA where its
+// destination is native (the capture ring picks it up), else its model
+// kind without the engine's flag bits.
+__global__ void mixed_out_kernel(const MixedOutArgs a) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  if (h >= a.H) return;
+  for (int j = 0; j < a.ports; ++j) {
+    const MixedPort& p = a.port[j];
+    const bool to_native =
+        p.mask[h * p.mask_s] && a.native[clamp_id(p.dst[h * p.dst_s], a.N)];
+    p.out_kind[h] = to_native ? kHybData : (p.kind[h * p.kind_s] & kKindMask);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1057,6 +1195,76 @@ int tgen_handle(const long long* args, void* stream) {
   if (c.P < 4 || a.txb < 1) return (int)cudaErrorInvalidValue;
   if (c.H > 0)
     tgen_handle_kernel<<<blocks_for(c.H), kThreads, 0, (cudaStream_t)stream>>>(c, a);
+  return (int)cudaGetLastError();
+}
+
+// K33: args = ctx block, C, the five rings, cap_n, cap_lost, then the send
+// port's mask, dst, size and payload outputs.
+int hybrid_handle(const long long* args, void* stream) {
+  Reader r{args, 0};
+  const Ctx c = read_ctx(r);
+  HybridArgs a;
+  a.C = (int)r.v();
+  a.cap_t = r.p<long long>();
+  a.cap_src = r.p<long long>();
+  a.cap_key = r.p<int>();
+  a.cap_size = r.p<int>();
+  a.cap_flags = r.p<int>();
+  a.cap_n = r.p<int>();
+  a.cap_lost = r.p<long long>();
+  a.s_mask = r.p<bool>();
+  a.s_dst = r.p<long long>();
+  a.s_size = r.p<int>();
+  a.s_payload = r.p<int>();
+  if (c.P < 4 || a.C < 1) return (int)cudaErrorInvalidValue;
+  if (c.H > 0)
+    hybrid_handle_kernel<<<blocks_for(c.H), kThreads, 0, (cudaStream_t)stream>>>(c, a);
+  return (int)cudaGetLastError();
+}
+
+// K34: args = mode (0 in, 1 out), then
+//   in:  ctx block, N, the table, wire kind (-1: none), sanitize, and the
+//        hyb_active, in_active, in_kind and in_payload outputs;
+//   out: H, N, the table, the port count, and per port its mask, mask
+//        stride, dst, dst stride, kind, kind stride and the kind output.
+int mixed_plane(const long long* args, void* stream) {
+  Reader r{args, 0};
+  const int mode = (int)r.v();
+  if (mode == 0) {
+    const Ctx c = read_ctx(r);
+    MixedInArgs a;
+    a.N = (int)r.v();
+    a.native = r.p<const bool>();
+    a.wire_kind = (int)r.v();
+    a.sanitize = (int)r.v();
+    a.hyb_active = r.p<bool>();
+    a.in_active = r.p<bool>();
+    a.in_kind = r.p<int>();
+    a.in_payload = r.p<int>();
+    if (a.N < 1) return (int)cudaErrorInvalidValue;
+    if (c.H > 0)
+      mixed_in_kernel<<<blocks_for(c.H), kThreads, 0, (cudaStream_t)stream>>>(c, a);
+    return (int)cudaGetLastError();
+  }
+  if (mode != 1) return (int)cudaErrorInvalidValue;
+  MixedOutArgs a;
+  a.H = (int)r.v();
+  a.N = (int)r.v();
+  a.native = r.p<const bool>();
+  a.ports = (int)r.v();
+  if (a.N < 1 || a.ports < 0 || a.ports > kMaxMixedPorts) return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < a.ports; ++j) {
+    MixedPort& p = a.port[j];
+    p.mask = r.p<const bool>();
+    p.mask_s = r.v();
+    p.dst = r.p<const long long>();
+    p.dst_s = r.v();
+    p.kind = r.p<const int>();
+    p.kind_s = r.v();
+    p.out_kind = r.p<int>();
+  }
+  if (a.H > 0 && a.ports > 0)
+    mixed_out_kernel<<<blocks_for(a.H), kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -52,6 +52,7 @@ _handle_k = CudaKernel("models", "circuit_handle", ARG_BLOCK)
 @register_model
 class CircuitModel:
     name = "circuit"
+    wire_kind = KIND_CELL  # cross-plane packets arrive as cells (mixed sims)
     # (name, dtype) of the [H] params and state lanes the kernel reads, in
     # its order (the [H, 3] route table goes first, apart)
     kernel_params = (("role", torch.int32), ("interval", torch.int64), ("proc", torch.int64))

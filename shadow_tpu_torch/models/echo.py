@@ -52,6 +52,11 @@ def _unpack_t(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 @register_model
 class UdpEchoModel:
     name = "udp_echo"
+    # cross-plane packets (mixed co-simulations) arrive as requests; this
+    # protocol echoes the payload, so a native request's words (the bridge's
+    # byte-store key and magic) ride back verbatim
+    wire_kind = KIND_REQ
+    sanitize_wire_payload = False
     # the kinds the timer wheel takes (ops/wheel.py)
     timer_kinds = (KIND_TICK,)
     # (name, dtype) of the params and state lanes the kernel reads, in its

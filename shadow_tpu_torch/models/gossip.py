@@ -42,6 +42,7 @@ _handle_k = CudaKernel("models", "gossip_handle", ARG_BLOCK)
 @register_model
 class GossipModel:
     name = "gossip"
+    wire_kind = KIND_MSG  # cross-plane packets arrive as gossip messages (mixed sims)
     # (name, dtype) of the [H] params and state lanes the kernel reads, in
     # its order (the [H, K] neighbor table goes first, apart)
     kernel_params = (("fanout", torch.int32), ("interval", torch.int64))

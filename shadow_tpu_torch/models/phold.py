@@ -132,6 +132,7 @@ def exp_delay_kernel(u: torch.Tensor, mean_ns: torch.Tensor) -> torch.Tensor:
 @register_model
 class PholdModel:
     name = "phold"
+    wire_kind = KIND_MSG  # cross-plane packets count as held messages (mixed sims)
     # the kinds the timer wheel takes (ops/wheel.py)
     timer_kinds = (KIND_JOB,)
     # (name, dtype) of the params and state lanes the kernel reads, in its

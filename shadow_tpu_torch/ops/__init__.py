@@ -5,10 +5,21 @@ exchange merge (K4), the per-event chain and outbox append (K9-K11), the
 timer wheel's cancel (K12; its other ops are the bucketed queue's), the
 pressure plane's drop total (K26), the observatories' trace row and flow
 append (K27, K28), the cross-shard exchange's pack and unpack (K29, K30),
-the ensemble plane's per-replica window and ledger fold (K31, K32) and the
-per-host RNG lanes."""
+the ensemble plane's per-replica window and ledger fold (K31, K32), the
+co-simulation bridge's guarded loop test (K35) and the per-host RNG
+lanes."""
 
-from shadow_tpu_torch.ops import chain, ensemble, events, exchange, merge, obs, pressure, wheel
+from shadow_tpu_torch.ops import (
+    chain,
+    cosim,
+    ensemble,
+    events,
+    exchange,
+    merge,
+    obs,
+    pressure,
+    wheel,
+)
 from shadow_tpu_torch.ops.events import (
     EVENT_PAYLOAD_WORDS,
     ORDER_MAX,
@@ -38,7 +49,8 @@ from shadow_tpu_torch.ops.rng import RngState, rng_init, rng_next_u64, rng_unifo
 
 # every hand-written kernel's launch wrapper, by kernel name
 KERNELS = {**events.KERNELS, **merge.KERNELS, **chain.KERNELS, **wheel.KERNELS,
-           **pressure.KERNELS, **obs.KERNELS, **exchange.KERNELS, **ensemble.KERNELS}
+           **pressure.KERNELS, **obs.KERNELS, **exchange.KERNELS, **ensemble.KERNELS,
+           **cosim.KERNELS}
 
 __all__ = [
     "EVENT_PAYLOAD_WORDS",

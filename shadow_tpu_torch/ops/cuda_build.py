@@ -36,7 +36,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("queue", "merge", "event", "fluid", "models", "faults", "integrity", "pressure",
-           "obs", "exchange", "ensemble")
+           "obs", "exchange", "ensemble", "cosim")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false",

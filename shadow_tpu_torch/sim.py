@@ -72,6 +72,11 @@ from the mesh's gathered state; its report has the JAX package's
 `ici_bytes` and `alltoall_shed_dropped` and, for the hierarchical
 exchange, its `exchange{}` block. The observatories, on-disk checkpoints
 and `pressure: escalate` are refused across ranks.
+
+A config with managed processes (`path:`) is a co-simulation:
+`build_simulation` and `run_simulation` hand it to the bridge
+(cosim.py `HybridSimulation`), as the JAX package's `build_simulation`
+does; `Simulation` refuses it.
 """
 
 from __future__ import annotations
@@ -89,7 +94,7 @@ import torch
 import yaml
 
 from shadow_tpu_torch import resolve_device
-from shadow_tpu_torch.config.options import ConfigError, ConfigOptions
+from shadow_tpu_torch.config.options import ConfigError, ConfigOptions, config_is_cosim
 from shadow_tpu_torch.core.engine import Engine, EngineConfig, EngineParams
 from shadow_tpu_torch.core.checkpoint import save_checkpoint
 from shadow_tpu_torch.core.faults import INACTIVE_FAULTS, compile_faults
@@ -154,11 +159,19 @@ class HostSpec:
     model_args: dict[str, Any]
     start_time: int
     shutdown_time: int | None
+    pcap_enabled: bool = False
+    pcap_capture_size: int = 65535
+    # the CPU host plane's per-host TCP defaults (None on device-model hosts)
+    tcp_cfg: Any = None
+    # managed programs of a co-simulation host: [{path, args, start_time, ...}]
+    programs: list = dataclasses.field(default_factory=list)
 
 
-def expand_hosts(cfg: ConfigOptions, graph: NetworkGraph) -> list[HostSpec]:
-    """Config hosts -> HostSpecs, sorted by name for a config-order-free
-    host-id mapping, with IPs, graph nodes and bandwidths resolved."""
+def _resolve_host_basics(cfg: ConfigOptions, graph: NetworkGraph):
+    """Per-host resolution shared by both expanders: hosts sorted by name
+    for a config-order-free host-id mapping, manual IPs assigned first,
+    graph nodes and bandwidths resolved. Yields (host_id, host options,
+    node, ip, bw_down, bw_up)."""
     ips = IpAssignment()
     ordered = sorted(cfg.hosts, key=lambda h: h.name)
     per_node: dict[int, int] = {}
@@ -174,32 +187,102 @@ def expand_hosts(cfg: ConfigOptions, graph: NetworkGraph) -> list[HostSpec]:
     for i, h in enumerate(ordered):
         if h.ip_addr is not None:
             ips.assign_manual(i, h.ip_addr)
-    specs = []
     for i, h in enumerate(ordered):
-        if len(h.processes) != 1:
+        if not h.processes:
+            raise ConfigError(f"host {h.name!r} has no processes")
+        node = graph.node_index(h.network_node_id)
+        if h.ip_addr is None:
+            ips.assign(i)
+        bw_down = (h.bandwidth_down if h.bandwidth_down is not None
+                   else int(graph.bw_down_bits[node]))
+        bw_up = h.bandwidth_up if h.bandwidth_up is not None else int(graph.bw_up_bits[node])
+        yield i, h, node, ips.ip_of(i), bw_down, bw_up
+
+
+def expand_hosts(cfg: ConfigOptions, graph: NetworkGraph) -> list[HostSpec]:
+    """Config hosts -> HostSpecs of a device-model config."""
+    specs = []
+    for i, h, node, ip, bw_down, bw_up in _resolve_host_basics(cfg, graph):
+        if len(h.processes) != 1 or h.processes[0].model is None:
             raise ConfigError(
                 f"host {h.name!r}: exactly one device-model process per host "
                 f"is supported (got {len(h.processes)})"
             )
-        node = graph.node_index(h.network_node_id)
-        if h.ip_addr is None:
-            ips.assign(i)
         p = h.processes[0]
         specs.append(HostSpec(
-            host_id=i,
-            name=h.name,
-            node_index=node,
-            ip=ips.ip_of(i),
-            bw_down_bits=h.bandwidth_down if h.bandwidth_down is not None
-            else int(graph.bw_down_bits[node]),
-            bw_up_bits=h.bandwidth_up if h.bandwidth_up is not None
-            else int(graph.bw_up_bits[node]),
-            model=p.model,
-            model_args=dict(p.model_args),
-            start_time=p.start_time,
-            shutdown_time=p.shutdown_time,
+            host_id=i, name=h.name, node_index=node, ip=ip, bw_down_bits=bw_down,
+            bw_up_bits=bw_up, model=p.model, model_args=dict(p.model_args),
+            start_time=p.start_time, shutdown_time=p.shutdown_time,
         ))
     return specs
+
+
+def expand_hosts_cosim(cfg: ConfigOptions, graph: NetworkGraph) -> list[HostSpec]:
+    """Config -> specs of a co-simulation (the JAX package's
+    `expand_hosts_hybrid`): program hosts (`path:`) run on the CPU host
+    plane behind the hybrid device lane; model hosts (`model:`) run wholly
+    on the device, sharing one device network with them (models/mixed.py)."""
+    from shadow_tpu_torch.programs import PROGRAM_REGISTRY
+
+    specs: list[HostSpec] = []
+    for i, h, node, ip, bw_down, bw_up in _resolve_host_basics(cfg, graph):
+        model_procs = [p for p in h.processes if p.model is not None]
+        if model_procs:
+            if len(h.processes) != 1:
+                raise ConfigError(
+                    f"host {h.name!r}: a modeled host runs exactly one "
+                    f"model process (got {len(h.processes)} processes)")
+            p = model_procs[0]
+            if p.shutdown_time is not None:
+                raise ConfigError(
+                    f"host {h.name!r}: shutdown_time on a modeled host in a "
+                    f"mixed simulation is not supported")
+            if h.host_options.pcap_enabled:
+                raise ConfigError(
+                    f"host {h.name!r}: pcap on a modeled host in a mixed "
+                    f"simulation is not supported (model packets carry no "
+                    f"bytes; enable pcap on the program hosts instead)")
+            specs.append(HostSpec(
+                host_id=i, name=h.name, node_index=node, ip=ip, bw_down_bits=bw_down,
+                bw_up_bits=bw_up, model=p.model, model_args=dict(p.model_args),
+                start_time=p.start_time, shutdown_time=None, pcap_enabled=False,
+                pcap_capture_size=h.host_options.pcap_capture_size))
+            continue
+        for p in h.processes:
+            if p.path not in PROGRAM_REGISTRY:
+                raise ConfigError(
+                    f"host {h.name!r}: unknown program {p.path!r}; "
+                    f"available: {sorted(PROGRAM_REGISTRY)}")
+        specs.append(HostSpec(
+            host_id=i, name=h.name, node_index=node, ip=ip, bw_down_bits=bw_down,
+            bw_up_bits=bw_up, model="hybrid", model_args={}, start_time=0, shutdown_time=None,
+            pcap_enabled=h.host_options.pcap_enabled,
+            pcap_capture_size=h.host_options.pcap_capture_size,
+            tcp_cfg=h.host_options.tcp_config(),
+            programs=[{
+                "path": p.path,
+                "args": _program_args(p),
+                "environment": dict(p.environment),
+                "start_time": p.start_time,
+                "shutdown_time": p.shutdown_time,
+                "expected_final_state": p.expected_final_state,
+            } for p in h.processes],
+        ))
+    return specs
+
+
+def _program_args(p) -> dict:
+    """Program args: `args: ["key=value", ...]` entries become a dict, other
+    entries go to `_argv`, and each environment variable K to `env_K`."""
+    out: dict[str, Any] = {}
+    for a in p.args:
+        if "=" in a:
+            k, v = a.split("=", 1)
+            out[k] = v
+        else:
+            out.setdefault("_argv", []).append(a)
+    out.update({f"env_{k}": v for k, v in p.environment.items()})
+    return out
 
 
 def tb_params(bws: np.ndarray, interval_ns: int, device) -> TBParams:
@@ -267,6 +350,31 @@ def heartbeat_line(now_ns: int, wall: float, events: int, microsteps: int,
     )
 
 
+def check_kernel_limits(ex, qcap: int) -> None:
+    """The queue kernels' limits (csrc/queue.cu) against the base
+    shapes, checked at build on a CUDA device so that a config never
+    fails at its first launch: slots per host, blocks per host of a
+    bucketed queue, and K (clamped to the capacity) per microstep. The
+    CPU path runs any shape."""
+    if qcap > MAX_CAPACITY:
+        raise ConfigError(
+            f"experimental.event_queue_capacity={qcap} exceeds the queue kernels' limit "
+            f"of {MAX_CAPACITY} slots per host (csrc/queue.cu); run it on the CPU "
+            f"(device='cpu') or lower the capacity")
+    block = ex.event_queue_block
+    if block and qcap // block > MAX_BLOCKS:
+        raise ConfigError(
+            f"experimental.event_queue_block={block}: capacity {qcap} makes "
+            f"{qcap // block} blocks per host, past the bucketed kernels' limit of "
+            f"{MAX_BLOCKS} (csrc/queue.cu); use blocks of at least "
+            f"{-(-qcap // MAX_BLOCKS)} slots")
+    if min(ex.microstep_events, qcap) > MAX_BATCH:
+        raise ConfigError(
+            f"experimental.microstep_events={ex.microstep_events} with capacity {qcap} "
+            f"exceeds the K-way kernels' limit of K = {MAX_BATCH} (csrc/queue.cu); set "
+            f"microstep_events to at most {MAX_BATCH}")
+
+
 class Simulation:
     """Built simulation: engine + host specs + run loop, on one device, or
     one rank's part of a run across ranks (with the rank's Collectives,
@@ -288,6 +396,10 @@ class Simulation:
         self.world = coll.world if coll is not None else 1
         self.coll = coll
         self.rank = coll.rank if coll is not None else 0
+        if config_is_cosim(cfg):
+            raise ConfigError(
+                "this config has a managed process (`path:`): build it with "
+                "shadow_tpu_torch.sim.build_simulation (the co-simulation bridge, cosim.py)")
         cfg.check_world(self.world)
         if cfg.campaign.active:
             raise ConfigError(
@@ -427,29 +539,7 @@ class Simulation:
         self._build_state()
 
     def _check_kernel_limits(self, qcap: int) -> None:
-        """The queue kernels' limits (csrc/queue.cu) against the base
-        shapes, checked at build on a CUDA device so that a config never
-        fails at its first launch: slots per host, blocks per host of a
-        bucketed queue, and K (clamped to the capacity) per microstep. The
-        CPU path runs any shape."""
-        ex = self.cfg.experimental
-        if qcap > MAX_CAPACITY:
-            raise ConfigError(
-                f"experimental.event_queue_capacity={qcap} exceeds the queue kernels' limit "
-                f"of {MAX_CAPACITY} slots per host (csrc/queue.cu); run it on the CPU "
-                f"(device='cpu') or lower the capacity")
-        block = ex.event_queue_block
-        if block and qcap // block > MAX_BLOCKS:
-            raise ConfigError(
-                f"experimental.event_queue_block={block}: capacity {qcap} makes "
-                f"{qcap // block} blocks per host, past the bucketed kernels' limit of "
-                f"{MAX_BLOCKS} (csrc/queue.cu); use blocks of at least "
-                f"{-(-qcap // MAX_BLOCKS)} slots")
-        if min(ex.microstep_events, qcap) > MAX_BATCH:
-            raise ConfigError(
-                f"experimental.microstep_events={ex.microstep_events} with capacity {qcap} "
-                f"exceeds the K-way kernels' limit of K = {MAX_BATCH} (csrc/queue.cu); set "
-                f"microstep_events to at most {MAX_BATCH}")
+        check_kernel_limits(self.cfg.experimental, qcap)
 
     def _check_pressure(self, qcap: int, send_budget: int) -> None:
         """The pressure plane's build-time refusals: the JAX package's
@@ -1048,12 +1138,23 @@ def run_mesh(cfg: ConfigOptions, *, device=None, data_dir: str | None = None) ->
     return launch(_rank_run, world, dev.type, (cfg, dev.type, data_dir))[0]
 
 
-def run_simulation(cfg: ConfigOptions, *, device=None) -> tuple[Simulation | None, dict]:
-    """Build and run `cfg` over `general.parallelism` ranks (0: every
-    visible card): (simulation, report) on one device; across ranks
-    (core/mesh.py) (None, rank 0's report)."""
+def build_simulation(cfg: ConfigOptions, *, device=None):
+    """A modeled config -> `Simulation`; a config with a managed process ->
+    the co-simulation bridge's `HybridSimulation` (cosim.py), as the JAX
+    package's `build_simulation` picks them."""
+    if config_is_cosim(cfg):
+        from shadow_tpu_torch.cosim import HybridSimulation
+
+        return HybridSimulation(cfg, device=device)
+    return Simulation(cfg, device=device)
+
+
+def run_simulation(cfg: ConfigOptions, *, device=None):
+    """Build and run `cfg`: (simulation, report) on one device; across
+    `general.parallelism` ranks (0: every visible card; core/mesh.py)
+    (None, rank 0's report). A co-simulation config runs the bridge."""
     dev = resolve_device(device)
-    if resolve_world(cfg.general.parallelism, dev) > 1:
+    if not config_is_cosim(cfg) and resolve_world(cfg.general.parallelism, dev) > 1:
         return None, run_mesh(cfg, device=dev)
-    sim = Simulation(cfg, device=dev)
+    sim = build_simulation(cfg, device=dev)
     return sim, sim.run()

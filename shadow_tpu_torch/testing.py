@@ -14,7 +14,8 @@ the integrity sentinel) at any size, `fault_case` the fault plane's and
 K1, K10, K11), and `scribble_hook` a state change for the sentinel's replay
 seam; `outbox_case` a shard's outbox for the exchange's pack (K29), and
 `mesh_runs` one rank's part of a series of runs across ranks
-(core/mesh.py). Used by chip_smoke.py and the tests; nothing on the
+(core/mesh.py); `hybrid_case`, `mixed_case` and `guarded_case` the
+co-simulation bridge's kernel inputs (K33, K34, K35). Used by chip_smoke.py and the tests; nothing on the
 simulation path imports it."""
 
 from __future__ import annotations
@@ -675,29 +676,19 @@ def handler_case(model: str, seed: int, h: int, dev, *, stride: int = 1) -> dict
         rng=r.integers(-(1 << 63), (1 << 63) - 1, (h, 4)),
     )
 
-    def T(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
-
-    # the event time and payload as column `stride - 1` of a K-way peek
-    wt = np.zeros((h, stride), np.int64)
-    wt[:, -1] = arrays["t"]
-    wp = np.zeros((h, stride, arrays["payload"].shape[1]), np.int32)
-    wp[:, -1] = arrays["payload"]
-    ctx = HandlerCtx(
-        t=T(wt)[:, -1], window_end=int(t.min()) + 5 * ms, kind=T(arrays["kind"]),
-        payload=T(wp)[:, -1], active=T(active), is_packet=T(arrays["is_packet"]),
-        src=T(arrays["src"]), host_id=T(arrays["host_id"]),
-        state={k: T(v) for k, v in st.items()}, params={k: T(v) for k, v in params.items()},
-        rng=RngState(T(arrays["rng"])),
-    )
-    return dict(model=m, ctx=ctx, np=arrays)
+    return dict(model=m, ctx=_ctx_of(arrays, dev, stride, HandlerCtx, RngState), np=arrays)
 
 
 def clone_ctx(ctx):
-    """A context with its own copies of the state and RNG lanes (the
-    handler kernels update them in place); the event lanes are shared."""
-    return dataclasses.replace(ctx, state={k: v.clone() for k, v in ctx.state.items()},
+    """A context with its own copies of the state (nested dicts included)
+    and RNG lanes (the handler kernels update them in place); the event
+    lanes are shared."""
+    return dataclasses.replace(ctx, state=_clone_tree(ctx.state),
                                rng=type(ctx.rng)(ctx.rng.s.clone()))
+
+
+def _clone_tree(tree: dict) -> dict:
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
 
 
 def handler_steps(model: str, seed: int, h: int, dev, *, stride: int = 1, steps: int = 3):
@@ -720,12 +711,21 @@ def handler_steps(model: str, seed: int, h: int, dev, *, stride: int = 1, steps:
         yield got, want
 
 
+def _flat_state(tree: dict, prefix: str) -> dict:
+    out = {}
+    for k, v in sorted(tree.items()):
+        out.update(_flat_state(v, f"{prefix}.{k}") if isinstance(v, dict)
+                   else {f"{prefix}.{k}": v})
+    return out
+
+
 def handler_tensors(out) -> dict:
     """{name: array} over a handler's outputs (torch tensors, or the JAX
-    package's arrays): every state lane, the RNG lanes, and every field of
-    every push and send port (a port field that is None is left out; the
-    flow-record lanes a handler writes into `ctx.flow` are compared apart)."""
-    got = {f"state.{k}": v for k, v in sorted(out.state.items())}
+    package's arrays): every state lane (a nested dict's as
+    "state.inner.lane"), the RNG lanes, and every field of every push and
+    send port (a port field that is None is left out; the flow-record lanes
+    a handler writes into `ctx.flow` are compared apart)."""
+    got = _flat_state(out.state, "state")
     got["rng"] = out.rng.s
     for kind, ports in (("push", out.pushes), ("send", out.sends)):
         for i, port in enumerate(ports):
@@ -743,6 +743,292 @@ def handler_diff(got, want) -> list[str]:
     return sorted(set(a) ^ set(b)) + [
         k for k in b if k in a and (a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
                                     or not torch.equal(a[k], b[k]))]
+
+
+# --------------------------------------------------------------------------
+# the co-simulation bridge (K33-K35)
+# --------------------------------------------------------------------------
+
+COSIM_FILLS = ("empty", "partial", "full", "random")
+NATIVE_PATTERNS = ("mixed", "all", "none")
+
+
+def _ring_state(r, h: int, cap: int, fill: str) -> dict:
+    """Random capture rings [h, cap] and counters: cap_n 0 everywhere
+    (`empty`), below the capacity (`partial`), at it (`full`, so every
+    delivery overflows into cap_lost) or anywhere in [0, cap] (`random`)."""
+    n = {"empty": np.zeros(h, np.int64), "partial": r.integers(0, cap, h),
+         "full": np.full(h, cap), "random": r.integers(0, cap + 1, h)}[fill]
+    return {
+        "cap_t": r.integers(0, 1 << 40, (h, cap)),
+        "cap_src": r.integers(0, h, (h, cap)),
+        "cap_key": r.integers(-(1 << 31), 1 << 31, (h, cap)).astype(np.int32),
+        "cap_size": r.integers(0, 1 << 16, (h, cap)).astype(np.int32),
+        "cap_flags": r.integers(-(1 << 31), 1 << 31, (h, cap)).astype(np.int32),
+        "cap_n": n.astype(np.int32),
+        "cap_lost": r.integers(0, 1 << 30, h),
+    }
+
+
+def _hybrid_event(r, h: int, t: np.ndarray, payload: np.ndarray):
+    """The bridge's event lanes: send requests (local KIND_SENDREQ, the
+    destination in word 1, some with the byte-store magic in word 3),
+    deliveries (KIND_DATA packets) and foreign kinds."""
+    kind = r.choice([0, 1, 1, 2, 2, 3], h).astype(np.int32)
+    is_pkt = np.where(kind == 2, r.random(h) < 0.9, r.random(h) < 0.2)
+    payload = payload.copy()
+    payload[:, 1] = r.integers(0, h, h)
+    payload[:, 3] = np.where(r.random(h) < 0.5, 0x53484457, payload[:, 3])
+    return kind, is_pkt, payload
+
+
+def hybrid_case(seed: int, h: int, dev, *, cap: int = 4, fill: str = "random",
+                stride: int = 1) -> dict:
+    """Random inputs of one hybrid handler call (K33): rings of `cap` slots
+    filled as `fill` says (`_ring_state`), and one event per host. Returns
+    dict(model, ctx, np) as `handler_case` does."""
+    from shadow_tpu_torch.models.base import HandlerCtx
+    from shadow_tpu_torch.models.hybrid import HybridModel
+    from shadow_tpu_torch.ops.rng import RngState
+
+    r = np.random.default_rng(seed)
+    t = r.integers(1_000, 60_000, h) * 1_000_000
+    active = r.random(h) < 0.85
+    payload = r.integers(-(1 << 31), 1 << 31, (h, 4))
+    kind, is_pkt, payload = _hybrid_event(r, h, t, payload)
+    arrays = dict(t=t.astype(np.int64), kind=kind, payload=payload.astype(np.int32),
+                  active=active, is_packet=is_pkt, src=r.integers(0, h, h).astype(np.int64),
+                  host_id=np.arange(h, dtype=np.int64),
+                  params={"_hosts": np.arange(h, dtype=np.int32)},
+                  state=_ring_state(r, h, cap, fill),
+                  rng=r.integers(-(1 << 63), (1 << 63) - 1, (h, 4)))
+    ctx = _ctx_of(arrays, dev, stride, HandlerCtx, RngState)
+    return dict(model=HybridModel(capture_cap=cap), ctx=ctx, np=arrays)
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict)
+            else torch.as_tensor(np.ascontiguousarray(v), device=dev) for k, v in tree.items()}
+
+
+def _ctx_of(arrays: dict, dev, stride: int, ctx_cls, rng_cls):
+    """A HandlerCtx on `dev` from numpy lanes (the window ends 5 ms after the
+    earliest event), the event time and payload column `stride - 1` of a
+    K-way peek when `stride` > 1."""
+    h = arrays["t"].shape[0]
+    wt = np.zeros((h, stride), np.int64)
+    wt[:, -1] = arrays["t"]
+    wp = np.zeros((h, stride, arrays["payload"].shape[1]), np.int32)
+    wp[:, -1] = arrays["payload"]
+
+    def T(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    return ctx_cls(
+        t=T(wt)[:, -1], window_end=int(arrays["t"].min()) + 5_000_000, kind=T(arrays["kind"]),
+        payload=T(wp)[:, -1], active=T(arrays["active"]), is_packet=T(arrays["is_packet"]),
+        src=T(arrays["src"]), host_id=T(arrays["host_id"]),
+        state=_tree_to(arrays["state"], dev), params=_tree_to(arrays["params"], dev),
+        rng=rng_cls(T(arrays["rng"])))
+
+
+def mixed_case(inner: str, seed: int, h: int, dev, *, native: str = "mixed", cap: int = 8,
+               stride: int = 1) -> dict:
+    """Random inputs of one mixed-plane handler call (K34 around K33 and the
+    inner model's kernel): the inner model's `handler_case`, a
+    `global_is_native` table that is `mixed` (random), `all` or `none`
+    native, hybrid rings of `cap` slots, and on native lanes the bridge's
+    event kinds. Returns dict(model, ctx, np), `np` with the nested state
+    and params."""
+    from shadow_tpu_torch.models.base import HandlerCtx
+    from shadow_tpu_torch.models.mixed import MixedModel
+    from shadow_tpu_torch.ops.rng import RngState
+
+    base = handler_case(inner, seed, h, "cpu")
+    a = dict(base["np"])
+    r = np.random.default_rng(seed + 7_919)
+    table = {"mixed": r.random(h) < 0.4, "all": np.ones(h, bool),
+             "none": np.zeros(h, bool)}[native]
+    kind, is_pkt, payload = _hybrid_event(r, h, a["t"], a["payload"])
+    a["kind"] = np.where(table, kind, a["kind"]).astype(np.int32)
+    a["is_packet"] = np.where(table, is_pkt, a["is_packet"])
+    a["payload"] = np.where(table[:, None], payload, a["payload"]).astype(np.int32)
+    a["state"] = {**_ring_state(r, h, cap, "random"), "inner": a["state"]}
+    a["params"] = {"_hosts": np.arange(h, dtype=np.int32), "inner": a["params"],
+                   "global_is_native": table}
+    ctx = _ctx_of(a, dev, stride, HandlerCtx, RngState)
+    return dict(model=MixedModel(base["model"], inner), ctx=ctx, np=a)
+
+
+def guarded_case(seed: int, h: int, dev, *, probe: str = "never", stops: int = 0) -> dict:
+    """Random inputs of K35: effective next times (some hosts empty at
+    TIME_MAX), cap_n all zero (`probe="never"`) or with deliveries waiting
+    (`"first"`: the probe fires on the first round), and `stops` stop lanes
+    of which the last has grown when `stops` > 1. Returns the keyword
+    arguments of ops/cosim.py `guarded_window`."""
+    r = np.random.default_rng(seed)
+    ms = 1_000_000
+    nt = r.integers(1_000, 9_000, h) * ms + r.integers(0, ms, h)
+    nt = np.where(r.random(h) < 0.2, TIME_MAX, nt)
+    cap_n = np.zeros(h, np.int32)
+    if probe == "first":
+        cap_n[r.integers(0, h, 3)] = r.integers(1, 128, 3)
+    gmin = int(nt.min())
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a), device=dev)
+
+    lanes = []
+    for i in range(stops):
+        v = int(r.integers(0, 100))
+        lanes.append((T([v + (1 if i == stops - 1 and stops > 1 else 0)]), T([v])))
+    return dict(next_t=T(nt), cap_n=T(cap_n), until=gmin + int(r.integers(-2, 3)) * ms,
+                stop_time=int(r.integers(gmin // ms + 1, 20_000)) * ms,
+                runahead=int(r.integers(1, 60)) * ms, stops=lanes)
+
+
+# the co-simulation report's results (every key but its timings and the
+# port's own counters), compared with the JAX package's
+COSIM_KEYS = ("windows", "device_rounds", "events_processed", "packets_sent",
+              "packets_delivered", "packets_lost", "packets_budget_dropped",
+              "packets_codel_dropped", "faults_dropped", "faults_delayed",
+              "queue_overflow_dropped", "queue_occupancy_hwm", "outbox_send_hwm",
+              "unreachable_ips", "model_pkts_unrouted", "syscalls", "process_failures",
+              "processes_exited", "determinism_digest", "model_report")
+
+
+def _cosim_cfg(hosts: dict, stop: str = "3 s", seed: int = 7, **sections) -> dict:
+    return {"general": {"stop_time": stop, "seed": seed, **sections.pop("general", {})},
+            "network": {"graph": {"type": "1_gbit_switch"}}, "hosts": hosts, **sections}
+
+
+def _ping_cfg(n: int, stop: str, count: int = 3, port: bool = True, **sections) -> dict:
+    args = ["server=server", f"count={count}"] + (["port=9000"] if port else [])
+    server = {"path": "udp_echo_server", **({"args": ["port=9000"]} if port else {})}
+    client = {"path": "udp_ping", "args": args, "expected_final_state": {"exited": 0}}
+    return _cosim_cfg({"server": {"network_node_id": 0, "processes": [server]},
+                       "client": {"network_node_id": 0, "count": n, "processes": [client]}},
+                      stop, **sections)
+
+
+def _mixed_echo_cfg(client: dict, stop: str = "4 s", seed: int = 9, n: int = 3) -> dict:
+    return _cosim_cfg({"server": {"network_node_id": 0, "processes": [
+                           {"model": "udp_echo", "model_args": {"role": "server"}}]},
+                       "client": {"network_node_id": 0, "count": n, "processes": [client]}},
+                      stop, seed)
+
+
+def cosim_small_configs() -> dict[str, dict]:
+    """Small co-simulation configs: those of the JAX package's co-sim tests
+    (tests/test_cosim.py: udp_ping, a tgen-TCP flow, the round-robin qdisc,
+    the parallel host plane; tests/test_mixed.py: coroutine clients against
+    a modeled udp_echo server, udp_blast into gossip lanes) and the
+    send-budget case: 40 clients against one modeled server, whose budget
+    of 32 sends a round drops echoes. The tgen run writes strace
+    (deterministic), pcap and the log at level debug."""
+    return {
+        "udp_ping": _ping_cfg(2, "3 s", count=4),
+        "tgen_tcp_flow": _cosim_cfg(
+            {"server": {"network_node_id": 0, "processes": [
+                {"path": "tgen_server", "args": ["port=8080", "conns=1"],
+                 "expected_final_state": {"exited": 0}}]},
+             "client": {"network_node_id": 0, "processes": [
+                 {"path": "tgen_client",
+                  "args": ["server=server", "port=8080", "size=200000"],
+                  "expected_final_state": {"exited": 0}}]}},
+            "10 s", general={"log_file": "sim.log", "log_level": "debug"},
+            experimental={"strace_logging_mode": "deterministic"},
+            host_option_defaults={"pcap_enabled": True}),
+        "rr_qdisc": _ping_cfg(2, "1 s", port=False,
+                              experimental={"interface_qdisc": "round-robin"}),
+        "parallel_host_plane": _ping_cfg(30, "4 s", experimental={"host_workers": 4}),
+        "mixed_coroutine_clients": _mixed_echo_cfg(
+            {"path": "udp_ping", "args": ["server=server", "port=9000", "count=3"],
+             "expected_final_state": {"exited": 0}}),
+        "mixed_gossip_sanitised": _cosim_cfg(
+            {"g": {"count": 4, "network_node_id": 0,
+                   "processes": [{"model": "gossip", "model_args": {"fanout": 2}}]},
+             "blaster": {"network_node_id": 0, "processes": [
+                 {"path": "udp_blast", "args": ["server=g1", "port=9000", "count=5"],
+                  "expected_final_state": {"exited": 0}}]}},
+            "2 s", seed=3),
+        "mixed_budget_drops": _mixed_echo_cfg(
+            {"path": "udp_ping", "args": ["server=server", "port=9000", "count=2",
+                                          "interval_ns=100000000", "size=512"],
+             "expected_final_state": {"exited": 0}, "start_time": "100 ms"},
+            stop="1 s", seed=42, n=40),
+    }
+
+
+def cosim_files(data_dir: str) -> dict[str, bytes]:
+    """Every file a co-simulation wrote into `data_dir` but its report and
+    processed config (which name the port and its devices), by relative
+    path."""
+    import os
+
+    out = {}
+    for root, _, files in os.walk(data_dir):
+        for f in files:
+            if f in ("sim-stats.json", "processed-config.yaml"):
+                continue
+            p = os.path.join(root, f)
+            with open(p, "rb") as fh:
+                out[os.path.relpath(p, data_dir)] = fh.read()
+    return out
+
+
+def cosim_final(report: dict, data_dir: str) -> dict:
+    """What a co-simulation is held to: the report's results (COSIM_KEYS),
+    the number of files it wrote (stdout, stderr, strace, pcap, the log,
+    host-stats.json, hosts.txt) and one SHA-256 over them: of the canonical
+    JSON of {relative path: the file's SHA-256}."""
+    import hashlib
+    import json
+
+    files = {k: hashlib.sha256(v).hexdigest() for k, v in cosim_files(data_dir).items()}
+    return {**{k: report.get(k) for k in COSIM_KEYS}, "files": len(files),
+            "files_sha256": hashlib.sha256(
+                json.dumps(files, sort_keys=True).encode()).hexdigest()}
+
+
+def run_cosim(cfg_dict: dict, device, data_dir: str) -> tuple:
+    """Build, run and write out one co-simulation of the port into
+    `data_dir`: (report, cosim_final)."""
+    import copy
+    import io
+
+    from shadow_tpu_torch.config.options import ConfigOptions
+    from shadow_tpu_torch.cosim import HybridSimulation
+
+    cfg = ConfigOptions.from_dict(copy.deepcopy(cfg_dict))
+    cfg.general.data_directory = data_dir
+    sim = HybridSimulation(cfg, device=device)
+    report = sim.run(progress=False, log=io.StringIO())
+    sim.write_outputs(data_dir, report)
+    return report, cosim_final(report, data_dir)
+
+
+def cosim_mixed_config(fleet: int = 4096, clients: int = 32, stop: str = "6 s", *,
+                       count: int = 50, seed: int = 42) -> dict:
+    """The mixed co-simulation leg: examples/mixed.yaml's layout (a fleet of
+    device-modeled udp_echo servers) with `fleet` servers and `clients`
+    coroutine udp_ping clients, each sending `count` pings of 512 B at
+    100 ms to fleet1 from 100 ms on. Past 32 clients the server's send
+    budget (32 a round) drops echoes and the clients past it block."""
+    return {
+        "general": {"stop_time": stop, "seed": seed},
+        "network": {"graph": {"type": "1_gbit_switch"}},
+        "hosts": {
+            "fleet": {"count": fleet, "network_node_id": 0,
+                      "processes": [{"model": "udp_echo", "model_args": {"role": "server"}}]},
+            "client": {"count": clients, "network_node_id": 0, "processes": [{
+                "path": "udp_ping",
+                "args": ["server=fleet1", f"count={count}", "interval_ns=100000000",
+                         "size=512"],
+                "start_time": "100 ms",
+                "expected_final_state": {"exited": 0}}]},
+        },
+    }
 
 
 # --------------------------------------------------------------------------

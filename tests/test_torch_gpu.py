@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K32 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K35 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -54,11 +54,20 @@ runahead, with and without per-row valves) and K32 (`replica_fold`) on
 `shadow_tpu_torch.testing.ensemble_case` lanes, and K2 (per-row limits),
 K4, K9, K10, K11 and K13 over replicas (`replica_chain_case`,
 `replica_merge_case`) with a frozen replica whose rows must come out
-unchanged.
+unchanged. The co-simulation bridge: K33 (`hybrid_handle`) on
+`shadow_tpu_torch.testing.hybrid_case` rings that are empty, partly full,
+full (overflow into cap_lost) and random, K34 (`mixed_plane`, both modes,
+inside the mixed handler) on `mixed_case` with native tables all, none and
+mixed over udp_echo (no sanitising) and gossip (sanitising), and K35
+(`guarded_window`) on `guarded_case` lanes (a probe that fires on the first
+round and one that never fires, stop lanes grown and not), at the mixed
+leg's 4,096 hosts.
 Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
 repeats the check at the main path's shapes.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -78,8 +87,13 @@ from shadow_tpu_torch.testing import (
     clone_ctx,
     flat_tensors,
     HANDLER_MODELS,
+    COSIM_FILLS,
+    NATIVE_PATTERNS,
     fluid_case,
+    guarded_case,
     handler_diff,
+    hybrid_case,
+    mixed_case,
     handler_steps,
     merge_case,
     merge_fits,
@@ -1184,3 +1198,64 @@ def test_replica_chain_kernels_match_plain(dev, name):
     b = pchain.outbox_append_multi_plain(ob, [want[2]] * 2, lost0)
     assert_all_equal(flat_tensors(a), flat_tensors(b))
     assert int(a[0].count[2]) == 0 and int(a[0].count.sum()) > 0
+
+
+COSIM_H = 4_096  # the mixed leg's host count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("fill", COSIM_FILLS)
+def test_hybrid_handle_kernel_matches_plain(dev, fill, stride):
+    """K33 against `handle_plain` over two chained calls (the rings and
+    counters the kernel writes in place feed the next call of each side)."""
+    from shadow_tpu_torch.models import KERNELS
+
+    n0 = KERNELS["hybrid_handle"].launches
+    case = hybrid_case(3, COSIM_H, dev, cap=4, fill=fill, stride=stride)
+    m, ck = case["model"], case["ctx"]
+    cp = clone_ctx(ck)
+    for step in range(2):
+        if step:
+            ev = hybrid_case(11, COSIM_H, dev, cap=4, fill=fill, stride=stride)["ctx"]
+            ck = dataclasses.replace(ev, state=got.state, rng=got.rng)
+            cp = dataclasses.replace(ev, state=want.state, rng=want.rng)
+        got, want = m.handle(ck), m.handle_plain(cp)
+        assert handler_diff(got, want) == [], step
+        assert got.state is ck.state  # in place
+    assert KERNELS["hybrid_handle"].launches - n0 == 2
+    if fill == "full":
+        assert int(got.state["cap_lost"].sum()) > int(case["np"]["state"]["cap_lost"].sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("native", NATIVE_PATTERNS)
+@pytest.mark.parametrize("inner", ["udp_echo", "gossip"])
+def test_mixed_plane_kernels_match_plain(dev, inner, native, stride):
+    """The mixed handler on the card (K34 in mode, K33, the inner model's
+    kernel, K34 out mode) against its plain version, every lane."""
+    from shadow_tpu_torch.models import KERNELS
+
+    n0 = {k: v.launches for k, v in KERNELS.items()}
+    case = mixed_case(inner, 4, COSIM_H, dev, native=native, stride=stride)
+    got = case["model"].handle(clone_ctx(case["ctx"]))
+    want = case["model"].handle_plain(clone_ctx(case["ctx"]))
+    assert handler_diff(got, want) == []
+    ran = {k: v.launches - n0[k] for k, v in KERNELS.items() if v.launches - n0[k]}
+    assert ran == {"mixed_plane": 2, "hybrid_handle": 1,
+                   {"udp_echo": "echo_handle", "gossip": "gossip_handle"}[inner]: 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("stops", [0, 1, 2])
+@pytest.mark.parametrize("probe", ["never", "first"])
+def test_guarded_window_kernel_matches_plain(dev, probe, stops, seed):
+    from shadow_tpu_torch.ops.cosim import guarded_window, guarded_window_plain
+
+    for seed in range(4 * seed, 4 * seed + 4):
+        kw = guarded_case(seed, COSIM_H, dev, probe=probe, stops=stops)
+        got, want = guarded_window(**kw), guarded_window_plain(**kw)
+        assert torch.equal(got, want), (seed, got.tolist(), want.tolist())
+        assert bool(got[2]) == (probe == "first")
