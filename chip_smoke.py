@@ -40,13 +40,14 @@ line reports it):
      (queue capacity 64, send budget 12, one device) through
      `shadow_tpu_torch.sim.Simulation`, which must reproduce the JAX
      reference's determinism digest d6c9a273e3a92bb7 and 668,614 events with
-     every kernel of its path (K1-K4, K9-K11, K18) launched, K18 as often as
-     K10 (one handler launch per event);
+     every kernel of its path (K1-K4, K10, K11, K18) launched, K18 as often
+     as K10 (one handler launch per event);
   5. where the anchor's time goes: one steady 16-round chunk under
      torch.profiler, with the per-event chain's ingress (K10), the model's
-     handler (its kernel), egress (K11) and the outbox append (K9) as ranges
+     handler (its kernel) and egress with the outbox append (K11) as ranges
      (device busy share, launches per microstep, each range's device time
-     and launches, the port's kernels, top device ops);
+     and launches, the chain's launches per microstep, the port's kernels,
+     top device ops);
   6. small configs (udp_echo with a server overflowing its queue, PHOLD on
      a two-node graph with loss and jitter): the card's report must equal
      the CPU path's, with the echo run's K19 launched as often as K10;
@@ -69,11 +70,13 @@ line reports it):
   9. where its time goes: one steady 8-round chunk, profiled as in phase 5;
  10. config 6 small (128 hosts on a 4x4 torus) for K in {1, 4} x {flat,
      bucketed}, a lossy torus and a tight capacity: card == CPU;
- 11. kernels K9-K11 (outbox append, event ingress, event egress) against
-     their plain versions at the anchor's and config 6's shapes (random
-     carries with CoDel states about to drop, buckets short of tokens,
-     out-of-range destinations, hosts past the send budget, burst ports,
-     the event a column of the K-way peek), and K12 (wheel_cancel) and K5
+ 11. kernels K10 and K11 (event ingress; event egress with the outbox
+     append and the used-latency fold, over the four event columns of a
+     K = 4 microstep at config 6's shape) against their plain versions at
+     the anchor's and config 6's shapes (random carries with CoDel states
+     about to drop, buckets short of tokens, out-of-range destinations,
+     hosts past the send budget, burst ports, the event a column of the
+     K-way peek), and K12 (wheel_cancel) and K5
      with per-host limits at config 11's [10,000, 4] wheel and 14-slot
      queue; exact equality, with the timings of phase 2, and the timings
      of the wheel slab's own ops there (K1 on its block caches, the timer
@@ -235,10 +238,12 @@ line reports it):
      and dynamic runahead, with and without per-row valves, and K32
      (replica_fold) over the ledger's counter planes; and the replica lanes
      of K2 (per-row pop limits), K4 and K13 (replica-local destinations,
-     the merge_rows bound and K13's fits flag per replica), K9, K10 and K11
-     (replica-local ids, per-replica window ends and link-fault windows),
-     a frozen replica's rows unchanged; exact equality, with the timings of
-     phase 2 and `torch.amin` over [R, H] as K31's yardstick;
+     the merge_rows bound and K13's fits flag per replica), K10 and K11
+     (replica-local ids, per-replica window ends and link-fault windows,
+     per-replica outbox counters and used-latency lanes), a frozen
+     replica's rows and lanes unchanged; exact equality, with the timings
+     of phase 2 and `torch.amin` over [R, H] as the yardstick of both of
+     K31's modes;
  40. bench config 8 as configured (four PHOLD replicas of 4,096 hosts, 30
      sim-s, seeds 1-4) through `shadow_tpu_torch.campaign.run_campaign`:
      every replica's ledger row and the per-chunk signatures of the JAX
@@ -692,6 +697,7 @@ CFG8_SIGS = [
 H8, R8 = 4096, 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT_OPS_PER_S = 67e12  # H100 SXM non-tensor-core rate (fp32 table entry)
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way
 # NP: push ports per microstep on the anchor's path (ingress requeue + PHOLD's one
 # local push); R_CAP: the anchor's insert cap, min(max_round_inserts, C)
 H, C, P, NP, B, R_CAP = 10_000, 64, 4, 2, 12, 64
@@ -1009,6 +1015,28 @@ def device_ms(fn, setup=None, reps: int = 20, symbols=None):
     end.synchronize()
     queued = start.elapsed_time(end) / reps
     return (dev_us / 1e3 / reps if dev_us > 0 else None), call, queued
+
+
+def graph_ms(fn, reps: int = 50) -> float:
+    """Device ms per call of `fn` from CUDA-graph replays of `reps` calls
+    (captured once; ten replays timed with CUDA events): the calls' device
+    time without the host's launch gaps."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (10 * reps)
 
 
 def time_ms(fn, setup=None) -> float:
@@ -1455,15 +1483,37 @@ def io_bytes(reads=(), writes=(), inplace=()) -> int:
     return n
 
 
+def egress_bytes(c0, c1, pushes, reads, route_bytes: int = 0) -> int:
+    """Bytes one K11 launch must move from carry `c0` to `c1` (its plain
+    version's result): its inputs read (`reads`, and `route_bytes` of route
+    table entries), its pushes written, the changed carry lanes read and
+    written, the outbox rows it appended (not those lost past B) and the
+    changed [R] lanes (the outbox count, ob_dropped, min_used_lat)."""
+    from shadow_tpu_torch.testing import flat_tensors
+
+    row_bytes = 4 + 8 + 8 + 4 + 4 * c0.outbox.payload.shape[2]
+    landed = int((c1.outbox.count - c0.outbox.count).sum()
+                 - (c1.stats.ob_dropped - c0.stats.ob_dropped).sum())
+    lanes = ("stats", "rng", "seq", "sent_round", "tb_egress")
+    return io_bytes(
+        reads=reads, writes=[x for p in pushes for x in p[:4]],
+        inplace=list(zip(flat_tensors([getattr(c0, f) for f in lanes]
+                                      + [c0.outbox.count, c0.min_used_lat]),
+                         flat_tensors([getattr(c1, f) for f in lanes]
+                                      + [c1.outbox.count, c1.min_used_lat])))
+    ) + route_bytes + landed * row_bytes
+
+
 def phase_kernels_chain(dev) -> dict[str, dict]:
-    """K9-K11 against their plain versions at the anchor's shape (H =
-    10,000, one push and one send port, one graph node; one event per
-    microstep) and config 6's (two pushes, a two-segment burst port, affine
-    rows over 100 nodes, the event a column of the K = 4 peek; K9 takes the
-    K = 4 events' entry stacks of one microstep); K12 and K5 with per-host
-    limits at config 11's [10,000, 4] wheel (blocks of 2) and its 14-slot
-    queue. Exact equality on seeded inputs, two seeds each."""
-    from shadow_tpu_torch.core.engine import make_empty_outbox
+    """K10 and K11 (with its outbox append and used-latency fold) against
+    their plain versions at the anchor's shape (H = 10,000, one push and
+    one send port, one graph node; one event per microstep) and config 6's
+    (two pushes, a two-segment burst port, affine rows over 100 nodes, the
+    event a column of the K = 4 peek; K11 over the microstep's four event
+    columns in turn, into one outbox); K12 and K5 with per-host limits at
+    config 11's [10,000, 4] wheel (blocks of 2) and its 14-slot queue. Exact
+    equality on seeded inputs, two seeds each. K11's times are per launch:
+    the microstep's columns timed together, divided by their count."""
     from shadow_tpu_torch.ops import chain
     from shadow_tpu_torch.ops import events as ev
     from shadow_tpu_torch.ops import wheel as wh
@@ -1474,18 +1524,7 @@ def phase_kernels_chain(dev) -> dict[str, dict]:
         "cfg6": (K6, dict(n_push=2, sends=((2, True, True),), route="affine", n_nodes=100,
                           budget=24, stride=K6)),
     }
-
-    def microstep_stacks(c0, params, cfg, e, disp, we, out, n_events, budget):
-        """The entry stacks of `n_events` events of one microstep (the carry
-        threaded through egress), some columns moved past the outbox width."""
-        cc, stacks = clone_carry(c0), []
-        for _ in range(n_events):
-            cc, _, ents, _ = chain.event_egress_plain(cc, params, cfg, e.t, disp, we, out)
-            stacks.append(ents._replace(
-                col=torch.where(ents.col % 7 == 0, ents.col + budget, ents.col)))
-        return stacks
-
-    err = {k: 0.0 for k in ("outbox_append", "event_ingress", "event_egress")}
+    err = {k: 0.0 for k in ("event_ingress", "event_egress")}
     timing = {}
     for shape, (n_events, kw) in shapes.items():
         for seed in (1, 2):
@@ -1497,22 +1536,17 @@ def phase_kernels_chain(dev) -> dict[str, dict]:
             err["event_ingress"] = max(err["event_ingress"], check_equal(
                 f"K10/{shape}/{seed}", flat_tensors(got), flat_tensors(want)))
             out, disp, we = case["out"], case["dispatch"], case["window_end"]
-            got = chain.event_egress(clone_carry(c0), params, cfg, e.t, disp, we, out)
-            want = chain.event_egress_plain(clone_carry(c0), params, cfg, e.t, disp, we, out)
-            err["event_egress"] = max(err["event_egress"], check_equal(
-                f"K11/{shape}/{seed}", flat_tensors(got), flat_tensors(want)))
-            stacks = microstep_stacks(c0, params, cfg, e, disp, we, out, n_events,
-                                      kw["budget"])
-            ob = make_empty_outbox(H, kw["budget"], dev)
-            lost = torch.zeros((1,), dtype=torch.int64, device=dev)
-            got = chain.outbox_append_multi(clone_carry(ob), stacks, lost.clone())
-            want = chain.outbox_append_multi_plain(clone_carry(ob), stacks, lost.clone())
-            err["outbox_append"] = max(err["outbox_append"], check_equal(
-                f"K9/{shape}/{seed}", flat_tensors(got), flat_tensors(want)))
+            args = (params, cfg, e.t, disp, we, out)
+            ck, cp = clone_carry(c0), clone_carry(c0)
+            for j in range(n_events):  # the microstep's event columns, in turn
+                ck, pk = chain.event_egress(ck, *args)
+                cp, pp = chain.event_egress_append_plain(cp, *args)
+                err["event_egress"] = max(err["event_egress"], check_equal(
+                    f"K11/{shape}/{seed}/{j}", flat_tensors([ck, pk]), flat_tensors([cp, pp])))
+            if int(cp.outbox.count[0]) <= int(c0.outbox.count[0]):
+                raise AssertionError(f"K11/{shape}/{seed}: nothing was appended")
         # timings on the last case of the shape
         ing = chain.event_ingress_plain(clone_carry(c0), params, cfg, e, act)
-        egr = chain.event_egress_plain(clone_carry(c0), params, cfg, e.t, disp, we, out)
-        ents = egr[2]
         k10 = kernel_ms("event_ingress", lambda cc: chain.event_ingress(cc, params, cfg, e, act),
                         lambda: (clone_carry(c0),))
         k10["plain_ms"] = time_ms(lambda cc: chain.event_ingress_plain(cc, params, cfg, e, act),
@@ -1525,44 +1559,39 @@ def phase_kernels_chain(dev) -> dict[str, dict]:
                     *(ing1.requeue[i] for i in (0, 1, 3))],
             inplace=list(zip(flat_tensors([c0.stats, c0.tb_ingress, c0.codel]),
                              flat_tensors([c1.stats, c1.tb_ingress, c1.codel])))), 300 * H)
-        k11 = kernel_ms("event_egress",
-                        lambda cc: chain.event_egress(cc, params, cfg, e.t, disp, we, out),
-                        lambda: (clone_carry(c0),))
-        k11["plain_ms"] = time_ms(
-            lambda cc: chain.event_egress_plain(cc, params, cfg, e.t, disp, we, out),
-            lambda: (clone_carry(c0),))
-        c2 = egr[0]
-        route_bytes = len(out.sends) * H * (8 + 4 + 8)
-        k11["bound"] = bound(io_bytes(
-            reads=[e.t, disp, params.eg_tb.capacity, params.eg_tb.refill,
-                   c0.tb_egress.tokens, c0.tb_egress.last_itv,
-                   *[x for p in out.pushes for x in (p.mask, p.t, p.kind)],
-                   *[x for sp in out.sends for x in (sp.mask, sp.dst, sp.size_bytes, sp.kind,
-                                                     sp.payload, sp.count, sp.payload_inc)]],
-            writes=[*[x for p in egr[1] for x in p[:4]], *ents, egr[3]],
-            inplace=list(zip(flat_tensors([c0.stats, c0.rng, c0.seq, c0.sent_round,
-                                           c0.tb_egress]),
-                             flat_tensors([c2.stats, c2.rng, c2.seq, c2.sent_round,
-                                           c2.tb_egress])))) + route_bytes, 600 * H)
-        ob = make_empty_outbox(H, kw["budget"], dev)
-        n_mask = sum(st.mask.numel() for st in stacks)
-        n_m = sum(int(st.mask.sum()) for st in stacks)
 
-        def ob_setup():
-            return clone_carry(ob), torch.zeros((1,), dtype=torch.int64, device=dev)
+        def columns(cc):
+            for _ in range(n_events):
+                chain.event_egress(cc, *args)
 
-        k9 = kernel_ms("outbox_append", lambda o, z: chain.outbox_append_multi(o, stacks, z),
-                       ob_setup)
-        k9["plain_ms"] = time_ms(lambda o, z: chain.outbox_append_multi_plain(o, stacks, z),
-                                 ob_setup)
-        # every mask read; the landed entries' fields read and written
-        k9["bound"] = bound(n_mask + n_m * (44 + 40) + 12, n_mask)
-        for name, r in (("outbox_append", k9), ("event_ingress", k10), ("event_egress", k11)):
+        def plain_columns(cc):
+            for _ in range(n_events):
+                cc, _ = chain.event_egress_append_plain(cc, *args)
+
+        k11 = kernel_ms("event_egress", columns, lambda: (clone_carry(c0),))
+        k11["plain_ms"] = time_ms(plain_columns, lambda: (clone_carry(c0),))
+        for k in ("ms", "call_ms", "queued_ms", "plain_ms"):
+            k11[k] /= n_events
+        # per launch: the inputs and route tables read, the pushes, the
+        # changed lanes and the appended outbox rows written (egress_bytes)
+        reads = [e.t, disp, params.eg_tb.capacity, params.eg_tb.refill,
+                 c0.tb_egress.tokens, c0.tb_egress.last_itv,
+                 *[x for p in out.pushes for x in (p.mask, p.t, p.kind)],
+                 *[x for sp in out.sends for x in (sp.mask, sp.dst, sp.size_bytes, sp.kind,
+                                                   sp.payload, sp.count, sp.payload_inc)]]
+        moved, cc = 0, clone_carry(c0)
+        for _ in range(n_events):
+            cn, pushes = chain.event_egress_append_plain(clone_carry(cc), *args)
+            moved += egress_bytes(cc, cn, pushes, reads, len(out.sends) * H * (8 + 4 + 8))
+            cc = cn
+        k11["bound"] = bound(moved / n_events, 600 * H)
+        k11["columns_per_microstep"] = n_events
+        for name, r in (("event_ingress", k10), ("event_egress", k11)):
             settle(f"{name}/{shape}", r, r["bound"][0])
-        timing[shape] = {"outbox_append": k9, "event_ingress": k10, "event_egress": k11}
+        timing[shape] = {"event_ingress": k10, "event_egress": k11}
 
     results = {}
-    for name in ("outbox_append", "event_ingress", "event_egress"):
+    for name in ("event_ingress", "event_egress"):
         r = dict(timing["cfg6"][name])
         r["max_abs_err"] = err[name]
         r["library_ms"] = None
@@ -1709,7 +1738,8 @@ def phase_kernels_fluid(dev) -> dict[str, dict]:
                 err["event_egress"] = max(err["event_egress"], check_equal(
                     f"K11-fluid/{tag}", flat_tensors(chain.event_egress(
                         clone_carry(ch["carry"]), *eargs)),
-                    flat_tensors(chain.event_egress_plain(clone_carry(ch["carry"]), *eargs))))
+                    flat_tensors(chain.event_egress_append_plain(clone_carry(ch["carry"]),
+                                                                 *eargs))))
             if shape == "cfg12" and seed == 1:
                 keep = (c, cfg, fp, st, nof, ob, nodes)
     torch.cuda.synchronize()
@@ -1769,20 +1799,17 @@ def phase_kernels_fluid(dev) -> dict[str, dict]:
     r11["fluid_off_ms"] = kernel_ms(
         "event_egress", lambda cc: chain.event_egress(cc, *eargs[:-1]),
         lambda: (clone_carry(ch["carry"]),))["ms"]
-    r11["plain_ms"] = time_ms(lambda cc: chain.event_egress_plain(cc, *eargs),
+    r11["plain_ms"] = time_ms(lambda cc: chain.event_egress_append_plain(cc, *eargs),
                               lambda: (clone_carry(ch["carry"]),))
-    egr = chain.event_egress_plain(clone_carry(ch["carry"]), *eargs)
-    out, c0, c2 = ch["out"], ch["carry"], egr[0]
-    r11["bound"] = bound(io_bytes(
-        reads=[ch["ev"].t, ch["dispatch"], ch["params"].eg_tb.capacity,
-               ch["params"].eg_tb.refill, *ch["fluid_fx"],
-               *[x for p in out.pushes for x in (p.mask, p.t, p.kind)],
-               *[x for sp in out.sends for x in (sp.mask, sp.dst, sp.size_bytes, sp.kind,
-                                                 sp.payload, sp.count, sp.payload_inc)]],
-        writes=[*[x for p in egr[1] for x in p[:4]], *egr[2], egr[3]],
-        inplace=list(zip(flat_tensors([c0.stats, c0.rng, c0.seq, c0.sent_round, c0.tb_egress]),
-                         flat_tensors([c2.stats, c2.rng, c2.seq, c2.sent_round,
-                                       c2.tb_egress])))) + len(out.sends) * H * 20, 700 * H)
+    out, c0 = ch["out"], ch["carry"]
+    c2, pushes = chain.event_egress_append_plain(clone_carry(c0), *eargs)
+    r11["bound"] = bound(egress_bytes(
+        c0, c2, pushes,
+        [ch["ev"].t, ch["dispatch"], ch["params"].eg_tb.capacity, ch["params"].eg_tb.refill,
+         *ch["fluid_fx"], *[x for p in out.pushes for x in (p.mask, p.t, p.kind)],
+         *[x for sp in out.sends for x in (sp.mask, sp.dst, sp.size_bytes, sp.kind,
+                                           sp.payload, sp.count, sp.payload_inc)]],
+        len(out.sends) * H * 20), 700 * H)
     results["event_egress_fluid"] = r11
     for name, r in results.items():
         settle(name, r, r["bound"][0])
@@ -2198,7 +2225,7 @@ def phase_kernels_faults(dev) -> dict[str, dict]:
                 cfg, params, e, c0 = (case[k] for k in ("cfg", "params", "ev", "carry"))
                 args = (e.t, case["dispatch"], case["window_end"], case["out"])
                 got = chain.event_egress(clone_carry(c0), params, cfg, *args)
-                want = chain.event_egress_plain(clone_carry(c0), params, cfg, *args)
+                want = chain.event_egress_append_plain(clone_carry(c0), params, cfg, *args)
                 err = max(err, check_equal(f"K11 windows={windows}/{h}/{seed}",
                                            flat_tensors(got), flat_tensors(want)))
     case = chain_case(3, H7, dev, **cfg7_shape, loss_windows=1)
@@ -2206,20 +2233,17 @@ def phase_kernels_faults(dev) -> dict[str, dict]:
     args = (e.t, case["dispatch"], case["window_end"], case["out"])
     r = kernel_ms("event_egress", lambda cc: chain.event_egress(cc, params, cfg, *args),
                   lambda: (clone_carry(c0),))
-    r["plain_ms"] = time_ms(lambda cc: chain.event_egress_plain(cc, params, cfg, *args),
+    r["plain_ms"] = time_ms(lambda cc: chain.event_egress_append_plain(cc, params, cfg, *args),
                             lambda: (clone_carry(c0),))
-    c1, pushes, entries, used = chain.event_egress_plain(clone_carry(c0), params, cfg, *args)
-    r["bound"] = bound(io_bytes(
-        reads=[e.t, case["dispatch"], *flat_tensors(case["out"].pushes),
-               *(x for sp in case["out"].sends for x in (sp.mask, sp.dst, sp.size_bytes, sp.kind,
-                                                         sp.payload, sp.count, sp.payload_inc)),
-               params.eg_tb.capacity, params.eg_tb.refill,
-               *flat_tensors([params.faults.win_start, params.faults.win_end,
-                              params.faults.win_loss, params.faults.win_lat])],
-        writes=[*flat_tensors([(p.mask, p.t, p.order, p.kind) for p in pushes]),
-                *flat_tensors(entries), used],
-        inplace=list(zip(flat_tensors([c0.stats, c0.rng, c0.seq, c0.sent_round, c0.tb_egress]),
-                         flat_tensors([c1.stats, c1.rng, c1.seq, c1.sent_round, c1.tb_egress])))),
+    c1, pushes = chain.event_egress_append_plain(clone_carry(c0), params, cfg, *args)
+    r["bound"] = bound(egress_bytes(
+        c0, c1, pushes,
+        [e.t, case["dispatch"], *flat_tensors(case["out"].pushes),
+         *(x for sp in case["out"].sends for x in (sp.mask, sp.dst, sp.size_bytes, sp.kind,
+                                                   sp.payload, sp.count, sp.payload_inc)),
+         params.eg_tb.capacity, params.eg_tb.refill,
+         *flat_tensors([params.faults.win_start, params.faults.win_end,
+                        params.faults.win_loss, params.faults.win_lat])]),
         400 * H7)
     r["max_abs_err"] = err
     results["event_egress_fault_window"] = settle("event_egress/fault_window", r, r["bound"][0])
@@ -2784,7 +2808,6 @@ KERNEL_SYMBOLS = {
     "queue_clear_popped": ("clear_popped_kernel",),
     "queue_push_many_bucketed": ("push_many_kernel<true>",),
     "queue_block_minima": ("block_minima_kernel",),
-    "outbox_append": ("outbox_append_kernel",),
     "event_ingress": ("event_ingress_kernel",),
     "event_egress": ("event_egress_kernel",),
     "wheel_cancel": ("wheel_cancel_kernel",),
@@ -2812,18 +2835,19 @@ KERNEL_SYMBOLS = {
     "guarded_window": ("guarded_window_kernel",),
 }
 # the microstep's per-event steps, marked as profiler ranges in phases 5 and 9
-RANGES = ("ingress", "handler", "egress", "outbox_append")
+# (egress, K11, appends the sends to the outbox itself)
+RANGES = ("ingress", "handler", "egress")
 
 
 def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
     """Where a leg's time goes: three unprofiled chunks (the first carries
     first-use costs; the third is timed), then one chunk under
     torch.profiler with the per-event chain's three steps — ingress (K10),
-    the model's handler (its kernel, K17-K22), egress (K11) — and the
-    outbox append (K9) marked as ranges: device busy share, launches per
+    the model's handler (its kernel, K17-K22), egress with the outbox
+    append (K11) — marked as ranges: device busy share, launches per
     microstep, each range's device time and launches per microstep (the
-    handler's should be one launch per event), the port's kernels by name,
-    and the top device ops.
+    handler's should be one launch per event) and the chain's (the three
+    ranges' sum), the port's kernels by name, and the top device ops.
 
     Each port kernel's device time per wrapper call inside the path is
     held against `floors[name]`, its least time per call at this path's
@@ -2844,7 +2868,7 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
 
     # a range's own "kernel" is its span on the device timeline (idle gaps
     # included): its work is every other kernel inside it, launched by the
-    # ops within or directly (the ctypes launches of K9-K11)
+    # ops within or directly (the ctypes launches of K10, K11)
     def kernels_in(e) -> list:
         return ([k for k in e.kernels if k.name not in RANGES]
                 + [k for c in e.cpu_children for k in kernels_in(c)])
@@ -2861,11 +2885,9 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
         advanced.append((st.now - now0) / 1e9)
     msteps0 = int(st.stats.microsteps.sum())
     syncs0 = eng.host_syncs
-    patched = {n: getattr(engine_mod, n) for n in ("event_ingress", "event_egress",
-                                                   "outbox_append_multi")}
+    patched = {n: getattr(engine_mod, n) for n in ("event_ingress", "event_egress")}
     engine_mod.event_ingress = ranged("ingress", patched["event_ingress"])
     engine_mod.event_egress = ranged("egress", patched["event_egress"])
-    engine_mod.outbox_append_multi = ranged("outbox_append", patched["outbox_append_multi"])
     eng.model.handle = ranged("handler", eng.model.handle)
     for k in KERNELS.values():
         k.launches = 0
@@ -2900,7 +2922,7 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
     # range gets its own kernel's launches and device time by name, plus
     # the PyTorch kernels of the ops inside it
     own = {"ingress": "event_ingress", "handler": HANDLER_OF[eng.model.name],
-           "egress": "event_egress", "outbox_append": "outbox_append"}
+           "egress": "event_egress"}
     ranges = {}
     for name in RANGES:
         evs = [e for e in prof.events() if e.name == name]
@@ -2925,6 +2947,12 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
         "device_busy_share": dev_ms / (wall * 1e3),
         "device_launches": sum(e.count for e in dev),
         "device_launches_per_microstep": sum(e.count for e in dev) / max(msteps, 1),
+        # the chain's kernels (K10, the handler's, K11) by their launch
+        # counters, exact; and by the trace's ranges
+        "chain_launches_per_microstep": sum(
+            KERNELS[own[name]].launches for name in RANGES) / max(msteps, 1),
+        "chain_range_launches_per_microstep": sum(r["launches_per_microstep"]
+                                                  for r in ranges.values()),
         "ranges": ranges,
         "port_kernels": ours,
         "top_device_ops": [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in top],
@@ -3203,7 +3231,7 @@ def check_handler_launches(name: str, launches: dict) -> None:
                              f"{launches['event_ingress']} ingress launches")
 
 
-CHAIN_PATH = ("outbox_append", "event_ingress", "event_egress")
+CHAIN_PATH = ("event_ingress", "event_egress")
 # each model's handler kernel, run once per event_body call
 HANDLER_OF = {model: name for name, (model, _, _) in HANDLERS.items()}
 ANCHOR_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "merge_insert",
@@ -3271,7 +3299,6 @@ REPLACES = {
     "queue_clear_popped": "shadow_tpu/ops/events.py:290",
     "queue_push_many_bucketed": "shadow_tpu/ops/events.py:616",
     "queue_block_minima": "shadow_tpu/ops/events.py:460",
-    "outbox_append": "shadow_tpu/core/engine.py:1126",
     "event_ingress": "shadow_tpu/core/engine.py:2280",
     "event_egress": "shadow_tpu/core/engine.py:2415",
     "wheel_cancel": "shadow_tpu/ops/wheel.py:123",
@@ -3570,13 +3597,14 @@ def phase_kernels_ensemble(dev) -> dict[str, dict]:
     modes (static and dynamic runahead, with and without per-row valves),
     K32 over the ledger's 11 counter planes and the digest alone; and the
     replica lanes of K2 (per-row pop limits), K4, K13 (replica-local
-    destinations, per-replica merge_rows bound and fits flag), K9 (per-
-    replica counters), K10 and K11 (replica-local ids, per-replica window
-    ends and link-fault windows, route rows held once) at R = 4, H = 4,096,
-    with a frozen replica whose rows must come out unchanged. Exact
-    equality; timings as phase 2's, with `torch.amin` over [R, H] as K31's
-    library yardstick."""
-    from shadow_tpu_torch.core.engine import make_empty_outbox
+    destinations, per-replica merge_rows bound and fits flag), K10 and K11
+    (replica-local ids, per-replica window ends and link-fault windows,
+    route rows held once; K11's per-replica outbox count, ob_dropped and
+    min_used_lat) at R = 4, H = 4,096, with a frozen replica whose rows and
+    lanes must come out unchanged. Exact equality; timings as phase 2's,
+    with `torch.amin` over [R, H] as K31's library yardstick for both of
+    its modes (K31 runs one cluster of `window_cluster(H)` blocks per
+    replica)."""
     from shadow_tpu_torch.ops import chain
     from shadow_tpu_torch.ops import ensemble as ens
     from shadow_tpu_torch.ops import events as ev
@@ -3623,15 +3651,70 @@ def phase_kernels_ensemble(dev) -> dict[str, dict]:
         ens.LOOP, case["nt"], la, po, ob_count=case["ob_count"], **kw), loop_setup)
     r["plain_ms"] = time_ms(lambda la, po: ens.replica_window_plain(
         ens.LOOP, case["nt"], la, po, ob_count=case["ob_count"], **kw), loop_setup)
-    r["library_ms"] = time_ms(lambda: torch.amin(case["nt"].view(R8, H8), 1))
+    def amin():
+        return torch.amin(case["nt"].view(R8, H8), 1)
+
+    lib_dev, _, lib_queued = device_ms(amin)
+    r["library_ms"] = lib_dev if lib_dev is not None else lib_queued
+    r["library_queued_ms"] = lib_queued
     r["library_call"] = "torch.amin(nt.view(R, H), 1)"
     # the loop test's work: the next times read, the pop limits written, the
     # lane block read and written, the counts read; one compare per row
     r["bound"] = bound(n * 8 + n * 8 + 2 * ens.LANES * R8 * 8 + R8 * 4, n)
     r["round_mode"] = kernel_ms("replica_window", lambda la: ens.replica_window(
         ens.ROUND, case["nt"], la, None, **kw), lambda: (case["lanes"].clone(),))
+    r["round_mode"]["plain_ms"] = time_ms(lambda la: ens.replica_window_plain(
+        ens.ROUND, case["nt"], la, None, **kw), lambda: (case["lanes"].clone(),))
     r["round_mode"]["bound_ms"] = bound(n * 8 + 2 * ens.LANES * R8 * 8, n)[0]
-    r["shape"] = {"replicas": R8, "rows_per_replica": H8, "mode": "loop test, K = 1"}
+    # the target: each mode at or below one torch.amin over the same rows,
+    # like for like (profiler against profiler, else queued against queued;
+    # and CUDA-graph replays of the same 50 calls, without launch gaps)
+    la, lr = lanes0.clone(), case["lanes"].clone()
+    po = torch.empty((n,), dtype=torch.int64, device=dev)
+
+    def loop():
+        ens.replica_window(ens.LOOP, case["nt"], la, po, ob_count=case["ob_count"], **kw)
+
+    def rnd():
+        ens.replica_window(ens.ROUND, case["nt"], lr, None, **kw)
+
+    def vs(t):
+        same = lib_dev if t["ms_source"] == "profiler" and lib_dev is not None else lib_queued
+        return t["ms"] / same
+
+    r["graph_ms"], r["round_mode"]["graph_ms"] = graph_ms(loop), graph_ms(rnd)
+    r["library_graph_ms"] = graph_ms(amin)
+    r["vs_library"] = {"loop": vs(r), "round": vs(r["round_mode"]),
+                       "loop_graph": r["graph_ms"] / r["library_graph_ms"],
+                       "round_graph": r["round_mode"]["graph_ms"] / r["library_graph_ms"]}
+    # the cluster size: both modes (graph replays, checked against the plain
+    # version) at C = 1, 2, 4, 8 blocks per replica, at config 8's shape and
+    # at 64 replicas of 25,000 rows, where one block per replica must read
+    # 25,000 rows alone
+    sweep, pick = {}, ens.window_cluster
+    big = ensemble_case(41, 64, 25_000, dev)
+    try:
+        for tag, cz, rows in (("4x4096", case, H8), ("64x25000", big, 25_000)):
+            kz = dict(kw, rows=rows, min_used=cz["min_used"])
+            for cl in (1, 2, 4, 8):
+                ens.window_cluster = lambda _rows, _c=cl: _c
+                lz, pz = cz["lanes"].clone(), torch.empty_like(cz["nt"])
+                want = [lz.clone(), pz.clone()]
+                for mode in (ens.ROUND, ens.LOOP):
+                    ens.replica_window(mode, cz["nt"], lz, pz, ob_count=cz["ob_count"], **kz)
+                    ens.replica_window_plain(mode, cz["nt"], *want, ob_count=cz["ob_count"],
+                                             **kz)
+                    err = max(err, check_equal(f"K31 {tag} C={cl} mode={mode}", [lz, pz], want))
+                sweep[f"{tag}_C{cl}"] = {
+                    "round": graph_ms(lambda: ens.replica_window(
+                        ens.ROUND, cz["nt"], lz, None, **kz)),
+                    "loop": graph_ms(lambda: ens.replica_window(
+                        ens.LOOP, cz["nt"], lz, pz, ob_count=cz["ob_count"], **kz))}
+    finally:
+        ens.window_cluster = pick
+    r["cluster_sweep_graph_ms"] = sweep
+    r["shape"] = {"replicas": R8, "rows_per_replica": H8, "mode": "loop test, K = 1",
+                  "cluster_blocks": ens.window_cluster(H8)}
     r["max_abs_err"] = err
     results["replica_window"] = settle("replica_window", r, r["bound"][0])
 
@@ -3708,19 +3791,17 @@ def phase_kernels_ensemble(dev) -> dict[str, dict]:
         et = e._replace(t=wi[1].t)
         out, disp, we = case["out"], case["dispatch"], case["window_end"]
         go = chain.event_egress(clone_carry(wi[0]), params, cfg, et.t, disp, we, out)
-        wo = chain.event_egress_plain(clone_carry(wi[0]), params, cfg, et.t, disp, we, out)
+        wo = chain.event_egress_append_plain(clone_carry(wi[0]), params, cfg, et.t, disp, we,
+                                             out)
         e11 = check_equal(f"K11 replicas {name}", flat_tensors(go), flat_tensors(wo))
         frozen = slice((R8 - 1) * H8, R8 * H8)
         for x, y in zip(flat_tensors(go[0]), flat_tensors(c0)):
             if x.shape[:1] == (n,) and not torch.equal(x[frozen], y[frozen]):
                 raise AssertionError(f"K10/K11 replicas {name}: a frozen row changed")
-        ob = make_empty_outbox(n, 6, dev, R8)
-        lost = torch.zeros((R8,), dtype=torch.int64, device=dev)
-        g9 = chain.outbox_append_multi(clone_carry(ob), [go[2]], lost.clone())
-        w9 = chain.outbox_append_multi_plain(clone_carry(ob), [wo[2]], lost.clone())
-        e9 = check_equal(f"K9 replicas {name}", flat_tensors(g9), flat_tensors(w9))
-        if int(g9[0].count[R8 - 1]):
-            raise AssertionError("K9 replicas: the frozen replica appended")
+        for x, y in ((go[0].outbox.count, c0.outbox.count),
+                     (go[0].min_used_lat, c0.min_used_lat)):
+            if int(x[R8 - 1]) != int(y[R8 - 1]):
+                raise AssertionError(f"K11 replicas {name}: the frozen replica's lanes changed")
         if name != "anchor":
             continue
         t = kernel_ms("event_ingress", lambda cc: chain.event_ingress(cc, params, cfg, e, act),
@@ -3734,23 +3815,11 @@ def phase_kernels_ensemble(dev) -> dict[str, dict]:
         lanes["event_ingress"] = t
         t = kernel_ms("event_egress", lambda cc: chain.event_egress(
             cc, params, cfg, et.t, disp, we, out), lambda: (clone_carry(wi[0]),))
-        t["plain_ms"] = time_ms(lambda cc: chain.event_egress_plain(
+        t["plain_ms"] = time_ms(lambda cc: chain.event_egress_append_plain(
             cc, params, cfg, et.t, disp, we, out), lambda: (clone_carry(wi[0]),))
-        t["bound"] = bound(io_bytes(reads=[et.t, disp], writes=[*wo[2], wo[3]],
-                                    inplace=list(zip(flat_tensors([wi[0].stats, wi[0].rng]),
-                                                     flat_tensors([wo[0].stats, wo[0].rng])))),
-                           600 * n)
+        t["bound"] = bound(egress_bytes(wi[0], wo[0], wo[1], [et.t, disp]), 600 * n)
         t["max_abs_err"] = e11
         lanes["event_egress"] = t
-        t = kernel_ms("outbox_append", lambda o, lo: chain.outbox_append_multi(
-            o, [go[2]], lo), lambda: (clone_carry(ob), lost.clone()))
-        t["plain_ms"] = time_ms(lambda o, lo: chain.outbox_append_multi_plain(
-            o, [wo[2]], lo), lambda: (clone_carry(ob), lost.clone()))
-        t["bound"] = bound(io_bytes(reads=[go[2].mask, go[2].col],
-                                    writes=[x[:int(go[2].mask.sum())] for x in
-                                            (go[2].dst, go[2].t, go[2].order, go[2].kind)]), n)
-        t["max_abs_err"] = e9
-        lanes["outbox_append"] = t
     for k, t in lanes.items():
         t["bound_ms"] = t.pop("bound")[0]
         t["shape"] = {"replicas": R8, "rows_per_replica": H8}
@@ -4074,11 +4143,17 @@ def main_world(world: int) -> int:
         launches[name] = kl
         ici = ici_check(name, rep)
         calls = rep["mesh_calls"]
+        # B12 on rank 0: its collectives' device time per round (CUDA
+        # events around each call, waits for the other ranks included)
+        # against the least time for its bytes at NVLink's 450 GB/s each way
         emit(name, **{k: rep.get(k) for k in (*ref, "rounds", "microsteps", "popk_deferred",
                                               "gears", "exchange")},
              wall_seconds=rep["wall_seconds"], sim_wall_ratio=rep["sim_wall_ratio"],
              host_syncs=rep["host_syncs"], collectives=calls,
              collectives_per_round=sum(calls.values()) / ici["exchanges"],
+             collective_ms_per_round=rep["mesh_collective_ms"] / ici["exchanges"],
+             nvlink_bound_ms_per_round=rep["mesh_bytes_sent"] / ici["exchanges"]
+             / NVLINK_BYTES_PER_S * 1e3,
              bytes_sent_rank0=rep["mesh_bytes_sent"], ici=ici,
              launches={k: kl[k] for k in (*ANCHOR_PATH, *WORLD_ONLY) if k in kl})
         if diff:
@@ -4603,8 +4678,8 @@ def main() -> int:
     eres = phase_kernels_ensemble(dev)
     emit("kernels_ensemble_vs_plain", ok=True, exact=True,
          **{k: {kk: vv for kk, vv in v.items() if kk != "bound"} for k, v in eres.items()})
-    for row in ("queue_pop_min", "merge_insert", "merge_scatter", "outbox_append",
-                "event_ingress", "event_egress"):
+    for row in ("queue_pop_min", "merge_insert", "merge_scatter", "event_ingress",
+                "event_egress"):
         kres[row]["replicas"] = eres.pop(f"{row}_replicas")
     kres.update(eres)
 

@@ -10,8 +10,9 @@ One round advances every host through the safe window [now, window_end):
      pops its earliest event (K2; K5 + K6 on the bucketed queue), packet
      arrivals pass ingress shaping (CoDel + downlink token bucket, K10), one
      vectorized model handler runs for all hosts, sends pass egress shaping
-     (budget, uplink bucket, loss/jitter draws, routing, K11) into the
-     [H, B] outbox (K9), local pushes land in the queue (K3; K7 bucketed);
+     (budget, uplink bucket, loss/jitter draws, routing) and K11 appends
+     them to the [H, B] outbox itself; local pushes land in the queue (K3;
+     K7 bucketed);
   4. exchange: the outbox merges into the destination queues (K4, or K13
      with `merge_scatter`), and a bucketed queue's block caches are rebuilt
      (K8). A round known to have sent nothing skips both, as the JAX
@@ -75,7 +76,7 @@ K28 appends a microstep's to the ledger ring.
 With `replicas` R > 1 (the ensemble plane, core/ensemble.py) the engine
 runs R replicas of one configuration folded into R x H rows of every
 per-host plane, so each kernel of a round launches once for all of them.
-Host ids, order keys, draws and destinations stay replica-local (K4, K9,
+Host ids, order keys, draws and destinations stay replica-local (K4,
 K11, K13 take the rows per replica), and each replica keeps its own window,
 done flag, microstep count, used-latency minimum and scalar counters ([R]
 lanes; `now` and `done` host arrays): K31 computes every replica's barrier
@@ -123,7 +124,6 @@ from shadow_tpu_torch.obs.tracer import make_trace_ring
 from shadow_tpu_torch.ops.chain import (
     event_egress,
     event_ingress,
-    outbox_append_multi,
     timer_kind_mask,
 )
 from shadow_tpu_torch.models.base import KIND_MASK, KIND_PKT, HandlerCtx
@@ -765,11 +765,16 @@ class _EvCarry(NamedTuple):
     codel: CodelState
     model: Any
     cpu_busy_until: Any = None  # i64[H]: read and written by ingress (K10), CPU model on
+    # egress (K11) appends each landed send here and folds its latency into
+    # min_used_lat (i64[], or [R] with replicas)
+    outbox: Any = None
+    min_used_lat: Any = None
 
 
 def _ev_carry_of(st: SimState) -> _EvCarry:
     return _EvCarry(st.stats, st.rng, st.seq, st.sent_round, st.tb_egress,
-                    st.tb_ingress, st.codel, st.model, st.cpu_busy_until)
+                    st.tb_ingress, st.codel, st.model, st.cpu_busy_until, st.outbox,
+                    st.min_used_lat)
 
 
 class FoldWindow(NamedTuple):
@@ -1329,12 +1334,12 @@ class Engine:
 
     def microstep(self, st: SimState, params: EngineParams, window_end: int,
                   fluid_fx=None) -> SimState:
-        """The one-event microstep: pop, execute, push, append. Under the
-        CPU model (or queue-hold crash faults) a host pops only while its
-        execution floor is inside the window, and ingress (K10) moves the
-        event to its execution time for every consumer downstream; under
-        queue-clear faults K10 consumes an event whose host is down without
-        dispatching it."""
+        """The one-event microstep: pop, execute (egress appends the sends),
+        push. Under the CPU model (or queue-hold crash faults) a host pops
+        only while its execution floor is inside the window, and ingress
+        (K10) moves the event to its execution time for every consumer
+        downstream; under queue-clear faults K10 consumes an event whose
+        host is down without dispatching it."""
         wheel = st.wheel
         limit = self._pop_limit(st, _limit_of(window_end), params)
         if wheel is None:
@@ -1342,7 +1347,7 @@ class Engine:
         else:
             queue, wheel, ev, active = pop_min_merged(st.queue, wheel, limit)
         lanes = self._flow_lanes(1)
-        c, push_list, entries, used_min = self.event_body(
+        c, push_list = self.event_body(
             _ev_carry_of(st), params, window_end, ev, active, fluid_fx,
             lanes.row(0) if lanes is not None else None,
         )
@@ -1354,8 +1359,7 @@ class Engine:
                 wheel_spilled=c.stats.wheel_spilled + spilled))
         if push_list:
             queue = q_push_many(queue, push_list)
-        st = self._finish_microstep(st, c, queue, [entries] if entries is not None else [],
-                                    [used_min] if used_min is not None else [], lanes)
+        st = self._finish_microstep(st, c, queue, lanes)
         return st if wheel is None else st._replace(wheel=wheel)
 
     def _route_timer_pushes(self, wheel: TimerWheel, push_list: list[Push]):
@@ -1422,7 +1426,7 @@ class Engine:
         deferred = torch.zeros((h,), dtype=torch.bool, device=dev)
         pm_t = torch.full((h,), TIME_MAX, dtype=torch.int64, device=dev)
         pm_o = torch.full((h,), ORDER_MAX, dtype=torch.int64, device=dev)
-        cons_ks, push_lists, entries, used_mins = [], [], [], []
+        cons_ks, push_lists = [], []
         lanes = self._flow_lanes(popped.t.shape[1])
         for j in range(popped.t.shape[1]):
             ev = popped.event(j)
@@ -1440,7 +1444,7 @@ class Engine:
                     down_j, resume_j = down_and_resume(params.faults, t_cand)
                     deferred = deferred | (down_j & (resume_j >= w_end))
             cons_j = popped.active[:, j] & ~deferred
-            c, push_list, ents, used_min = self.event_body(
+            c, push_list = self.event_body(
                 c, params, window_end, ev, cons_j, fluid_fx,
                 lanes.row(j) if lanes is not None else None)
             # an event's own pushes cannot defer it: fold them in after
@@ -1450,9 +1454,6 @@ class Engine:
                 pm_o = torch.where(better, push.order, pm_o)
             cons_ks.append(cons_j.to(torch.int32))
             push_lists.append(push_list)
-            if ents is not None:
-                entries.append(ents)
-                used_mins.append(used_min)
         m = functools.reduce(torch.add, cons_ks)
         queue = clear_popped(st.queue, popped, m)
         all_pushes = []
@@ -1469,7 +1470,7 @@ class Engine:
         c = c._replace(stats=c.stats._replace(
             popk_deferred=c.stats.popk_deferred + n_deferred
         ))
-        return self._finish_microstep(st, c, queue, entries, used_mins, lanes), m
+        return self._finish_microstep(st, c, queue, lanes), m
 
     def _flow_lanes(self, e: int) -> FlowLanes | None:
         """The flow ledger's record lanes for a microstep of `e` event
@@ -1479,27 +1480,18 @@ class Engine:
             return None
         return make_flow_lanes(e, self.cfg.hosts_per_shard, self.device)
 
-    def _finish_microstep(self, st: SimState, c: "_EvCarry", queue, entries, used_mins,
+    def _finish_microstep(self, st: SimState, c: "_EvCarry", queue,
                           lanes: FlowLanes | None = None):
-        """Apply the microstep's outbox appends (its events' entry stacks in
-        one K9 pass) and flow-ledger appends (its events' record lanes in
-        one K28 pass), fold the used-latency lookahead, and reassemble the
-        state."""
-        outbox, min_used = st.outbox, st.min_used_lat
+        """Apply the microstep's flow-ledger appends (its events' record
+        lanes in one K28 pass) and reassemble the state; egress (K11)
+        already appended the sends and folded the used-latency lookahead."""
         stats = c.stats
-        if entries:
-            outbox, ob_dropped = outbox_append_multi(outbox, entries, stats.ob_dropped)
-            used = used_mins[0] if len(used_mins) == 1 else torch.stack(used_mins)
-            r = self.cfg.replicas
-            min_used = torch.minimum(min_used, used.min() if r == 1
-                                     else used.view(-1, r, used.shape[-1] // r).amin((0, 2)))
-            stats = stats._replace(ob_dropped=ob_dropped)
         if lanes is not None:
             flow_append(st.flows, lanes, stats.fl_done, stats.fl_bytes, stats.fl_rtx)
         return st._replace(
             queue=queue, rng=c.rng, seq=c.seq, sent_round=c.sent_round,
             tb_egress=c.tb_egress, tb_ingress=c.tb_ingress, codel=c.codel,
-            model=c.model, outbox=outbox, min_used_lat=min_used, stats=stats,
+            model=c.model, outbox=c.outbox, min_used_lat=c.min_used_lat, stats=stats,
             cpu_busy_until=c.cpu_busy_until,
         )
 
@@ -1508,10 +1500,10 @@ class Engine:
         """Execute one event per active host: ingress (the CPU model's
         execution time, digest, event classes, shaping, dispatch; K10), the
         model's handler (with the flow ledger on, writing the event's flow
-        records into `flow`, a FlowLanes row), egress (pushes and sends,
-        with the round's fluid coupling `fluid_fx`; K11). Returns (carry',
-        pushes, outbox entry stack | None, per-host used-latency minimum |
-        None)."""
+        records into `flow`, a FlowLanes row), egress (pushes, and sends
+        appended to the carry's outbox with their latencies folded into its
+        `min_used_lat`, with the round's fluid coupling `fluid_fx`; K11).
+        Returns (carry', pushes)."""
         cfg = self.cfg
         if isinstance(window_end, FoldWindow):
             window_end = window_end.lane
@@ -1531,10 +1523,9 @@ class Engine:
             flow=flow,
         ))
         c = c._replace(model=out.state, rng=out.rng)
-        c, pushes, entries, used_min = event_egress(
-            c, params, cfg, ing.t, ing.dispatch, window_end, out, fluid_fx)
+        c, pushes = event_egress(c, params, cfg, ing.t, ing.dispatch, window_end, out, fluid_fx)
         push_list = ([ing.requeue] if ing.requeue is not None else []) + pushes
-        return c, push_list, entries, used_min
+        return c, push_list
 
     def exchange(self, st: SimState, has_sends: bool = True) -> SimState:
         """World-1 exchange: merge the outbox, host-major, into the queues

@@ -3,7 +3,6 @@
 // cudaGetLastError().
 //
 // Replaces (JAX reference):
-//   K9  shadow_tpu/core/engine.py:1126 _outbox_append_multi   (B4)
 //   K10 shadow_tpu/core/engine.py:2288-2367 _event_body, ingress half (B5):
 //       events + digest fold, CoDel and the downlink token bucket, the
 //       bucket-delay requeue, dispatch, pkts_delivered; with the CPU model
@@ -29,15 +28,19 @@
 //       (shadow_tpu/net/fluid.py:302 fluid_send_uniform); with link-fault
 //       windows (B14, :2445-2458, :2562-2613; core/faults.py:281
 //       window_effects) one more loss draw after the path-loss draw and the
-//       latency inflation, counted in faults_dropped and faults_delayed
+//       latency inflation, counted in faults_dropped and faults_delayed;
+//       and, in its epilogue, shadow_tpu/core/engine.py:1126
+//       _outbox_append_multi (B4) with the used-latency fold of the
+//       microstep (min_used_lat): each landed send is written straight into
+//       the [H, B] outbox at its send cursor, counted into the outbox count,
+//       and a cursor at or past B is counted lost (ob_dropped)
 // with the device math of csrc/event_math.cuh (RNG, token bucket, CoDel,
 // FNV fold).
 //
 // Layout: [H] lanes per host; the event may be a column of the K-way peek
-// (host stride `es` elements, payload stride es * P). The entry stack K11
-// writes is [E, H] per field (E = the model's send segments per event),
-// payload [E, H, P]; K9 reads a microstep's stacks, one per event, in one
-// launch. Model push ports and send ports come as arrays of per-port
+// (host stride `es` elements, payload stride es * P). The outbox is [H, B]
+// per field (payload [H, B, P]); its count and loss lanes and min_used_lat
+// hold one value per replica. Model push ports and send ports come as arrays of per-port
 // pointers, each field with its own host stride (a column of the K-way
 // peek, or 0 for a broadcast): nothing is stacked or copied on the host.
 //
@@ -49,20 +52,34 @@
 // host for the whole chain, keeping the RNG lanes, token buckets, CoDel
 // state, seq and send cursor in registers, so the sequential port/segment
 // loop with its threaded state needs no synchronisation at all, and the
-// result cannot depend on scheduling. No shared memory. The only cross-host
-// writes are K9's two integer totals (atomicAdd: integer sums commute, so
-// they are exact and order-free).
+// result cannot depend on scheduling. No shared memory.
+//
+// K11's outbox epilogue, and why it equals the separate append bit for bit:
+// a host's send cursor `sent_round` rises by one per landed send within a
+// round, and the landed send takes the cursor's value as its column. So no
+// two rows of a round, from any event column of a K-way microstep, land on
+// the same (h, col): the row writes are order-free, and appending per event
+// column (one K11 launch each) gives the per-microstep append's outbox.
+// The only cross-host writes are the replica's totals: the appended rows,
+// the rows lost past B and the least pre-jitter latency of a landed send.
+// Integer sums and min are exact and commute, so any order gives the same
+// lanes. To spare L2 thousands of same-address atomics, a warp's lanes are
+// grouped by replica (__match_any_sync on h / HR; a warp may straddle two
+// replicas), summed within the group (__reduce_add_sync; the min by a
+// segmented shuffle), and the group's leader does one atomicAdd per
+// counter and one 64-bit atomicMin.
 //
 // Replicas (the ensemble plane): the H rows may be R replicas of HR hosts
-// (replica r in rows [r * HR, (r + 1) * HR)). K9 then counts each row's
-// appends and losses into its replica's [R] lanes; K11 uses the host's id
+// (replica r in rows [r * HR, (r + 1) * HR)). K11 counts each row's
+// appends and losses, and folds its latency, into its replica's [R] lanes;
+// it uses the host's id
 // within its replica (row % HR, plus host_base) for order keys and draws,
 // a destination's range [0, HR), its replica's window end (an [R] lane in
 // place of the scalar) and link-fault windows ([R, L]: row r / HR), and
 // per-host route rows held once ([HR, N]) or per row ([H, N]). K10 reads no
 // host id and no window: its rows are replica-blind. HR = H is one replica.
 //
-// Argument blocks: K9-K11 take their pointers and scalars as one int64
+// Argument blocks: K10 and K11 take their pointers and scalars as one int64
 // array read in a fixed order (`Args` below); the Python wrappers
 // (ops/chain.py) build it in the same order.
 
@@ -80,6 +97,7 @@ constexpr int kThreads = 128;
 constexpr int kMaxPushPorts = 8;
 constexpr int kMaxSendPorts = 8;
 constexpr int kMaxPayload = 16;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 inline int blocks_for(int H) { return (H + kThreads - 1) / kThreads; }
 
@@ -90,63 +108,6 @@ struct Reader {
   T* p() { return reinterpret_cast<T*>(a[i++]); }
   long long v() { return a[i++]; }
 };
-
-// ---------------------------------------------------------------------------
-// K9 outbox_append: a microstep's entry stacks -> outbox [H, B] (in place)
-// ---------------------------------------------------------------------------
-
-constexpr int kMaxStacks = 16;  // entry stacks per launch (the wrapper chunks past it)
-
-// The microstep's events' [E_s, H] stacks, in event order: together the
-// microstep's [sum E_s, H] entries, read where K11 wrote them.
-struct AppendArgs {
-  int H, B, P, HR, n;
-  int E[kMaxStacks];
-  const bool* mask[kMaxStacks];
-  const int* col[kMaxStacks];
-  const int* dst[kMaxStacks];
-  const long long* t[kMaxStacks];
-  const long long* order[kMaxStacks];
-  const int* kind[kMaxStacks];
-  const int* payload[kMaxStacks];
-  int* ob_dst;
-  long long* ob_t;
-  long long* ob_order;
-  int* ob_kind;
-  int* ob_payload;
-  int* ob_count;
-  long long* ob_lost;
-};
-
-__global__ void outbox_append_kernel(const AppendArgs a) {
-  const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= a.H) return;
-  const int H = a.H, B = a.B, P = a.P;
-  int total = 0;
-  long long lost = 0;
-  for (int s = 0; s < a.n; ++s) {
-    for (int e = 0; e < a.E[s]; ++e) {
-      const long long i = (long long)e * H + h;
-      if (!a.mask[s][i]) continue;
-      ++total;
-      const int col = a.col[s][i];
-      if (col >= B) {
-        ++lost;
-      } else if (col >= 0) {
-        const long long o = (long long)h * B + col;
-        a.ob_dst[o] = a.dst[s][i];
-        a.ob_t[o] = a.t[s][i];
-        a.ob_order[o] = a.order[s][i];
-        a.ob_kind[o] = a.kind[s][i];
-        for (int w = 0; w < P; ++w) a.ob_payload[o * P + w] = a.payload[s][i * P + w];
-      }
-    }
-  }
-  const int rep = h / a.HR;  // the replica's count and loss lanes
-  if (total) atomicAdd(a.ob_count + rep, total);
-  if (lost)
-    atomicAdd(reinterpret_cast<unsigned long long*>(a.ob_lost + rep), (unsigned long long)lost);
-}
 
 // ---------------------------------------------------------------------------
 // K10 event_ingress
@@ -362,14 +323,17 @@ struct EgressArgs {
   long long smask_s[kMaxSendPorts], sdst_s[kMaxSendPorts], ssize_s[kMaxSendPorts],
       skind_s[kMaxSendPorts], spayload_s[kMaxSendPorts], scount_s[kMaxSendPorts],
       sinc_s[kMaxSendPorts];
-  bool* e_mask;
-  int* e_col;
-  int* e_dst;
-  long long* e_t;
-  long long* e_order;
-  int* e_kind;
-  int* e_payload;
-  long long* used_min;  // [H]
+  // the outbox [H, B] (payload [H, B, P]) and its [R] lanes, in place:
+  // appended rows, rows lost past B, the used-latency minimum
+  int B;
+  int* ob_dst;
+  long long* ob_t;
+  long long* ob_order;
+  int* ob_kind;
+  int* ob_payload;
+  int* ob_count;
+  long long* ob_lost;
+  long long* min_used;
   // link-fault windows (n_win 0: none): [L] each, and the counters, in place
   int n_win;
   const long long* win_start;
@@ -410,10 +374,12 @@ __device__ __forceinline__ void route(const EgressArgs& a, int h, long long gh, 
   jit = a.jit[i];
 }
 
-__global__ void event_egress_kernel(const EgressArgs a) {
-  const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  if (h >= a.H) return;
-  const int H = a.H, P = a.P;
+// One host's egress; returns, through the references, its appended rows,
+// its rows lost past B and the least pre-jitter latency of its landed sends
+// (kTimeMax where none).
+__device__ __forceinline__ void egress_one(const EgressArgs& a, const int h, int& n_app,
+                                           int& n_oblost, long long& umin) {
+  const int H = a.H, P = a.P, B = a.B;
   // the global host id within the replica (order keys, draws)
   const long long gh = a.host_base + h % a.hr;
   const int rep = h / a.hr;
@@ -458,8 +424,6 @@ __global__ void event_egress_kernel(const EgressArgs a) {
   }
 
   // ---- sends: each port a burst of up to cmax segments to one destination
-  long long umin = kTimeMax;
-  int e = 0;
   for (int sp = 0; sp < a.n_send; ++sp) {
     const bool mask0 = a.smask[sp][h * a.smask_s[sp]] && disp;
     const int counts =
@@ -475,7 +439,7 @@ __global__ void event_egress_kernel(const EgressArgs a) {
     const int port_kind = a.skind[sp][h * a.skind_s[sp]] | kKindPkt;
     const int* pay = a.spayload[sp] + h * a.spayload_s[sp];
     const int* inc = a.sinc[sp] == nullptr ? nullptr : a.sinc[sp] + h * a.sinc_s[sp];
-    for (int j = 0; j < a.cmax[sp]; ++j, ++e) {
+    for (int j = 0; j < a.cmax[sp]; ++j) {
       const bool mask = mask0 && counts > j;
       const bool over = sent >= a.budget;
       long long eg_depart = t;
@@ -512,21 +476,28 @@ __global__ void event_egress_kernel(const EgressArgs a) {
       n_fdrop += flost;
       // a fault-inflated send counts as delayed before the fluid draw
       n_fdelay += mask && !lost && !unreachable && !over && !flost && f_inflate;
-      const long long o = (long long)e * H + h;
-      a.e_mask[o] = send_ok;
-      a.e_col[o] = sent;
-      a.e_dst[o] = (int)dst;
-      a.e_t[o] = imax(wadd(eg_depart, imax(lat_j, 0)), window_end);
-      a.e_order[o] = pack_order(0, gh, seq);
-      a.e_kind[o] = port_kind;
-      for (int w = 0; w < P; ++w) {
-        int v = pay[w];
-        if (j > 0 && inc != nullptr) v = wadd32(v, wmul32(j, inc[w]));
-        a.e_payload[o * P + w] = w == kSizeWord ? sz : v;
+      if (send_ok) {
+        // the append: the row lands at the host's send cursor (counted
+        // lost at or past B)
+        ++n_app;
+        if (sent >= B) {
+          ++n_oblost;
+        } else if (sent >= 0) {
+          const long long o = (long long)h * B + sent;
+          a.ob_dst[o] = (int)dst;
+          a.ob_t[o] = imax(wadd(eg_depart, imax(lat_j, 0)), window_end);
+          a.ob_order[o] = pack_order(0, gh, seq);
+          a.ob_kind[o] = port_kind;
+          for (int w = 0; w < P; ++w) {
+            int v = pay[w];
+            if (j > 0 && inc != nullptr) v = wadd32(v, wmul32(j, inc[w]));
+            a.ob_payload[o * P + w] = w == kSizeWord ? sz : v;
+          }
+        }
+        umin = imin(umin, lat_bound0);
       }
       sent += send_ok;
       seq = wadd(seq, mask);
-      if (send_ok) umin = imin(umin, lat_bound0);
       n_sent += mask;
       n_lost += lost || bglost;
       n_unreach += unreachable;
@@ -544,48 +515,44 @@ __global__ void event_egress_kernel(const EgressArgs a) {
   a.pkts_unreachable[h] = wadd(a.pkts_unreachable[h], n_unreach);
   a.pkts_budget[h] = wadd(a.pkts_budget[h], n_budget);
   a.mono[h] = wadd(a.mono[h], n_mono);
-  if (a.used_min != nullptr) a.used_min[h] = umin;  // null: the model has no send port
   if (a.n_win > 0) {
     a.faults_dropped[h] = wadd(a.faults_dropped[h], n_fdrop);
     a.faults_delayed[h] = wadd(a.faults_delayed[h], n_fdelay);
   }
 }
 
+__global__ void event_egress_kernel(const EgressArgs a) {
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  int n_app = 0, n_oblost = 0;
+  long long umin = kTimeMax;
+  if (h < a.H) egress_one(a, h, n_app, n_oblost, umin);
+  if (a.n_send == 0) return;  // the same for every thread of the launch
+  // the epilogue: every lane of the warp takes part (kThreads is a multiple
+  // of 32; lanes past H carry nothing, in a group of their own). The
+  // replica's lanes are contiguous in the warp, so a segmented shuffle
+  // scan leaves each group's min in its lowest lane, the leader.
+  const int lane = threadIdx.x & 31;
+  const int rep = h < a.H ? h / a.hr : -1;
+  const unsigned peers = __match_any_sync(kFullMask, rep);
+  const int leader = __ffs(peers) - 1;
+  const int app = __reduce_add_sync(peers, n_app);
+  const int oblost = __reduce_add_sync(peers, n_oblost);
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long v = __shfl_down_sync(kFullMask, umin, off);
+    const int vr = __shfl_down_sync(kFullMask, rep, off);
+    if (lane + off < 32 && vr == rep) umin = imin(umin, v);
+  }
+  if (lane != leader || rep < 0) return;
+  if (app) atomicAdd(a.ob_count + rep, app);
+  if (oblost)
+    atomicAdd(reinterpret_cast<unsigned long long*>(a.ob_lost + rep),
+              (unsigned long long)oblost);
+  if (umin < kTimeMax) atomicMin(a.min_used + rep, umin);
+}
+
 }  // namespace
 
 extern "C" {
-
-int event_outbox_append(const long long* args, void* stream) {
-  Reader r{args, 0};
-  AppendArgs a;
-  a.H = (int)r.v();
-  a.B = (int)r.v();
-  a.P = (int)r.v();
-  a.HR = (int)r.v();
-  if (a.HR < 1 || a.H % a.HR != 0) return (int)cudaErrorInvalidValue;
-  a.ob_dst = r.p<int>();
-  a.ob_t = r.p<long long>();
-  a.ob_order = r.p<long long>();
-  a.ob_kind = r.p<int>();
-  a.ob_payload = r.p<int>();
-  a.ob_count = r.p<int>();
-  a.ob_lost = r.p<long long>();
-  a.n = (int)r.v();
-  if (a.n < 0 || a.n > kMaxStacks) return (int)cudaErrorInvalidValue;
-  for (int s = 0; s < a.n; ++s) {
-    a.E[s] = (int)r.v();
-    a.mask[s] = r.p<const bool>();
-    a.col[s] = r.p<const int>();
-    a.dst[s] = r.p<const int>();
-    a.t[s] = r.p<const long long>();
-    a.order[s] = r.p<const long long>();
-    a.kind[s] = r.p<const int>();
-    a.payload[s] = r.p<const int>();
-  }
-  if (a.H > 0 && a.n > 0)
-    outbox_append_kernel<<<blocks_for(a.H), kThreads, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
 
 int event_ingress(const long long* args, void* stream) {
   Reader r{args, 0};
@@ -711,14 +678,15 @@ int event_egress(const long long* args, void* stream) {
     a.sinc[sp] = r.p<const int>();
     a.sinc_s[sp] = r.v();
   }
-  a.e_mask = r.p<bool>();
-  a.e_col = r.p<int>();
-  a.e_dst = r.p<int>();
-  a.e_t = r.p<long long>();
-  a.e_order = r.p<long long>();
-  a.e_kind = r.p<int>();
-  a.e_payload = r.p<int>();
-  a.used_min = r.p<long long>();
+  a.B = (int)r.v();
+  a.ob_dst = r.p<int>();
+  a.ob_t = r.p<long long>();
+  a.ob_order = r.p<long long>();
+  a.ob_kind = r.p<int>();
+  a.ob_payload = r.p<int>();
+  a.ob_count = r.p<int>();
+  a.ob_lost = r.p<long long>();
+  a.min_used = r.p<long long>();
   a.n_win = (int)r.v();
   a.win_start = r.p<const long long>();
   a.win_end = r.p<const long long>();
@@ -735,6 +703,10 @@ int event_egress(const long long* args, void* stream) {
       a.hr < 1 || a.H % a.hr != 0 || (a.hr != a.H && a.wend == nullptr) ||
       (a.route_mode == 1 && (a.route_rows < 1 || a.H % a.route_rows != 0)) ||
       a.host_base < 0 || a.n_hosts < a.host_base + a.hr ||
+      (a.n_send > 0 && (a.B < 0 || a.ob_dst == nullptr || a.ob_t == nullptr ||
+                        a.ob_order == nullptr || a.ob_kind == nullptr ||
+                        a.ob_payload == nullptr || a.ob_count == nullptr ||
+                        a.ob_lost == nullptr || a.min_used == nullptr)) ||
       a.n_win < 0 || (a.n_win > 0 && (a.win_start == nullptr || a.win_end == nullptr ||
                                       a.win_loss == nullptr || a.win_lat == nullptr ||
                                       a.faults_dropped == nullptr ||

@@ -1,7 +1,7 @@
 """Device-side kernels and their plain PyTorch versions: event-queue slab
 ops (K1-K3, K5-K8: flat and bucketed queues, the K-way peek and clear;
 K25: the capacity migration), the
-exchange merge (K4), the per-event chain and outbox append (K9-K11), the
+exchange merge (K4), the per-event chain with the outbox append (K10, K11), the
 timer wheel's cancel (K12; its other ops are the bucketed queue's), the
 pressure plane's drop total (K26), the observatories' trace row and flow
 append (K27, K28), the cross-shard exchange's pack and unpack (K29, K30),

@@ -1,4 +1,4 @@
-"""The per-event chain of a microstep (B5) and the outbox append (B4): port
+"""The per-event chain of a microstep (B5) with the outbox append (B4): port
 of shadow_tpu/core/engine.py `_event_body` and `_outbox_append_multi`.
 
 One executed event per host runs in three steps:
@@ -18,7 +18,9 @@ One executed event per host runs in three steps:
   3. egress (`event_egress`, K11): the model's local pushes get their
      order keys; every send port and burst segment passes the send budget,
      the uplink token bucket, the jitter and loss draws and the route
-     lookup, and lands as one row of the [E, H] entry stack. With the fluid
+     lookup, and a send that lands is appended to the [H, B] outbox at the
+     host's send cursor (B4; past B it is counted lost in `ob_dropped`),
+     its pre-jitter latency folded into `min_used_lat`. With the fluid
      plane on (net/fluid.py) the round's per-host `fluid_fx` = (extra loss,
      latency x1000) adds a counter-hash loss draw (when `fluid_loss_max` >
      0) and inflates the jittered latency; the lookahead keeps the
@@ -26,23 +28,28 @@ One executed event per host runs in three steps:
      more loss draw follows the path-loss draw and the latency is
      inflated by the windows' multiplier first.
 
-`outbox_append_multi` (K9) then writes the stack into the [H, B] outbox.
+The plain egress (`event_egress_plain`) returns the event's [E, H] entry
+stack and per-host used latency, as the reference's `_event_body` does;
+`event_egress_append_plain` then appends that stack
+(`outbox_append_multi_plain`, the reference's one-hot writes) and folds the
+latency: that composite is K11's plain version. The carry holds the outbox
+and `min_used_lat` (`_EvCarry.outbox`, `.min_used_lat`).
 
 Replicas (the ensemble plane, `EngineConfig.replicas` R > 1): the H rows
-are R replicas of `hosts_per_shard` hosts. The outbox's `count` and the
-`ob_dropped` lane are then [R], counted per replica; egress uses each host's
-id within its replica, a destination range of one replica's hosts, the
-replica's window end (`window_end` an i64[R] lane) and link-fault windows
-([R, L]), and reads per-host route rows held once for all replicas or per
-row. Ingress reads no host id and no window.
+are R replicas of `hosts_per_shard` hosts. The outbox's `count`, the
+`ob_dropped` lane and `min_used_lat` are then [R], one per replica; egress
+uses each host's id within its replica, a destination range of one
+replica's hosts, the replica's window end (`window_end` an i64[R] lane) and
+link-fault windows ([R, L]), and reads per-host route rows held once for
+all replicas or per row. Ingress reads no host id and no window.
 
 This module holds the hand-written CUDA kernels (csrc/event.cu) and their
 plain PyTorch versions beside them. As in ops/events.py, each public
 function dispatches on where its tensors live: CPU tensors run the plain
 version, CUDA tensors launch the kernel; there is no fallback. On CUDA the
 kernels update the carry's lanes (stats, RNG, token buckets, CoDel, seq,
-send cursor) and the outbox IN PLACE: a carry is consumed by the step that
-takes it. The plain versions are functional.
+send cursor), its outbox and its `min_used_lat` IN PLACE: a carry is
+consumed by the step that takes it. The plain versions are functional.
 """
 
 from __future__ import annotations
@@ -109,79 +116,6 @@ def digest_update(digest, active, t, kind, order):
     x = x ^ (kind.to(torch.int64) * _MIX2)
     x = x ^ order
     return torch.where(active, (digest ^ x) * _FNV_PRIME, digest)
-
-
-# --------------------------------------------------------------------------
-# K9 outbox_append
-# --------------------------------------------------------------------------
-
-_outbox_append_k = CudaKernel("event", "event_outbox_append", ARG_BLOCK)
-_MAX_STACKS = 16  # entry stacks per K9 launch (csrc/event.cu kMaxStacks)
-
-
-def outbox_append_multi_plain(ob, stacks, ob_dropped: torch.Tensor):
-    """The reference's chained one-hot writes, one entry row at a time, over
-    a microstep's entry stacks (one per event, in event order); a row with
-    col >= B is counted lost, into its replica's lane (`ob.count` and
-    `ob_dropped` hold one per replica). Returns (outbox', ob_dropped')."""
-    h, b = ob.t.shape
-    cols = torch.arange(b, dtype=torch.int32, device=ob.t.device)[None, :]
-    dst_n, t_n, order_n, kind_n, payload_n = ob.dst, ob.t, ob.order, ob.kind, ob.payload
-    lost = torch.zeros((h,), dtype=torch.int64, device=ob.t.device)
-    total = torch.zeros((h,), dtype=torch.int32, device=ob.t.device)
-    for entries in stacks:
-        for e in range(entries.mask.shape[0]):
-            mask, col, dst, t, order, kind, payload = (x[e] for x in entries)
-            oh = mask[:, None] & (cols == col[:, None])
-            dst_n = torch.where(oh, dst.to(torch.int32)[:, None], dst_n)
-            t_n = torch.where(oh, t[:, None], t_n)
-            order_n = torch.where(oh, order[:, None], order_n)
-            kind_n = torch.where(oh, kind.to(torch.int32)[:, None], kind_n)
-            payload_n = torch.where(oh[:, :, None], payload.to(torch.int32)[:, None, :],
-                                    payload_n)
-            lost = lost + (mask & (col >= b))
-            total = total + mask
-    reps = ob.count.shape[0]
-    return (
-        type(ob)(dst_n, t_n, order_n, kind_n, payload_n,
-                 ob.count + total.view(reps, -1).sum(1, dtype=torch.int32)),
-        ob_dropped + lost.view(reps, -1).sum(1),
-    )
-
-
-_STACK_DTYPES = (torch.bool, torch.int32, torch.int32, torch.int64, torch.int64, torch.int32,
-                 torch.int32)
-
-
-def outbox_append_multi(ob, stacks, ob_dropped: torch.Tensor):
-    """Write a microstep's entry stacks (one per event, in event order) into
-    the hosts' outbox columns: one K9 launch on CUDA (one per 16 stacks), in
-    place on the outbox, its count and `ob_dropped`."""
-    if on_cpu(ob.t):
-        return outbox_append_multi_plain(ob, stacks, ob_dropped)
-    h, b = ob.t.shape
-    p = ob.payload.shape[2]
-    check(ob.dst, torch.int32, (h, b), "outbox dst")
-    check(ob.t, torch.int64, (h, b), "outbox t")
-    check(ob.order, torch.int64, (h, b), "outbox order")
-    check(ob.kind, torch.int32, (h, b), "outbox kind")
-    check(ob.payload, torch.int32, (h, b, p), "outbox payload")
-    reps = ob.count.shape[0]
-    if h % reps:
-        raise ValueError(f"outbox count: {reps} replica lanes for {h} rows")
-    check(ob.count, torch.int32, (reps,), "outbox count")
-    check(ob_dropped, torch.int64, (reps,), "ob_dropped")
-    head = [h, b, p, h // reps, *(addr(x) for x in ob), addr(ob_dropped)]
-    for i in range(0, len(stacks), _MAX_STACKS):
-        chunk = stacks[i : i + _MAX_STACKS]
-        args = [*head, len(chunk)]
-        for entries in chunk:
-            e = entries.mask.shape[0]
-            for x, dt in zip(entries, _STACK_DTYPES):
-                check(x, dt, (e, h, p) if x.dim() == 3 else (e, h), "entry stack")
-            args += [e, *(addr(x) for x in entries)]
-        _outbox_append_k(arg_block(args))
-    return ob, ob_dropped
 
 
 # --------------------------------------------------------------------------
@@ -565,6 +499,55 @@ def event_egress_plain(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx
     return carry, pushes, entries, used_min
 
 
+def outbox_append_multi_plain(ob, stacks, ob_dropped: torch.Tensor):
+    """The reference's chained one-hot writes, one entry row at a time, over
+    a microstep's entry stacks (one per event, in event order); a row with
+    col >= B is counted lost, into its replica's lane (`ob.count` and
+    `ob_dropped` hold one per replica). Returns (outbox', ob_dropped')."""
+    if not stacks:
+        return ob, ob_dropped
+    b = ob.t.shape[1]
+    cols = torch.arange(b, dtype=torch.int32, device=ob.t.device)[None, :]
+    dst_n, t_n, order_n, kind_n, payload_n = ob.dst, ob.t, ob.order, ob.kind, ob.payload
+    total = lost = 0
+    for entries in stacks:
+        for mask, col, dst, t, order, kind, payload in zip(*entries):
+            oh = mask[:, None] & (cols == col[:, None])
+            dst_n = torch.where(oh, dst.to(torch.int32)[:, None], dst_n)
+            t_n = torch.where(oh, t[:, None], t_n)
+            order_n = torch.where(oh, order[:, None], order_n)
+            kind_n = torch.where(oh, kind.to(torch.int32)[:, None], kind_n)
+            payload_n = torch.where(oh[:, :, None], payload.to(torch.int32)[:, None, :],
+                                    payload_n)
+        # integer sums: per stack, not per row (the same totals)
+        total = total + entries.mask.sum(0)
+        lost = lost + (entries.mask & (entries.col >= b)).sum(0)
+    reps = ob.count.shape[0]
+    return (
+        type(ob)(dst_n, t_n, order_n, kind_n, payload_n,
+                 ob.count + total.view(reps, -1).sum(1, dtype=torch.int32)),
+        ob_dropped + lost.view(reps, -1).sum(1),
+    )
+
+
+def event_egress_append_plain(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx=None):
+    """K11's plain version: `event_egress_plain`, then its entry stack
+    appended to `c.outbox` (`outbox_append_multi_plain`, losses into
+    `c.stats.ob_dropped`) and its used latencies folded into
+    `c.min_used_lat`, per replica. Returns (carry', pushes)."""
+    c, pushes, entries, used_min = event_egress_plain(
+        c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx)
+    if entries is None:
+        return c, pushes
+    if c.outbox is None:
+        raise ValueError("event_egress: a model with send ports needs the carry's outbox")
+    ob, ob_dropped = outbox_append_multi_plain(c.outbox, [entries], c.stats.ob_dropped)
+    reps = ob.count.shape[0]
+    used = used_min.min() if reps == 1 else used_min.view(reps, -1).amin(1)
+    return c._replace(outbox=ob, min_used_lat=torch.minimum(c.min_used_lat, used),
+                      stats=c.stats._replace(ob_dropped=ob_dropped)), pushes
+
+
 def _route_args(params, cfg) -> list[int]:
     """(mode, hosts_per_node, n_nodes, node_of, lat, loss, jit, rows of the
     mode-1 tables) for K11."""
@@ -609,13 +592,15 @@ def _rows(x: torch.Tensor, h: int, p: int, keep: list) -> tuple[int, int]:
 
 
 def event_egress(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx=None):
-    """`event_egress_plain` as one kernel (K11) on CUDA, updating the
+    """`event_egress_append_plain` as one kernel (K11) on CUDA, updating the
     carry's seq, send cursor, RNG, uplink bucket and packet-counter lanes in
-    place (with link-fault windows also the fault counters); the pushes'
-    mask/t/order/kind, the entry stack and `used_min` are the kernel's
-    outputs."""
+    place (with link-fault windows also the fault counters), and appending
+    the landed sends to `c.outbox` in place (its count, `ob_dropped` and
+    `min_used_lat` too); the pushes' mask/t/order/kind are the kernel's
+    outputs. Returns (carry', pushes)."""
     if on_cpu(ev_t):
-        return event_egress_plain(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx)
+        return event_egress_append_plain(c, params, cfg, ev_t, dispatch, window_end, out,
+                                         fluid_fx)
     h = dispatch.shape[0]
     n_push, n_send = len(out.pushes), len(out.sends)
     if n_push > MAX_PUSH_PORTS or n_send > MAX_SEND_PORTS:
@@ -624,7 +609,7 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx=None)
             f"{MAX_PUSH_PORTS} / {MAX_SEND_PORTS}"
         )
     if not (n_push or n_send):
-        return c, [], None, None
+        return c, []
     dev = ev_t.device
     es = ev_t.stride(0) if h > 1 else 1
     if not ev_t.is_cuda or ev_t.dtype != torch.int64 or tuple(ev_t.shape) != (h,):
@@ -667,6 +652,21 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx=None)
         bg_loss, bg_lat = fluid_fx
         check(bg_loss, torch.float32, (h,), "fluid bg_loss")
         check(bg_lat, torch.int64, (h,), "fluid bg_lat")
+    ob = c.outbox
+    ob_args = [0] * 9
+    if n_send:
+        if ob is None:
+            raise ValueError("event_egress: a model with send ports needs the carry's outbox")
+        b = ob.t.shape[1]
+        check(ob.dst, torch.int32, (h, b), "outbox dst")
+        check(ob.t, torch.int64, (h, b), "outbox t")
+        check(ob.order, torch.int64, (h, b), "outbox order")
+        check(ob.kind, torch.int32, (h, b), "outbox kind")
+        check(ob.payload, torch.int32, (h, b, ob.payload.shape[2]), "outbox payload")
+        check(ob.count, torch.int32, (reps,), "outbox count")
+        check(s.ob_dropped, torch.int64, (reps,), "ob_dropped")
+        check(c.min_used_lat, torch.int64, (reps,) if reps > 1 else (), "min_used_lat")
+        ob_args = [b, *(addr(x) for x in ob), addr(s.ob_dropped), addr(c.min_used_lat)]
     keep = []  # converted port fields, alive until the launch returns
     push_args = []
     for p in out.pushes:
@@ -685,11 +685,9 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx=None)
             *((0, 0) if sp.count is None else _lane(sp.count, torch.int32, h, keep)),
             *((0, 0) if sp.payload_inc is None else _rows(sp.payload_inc, h, n_words, keep)),
         ]
-    e = sum(int(sp.count_max) for sp in out.sends)
-    entries = EntryStack(*(torch.empty((e, h), dtype=dt, device=dev) for dt in (
-        torch.bool, torch.int32, torch.int32, torch.int64, torch.int64, torch.int32)),
-        torch.empty((e, h, n_words), dtype=torch.int32, device=dev)) if e else None
-    used_min = torch.empty((h,), dtype=torch.int64, device=dev) if n_send else None
+    if n_send and ob.payload.shape[2] != n_words:
+        raise ValueError(f"event_egress: {n_words} payload words for an outbox of "
+                         f"{ob.payload.shape[2]}")
     route = _route_args(params, cfg)
     _egress_k(arg_block([
         h, n_words or 1, es, cfg.sends_per_host_round, int(cfg.shaping), int(cfg.use_jitter),
@@ -702,7 +700,7 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx=None)
         addr(bg_loss), addr(bg_lat), u64(cfg.fluid_seed) if bg_lat is not None else 0,
         int(bg_lat is not None and cfg.fluid_loss_max > 0.0),
         n_push, *push_args, *(addr(x) for x in op),
-        n_send, *send_args, *(addr(x) for x in (entries or [None] * 7)), addr(used_min),
+        n_send, *send_args, *ob_args,
         nl, *(addr(getattr(fp, f, None)) for f in ("win_start", "win_end", "win_loss", "win_lat")),
         addr(s.faults_dropped if nl else None), addr(s.faults_delayed if nl else None),
         cfg.host_base, cfg.num_hosts, hr, addr(wend), route[7],
@@ -710,11 +708,10 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx=None)
     del keep
     pushes = [Push(op[0][i], op[1][i], op[2][i], op[3][i], p.payload.to(torch.int32))
               for i, p in enumerate(out.pushes)]
-    return c, pushes, entries, used_min
+    return c, pushes
 
 
 KERNELS = {
-    "outbox_append": _outbox_append_k,
     "event_ingress": _ingress_k,
     "event_egress": _egress_k,
 }

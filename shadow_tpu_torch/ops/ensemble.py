@@ -8,7 +8,8 @@ holds rows [r * H, (r + 1) * H)), so each kernel of the round runs once over
 all R x H rows. K31 keeps the replicas' scalar lanes in one int64 [6, R]
 block (`LANES`: window end, done, live, pending, microsteps this round,
 sends this round), which the engine reads back in one copy per round and
-per loop test. As elsewhere in ops/, CPU tensors run the plain version and
+per loop test. K31 runs one thread-block cluster per replica
+(`window_cluster` blocks, sm_90). As elsewhere in ops/, CPU tensors run the plain version and
 CUDA tensors launch the kernel; both update `lanes` and `pop_limit` in
 place.
 """
@@ -24,6 +25,8 @@ WEND, DONE, LIVE, PENDING, STEPS, SENDS = range(6)
 LANES = 6
 ROUND, LOOP = 0, 1
 MAX_FOLD_FIELDS = 16  # csrc/ensemble.cu kMaxFields
+MAX_CLUSTER = 8  # K31's blocks per replica: the portable cluster size
+ROWS_PER_BLOCK = 512  # K31: a block of 256 threads, one 16-byte load each
 
 _window_k = CudaKernel("ensemble", "replica_window", ARG_BLOCK)
 _fold_k = CudaKernel("ensemble", "replica_fold", ARG_BLOCK)
@@ -35,6 +38,12 @@ def make_lanes(done, device) -> torch.Tensor:
     lanes = torch.zeros((LANES, len(done)), dtype=torch.int64)
     lanes[DONE] = torch.as_tensor(list(map(bool, done)), dtype=torch.int64)
     return lanes.to(device)
+
+
+def window_cluster(rows: int) -> int:
+    """K31's blocks per replica (one cluster): one per 512 rows, at most 8
+    (config 8's 4,096 rows: 8)."""
+    return max(1, min(MAX_CLUSTER, -(-rows // ROWS_PER_BLOCK)))
 
 
 def replica_window_plain(mode: int, nt, lanes, pop_limit, *, rows: int, stop: int,
@@ -78,7 +87,8 @@ def replica_window(mode: int, nt, lanes, pop_limit, *, rows: int, stop: int, run
     where given — is below `limit`; the microstep count and the sends lane
     (`ob_count`) updated; `pop_limit` [R x rows] set to the window end of
     pending replicas, 0 elsewhere). Updates `lanes` (i64[6, R]) and
-    `pop_limit` in place; one K31 launch on CUDA."""
+    `pop_limit` in place; one K31 launch on CUDA, R clusters of
+    `window_cluster(rows)` blocks."""
     if floor < 1 or runahead < 1:
         raise ValueError(f"runahead={runahead} and floor={floor} must be >= 1")
     if on_cpu(nt):
@@ -102,7 +112,7 @@ def replica_window(mode: int, nt, lanes, pop_limit, *, rows: int, stop: int, run
         r_count, rows, mode, int(dynamic), stop, runahead, floor, limit,
         addr(nt), addr(min_used if dynamic else None), addr(valve if mode == LOOP else None),
         addr(ob_count if mode == LOOP else None), addr(lanes),
-        addr(pop_limit if mode == LOOP else None),
+        addr(pop_limit if mode == LOOP else None), window_cluster(rows),
     ]))
 
 

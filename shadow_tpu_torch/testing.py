@@ -1,6 +1,6 @@
 """Seeded inputs and helpers for checking kernels against their plain
 versions: `chain_case` builds one event per host through ingress, a
-synthetic handler output and egress (K9-K11); `merge_case` builds a queue
+synthetic handler output and egress (K10, K11); `merge_case` builds a queue
 and a round's [H, B] outbox for the exchange merges (K4, K13);
 `fluid_case` builds the fluid plane's inputs (K14-K16, fluid-on K11);
 `handler_case` builds a model handler's context (K17-K22), `clone_ctx`
@@ -33,7 +33,8 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
                shaping: bool = True, jitter: bool = False, n_nodes: int = 4,
                budget: int = 8, stride: int = 1, cpu_delay: int = 0,
                restart_queue: str | None = None, loss_windows: int = 0,
-               dual_digest: bool = False, netobs: bool = False) -> dict:
+               dual_digest: bool = False, netobs: bool = False,
+               ob_cols: int | None = None) -> dict:
     """Random inputs of one event per host through ingress (K10), the
     handler's outputs (a synthetic HandlerOut) and egress (K11): a carry
     with every lane seeded, an event with packets, requeued packets and
@@ -50,9 +51,19 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
     link-fault windows around the events' times, `dual_digest` the
     integrity sentinel's second digest, and `netobs` the network
     observatory's event-class lanes (model kinds 1 and 3 are the timers:
-    `timer_mask` in the returned dict). The extra lanes come from their own
-    generators: the other inputs do not change."""
-    from shadow_tpu_torch.core.engine import EngineConfig, EngineParams, Stats, _EvCarry
+    `timer_mask` in the returned dict). The carry's outbox, which egress
+    appends to, is `ob_cols` columns wide (the send budget by default; a
+    narrower one loses the sends past it) and holds random rows and a
+    random count; its `min_used_lat` is above every route latency. The
+    extra lanes come from their own generators: the other inputs do not
+    change."""
+    from shadow_tpu_torch.core.engine import (
+        EngineConfig,
+        EngineParams,
+        Outbox,
+        Stats,
+        _EvCarry,
+    )
     from shadow_tpu_torch.models.base import HandlerOut, LocalPush, PacketSend
     from shadow_tpu_torch.net import CodelState, TBParams, TBState
     from shadow_tpu_torch.ops.events import Event
@@ -125,6 +136,16 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
         cpu_busy_until=T(np.select([rb.random(h) < 0.3, rb.random(h) < 0.5], [0, t],
                                    np.minimum(t, 1 << 50) + rb.integers(-40, 40, h) * ms))
         if cpu_delay else None,
+    )
+    ro = np.random.default_rng([seed, 50])  # the outbox's own draws
+    b = budget if ob_cols is None else ob_cols
+    carry = carry._replace(
+        outbox=Outbox(
+            T(ro.integers(0, h, (h, b)).astype(np.int32)), T(ro.integers(0, 1 << 40, (h, b))),
+            T(ro.integers(0, 1 << 62, (h, b))), T(ro.integers(0, 9, (h, b)).astype(np.int32)),
+            T(ro.integers(-(1 << 31), 1 << 31, (h, b, 4)).astype(np.int32)),
+            T(ro.integers(0, 100, 1).astype(np.int32))),
+        min_used_lat=torch.tensor(int(lat.max()) + ms, device=dev),  # every landed send lowers it
     )
     kind = r.integers(0, 4, h) | np.where(r.random(h) < 0.7, KIND_PKT, 0)
     kind |= np.where(r.random(h) < 0.2, KIND_INGRESS_DONE, 0)
@@ -1521,6 +1542,20 @@ def outbox_case(seed: int, h_local: int, b: int, world: int, dev="cpu", *, fill:
     return {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
 
 
+def _time_collectives(coll, events: list) -> None:
+    """Wrap `coll`'s collectives so that each call is bracketed by two CUDA
+    events on the current stream, appended to `events` as a pair."""
+    for name in ("pmin", "psum", "all_gather", "all_to_all"):
+        def timed(x, _fn=getattr(coll, name)):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            y = _fn(x)
+            b.record()
+            events.append((a, b))
+            return y
+        setattr(coll, name, timed)
+
+
 def mesh_runs(coll, cases: list) -> list | None:
     """One rank's part of a series of mesh runs (core/mesh.py launch
     calls it in every rank): each case is (config dict, `Simulation.run`
@@ -1528,27 +1563,38 @@ def mesh_runs(coll, cases: list) -> list | None:
     rank 0's reports (None elsewhere), each with the run's collective
     calls per kind in `mesh_calls` (the run loop's, the report's gather
     excluded), the bytes this rank sent into them in `mesh_bytes_sent` and
-    the engine config as a dict in `engine_cfg`."""
+    the engine config as a dict in `engine_cfg`; on CUDA also
+    `mesh_collective_ms`, the device ms between CUDA events around each of
+    the run loop's collectives, summed (waits for the other ranks
+    included)."""
     from shadow_tpu_torch.config.options import ConfigOptions
     from shadow_tpu_torch.sim import Simulation
 
     dev = torch.device("cuda", coll.rank) if coll.device.type == "cuda" else coll.device
+    events = [] if dev.type == "cuda" else None
+    if events is not None:
+        _time_collectives(coll, events)
     reports = []
     for cfg, run_kw in cases:
         sim = Simulation(ConfigOptions.from_dict(cfg), device=dev, coll=coll)
         calls0, bytes0 = dict(coll.calls), coll.bytes_sent
+        n0 = len(events) if events is not None else 0
         rep = sim.run(progress=False, **run_kw)
         # the run loop's collectives (the report's own gather excluded)
         rep["mesh_calls"] = {k: v - calls0.get(k, 0) for k, v in sim.run_calls.items()
                              if v > calls0.get(k, 0)}
         rep["mesh_bytes_sent"] = sim.run_bytes_sent - bytes0
         rep["engine_cfg"] = dataclasses.asdict(sim.engine_cfg)
+        if events is not None:
+            torch.cuda.synchronize(dev)
+            n = sum(rep["mesh_calls"].values())
+            rep["mesh_collective_ms"] = sum(a.elapsed_time(b) for a, b in events[n0:n0 + n])
         reports.append(rep)
     return reports if coll.rank == 0 else None
 
 
 # --------------------------------------------------------------------------
-# the ensemble plane (K31, K32 and the replica lanes of K2, K4, K9-K11, K13)
+# the ensemble plane (K31, K32 and the replica lanes of K2, K4, K10, K11, K13)
 # --------------------------------------------------------------------------
 
 
@@ -1589,9 +1635,9 @@ def replica_chain_case(seed: int, reps: int, h: int, dev, *, frozen: tuple = (),
     the route rows held once (replica-local ids index them), destinations
     drawn around one replica's range, link-fault windows per replica
     ([reps, L], each replica's shifted), the window ends an i64[reps] lane,
-    and the outbox counters [reps]. Replicas in `frozen` have no active
-    event and dispatch nothing: the kernels must leave their rows as they
-    were."""
+    and the outbox counters and `min_used_lat` [reps]. Replicas in `frozen`
+    have no active event and dispatch nothing: the kernels must leave their
+    rows as they were."""
     from shadow_tpu_torch.core.faults import FaultParams
 
     case = chain_case(seed, reps * h, dev, **chain_kw)
@@ -1624,8 +1670,13 @@ def replica_chain_case(seed: int, reps: int, h: int, dev, *, frozen: tuple = (),
     keep = keep.reshape(-1)
     we = case["window_end"]
     carry = case["carry"]
-    carry = carry._replace(stats=carry.stats._replace(
-        ob_dropped=torch.zeros((reps,), dtype=torch.int64, device=keep.device)))
+    ro = np.random.default_rng([seed, 41])  # the replicas' counter and latency lanes
+    carry = carry._replace(
+        stats=carry.stats._replace(
+            ob_dropped=torch.zeros((reps,), dtype=torch.int64, device=keep.device)),
+        outbox=carry.outbox._replace(count=torch.as_tensor(
+            ro.integers(0, 100, reps).astype(np.int32), device=keep.device)),
+        min_used_lat=torch.as_tensor(ro.integers(5, 60, reps) * 1_000_000, device=keep.device))
     return dict(case, cfg=cfg, params=params, out=out._replace(sends=sends), carry=carry,
                 active=case["active"] & keep, dispatch=case["dispatch"] & keep,
                 window_end=torch.as_tensor([we + i * 3_000_000 for i in range(reps)],

@@ -1,12 +1,16 @@
 """PyTorch port vs JAX reference: the per-event chain (B5) and the outbox
-append (B4), the functions the CUDA kernels K9-K11 replace.
+append (B4), the functions the CUDA kernels K10 and K11 replace (K11 appends
+its sends to the outbox itself).
 
 `Engine.event_body` of the port — the ingress plain version, the model's
-handler, the egress plain version, in turn — is held against JAX
-`_event_body` (run op by op on the CPU, as a function of numpy data) on the
-same numpy-seeded carry and event: every carry lane (stats, RNG, seq, send
-cursor, both token buckets, CoDel, model state), every push, every outbox
-entry and the per-host used-latency minimum. Cases: phold with shaping
+handler, K11's plain version (the egress plain version, then the append and
+the used-latency fold), in turn — is held against JAX `_event_body` (run op
+by op on the CPU, as a function of numpy data) on the same numpy-seeded
+carry and event: every carry lane (stats, RNG, seq, send cursor, both token
+buckets, CoDel, model state), every push, every outbox entry of the plain
+egress and the per-host used-latency minimum; then the outbox, its count,
+`ob_dropped` and `min_used_lat` against JAX's `_outbox_append_multi` of
+those entries and the fold of `_finish_microstep`. Cases: phold with shaping
 tight enough for CoDel drops and bucket delays; udp_echo on affine per-host
 route rows with jitter and loss; tgen-TCP on the 2-D table gather with
 loss; and a synthetic model (one flavour per package, fed the same numpy
@@ -42,6 +46,7 @@ from shadow_tpu_torch.core.convert import engine_config_from, from_jax_numpy
 from shadow_tpu_torch.core.engine import Engine, Outbox, _ev_carry_of
 from shadow_tpu_torch.models import base as pbase
 from shadow_tpu_torch.models import get_model
+from shadow_tpu_torch.ops import chain as pchain
 from shadow_tpu_torch.ops.chain import EntryStack, outbox_append_multi_plain
 from shadow_tpu_torch.ops.events import Event
 
@@ -234,6 +239,41 @@ def _lanes(c) -> dict:
     return out
 
 
+def event_body(eng, *args):
+    """The port's `Engine.event_body` -> (carry', pushes, entry stack, used
+    latency), the last two as the plain egress returned them before K11's
+    plain version appended and folded them."""
+    seen = []
+    plain = pchain.event_egress_plain
+
+    def spy(*a):
+        out = plain(*a)
+        seen.append(out[2:])
+        return out
+
+    pchain.event_egress_plain = spy
+    try:
+        pc, ppush = eng.event_body(*args)
+    finally:
+        pchain.event_egress_plain = plain
+    (pents, pused), = seen
+    return pc, ppush, pents, pused
+
+
+def check_append(jst, jents, jused, pc):
+    """The port's outbox, count, ob_dropped and min_used_lat after its event
+    body against JAX's `_outbox_append_multi` of the event's entries and
+    `_finish_microstep`'s fold, from the same state."""
+    job, jlost, jmin = jst.outbox, 0, jst.min_used_lat
+    if jents:
+        job, jlost = _outbox_append_multi(jst.outbox, jents)
+        jmin = jnp.minimum(jmin, jnp.min(jnp.stack([jnp.min(u) for u in jused])))
+    for x, y in zip(job, pc.outbox):
+        assert np.array_equal(np.asarray(x), y.numpy())
+    assert int(jst.stats.ob_dropped[0]) + int(jlost) == int(pc.stats.ob_dropped[0])
+    assert int(jmin) == int(pc.min_used_lat)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("name", list(CASES))
 def test_event_body_matches_jax(name, seed):
@@ -244,14 +284,15 @@ def test_event_body_matches_jax(name, seed):
     jc, jpush, jents, jused, _ = _event_body(
         jeng.cfg, jeng.model, jax_carry_of(jst), jpar, host_gid, window_end, jev,
         jnp.asarray(active))
-    pc, ppush, pents, pused = peng.event_body(
-        _ev_carry_of(pst), ppar, window_end, pev, torch.as_tensor(active))
+    pc, ppush, pents, pused = event_body(
+        peng, _ev_carry_of(pst), ppar, window_end, pev, torch.as_tensor(active))
 
     # every lane the port carries (the JAX Stats also has lanes of planes
-    # the port does not run, untouched here)
+    # the port does not run, untouched here; ob_dropped is the append's,
+    # checked below)
     a, b = _lanes(jc), _lanes(pc)
     assert b.keys() <= a.keys() and len(b) > 25
-    assert [k for k in b if not np.array_equal(a[k], b[k])] == []
+    assert [k for k in b if k != "stats.ob_dropped" and not np.array_equal(a[k], b[k])] == []
     assert len(jpush) == len(ppush)
     for jp, pp in zip(jpush, ppush):
         for x, y in zip(jp, pp):
@@ -264,6 +305,7 @@ def test_event_body_matches_jax(name, seed):
                 assert np.array_equal(np.asarray(x), y[e].numpy())
         assert np.array_equal(np.min(np.stack([np.asarray(u) for u in jused]), axis=0),
                               pused.numpy())
+    check_append(jst, jents, jused, pc)
     # the case exercises what it is named for
     d = {k: b[k] - _lanes(_ev_carry_of(pst))[k] for k in b if k.startswith("stats.pkts")}
     if name == "phold_codel_delay":

@@ -10,10 +10,11 @@ may lack; this file imports neither JAX nor the JAX package.)
 
 Small numpy-seeded slabs: empty, sparse, mixed, nearly full and full queues,
 heavy time ties, merge segments past the insert cap; for the per-event chain
-(K9-K11) the random carries, events and handler outputs of
-`shadow_tpu_torch.testing.chain_case`, with port fields as the models hand
-them over (columns of the K-way peek, broadcasts) and K9 taking several
-events' entry stacks at once; for the exchange merges (K4, K13) the queues
+(K10, K11; K11 appends its sends to the outbox) the random carries, events
+and handler outputs of `shadow_tpu_torch.testing.chain_case`, with port
+fields as the models hand them over (columns of the K-way peek, broadcasts),
+K11 over four event columns in turn into one outbox (a K-way microstep),
+narrower than the budget (sends lost past it); for the exchange merges (K4, K13) the queues
 and [H, B] outboxes of `shadow_tpu_torch.testing.merge_case` read through a
 column limit. A geared run on the card (where the kernels write the state
 in place) checks that a snapshot survives the chunk and repeated restores.
@@ -49,11 +50,13 @@ that fit, a shed, empty shards, one shard, padded hosts, a gear slice, many
 sort tiles, the 40k leg's shard width), K30 (`exchange_unpack`) on the
 blocks of four shards and on a gather buffer, and K10, K11, K14 and K16 at
 a shard whose hosts start past 0 (`host_base`). The ensemble plane: K31
-(`replica_window`, round and loop-test modes, static and dynamic
-runahead, with and without per-row valves) and K32 (`replica_fold`) on
-`shadow_tpu_torch.testing.ensemble_case` lanes, and K2 (per-row limits),
-K4, K9, K10, K11 and K13 over replicas (`replica_chain_case`,
-`replica_merge_case`) with a frozen replica whose rows must come out
+(`replica_window`, one cluster of blocks per replica; round and loop-test
+modes, static and dynamic runahead, with and without per-row valves, at
+1 to 25,000 rows and 1 to 64 replicas, aligned and not) and K32
+(`replica_fold`) on `shadow_tpu_torch.testing.ensemble_case` lanes, and K2
+(per-row limits), K4, K10, K11 and K13 over replicas (`replica_chain_case`,
+`replica_merge_case`; K11 also at 150 and 4,097 hosts per replica, warps
+that straddle two replicas) with a frozen replica whose rows must come out
 unchanged. The co-simulation bridge: K33 (`hybrid_handle`) on
 `shadow_tpu_torch.testing.hybrid_case` rings that are empty, partly full,
 full (overflow into cap_lost) and random, K34 (`mixed_plane`, both modes,
@@ -73,7 +76,6 @@ import numpy as np
 import pytest
 import torch
 
-from shadow_tpu_torch.core.engine import make_empty_outbox
 from shadow_tpu_torch.net import fluid as pfl
 from shadow_tpu_torch.ops import chain as pchain
 from shadow_tpu_torch.ops import ensemble as pens
@@ -334,9 +336,10 @@ def strided(out, h: int):
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("name", list(CHAIN_CASES))
 def test_chain_kernels_match_plain(dev, name, seed):
-    """K10 event_ingress, K11 event_egress and K9 outbox_append against
-    their plain versions on the same card inputs (carries cloned: the
-    kernels update them in place)."""
+    """K10 event_ingress and K11 event_egress against their plain versions
+    on the same card inputs (carries cloned: the kernels update them in
+    place); K11 with its outbox append and used-latency fold, against the
+    plain egress followed by the plain append and fold."""
     case = chain_case(seed, 150, dev, **CHAIN_CASES[name])
     cfg, params, ev, active = case["cfg"], case["params"], case["ev"], case["active"]
     c_k, ing_k = pchain.event_ingress(clone_carry(case["carry"]), params, cfg, ev, active)
@@ -348,66 +351,60 @@ def test_chain_kernels_match_plain(dev, name, seed):
         out = strided(out, 150)
         assert not out.pushes[0].t.is_contiguous()
     got = pchain.event_egress(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we, out)
-    want = pchain.event_egress_plain(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we,
-                                     out)
+    want = pchain.event_egress_append_plain(clone_carry(case["carry"]), params, cfg, ev.t,
+                                            dispatch, we, out)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
 
-    # K9 on a microstep's entry stacks (three events, the carry threaded
-    # through egress), with some columns moved past the outbox width
-    # (counted lost) and an outbox already part filled
-    b = cfg.sends_per_host_round
-    stacks, cc = [], clone_carry(case["carry"])
-    for _ in range(3):
-        cc, _, entries, _ = pchain.event_egress_plain(cc, params, cfg, ev.t, dispatch, we, out)
-        stacks.append(entries._replace(
-            col=torch.where(entries.col % 5 == 0, entries.col + b, entries.col)))
-    ob = make_empty_outbox(150, b, dev)
-    filled = torch.as_tensor(np.random.default_rng(seed).random((150, b)) < 0.3, device=dev)
-    ob = ob._replace(t=torch.where(filled, 7, ob.t))
-    lost0 = torch.tensor([3], dtype=torch.int64, device=dev)
-    got = pchain.outbox_append_multi(type(ob)(*(x.clone() for x in ob)), stacks, lost0.clone())
-    want = pchain.outbox_append_multi_plain(ob, stacks, lost0)
-    assert_all_equal(flat_tensors(got), flat_tensors(want))
-    assert int(want[1]) > 3  # columns past the budget were counted lost
+
+def egress_columns(case, n_cols: int, out=None):
+    """K11 and its plain version over `n_cols` event columns in turn (a
+    K-way microstep: the carry, its send cursor and its outbox threaded
+    from one column to the next). Returns (kernel carry, plain carry)."""
+    cfg, params, ev = case["cfg"], case["params"], case["ev"]
+    out = case["out"] if out is None else out
+    args = (params, cfg, ev.t, case["dispatch"], case["window_end"], out)
+    c_k, c_p = clone_carry(case["carry"]), clone_carry(case["carry"])
+    for _ in range(n_cols):
+        c_k, _ = pchain.event_egress(c_k, *args)
+        c_p, _ = pchain.event_egress_append_plain(c_p, *args)
+    return c_k, c_p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ob_cols", [None, 2], ids=["budget_wide", "past_b"])
+@pytest.mark.parametrize("name", list(CHAIN_CASES))
+def test_egress_append_columns_match_plain(dev, name, ob_cols):
+    """Merged K11 over four event columns into one outbox (the carry's
+    budget wide, or 2 columns wide, so that sends past it are counted lost)
+    against the plain egress, append and fold per column: the outbox, its
+    count, ob_dropped and min_used_lat."""
+    case = chain_case(7, 150, dev, **CHAIN_CASES[name], ob_cols=ob_cols)
+    out = strided(case["out"], 150) if name == "strided_fields" else None
+    c_k, c_p = egress_columns(case, 4, out)
+    assert_all_equal(flat_tensors(c_k), flat_tensors(c_p))
+    c0 = case["carry"]
+    assert int(c_p.outbox.count[0]) > int(c0.outbox.count[0])
+    assert int(c_p.min_used_lat) < int(c0.min_used_lat)
+    if ob_cols is not None:
+        assert int(c_p.stats.ob_dropped[0]) > 0  # sends past B were counted lost
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("seed", [0, 1])
 def test_egress_without_send_ports_matches_plain(dev, seed):
     """A model with pushes only (the timer model's handler): K11 gets no
-    send port, no entry stack and no used-latency lane, and equals its plain
-    version."""
+    send port, leaves the outbox, its counters and min_used_lat alone, and
+    equals its plain version."""
     case = chain_case(seed, 150, dev, n_push=1, sends=(), route="const")
     cfg, params, ev = case["cfg"], case["params"], case["ev"]
     out, dispatch, we = case["out"], case["dispatch"], case["window_end"]
     got = pchain.event_egress(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we, out)
-    want = pchain.event_egress_plain(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we,
-                                     out)
-    assert got[2] is None and got[3] is None and want[2] is None
+    want = pchain.event_egress_append_plain(clone_carry(case["carry"]), params, cfg, ev.t,
+                                            dispatch, we, out)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
-
-
-@pytest.mark.gpu
-def test_outbox_append_chunks_past_16_stacks(dev):
-    """K9 over more entry stacks than one launch takes (the wrapper
-    launches per 16): the same outbox and loss count as the plain version,
-    and one launch per chunk."""
-    case = chain_case(5, 150, dev, **CHAIN_CASES["cfg6"])
-    cfg, params, ev = case["cfg"], case["params"], case["ev"]
-    stacks, cc = [], clone_carry(case["carry"])
-    for _ in range(20):
-        cc, _, entries, _ = pchain.event_egress_plain(cc, params, cfg, ev.t, case["dispatch"],
-                                                      case["window_end"], case["out"])
-        stacks.append(entries._replace(col=torch.where(entries.col % 3 == 0, entries.col + 8,
-                                                       entries.col)))
-    ob = make_empty_outbox(150, cfg.sends_per_host_round, dev)
-    lost0 = torch.zeros((1,), dtype=torch.int64, device=dev)
-    before = pchain.KERNELS["outbox_append"].launches
-    got = pchain.outbox_append_multi(type(ob)(*(x.clone() for x in ob)), stacks, lost0.clone())
-    assert pchain.KERNELS["outbox_append"].launches - before == 2
-    want = pchain.outbox_append_multi_plain(ob, stacks, lost0)
-    assert_all_equal(flat_tensors(got), flat_tensors(want))
-    assert int(want[1]) > 0  # columns past the budget were counted lost
+    assert_all_equal(flat_tensors(got[0].outbox) + [got[0].min_used_lat],
+                     flat_tensors(case["carry"].outbox) + [case["carry"].min_used_lat])
 
 
 @pytest.mark.gpu
@@ -521,7 +518,7 @@ def test_fluid_egress_matches_plain(dev, affine, loss_max):
     args = (params, cfg, e.t, case["dispatch"], case["window_end"], case["out"],
             case["fluid_fx"])
     got = pchain.event_egress(clone_carry(c0), *args)
-    want = pchain.event_egress_plain(clone_carry(c0), *args)
+    want = pchain.event_egress_append_plain(clone_carry(c0), *args)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
     torch.cuda.synchronize()
 
@@ -726,8 +723,8 @@ def test_egress_fault_lane_matches_plain(dev, name, seed):
     if name == "strided_fields":
         out = strided(out, 150)
     got = pchain.event_egress(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we, out)
-    want = pchain.event_egress_plain(clone_carry(case["carry"]), params, cfg, ev.t, dispatch, we,
-                                     out)
+    want = pchain.event_egress_append_plain(clone_carry(case["carry"]), params, cfg, ev.t,
+                                            dispatch, we, out)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
     torch.cuda.synchronize()
 
@@ -1042,9 +1039,10 @@ def test_chain_kernels_on_a_shard_match_plain(dev, name):
     assert_all_equal(flat_tensors(got), flat_tensors(want))
     args = (params, cfg, ev.t, case["dispatch"], case["window_end"], case["out"])
     got = pchain.event_egress(clone_carry(case["carry"]), *args)
-    want = pchain.event_egress_plain(clone_carry(case["carry"]), *args)
+    want = pchain.event_egress_append_plain(clone_carry(case["carry"]), *args)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
-    src = (want[2].order >> 40) & ((1 << 22) - 1)
+    entries = pchain.event_egress_plain(clone_carry(case["carry"]), *args)[2]
+    src = (entries.order >> 40) & ((1 << 22) - 1)
     assert int(src.min()) == 300
     torch.cuda.synchronize()
 
@@ -1070,7 +1068,7 @@ def test_fluid_kernels_on_a_shard_match_plain(dev, loss_max):
     args = (params, ccfg, ch["ev"].t, ch["dispatch"], ch["window_end"], ch["out"],
             ch["fluid_fx"])
     got = pchain.event_egress(clone_carry(ch["carry"]), *args)
-    want = pchain.event_egress_plain(clone_carry(ch["carry"]), *args)
+    want = pchain.event_egress_append_plain(clone_carry(ch["carry"]), *args)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
     torch.cuda.synchronize()
 
@@ -1081,29 +1079,56 @@ def test_fluid_kernels_on_a_shard_match_plain(dev, loss_max):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h", [1, 300, 4096])
+@pytest.mark.parametrize("h", [1, 33, 300, 4096, 4097, 25_000])
+@pytest.mark.parametrize("reps", [1, 4, 64])
 @pytest.mark.parametrize("dynamic", [False, True])
-def test_replica_window_kernel_matches_plain(dev, h, dynamic):
-    """K31 in both modes: the lane block and the pop limits equal the plain
-    version's, a done replica stays frozen (its window end kept), and the
-    valve is the microstep count or, given, the rows' largest count."""
-    case = ensemble_case(3, 4, h, dev)
+def test_replica_window_kernel_matches_plain(dev, h, reps, dynamic):
+    """K31 (one cluster of `window_cluster(h)` blocks per replica) in both
+    modes: the lane block and the pop limits equal the plain version's, a
+    done replica stays frozen (its window end kept), and the valve is the
+    microstep count or, given, the rows' largest count. At 4,097 rows the
+    planes are also read and written 8 bytes off a 16-byte boundary (the
+    slices' scalar heads and tails). One replica: live, not frozen."""
+    case = ensemble_case(3, reps, h, dev)
+    lanes = case["lanes"]
+    nt, valve = case["nt"], case["valve"]
+    if reps == 1:
+        nt = torch.as_tensor(np.random.default_rng(h).integers(0, case["stop"], h),
+                             device=dev)
+        lanes = pens.make_lanes([False], dev)
+    shift = h == 4097  # the planes as views one element into a buffer
+
+    def plane(x):
+        if not shift:
+            return x.clone()
+        buf = torch.zeros((x.numel() + 1,), dtype=x.dtype, device=dev)
+        buf[1:] = x
+        return buf[1:]
+
     kw = dict(rows=h, stop=case["stop"], runahead=50_000_000, floor=2_000_000,
               dynamic=dynamic, min_used=case["min_used"], limit=25)
-    lanes_k, lanes_p = case["lanes"].clone(), case["lanes"].clone()
-    pop_k = torch.full((4 * h,), -1, dtype=torch.int64, device=dev)
+    nt = plane(nt)
+    lanes_k, lanes_p = lanes.clone(), lanes.clone()
+    pop_k = plane(torch.full((reps * h,), -1, dtype=torch.int64, device=dev))
     pop_p = pop_k.clone()
-    pens.replica_window(pens.ROUND, case["nt"], lanes_k, pop_k, **kw)
-    pens.replica_window_plain(pens.ROUND, case["nt"], lanes_p, pop_p, **kw)
-    assert torch.equal(lanes_k, lanes_p) and lanes_k[pens.WEND, 3] == 12_345
-    for valve in (None, case["valve"]):
+    pens.replica_window(pens.ROUND, nt, lanes_k, pop_k, **kw)
+    pens.replica_window_plain(pens.ROUND, nt, lanes_p, pop_p, **kw)
+    assert torch.equal(lanes_k, lanes_p)
+    if reps > 1:
+        assert lanes_k[pens.WEND, reps - 1] == 12_345
+    for v in (None, plane(valve)):
         for _ in range(3):  # chained tests: the microstep lane counts
-            pens.replica_window(pens.LOOP, case["nt"], lanes_k, pop_k, valve=valve,
+            pens.replica_window(pens.LOOP, nt, lanes_k, pop_k, valve=v,
                                 ob_count=case["ob_count"], **kw)
-            pens.replica_window_plain(pens.LOOP, case["nt"], lanes_p, pop_p, valve=valve,
+            pens.replica_window_plain(pens.LOOP, nt, lanes_p, pop_p, valve=v,
                                       ob_count=case["ob_count"], **kw)
             assert torch.equal(lanes_k, lanes_p) and torch.equal(pop_k, pop_p)
-    assert not bool(pop_k.view(4, h)[3].any())  # the frozen replica pops nothing
+    if reps > 1:
+        assert not bool(pop_k.view(reps, h)[reps - 1].any())  # the frozen replica pops nothing
+    else:
+        assert bool(lanes_p[pens.STEPS, 0] > 0)  # the live replica ran its loop tests
+    assert pens.window_cluster(h) == (1 if h <= 512 else 8)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
@@ -1163,10 +1188,11 @@ REPLICA_CHAIN_CASES = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(REPLICA_CHAIN_CASES))
 def test_replica_chain_kernels_match_plain(dev, name):
-    """K10, K11 and K9 over four replicas of 75 hosts (replica-local ids and
+    """K10 and K11 over four replicas of 75 hosts (replica-local ids and
     destinations, per-replica window ends and link-fault windows, route
-    rows held once, per-replica outbox counters): the plain version's
-    outputs, with replica 2 frozen, its carry rows unchanged."""
+    rows held once, per-replica outbox counters and used-latency lanes):
+    the plain version's outputs, with replica 2 frozen, its carry rows and
+    lanes unchanged."""
     from shadow_tpu_torch.ops.events import Event
 
     case = replica_chain_case(5, 4, 75, dev, frozen=(2,), **REPLICA_CHAIN_CASES[name])
@@ -1185,19 +1211,41 @@ def test_replica_chain_kernels_match_plain(dev, name):
     ev = ev._replace(t=ing_p.t)
     out, dispatch, we = case["out"], case["dispatch"], case["window_end"]
     got = pchain.event_egress(clone_carry(c_p), params, cfg, ev.t, dispatch, we, out)
-    want = pchain.event_egress_plain(clone_carry(c_p), params, cfg, ev.t, dispatch, we, out)
+    want = pchain.event_egress_append_plain(clone_carry(c_p), params, cfg, ev.t, dispatch, we,
+                                            out)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
     frozen = slice(2 * 75, 3 * 75)
     for x, y in zip(flat_tensors(got[0]), flat_tensors(c0)):
         if x.shape[:1] == (300,):
             assert torch.equal(x[frozen], y[frozen])
-    ob = make_empty_outbox(300, cfg.sends_per_host_round, dev, 4)
-    lost0 = torch.arange(4, dtype=torch.int64, device=dev)
-    a = pchain.outbox_append_multi(type(ob)(*(x.clone() for x in ob)), [got[2]] * 2,
-                                   lost0.clone())
-    b = pchain.outbox_append_multi_plain(ob, [want[2]] * 2, lost0)
-    assert_all_equal(flat_tensors(a), flat_tensors(b))
-    assert int(a[0].count[2]) == 0 and int(a[0].count.sum()) > 0
+    assert int(got[0].outbox.count[2]) == int(c0.outbox.count[2])
+    assert int(got[0].min_used_lat[2]) == int(c0.min_used_lat[2])
+    assert int(got[0].stats.ob_dropped[2]) == 0
+    assert int(got[0].outbox.count.sum()) > int(c0.outbox.count.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hr", [150, 4097])
+@pytest.mark.parametrize("name", ["anchor", "cfg6", "faults"])
+def test_replica_egress_append_matches_plain(dev, name, hr):
+    """Merged K11 over four replicas of `hr` hosts (150 and 4,097: warps
+    that straddle two replicas) and four event columns, replica 2 frozen,
+    an outbox narrower than the budget: each replica's outbox rows, count,
+    ob_dropped and min_used_lat equal the plain append's, the frozen
+    replica's unchanged."""
+    case = replica_chain_case(8, 4, hr, dev, frozen=(2,), **REPLICA_CHAIN_CASES[name],
+                              ob_cols=3)
+    c_k, c_p = egress_columns(case, 4)
+    assert_all_equal(flat_tensors(c_k), flat_tensors(c_p))
+    c0 = case["carry"]
+    assert int(c_k.outbox.count[2]) == int(c0.outbox.count[2])
+    assert int(c_k.min_used_lat[2]) == int(c0.min_used_lat[2])
+    assert int(c_k.stats.ob_dropped[2]) == 0 and int(c_k.stats.ob_dropped.sum()) > 0
+    frozen = slice(2 * hr, 3 * hr)
+    for x, y in zip(flat_tensors(c_k.outbox), flat_tensors(c0.outbox)):
+        if x.shape[:1] == (4 * hr,):
+            assert torch.equal(x[frozen], y[frozen])
+    torch.cuda.synchronize()
 
 
 COSIM_H = 4_096  # the mixed leg's host count

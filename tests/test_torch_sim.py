@@ -89,7 +89,7 @@ def test_yaml_run_matches_jax():
     assert prep["kernel_launches"] == {
         "queue_next_time": 0, "queue_pop_min": 0, "queue_push_many": 0, "merge_insert": 0,
         "queue_pop_k": 0, "queue_clear_popped": 0, "queue_push_many_bucketed": 0,
-        "queue_block_minima": 0, "outbox_append": 0, "event_ingress": 0, "event_egress": 0,
+        "queue_block_minima": 0, "event_ingress": 0, "event_egress": 0,
         "wheel_cancel": 0, "merge_scatter": 0, "fluid_fg_link_bytes": 0, "fluid_advance": 0,
         "fluid_host_effects": 0, "tgen_handle": 0, "phold_handle": 0, "echo_handle": 0,
         "timer_handle": 0, "gossip_handle": 0, "circuit_handle": 0,
