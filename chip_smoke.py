@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --observer-cost
     python3 chip_smoke.py --world 4
+    python3 chip_smoke.py --turns DIR
 
 The second form runs only the cost of observation: the tgen leg (phase 8)
 and configs 11 and 12 (phases 13, 22), each without and with its riders in
@@ -14,6 +15,13 @@ The third form needs four cards: it spawns four NCCL ranks on cuda:0-3
 fewer cards it exits non-zero. One card cannot hold a NCCL communicator of
 four ranks, so the first form runs no world > 1 leg and says so on a line
 of its own (`world_gt1`).
+
+The fourth form compares this tree with the tree unpacked in DIR (the
+parent commit, say) in turns (DIR, this, this, DIR), each turn a process
+of its own in that tree: the one-event legs' run loops, host syncs and
+port launches per microstep (the anchor, with the CPU model, configs 2, 3
+and 7), and the anchor's and tgen's profiled chunk, every leg checked
+against its JAX reference.
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 the CUDA toolkit. Phases, each printed as one JSON line; any failure exits
@@ -40,14 +48,16 @@ line reports it):
      (queue capacity 64, send budget 12, one device) through
      `shadow_tpu_torch.sim.Simulation`, which must reproduce the JAX
      reference's determinism digest d6c9a273e3a92bb7 and 668,614 events with
-     every kernel of its path (K1-K4, K10, K11, K18) launched, K18 as often
-     as K10 (one handler launch per event);
+     every kernel of its path (K1, K3, K4, K36, K11, K18) launched, K18 as
+     often as K36 (one handler launch per event);
   5. where the anchor's time goes: one steady 16-round chunk under
-     torch.profiler, with the per-event chain's ingress (K10), the model's
+     torch.profiler, with the per-event chain's ingress (K36: the pop and
+     the ingress), the model's
      handler (its kernel) and egress with the outbox append (K11) as ranges
      (device busy share, launches per microstep, each range's device time
-     and launches, the chain's launches per microstep, the port's kernels,
-     top device ops);
+     and launches, the chain's launches per microstep, every port kernel's
+     launches per microstep by the counters, the port's kernels, top device
+     ops);
   6. small configs (udp_echo with a server overflowing its queue, PHOLD on
      a two-node graph with loss and jitter): the card's report must equal
      the CPU path's, with the echo run's K19 launched as often as K10;
@@ -281,7 +291,19 @@ line reports it):
      wall, windows, device rounds, host syncs per window and launches;
  44. the small co-sim configs (`testing.cosim_small_configs()`: the JAX
      package's co-sim tests' configs and a send budget that drops echoes)
-     card == CPU, files included.
+     card == CPU, files included;
+ 45. (run after phase 11) K36, the one-event microstep's pop and ingress in
+     one launch, against its plain composition (the plain pop, then the
+     plain ingress) at the anchor's shape (H = 10,000, C = 64, P = 4, one
+     limit) and with each lane (the CPU model and queue hold under
+     per-host limits, queue clear, the second digest, the event classes,
+     config 8's 4 x 4,096 replica rows under per-row limits): exact
+     equality, with the timings of phase 2, and at the anchor's shape the
+     same inputs through K2 and then K10, the two-launch path K36
+     replaces (also with the queue's time ties broken, and cut to 12
+     slots a row). Every one-event leg on a flat queue (the anchor, configs 1,
+     2, 3, 4, 5, 7, 9, config 8's campaign, the CPU-model and co-sim legs)
+     must launch K36 once per microstep and neither K2 nor K10.
 
 Phase W (`--world 4`, four cards, one NCCL rank each), after three short
 warm-up runs (one per exchange kind; their digests must agree): the
@@ -1697,6 +1719,132 @@ def phase_kernels_chain(dev) -> dict[str, dict]:
     return results
 
 
+def pop_ingress_bound(case, want) -> tuple[float, str]:
+    """K36's least time at `case` (`pop_ingress_case`), from its plain
+    version's result `want`: K2's bytes (the time plane; the order plane
+    where the time ties an active row's minimum; the winner's kind and
+    payload read and its slot cleared; the event and `active` written;
+    per-host limits read) plus K10's without the [H] event lanes it no
+    longer reads back (the carry and parameter lanes it reads, its outputs,
+    the carry lanes that changed), and their operations."""
+    from shadow_tpu_torch.testing import flat_tensors
+
+    q0, limit, c0, params = case["queue"], case["limit"], case["carry"], case["params"]
+    _, c1, _, _, ing1 = want
+    h, cap = q0.t.shape
+    rmin = q0.t.min(dim=1).values
+    act = rmin < limit
+    n_tie = int(((q0.t == rmin[:, None]) & act[:, None]).sum())
+    n_act = int(act.sum())
+    pop = (h * cap * 8 + n_tie * 8 + n_act * (4 + 4 * P + 16) + h * (8 + 8 + 4 + 4 * P + 1)
+           + (h * 8 if isinstance(limit, torch.Tensor) else 0))
+    fp = params.faults
+    lanes = [c0.stats, c0.tb_ingress, c0.codel, c0.cpu_busy_until]
+    ingress = io_bytes(
+        reads=[params.in_tb.capacity, params.in_tb.refill, c0.tb_ingress.tokens,
+               c0.tb_ingress.last_itv,
+               *(flat_tensors([fp.down_t, fp.up_t]) if fp is not None and fp.down_t is not None
+                 else [])],
+        writes=[ing1.dispatch, ing1.is_pkt, ing1.kind, ing1.src,
+                *((ing1.requeue[i] for i in (0, 1, 3)) if ing1.requeue is not None else ())],
+        inplace=list(zip(flat_tensors(lanes),
+                         flat_tensors([c1.stats, c1.tb_ingress, c1.codel, c1.cpu_busy_until]))))
+    return bound(pop + ingress, h * cap + n_tie + 300 * h)
+
+
+def phase_kernels_pop_ingress(dev) -> dict:
+    """Phase 45: K36 (`pop_ingress`: the one-event microstep's pop and
+    ingress in one launch) against its plain composition, `pop_min_plain`
+    followed by `event_ingress_plain`, on `pop_ingress_case` queues at the
+    anchor's shape (H = 10,000, C = 64, P = 4, one limit, shaping with
+    CoDel) and with each lane: the CPU model and queue hold (per-host
+    limits), queue clear, the second digest, the event classes, and config
+    8's replicas (4 x 4,096 rows, per-row limits, one replica frozen).
+    Exact equality on the queue, the event, `active`, every carry lane and
+    every Ingress field, two seeds each; then K36's timings (the profiler's
+    reading of its own kernel, or the queued CUDA events where the trace
+    lacks its launch: `ms_source` says which) beside its bound and the
+    plain composition's, and at the anchor's shape the same inputs through
+    K2 followed by K10 (two launches, the path before K36); `queues` times
+    both paths again on that queue with its time ties broken, and cut to
+    its first 12 slots (about the anchor's occupancy)."""
+    from shadow_tpu_torch.ops import chain
+    from shadow_tpu_torch.ops import events as ev
+    from shadow_tpu_torch.testing import clone_carry, flat_tensors, pop_ingress_case
+
+    anchor = dict(n_push=1, sends=((1, False, False),), route="const", budget=B)
+    lanes = {
+        "main": ("scalar", H, anchor),
+        "cpu_delay": ("host", H, dict(anchor, cpu_delay=5_000_000)),
+        "fault_hold": ("host", H, dict(anchor, cpu_delay=5_000_000, restart_queue="hold")),
+        "fault_clear": ("scalar", H, dict(anchor, restart_queue="clear")),
+        "digest2": ("scalar", H, dict(anchor, dual_digest=True)),
+        "event_classes": ("scalar", H, dict(anchor, netobs=True)),
+        "replicas": ("row", R8 * H8, anchor),
+    }
+    def timed(fn, q, c, symbols) -> dict:
+        """Device ms (profiler, or queued CUDA events where the trace lacks
+        a launch), call ms and queued ms of fn on fresh copies of q, c."""
+        dev_ms, call, queued = device_ms(fn, lambda: (clone_q(q), clone_carry(c)),
+                                         symbols=symbols)
+        return {"ms": dev_ms if dev_ms is not None else queued, "call_ms": call,
+                "queued_ms": queued,
+                "ms_source": "profiler" if dev_ms is not None else "queued_events"}
+
+    out = {}
+    for lane, (form, h, kw) in lanes.items():
+        err = 0.0
+        for seed in (1, 2):
+            case = pop_ingress_case(seed, h, C, dev, limits=form, reps=R8, **kw)
+            args = (case["params"], case["cfg"])
+            q0, c0, limit, tm = case["queue"], case["carry"], case["limit"], case["timer_mask"]
+            want = chain.pop_ingress_plain(clone_carry(c0), *args, clone_q(q0), limit, tm)
+            got = chain.pop_ingress(clone_carry(c0), *args, clone_q(q0), limit, tm)
+            err = max(err, check_equal(f"K36/{lane}/{seed}", flat_tensors(got),
+                                       flat_tensors(want)))
+        # timings on the last case
+        r = kernel_ms("pop_ingress",
+                      lambda qq, cc: chain.pop_ingress(cc, *args, qq, limit, tm),
+                      lambda: (clone_q(q0), clone_carry(c0)))
+        r["plain_ms"] = time_ms(lambda qq, cc: chain.pop_ingress_plain(cc, *args, qq, limit, tm),
+                                lambda: (clone_q(q0), clone_carry(c0)))
+        r["bound"] = pop_ingress_bound(case, want)
+        r["max_abs_err"] = err
+        r["active_share"] = float(want[3].float().mean())
+        r["shape"] = {"hosts": h, "capacity": C, "payload": P, "limits": form}
+        if lane == "main":
+            # the two-launch path at the same inputs (K2, then K10 on its
+            # event), and both paths on the same queue without time ties and
+            # cut to its first 12 slots (the anchor's rows hold at most 13)
+            def k2_k10(qq, cc):
+                qq, e, a = ev.pop_min(qq, limit)
+                return chain.event_ingress(cc, *args, e, a, tm)
+
+            r["k2_then_k10"] = timed(k2_k10, q0, c0, ("pop_min_kernel", "event_ingress_kernel"))
+            col = torch.arange(C, device=dev)
+            live = q0.t != TIME_MAX
+            queues = {"no_ties": q0._replace(t=torch.where(live, q0.t + col * 1000, q0.t))}
+            queues["sparse"] = queues["no_ties"]._replace(
+                t=torch.where(col < 12, queues["no_ties"].t, TIME_MAX))
+            r["queues"] = {}
+            for name, qv in queues.items():
+                want_v = chain.pop_ingress_plain(clone_carry(c0), *args, clone_q(qv), limit, tm)
+                got_v = chain.pop_ingress(clone_carry(c0), *args, clone_q(qv), limit, tm)
+                check_equal(f"K36/{name}", flat_tensors(got_v), flat_tensors(want_v))
+                r["queues"][name] = {
+                    "k36": timed(lambda qq, cc: chain.pop_ingress(cc, *args, qq, limit, tm), qv,
+                                 c0, KERNEL_SYMBOLS["pop_ingress"]),
+                    "k2_then_k10": timed(k2_k10, qv, c0, ("pop_min_kernel",
+                                                          "event_ingress_kernel")),
+                    "bound_ms": pop_ingress_bound(dict(case, queue=qv), want_v)[0]}
+        out[lane] = settle(f"pop_ingress/{lane}", r, r["bound"][0])
+    res = out.pop("main")
+    res["library_ms"] = None
+    res["library_why"] = "no single PyTorch call computes the pop and the ingress"
+    res.update(out)
+    return res
+
+
 def phase_kernels_fluid(dev) -> dict[str, dict]:
     """K14-K16 and fluid-on K11 against their plain versions at config 12's
     shapes (H = 10,000 hosts, 100 per link on N = 100 links, K = 4 classes,
@@ -2810,6 +2958,7 @@ KERNEL_SYMBOLS = {
     "queue_block_minima": ("block_minima_kernel",),
     "event_ingress": ("event_ingress_kernel",),
     "event_egress": ("event_egress_kernel",),
+    "pop_ingress": ("pop_ingress_kernel",),
     "wheel_cancel": ("wheel_cancel_kernel",),
     "fluid_fg_link_bytes": ("fg_link_bytes_kernel",),
     "fluid_advance": ("fluid_advance_kernel",),
@@ -2842,7 +2991,8 @@ RANGES = ("ingress", "handler", "egress")
 def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
     """Where a leg's time goes: three unprofiled chunks (the first carries
     first-use costs; the third is timed), then one chunk under
-    torch.profiler with the per-event chain's three steps — ingress (K10),
+    torch.profiler with the per-event chain's three steps — ingress (K10,
+    or K36 with the pop where the queue is flat and K = 1),
     the model's handler (its kernel, K17-K22), egress with the outbox
     append (K11) — marked as ranges: device busy share, launches per
     microstep, each range's device time and launches per microstep (the
@@ -2885,8 +3035,10 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
         advanced.append((st.now - now0) / 1e9)
     msteps0 = int(st.stats.microsteps.sum())
     syncs0 = eng.host_syncs
-    patched = {n: getattr(engine_mod, n) for n in ("event_ingress", "event_egress")}
+    patched = {n: getattr(engine_mod, n) for n in ("event_ingress", "pop_ingress",
+                                                    "event_egress")}
     engine_mod.event_ingress = ranged("ingress", patched["event_ingress"])
+    engine_mod.pop_ingress = ranged("ingress", patched["pop_ingress"])
     engine_mod.event_egress = ranged("egress", patched["event_egress"])
     eng.model.handle = ranged("handler", eng.model.handle)
     for k in KERNELS.values():
@@ -2921,8 +3073,8 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
     # the trace does not tie a ctypes launch to the range around it: each
     # range gets its own kernel's launches and device time by name, plus
     # the PyTorch kernels of the ops inside it
-    own = {"ingress": "event_ingress", "handler": HANDLER_OF[eng.model.name],
-           "egress": "event_egress"}
+    own = {"ingress": "pop_ingress" if KERNELS["pop_ingress"].launches else "event_ingress",
+           "handler": HANDLER_OF[eng.model.name], "egress": "event_egress"}
     ranges = {}
     for name in RANGES:
         evs = [e for e in prof.events() if e.name == name]
@@ -2947,6 +3099,9 @@ def phase_profile(cfg_dict: dict, floors: dict[str, float]) -> dict:
         "device_busy_share": dev_ms / (wall * 1e3),
         "device_launches": sum(e.count for e in dev),
         "device_launches_per_microstep": sum(e.count for e in dev) / max(msteps, 1),
+        # every hand-written kernel's launches by their counters, exact
+        "port_launches_per_microstep": sum(k.launches for k in KERNELS.values())
+        / max(msteps, 1),
         # the chain's kernels (K10, the handler's, K11) by their launch
         # counters, exact; and by the trace's ranges
         "chain_launches_per_microstep": sum(
@@ -3218,24 +3373,44 @@ def run_leg(name: str, cfg_dict: dict, ref: dict, path: tuple,
     if not all(launches[k] for k in path):
         raise AssertionError(f"{name}: a kernel of the path never launched: {launches}")
     check_handler_launches(name, launches)
+    if "pop_ingress" in path:
+        check_k36_path(name, launches)
     return launches, report
+
+
+def check_k36_path(name: str, launches: dict) -> None:
+    """A one-event leg on a flat queue pops and runs the ingress through
+    K36 alone: K2, K10, K5 and K6 never launch."""
+    other = {k: launches[k] for k in ("queue_pop_min", "event_ingress", "queue_pop_k",
+                                      "queue_clear_popped") if launches[k]}
+    if other:
+        raise AssertionError(f"{name}: launched {other} beside K36")
+
+
+def ingress_launches(launches: dict) -> int:
+    """Ingress launches of a run: K10's (the K-way columns, the wheel and
+    the bucketed queue) and K36's (the one-event microstep's pop and
+    ingress on a flat queue)."""
+    return launches["event_ingress"] + launches["pop_ingress"]
 
 
 def check_handler_launches(name: str, launches: dict) -> None:
     """One handler kernel launch per event_body call: on a run, the
-    model's handler kernel launched as often as the ingress kernel, and no
+    model's handler kernel launched as often as the ingress kernels, and no
     other handler kernel launched."""
     ran = {k: launches[k] for k in HANDLER_OF.values() if launches[k]}
-    if len(ran) != 1 or next(iter(ran.values())) != launches["event_ingress"]:
+    if len(ran) != 1 or next(iter(ran.values())) != ingress_launches(launches):
         raise AssertionError(f"{name}: handler launches {ran} against "
-                             f"{launches['event_ingress']} ingress launches")
+                             f"{ingress_launches(launches)} ingress launches")
 
 
 CHAIN_PATH = ("event_ingress", "event_egress")
 # each model's handler kernel, run once per event_body call
 HANDLER_OF = {model: name for name, (model, _, _) in HANDLERS.items()}
-ANCHOR_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "merge_insert",
-               *CHAIN_PATH, "phold_handle")
+# the one-event microstep on a flat queue pops and runs the ingress in one
+# kernel (K36); K2 and K10 run on no such path
+ANCHOR_PATH = ("queue_next_time", "pop_ingress", "queue_push_many", "merge_insert",
+               "event_egress", "phold_handle")
 TGEN_PATH = ("queue_next_time", "merge_insert", "queue_pop_k", "queue_clear_popped",
              "queue_push_many_bucketed", "queue_block_minima", *CHAIN_PATH, "tgen_handle")
 # the wheel path: the queue's and the wheel's pops are K5 (per-host
@@ -3245,8 +3420,8 @@ CFG11_PATH = TGEN_PATH + ("trace_round", "flow_append")
 # merges instead of K4. Config 5's timers never send: no merge, no append
 CFG2_PATH = ANCHOR_PATH
 CFG2_SCATTER_PATH = tuple("merge_scatter" if k == "merge_insert" else k for k in ANCHOR_PATH)
-CFG5_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "event_ingress",
-             "event_egress", "timer_handle")
+CFG5_PATH = ("queue_next_time", "pop_ingress", "queue_push_many", "event_egress",
+             "timer_handle")
 # config 12 is config 6's path plus the fluid plane's three kernels, each
 # once per round
 FLUID_PATH = ("fluid_fg_link_bytes", "fluid_advance", "fluid_host_effects")
@@ -3255,9 +3430,8 @@ CFG12_PATH = TGEN_PATH + FLUID_PATH + ("trace_round", "flow_append")
 CFG1_PATH = tuple("echo_handle" if k == "phold_handle" else k for k in ANCHOR_PATH)
 CFG3_PATH = tuple("gossip_handle" if k == "phold_handle" else k for k in ANCHOR_PATH)
 CFG4_PATH = tuple("circuit_handle" if k == "phold_handle" else k for k in ANCHOR_PATH)
-# under the CPU model every pop has per-host limits: K5 + K6 replace K2
-ANCHOR_DELAY_PATH = tuple(k for k in ANCHOR_PATH if k != "queue_pop_min") + (
-    "queue_pop_k", "queue_clear_popped")
+# under the CPU model every pop has per-host limits, which K36 reads
+ANCHOR_DELAY_PATH = ANCHOR_PATH
 # config 7's queue-hold pops have per-host limits too, found by K23 at
 # the busy-floored head; config 10 is config 6's path plus K24
 CFG7_PATH = ANCHOR_DELAY_PATH + ("fault_down_resume",)
@@ -3274,7 +3448,7 @@ CFG9_PATH = ANCHOR_PATH + PRESSURE_PATH
 CFG9_ABORT_PATH = ANCHOR_PATH + ("pressure_total",)
 SOURCES = {"merge_insert": "shadow_tpu_torch/csrc/merge.cu",
            "merge_scatter": "shadow_tpu_torch/csrc/merge.cu",
-           **{k: "shadow_tpu_torch/csrc/event.cu" for k in CHAIN_PATH},
+           **{k: "shadow_tpu_torch/csrc/event.cu" for k in (*CHAIN_PATH, "pop_ingress")},
            **{k: "shadow_tpu_torch/csrc/fluid.cu" for k in FLUID_PATH},
            **{k: "shadow_tpu_torch/csrc/models.cu" for k in HANDLER_OF.values()},
            "fault_down_resume": "shadow_tpu_torch/csrc/faults.cu",
@@ -3301,6 +3475,7 @@ REPLACES = {
     "queue_block_minima": "shadow_tpu/ops/events.py:460",
     "event_ingress": "shadow_tpu/core/engine.py:2280",
     "event_egress": "shadow_tpu/core/engine.py:2415",
+    "pop_ingress": "shadow_tpu/ops/events.py:138 + shadow_tpu/core/engine.py:2280",
     "wheel_cancel": "shadow_tpu/ops/wheel.py:123",
     "fluid_fg_link_bytes": "shadow_tpu/core/engine.py:2202",
     "fluid_advance": "shadow_tpu/net/fluid.py:222",
@@ -3332,7 +3507,7 @@ WORLD_ONLY = ("dshard_pack", "exchange_unpack")
 # ported for (wheel_cancel has no engine caller, in either package)
 PORTED_FOR = {
     **{k: "anchor" for k in ("queue_next_time", "queue_pop_min", "queue_push_many",
-                             "merge_insert")},
+                             "merge_insert", "pop_ingress")},
     **{k: "tgen" for k in ("queue_pop_k", "queue_clear_popped", "queue_push_many_bucketed",
                            "queue_block_minima", *CHAIN_PATH)},
     "wheel_cancel": "cfg11",
@@ -3765,9 +3940,9 @@ def phase_kernels_ensemble(dev) -> dict[str, dict]:
         lanes[name] = t
     lim = torch.as_tensor(np.repeat([10**9, 0, 5 * 10**8, 0], H8), device=dev)
     qp = ev.EventQueue(*(torch.as_tensor(a, device=dev) for a in q_np))
-    got = ev.pop_min(clone_q(qp), lim, rows=True)
+    got = ev.pop_min(clone_q(qp), lim)
     want = ev.pop_min_plain(clone_q(qp), lim)
-    t = kernel_ms("queue_pop_min", lambda qq: ev.pop_min(qq, lim, rows=True),
+    t = kernel_ms("queue_pop_min", lambda qq: ev.pop_min(qq, lim),
                   lambda: (clone_q(qp),))
     t["plain_ms"] = time_ms(lambda qq: ev.pop_min_plain(qq, lim), lambda: (clone_q(qp),))
     t["bound"] = bound(io_bytes(reads=[qp.t, qp.order, lim], writes=flat_tensors(got[1:])), n)
@@ -3865,13 +4040,14 @@ def phase_cfg8() -> tuple[dict, dict]:
          digests=[row["digest"] for row in led["replicas"]], **out["campaign"])
     if led["replicas"] != CFG8_ROWS or led["chunk_digest_sigs"] != CFG8_SIGS:
         raise AssertionError(f"cfg8: the campaign's ledger differs from JAX's: {led['replicas']}")
-    path = ("queue_next_time", "queue_pop_min", "queue_push_many", "merge_insert",
-            *CHAIN_PATH, "phold_handle", "replica_window", "replica_fold")
+    path = ("queue_next_time", "pop_ingress", "queue_push_many", "merge_insert",
+            "event_egress", "phold_handle", "replica_window", "replica_fold")
     steps = [row["microsteps"] for row in led["replicas"]]
     if not all(launches[k] for k in path) or not (
-            max(steps) <= launches["event_ingress"] <= sum(steps)):
+            max(steps) <= launches["pop_ingress"] <= sum(steps)):
         raise AssertionError(f"cfg8: a kernel of the path never launched, or not once per "
                              f"lockstep step: {launches}")
+    check_k36_path("cfg8", launches)
     solo_launch = {k: 0 for k in launches}
     solo = {"wall_seconds": 0.0, "host_syncs": 0, "replica_rounds": 0}
     for spec in expand_replicas(ConfigOptions.from_dict(cfg)):
@@ -4015,6 +4191,71 @@ def phase_observer_cost() -> dict:
         emit(f"observer_cost_{name}", runs=runs)
         out[name] = runs
     return out
+
+
+# one turn of `--turns`: in the tree it runs from, build the kernels, run
+# the one-event legs and profile the anchor's and the tgen leg's chunk with
+# that tree's own chip_smoke functions (paths and references included),
+# and print one JSON line
+TURN_CHILD = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from shadow_tpu_torch.ops.cuda_build import build_all
+from shadow_tpu_torch.testing import cfg7_config
+
+build_all()
+legs = {
+    "anchor": (cs.anchor_config(), {"determinism_digest": cs.ANCHOR_DIGEST,
+                                    "events_processed": cs.ANCHOR_EVENTS}, cs.ANCHOR_PATH),
+    "anchor_cpu_delay": (cs.with_experimental(cs.anchor_config(), cpu_delay=cs.ANCHOR_CPU_DELAY),
+                         cs.ANCHOR_DELAY_REF, cs.ANCHOR_DELAY_PATH),
+    "cfg2": (cs.cfg2_config(False, cs.CFG2_STOP), cs.CFG2_REF, cs.CFG2_PATH),
+    "cfg3": (cs.cfg3_config(False), cs.CFG3_REF, cs.CFG3_PATH),
+    "cfg7": (cfg7_config(), cs.CFG7_REF, cs.CFG7_PATH),
+}
+out = {}
+for name, (cfg, ref, path) in legs.items():
+    launches, rep = cs.run_leg(name, cfg, ref, path)
+    out[name] = {"wall_seconds": rep["wall_seconds"], "host_syncs": rep["host_syncs"],
+                 "microsteps": rep["microsteps"],
+                 "port_launches_per_microstep": sum(launches.values()) / rep["microsteps"]}
+for name, cfg in (("anchor_profile", cs.anchor_config()),
+                  ("tgen_profile", cs.tgen_config(False, cs.TGEN_STOP, rounds_per_chunk=8))):
+    p = cs.phase_profile(cfg, {})
+    out[name] = {k: p[k] for k in ("microsteps", "host_syncs", "device_launches_per_microstep",
+                                   "chain_launches_per_microstep", "device_busy_share",
+                                   "profiled_chunk_wall_s")}
+    out[name]["port_launches_per_microstep"] = sum(
+        v["calls"] for v in p["port_kernels"].values()) / p["microsteps"]
+print(json.dumps(out), flush=True)
+"""
+
+
+def main_turns(other: str) -> int:
+    """`--turns DIR`: this tree against the tree unpacked in DIR (the
+    parent commit), in turns (DIR, this, this, DIR), each turn a process of
+    its own running TURN_CHILD: the one-event legs' run loops, host syncs
+    and port launches per microstep, and the anchor's and tgen's profiled
+    chunk. Each leg must give its JAX reference in every turn."""
+    turns = []
+    for tree in (other, ".", ".", other):
+        t0 = time.monotonic()
+        r = subprocess.run([sys.executable, "-c", TURN_CHILD], cwd=tree, capture_output=True,
+                           text=True)
+        if r.returncode != 0:
+            print(r.stdout[-3000:], r.stderr[-6000:], file=sys.stderr)
+            raise AssertionError(f"turn in {tree} failed")
+        res = json.loads(r.stdout.strip().splitlines()[-1])
+        emit("turn", tree="parent" if tree == other else "change",
+             seconds=time.monotonic() - t0, **res)
+        turns.append(res)
+    summary = {}
+    for leg in turns[0]:
+        summary[leg] = {side: {k: [turns[i][leg][k] for i in idx] for k in turns[0][leg]}
+                        for side, idx in (("parent", (0, 3)), ("change", (1, 2)))}
+    emit("turns_summary", **summary)
+    return 0
 
 
 # --------------------------------------------------------------------------
@@ -4243,8 +4484,8 @@ COSIM_RING = 128  # the bridge's capture ring (models/hybrid.py)
 # the kernels every co-sim leg runs: the solo round's (flat queue, K = 1),
 # K4 also for the prepare step's staged sends, K33 and K35; the mixed leg
 # also K34 and its inner model's handler
-COSIM_PATH = ("queue_next_time", "queue_pop_min", "queue_push_many", "merge_insert",
-              *CHAIN_PATH, "hybrid_handle", "guarded_window")
+COSIM_PATH = ("queue_next_time", "pop_ingress", "queue_push_many", "merge_insert",
+              "event_egress", "hybrid_handle", "guarded_window")
 COSIM_MIXED_PATH = COSIM_PATH + ("mixed_plane", "echo_handle")
 
 
@@ -4493,7 +4734,7 @@ def phase_cosim_legs() -> dict[str, dict]:
              host_syncs_per_window=report["host_syncs_per_window"], perf=report["perf"],
              max_memory_allocated=torch.cuda.max_memory_allocated(),
              launches={k: got[k] for k in ("hybrid_handle", "mixed_plane", "guarded_window",
-                                           "event_ingress", "merge_insert")},
+                                           "pop_ingress", "event_ingress", "merge_insert")},
              all_launches=got)
         diff = {k: (final.get(k), v) for k, v in want.items() if final.get(k) != v}
         if diff or not files_equal:
@@ -4501,11 +4742,12 @@ def phase_cosim_legs() -> dict[str, dict]:
                                  f"{'' if files_equal else '; output files differ'}")
         if not all(got[k] for k in path):
             raise AssertionError(f"{name}: a kernel of the path never launched: {got}")
+        check_k36_path(name, got)
         per_event = {"hybrid_handle": 1, **({"mixed_plane": 2, "echo_handle": 1}
                                             if "mixed_plane" in path else {})}
-        if any(got[k] != c * got["event_ingress"] for k, c in per_event.items()):
+        if any(got[k] != c * ingress_launches(got) for k, c in per_event.items()):
             raise AssertionError(f"{name}: handler launches {got} against "
-                                 f"{got['event_ingress']} ingress launches")
+                                 f"{ingress_launches(got)} ingress launches")
         launches[name] = got
     return launches
 
@@ -4568,6 +4810,11 @@ def main() -> int:
         emit("total", seconds=round(time.monotonic() - t_start, 3))
         print(smi, flush=True)
         return 0
+    if sys.argv[1:2] == ["--turns"] and len(sys.argv) == 3:
+        rc = main_turns(sys.argv[2])
+        emit("total", seconds=round(time.monotonic() - t_start, 3))
+        print(smi, flush=True)
+        return rc
     if sys.argv[1:2] == ["--world"]:
         if len(sys.argv) != 3 or not sys.argv[2].isdigit() or int(sys.argv[2]) < 2:
             print("chip_smoke: usage: chip_smoke.py --world N (N >= 2)", file=sys.stderr)
@@ -4604,6 +4851,15 @@ def main() -> int:
     slab = cres.pop("wheel_slab")
     kres.update(cres)
     kres["wheel_cancel"]["wheel_slab"] = slab
+
+    # phase 45: K36, the one-event microstep's pop and ingress in one launch
+    pres36 = phase_kernels_pop_ingress(dev)
+    emit("kernels_pop_ingress_vs_plain", ok=True, exact=True,
+         **{k: v for k, v in pres36.items() if k != "bound"})
+    for lane in ("cpu_delay", "fault_hold", "fault_clear", "digest2", "event_classes",
+                 "replicas"):
+        pres36[lane]["bound_ms"] = pres36[lane].pop("bound")[0]
+    kres["pop_ingress"] = pres36
 
     law = phase_codel_law(dev)
     emit("codel_law", **law)
@@ -4914,9 +5170,10 @@ def main() -> int:
             **({"library_call": r["library_call"]} if "library_call" in r else {}),
             **{lane: {k: r[lane][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
                for lane in ("busy_floor", "cpu_delay", "merge_rows", "fault_floor", "fault_hold",
-                            "digest2", "fault_window", "event_classes", "flow_lanes", "replicas",
-                            "cosim_prepare")
+                            "fault_clear", "digest2", "fault_window", "event_classes",
+                            "flow_lanes", "replicas", "cosim_prepare")
                if lane in r},
+            **({"k2_then_k10": r["k2_then_k10"]} if "k2_then_k10" in r else {}),
         })
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)

@@ -7,8 +7,9 @@ One round advances every host through the safe window [now, window_end):
      slab or the bucketed queue's block caches);
   2. window_end = min(gmin + runahead, stop_time);
   3. microsteps, while any host has an event before window_end: every host
-     pops its earliest event (K2; K5 + K6 on the bucketed queue), packet
-     arrivals pass ingress shaping (CoDel + downlink token bucket, K10), one
+     pops its earliest event and packet arrivals pass ingress shaping (CoDel
+     + downlink token bucket): one kernel for both on a flat queue (K36),
+     else the pop (K5 + K6 on the bucketed queue) and K10; one
      vectorized model handler runs for all hosts, sends pass egress shaping
      (budget, uplink bucket, loss/jitter draws, routing) and K11 appends
      them to the [H, B] outbox itself; local pushes land in the queue (K3;
@@ -122,8 +123,10 @@ from shadow_tpu_torch.core.integrity import DIGEST2_OFFSET_I64, IntegrityCheck
 from shadow_tpu_torch.obs.netobs import make_flow_ledger
 from shadow_tpu_torch.obs.tracer import make_trace_ring
 from shadow_tpu_torch.ops.chain import (
+    Ingress,
     event_egress,
     event_ingress,
+    pop_ingress,
     timer_kind_mask,
 )
 from shadow_tpu_torch.models.base import KIND_MASK, KIND_PKT, HandlerCtx
@@ -1337,19 +1340,25 @@ class Engine:
         """The one-event microstep: pop, execute (egress appends the sends),
         push. Under the CPU model (or queue-hold crash faults) a host pops
         only while its execution floor is inside the window, and ingress
-        (K10) moves the event to its execution time for every consumer
-        downstream; under queue-clear faults K10 consumes an event whose
-        host is down without dispatching it."""
+        moves the event to its execution time for every consumer
+        downstream; under queue-clear faults ingress consumes an event
+        whose host is down without dispatching it. On a flat queue without
+        the wheel the pop and the ingress are one kernel (K36,
+        `pop_ingress`); otherwise the pop, then K10."""
         wheel = st.wheel
         limit = self._pop_limit(st, _limit_of(window_end), params)
-        if wheel is None:
-            queue, ev, active = q_pop_min(st.queue, limit, isinstance(window_end, FoldWindow))
-        else:
+        c, ing = _ev_carry_of(st), None
+        if wheel is not None:
             queue, wheel, ev, active = pop_min_merged(st.queue, wheel, limit)
+        elif isinstance(st.queue, BucketQueue):
+            queue, ev, active = q_pop_min(st.queue, limit)
+        else:
+            queue, c, ev, active, ing = pop_ingress(c, params, self.cfg, st.queue, limit,
+                                                    self._timer_mask)
         lanes = self._flow_lanes(1)
         c, push_list = self.event_body(
-            _ev_carry_of(st), params, window_end, ev, active, fluid_fx,
-            lanes.row(0) if lanes is not None else None,
+            c, params, window_end, ev, active, fluid_fx,
+            lanes.row(0) if lanes is not None else None, ing,
         )
         if wheel is not None and push_list:
             push_list, push_w, spilled = self._route_timer_pushes(wheel, push_list)
@@ -1496,18 +1505,20 @@ class Engine:
         )
 
     def event_body(self, c: _EvCarry, params: EngineParams, window_end: int, ev, active,
-                   fluid_fx=None, flow: FlowLanes | None = None):
+                   fluid_fx=None, flow: FlowLanes | None = None, ing: Ingress | None = None):
         """Execute one event per active host: ingress (the CPU model's
-        execution time, digest, event classes, shaping, dispatch; K10), the
-        model's handler (with the flow ledger on, writing the event's flow
-        records into `flow`, a FlowLanes row), egress (pushes, and sends
-        appended to the carry's outbox with their latencies folded into its
-        `min_used_lat`, with the round's fluid coupling `fluid_fx`; K11).
-        Returns (carry', pushes)."""
+        execution time, digest, event classes, shaping, dispatch; K10, or
+        `ing` where the pop already ran it, K36), the model's handler (with
+        the flow ledger on, writing the event's flow records into `flow`, a
+        FlowLanes row), egress (pushes, and sends appended to the carry's
+        outbox with their latencies folded into its `min_used_lat`, with
+        the round's fluid coupling `fluid_fx`; K11). Returns (carry',
+        pushes)."""
         cfg = self.cfg
         if isinstance(window_end, FoldWindow):
             window_end = window_end.lane
-        c, ing = event_ingress(c, params, cfg, ev, active, self._timer_mask)
+        if ing is None:
+            c, ing = event_ingress(c, params, cfg, ev, active, self._timer_mask)
         out = self.model.handle(HandlerCtx(
             t=ing.t,
             window_end=window_end,

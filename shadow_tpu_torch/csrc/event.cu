@@ -18,6 +18,11 @@
 //       the model's timer kinds, as a bitmask; packet; app) counted into
 //       the three [1] ec_* lanes, per block in shared memory, then one
 //       64-bit atomic add per class and block
+//   K36 shadow_tpu/ops/events.py:138 pop_min followed by K10's ingress: the
+//       one-event microstep's pop from a flat queue (the pop's device code
+//       in queue_pop.cuh, shared with K2) and its ingress in one launch,
+//       under one scalar limit or per-host limits (the CPU model's and
+//       queue hold's held hosts, the ensemble plane's per-row window ends)
 //   K11 shadow_tpu/core/engine.py:2415-2640 _event_body, egress half (B5):
 //       the model's local pushes (order keys, monotonic violations), then
 //       every send port and burst segment: route lookup, send budget,
@@ -52,7 +57,18 @@
 // host for the whole chain, keeping the RNG lanes, token buckets, CoDel
 // state, seq and send cursor in registers, so the sequential port/segment
 // loop with its threaded state needs no synchronisation at all, and the
-// result cannot depend on scheduling. No shared memory.
+// result cannot depend on scheduling.
+//
+// K10 and K36 share one ingress body (`load_host`, `ingress_host`): every
+// carry lane it reads is loaded into registers before the first store, so
+// the loads' latencies overlap instead of adding up behind stores the
+// compiler could not move them past, and every store comes last. Blocks
+// of 64 threads, so 10,000 hosts spread over all 132 SMs. K36 (the pop and
+// the ingress of the one-event microstep) saves K2's launch, its [H] event
+// round trip through device memory and the wrapper's allocations: a group
+// of four lanes owns a host, reads its row of the time plane into
+// registers while its lead loads the carry lanes, and reads the order plane
+// only where the least time ties; the lead then runs the ingress.
 //
 // K11's outbox epilogue, and why it equals the separate append bit for bit:
 // a host's send cursor `sent_round` rises by one per landed send within a
@@ -79,15 +95,17 @@
 // per-host route rows held once ([HR, N]) or per row ([H, N]). K10 reads no
 // host id and no window: its rows are replica-blind. HR = H is one replica.
 //
-// Argument blocks: K10 and K11 take their pointers and scalars as one int64
-// array read in a fixed order (`Args` below); the Python wrappers
-// (ops/chain.py) build it in the same order.
+// Argument blocks: K10, K11 and K36 take their pointers and scalars as one
+// int64 array read in a fixed order (`Args` below; K36's is K10's followed
+// by the pop's); the Python wrappers (ops/chain.py) build it in the same
+// order.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "event_math.cuh"
 #include "faults.cuh"
+#include "queue_pop.cuh"
 
 using namespace evm;
 
@@ -110,14 +128,23 @@ struct Reader {
 };
 
 // ---------------------------------------------------------------------------
-// K10 event_ingress
+// K10 event_ingress and K36 pop_ingress
 // ---------------------------------------------------------------------------
+
+// Threads per block of K10: 10,000 hosts make 157 blocks over the card's
+// 132 SMs. K36: 128 threads per block (32 hosts of four lanes: 10,000 hosts
+// make 313 blocks, all resident at once), and the columns each lane holds
+// per pass of its row (four lanes: a 64-slot row in one pass).
+constexpr int kIngressThreads = 64;
+constexpr int kPopThreads = 128;
+constexpr int kPopPerLane = 16;
 
 struct IngressArgs {
   int H, P, es, shaping, use_codel;
   long long interval;
   // event (host stride es; payload stride es * P) and the active mask; the
-  // time lane is rewritten to the execution time under the CPU model
+  // time lane is rewritten to the execution time under the CPU model. K36
+  // writes these (es = 1) from the pop.
   long long* ev_t;
   const long long* ev_order;
   const int* ev_kind;
@@ -164,83 +191,149 @@ struct IngressArgs {
   long long* ec[3];  // timer, packet, app
 };
 
-// One host's ingress; returns the executed event's class (1 timer, 2
-// packet, 3 app) or 0 where no event executed.
-__device__ __forceinline__ int ingress_one(const IngressArgs& a, const int h) {
-  if (h >= a.H) return 0;
-  const long long ei = (long long)h * a.es;
-  bool act = a.active[h];
-  long long t = a.ev_t[ei];
+// One host's carry lanes that ingress reads, in registers. Only the lanes
+// of the planes that are on are loaded.
+struct HostIn {
+  long long events = 0, delivered = 0, busy = 0, faults = 0;
+  unsigned long long digest = 0, digest2 = 0;
+  long long tb_tokens = 0, tb_itv = 0, tb_cap = 0, tb_refill = 0, codel_dropped = 0;
+  long long cd_first_above = 0, cd_drop_next = 0;
+  int cd_count = 0;
+  bool cd_dropping = false;
+};
+
+// The event one host executes, before the execution-time rewrite.
+struct EvIn {
+  bool act;
+  long long t, order;
+  int kind;
+  int size;  // payload word kSizeWord (the packet's bytes), read under shaping
+};
+
+// Every carry lane ingress reads, before any store: none of these depends
+// on the event, so K36 issues them before its pop.
+__device__ __forceinline__ HostIn load_host(const IngressArgs& a, const int h) {
+  const long long* __restrict__ events = a.events;
+  const unsigned long long* __restrict__ digest = a.digest;
+  const long long* __restrict__ delivered = a.delivered;
+  HostIn s;
+  s.events = events[h];
+  s.digest = digest[h];
+  s.delivered = delivered[h];
+  if (a.digest2 != nullptr) s.digest2 = a.digest2[h];
+  if (a.busy != nullptr) s.busy = a.busy[h];
+  if (a.fault_mode == 1) s.faults = a.faults_delayed[h];
+  if (a.fault_mode == 2) s.faults = a.faults_dropped[h];
+  if (a.shaping) {
+    const long long* __restrict__ tokens = a.tb_tokens;
+    const long long* __restrict__ itv = a.tb_itv;
+    const long long* __restrict__ codel_dropped = a.codel_dropped;
+    s.tb_tokens = tokens[h];
+    s.tb_itv = itv[h];
+    s.tb_cap = __ldg(a.tb_cap + h);
+    s.tb_refill = __ldg(a.tb_refill + h);
+    s.codel_dropped = codel_dropped[h];
+    if (a.use_codel) {
+      const long long* __restrict__ fa = a.cd_first_above;
+      const long long* __restrict__ dn = a.cd_drop_next;
+      const int* __restrict__ cnt = a.cd_count;
+      const bool* __restrict__ dropping = a.cd_dropping;
+      s.cd_first_above = fa[h];
+      s.cd_drop_next = dn[h];
+      s.cd_count = cnt[h];
+      s.cd_dropping = dropping[h];
+    }
+  }
+  return s;
+}
+
+// Whether the host is down at t under its crash windows, and the restart
+// of the window containing t.
+__device__ __forceinline__ bool host_down(const IngressArgs& a, const int h, const long long t,
+                                          long long& resume) {
+  const long long row = (long long)h * a.W;
+  return flt::down_resume(a.down_t + row, a.up_t + row, a.W, t, resume);
+}
+
+// One host's ingress on lanes already in registers: the arithmetic in
+// registers, then every store. `t` gets the execution time (the event's
+// own where no floor moved it). Returns the executed event's class (1
+// timer, 2 packet, 3 app) or 0 where no event executed.
+__device__ __forceinline__ int ingress_host(const IngressArgs& a, const int h, const HostIn& s,
+                                            const EvIn& e, long long& t) {
+  bool act = e.act;
+  t = e.t;
+  bool delayed = false, fdrop = false;
   if ((a.busy != nullptr || a.fault_mode == 1) && act) {
     // the execution time max(t, busy) — and under queue hold the restart
     // of a crash window containing it — replaces the event's time for
     // every consumer downstream (digest, shaping, handler, egress)
-    if (a.busy != nullptr) t = imax(t, a.busy[h]);
-    if (a.fault_mode == 1) {
-      long long resume;
-      if (flt::down_resume(a.down_t + (long long)h * a.W, a.up_t + (long long)h * a.W, a.W, t,
-                           resume)) {
-        t = imax(t, resume);
-        a.faults_delayed[h] = wadd(a.faults_delayed[h], 1);
-      }
+    if (a.busy != nullptr) t = imax(t, s.busy);
+    long long resume;
+    if (a.fault_mode == 1 && host_down(a, h, t, resume)) {
+      t = imax(t, resume);
+      delayed = true;
     }
-    a.ev_t[ei] = t;
-    if (a.busy != nullptr) a.busy[h] = wadd(t, a.cpu_delay);
   }
   if (a.fault_mode == 2 && act) {
     // queue clear: an event executing inside a crash window is consumed
     // (its host's CPU time charged) but not dispatched: no digest, no
     // pushes, no sends
     long long resume;
-    if (flt::down_resume(a.down_t + (long long)h * a.W, a.up_t + (long long)h * a.W, a.W, t,
-                         resume)) {
+    if (host_down(a, h, t, resume)) {
       act = false;
-      a.faults_dropped[h] = wadd(a.faults_dropped[h], 1);
+      fdrop = true;
     }
   }
-  const long long order = a.ev_order[ei];
-  const int kind = a.ev_kind[ei];
-  if (act) {
-    a.events[h] = wadd(a.events[h], 1);
-    a.digest[h] = digest_fold(a.digest[h], t, kind, order);
-    if (a.digest2 != nullptr) a.digest2[h] = digest2_fold(a.digest2[h], t, kind, order);
-  }
+  const long long order = e.order;
+  const int kind = e.kind;
   const bool pkt = (kind & kKindPkt) != 0;
   bool dispatch = act;
+  bool needs = false, drop = false, charge = false, delay = false;
+  long long depart = 0, tokens = s.tb_tokens, itv = s.tb_itv;
+  Codel cd{s.cd_first_above, s.cd_drop_next, s.cd_count, s.cd_dropping};
   if (a.shaping) {
-    const bool needs = act && pkt && (kind & kKindIngressDone) == 0;
-    const long long size_bits = wmul((long long)a.ev_payload[ei * a.P + kSizeWord], 8);
-    long long tokens = a.tb_tokens[h], itv = a.tb_itv[h];
-    const long long cap = a.tb_cap[h], refill = a.tb_refill[h];
-    // the probe: the departure the packet would get (the charge below sees
-    // the same state, so it departs at the same time)
-    long long tk0 = tokens, it0 = itv;
-    const long long depart = tb_remove(tk0, it0, cap, refill, a.interval, t, size_bits, false);
-    bool drop = false;
-    if (a.use_codel) {
-      Codel cd{a.cd_first_above[h], a.cd_drop_next[h], a.cd_count[h], a.cd_dropping[h]};
-      drop = codel_on_packet(cd, t, wsub(depart, t), needs);
-      if (needs) {
-        a.cd_first_above[h] = cd.first_above;
-        a.cd_drop_next[h] = cd.drop_next;
-        a.cd_count[h] = cd.count;
-        a.cd_dropping[h] = cd.dropping;
-      }
+    needs = act && pkt && (kind & kKindIngressDone) == 0;
+    const long long size_bits = wmul((long long)e.size, 8);
+    // the departure the packet gets, and the bucket after its charge:
+    // CoDel judges the sojourn, then the charge applies the plan
+    const TbPlan tp = tb_plan(tokens, itv, s.tb_cap, s.tb_refill, a.interval, t, size_bits);
+    depart = tp.depart;
+    if (a.use_codel) drop = codel_on_packet(cd, t, wsub(depart, t), needs);
+    charge = needs && !drop;
+    if (charge && s.tb_refill > 0) {
+      tokens = tp.tokens;
+      itv = tp.last_itv;
     }
-    const bool charge = needs && !drop;
-    tb_remove(tokens, itv, cap, refill, a.interval, t, size_bits, charge);
-    if (charge && refill > 0) {
+    delay = charge && depart > t;
+    dispatch = act && !(needs && (drop || delay));
+  }
+  // the stores
+  if (act) {
+    a.events[h] = wadd(s.events, 1);
+    a.digest[h] = digest_fold(s.digest, t, kind, order);
+    if (a.digest2 != nullptr) a.digest2[h] = digest2_fold(s.digest2, t, kind, order);
+  }
+  if (a.busy != nullptr && e.act) a.busy[h] = wadd(t, a.cpu_delay);
+  if (delayed) a.faults_delayed[h] = wadd(s.faults, 1);
+  if (fdrop) a.faults_dropped[h] = wadd(s.faults, 1);
+  if (a.shaping) {
+    if (a.use_codel && needs) {
+      a.cd_first_above[h] = cd.first_above;
+      a.cd_drop_next[h] = cd.drop_next;
+      a.cd_count[h] = cd.count;
+      a.cd_dropping[h] = cd.dropping;
+    }
+    if (charge && s.tb_refill > 0) {
       a.tb_tokens[h] = tokens;
       a.tb_itv[h] = itv;
     }
-    const bool delay = charge && depart > t;
     a.rq_mask[h] = delay;
     a.rq_t[h] = depart;
     a.rq_kind[h] = kind | kKindIngressDone;
-    if (drop) a.codel_dropped[h] = wadd(a.codel_dropped[h], 1);
-    dispatch = act && !(needs && (drop || delay));
+    if (drop) a.codel_dropped[h] = wadd(s.codel_dropped, 1);
   }
-  if (dispatch && pkt) a.delivered[h] = wadd(a.delivered[h], 1);
+  if (dispatch && pkt) a.delivered[h] = wadd(s.delivered, 1);
   a.dispatch[h] = dispatch;
   a.is_pkt[h] = pkt;
   a.kind_out[h] = kind & kKindMask;
@@ -251,19 +344,184 @@ __device__ __forceinline__ int ingress_one(const IngressArgs& a, const int h) {
   return (mk < 64 && ((a.timer_mask >> mk) & 1ull)) ? 1 : 3;
 }
 
-__global__ void event_ingress_kernel(const IngressArgs a) {
-  const int cls = ingress_one(a, blockIdx.x * blockDim.x + threadIdx.x);
-  if (a.ec[0] == nullptr) return;  // the same for every thread of the launch
-  // the event-class lane: counts in shared memory, then one 64-bit atomic
-  // add per class and block (integer sums: exact in any order)
-  __shared__ unsigned int cnt[3];
-  if (threadIdx.x < 3) cnt[threadIdx.x] = 0;
-  __syncthreads();
-  if (cls) atomicAdd(&cnt[cls - 1], 1u);
-  __syncthreads();
-  if (threadIdx.x < 3 && cnt[threadIdx.x])
-    atomicAdd(reinterpret_cast<unsigned long long*>(a.ec[threadIdx.x]),
-              (unsigned long long)cnt[threadIdx.x]);
+// The event-class lane: counts in shared memory, then one 64-bit atomic
+// add per class and block (integer sums: exact in any order).
+struct ClassCounts {
+  unsigned* cnt;  // [3] in shared memory
+
+  __device__ __forceinline__ void init(const IngressArgs& a) {
+    if (a.ec[0] != nullptr && threadIdx.x < 3) cnt[threadIdx.x] = 0;
+    __syncthreads();
+  }
+  __device__ __forceinline__ void add(int cls) {
+    if (cls) atomicAdd(&cnt[cls - 1], 1u);
+  }
+  __device__ __forceinline__ void flush(const IngressArgs& a) {
+    __syncthreads();
+    if (threadIdx.x < 3 && cnt[threadIdx.x])
+      atomicAdd(reinterpret_cast<unsigned long long*>(a.ec[threadIdx.x]),
+                (unsigned long long)cnt[threadIdx.x]);
+  }
+};
+
+// K10: one thread per host; the event's lanes and the host's carry lanes
+// are loaded before the first store.
+__global__ void __launch_bounds__(kIngressThreads) event_ingress_kernel(const IngressArgs a) {
+  __shared__ unsigned cnt[3];
+  ClassCounts cc{cnt};
+  const bool classes = a.ec[0] != nullptr;  // the same for every thread of the launch
+  if (classes) cc.init(a);
+  const int h = blockIdx.x * blockDim.x + threadIdx.x;
+  int cls = 0;
+  if (h < a.H) {
+    const long long ei = (long long)h * a.es;
+    const HostIn s = load_host(a, h);
+    const EvIn e{a.active[h], a.ev_t[ei], a.ev_order[ei], a.ev_kind[ei],
+                 a.shaping ? a.ev_payload[ei * a.P + kSizeWord] : 0};
+    long long t;
+    cls = ingress_host(a, h, s, e, t);
+    if ((a.busy != nullptr || a.fault_mode == 1) && e.act) a.ev_t[ei] = t;
+  }
+  if (classes) {
+    cc.add(cls);
+    cc.flush(a);
+  }
+}
+
+// K36's pop: the flat queue's [H, C] slab and the limit (one for every
+// host, or per host where `limits` is not null).
+struct PopArgs {
+  long long* t;
+  long long* order;
+  const int* kind;
+  const int* payload;
+  int C;
+  long long limit;
+  const long long* limits;
+};
+
+// K36: pop each host's earliest event below its limit and run K10's
+// ingress on it, in one launch. A group of G lanes owns a host (G = 4 up
+// to 64 slots, else the warp); its lead lane (g = 0) runs the ingress.
+// Per host, in three steps with one round trip each:
+//  1. the lead loads the host's carry lanes and every lane its limit and
+//     its columns of the time plane (kPopPerLane per pass, lane g holding
+//     V adjacent columns in every V * G, so the group reads the row
+//     contiguously; V = 2, 16-byte loads, where C is even), all in flight
+//     together; the group merges the least time, its first slot and how
+//     many slots hold it (shuffles over the whole warp, tail lanes
+//     included, so no warp diverges before them);
+//  2. at one slot holding the least time (the common case: live keys
+//     rarely share a time) that slot wins: its order key, kind and payload
+//     are read together. Where several slots tie, each lane reads the
+//     order key at its tied slots, the group takes the (order, slot)
+//     minimum (a group-uniform branch: shuffles over the group's lanes),
+//     and the winner's kind and payload follow;
+//  3. the lead runs the ingress in registers and stores last: the slot
+//     clear, the event, `active`, the carry lanes and the outputs; the
+//     group's lanes store the payload words.
+// No shared memory and no barrier but the event-class lane's: the time
+// plane goes straight into registers (one warp request: 8 rows x 64 bytes).
+// Measured against a shared-memory tile filled by cp.async, it saves the
+// tile's second scan and write-back (PERF.md, K36's row).
+template <int G, int V>
+__global__ void __launch_bounds__(kPopThreads)
+    pop_ingress_kernel(const PopArgs q, const IngressArgs a, long long* __restrict__ ev_order,
+                       int* __restrict__ ev_kind, int* __restrict__ ev_payload,
+                       bool* __restrict__ active) {
+  __shared__ unsigned cnt[3];
+  ClassCounts cc{cnt};
+  const bool classes = a.ec[0] != nullptr;  // the same for every thread of the launch
+  if (classes) cc.init(a);
+  const int g = threadIdx.x & (G - 1);
+  const int h = blockIdx.x * (kPopThreads / G) + threadIdx.x / G;
+  const bool own = h < a.H;
+  const bool lead = own && g == 0;
+  const unsigned gmask =
+      G == 32 ? qpop::kFull : ((1u << G) - 1) << ((threadIdx.x & 31) & ~(G - 1));
+  const long long base = (long long)(own ? h : 0) * q.C;
+  // read here, cleared by the lead at the end (its reads come first)
+  const long long* t_row = q.t + base;
+  const long long* o_row = q.order + base;
+  // 1. carry lanes, limit and the time plane in flight together
+  HostIn s;
+  if (lead) s = load_host(a, h);
+  const long long lim = !own ? kTimeMax : q.limits != nullptr ? q.limits[h] : q.limit;
+  constexpr int W = G * kPopPerLane;
+  // the slot of a lane's j-th column in the pass from c0 (increasing in j)
+  const auto col = [g](int c0, int j) { return c0 + V * g + V * G * (j / V) + j % V; };
+  qpop::MinTies mt;
+  long long v[kPopPerLane];  // after the loop: the last pass's times
+  for (int c0 = 0; c0 < q.C; c0 += W) {
+#pragma unroll
+    for (int j = 0; j < kPopPerLane; j += V) {
+      const int c = col(c0, j);
+      if constexpr (V == 2) {  // C even: c < C holds c + 1 too
+        longlong2 x = make_longlong2(kTimeMax, kTimeMax);
+        if (own && c < q.C) x = *reinterpret_cast<const longlong2*>(t_row + c);
+        v[j] = x.x;
+        v[j + 1] = x.y;
+      } else {
+        v[j] = own && c < q.C ? t_row[c] : kTimeMax;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPopPerLane; ++j) mt.fold(v[j], col(c0, j));
+  }
+  mt.group_merge<G>();
+  // an active row's least time is live, so the padding never ties it
+  const bool act = own && mt.m < lim;
+  // 2. the winner
+  int slot = mt.first;
+  long long order = kOrderMax;
+  if (act && mt.ties > 1) {  // the same for the whole group
+    qpop::Cand w;
+    if (q.C <= W) {
+      // one pass: the times are still in registers, and every tied
+      // slot's order key is read in one round trip
+      long long o[kPopPerLane];
+#pragma unroll
+      for (int j = 0; j < kPopPerLane; ++j) o[j] = v[j] == mt.m ? o_row[col(0, j)] : kOrderMax;
+#pragma unroll
+      for (int j = 0; j < kPopPerLane; ++j)
+        if (v[j] == mt.m) w.fold(mt.m, o[j], col(0, j));
+    } else {
+      for (int c = g; c < q.C; c += G)
+        if (t_row[c] == mt.m) w.fold(mt.m, o_row[c], c);
+    }
+    qpop::group_min<G>(w, gmask);
+    slot = w.i;
+    order = w.o;
+  }
+  const long long at = base + slot;
+  int kind = 0, size = 0;
+  if (act && g == 0) {
+    if (mt.ties == 1) order = o_row[slot];
+    kind = q.kind[at];
+    if (a.shaping) size = q.payload[at * a.P + kSizeWord];
+  }
+  if (own)
+    for (int p = g; p < a.P; p += G)
+      ev_payload[(long long)h * a.P + p] = act ? q.payload[at * a.P + p] : 0;
+  // 3. the ingress, and every store
+  int cls = 0;
+  if (lead) {
+    const EvIn e{act, act ? mt.m : kTimeMax, order, kind, size};
+    long long t;
+    cls = ingress_host(a, h, s, e, t);
+    if (act) {
+      q.t[at] = kTimeMax;
+      q.order[at] = kOrderMax;
+    }
+    a.ev_t[h] = act ? t : kTimeMax;
+    ev_order[h] = order;
+    ev_kind[h] = kind;
+    active[h] = act;
+  }
+  if (classes) {
+    cc.add(cls);
+    cc.flush(a);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -550,13 +808,9 @@ __global__ void event_egress_kernel(const EgressArgs a) {
   if (umin < kTimeMax) atomicMin(a.min_used + rep, umin);
 }
 
-}  // namespace
-
-extern "C" {
-
-int event_ingress(const long long* args, void* stream) {
-  Reader r{args, 0};
-  IngressArgs a;
+// K10's argument block (the order the Python wrappers build it in);
+// false where it is inconsistent.
+bool read_ingress(Reader& r, IngressArgs& a) {
   a.H = (int)r.v();
   a.P = (int)r.v();
   a.es = (int)r.v();
@@ -598,13 +852,54 @@ int event_ingress(const long long* args, void* stream) {
   a.digest2 = r.p<unsigned long long>();
   a.timer_mask = (unsigned long long)r.v();
   for (int k = 0; k < 3; ++k) a.ec[k] = r.p<long long>();
-  if (a.P < 1 || a.interval <= 0 || a.fault_mode < 0 || a.fault_mode > 2 ||
-      (a.fault_mode && (a.W < 1 || a.down_t == nullptr || a.up_t == nullptr)) ||
-      (a.fault_mode == 1 && a.faults_delayed == nullptr) ||
-      (a.fault_mode == 2 && a.faults_dropped == nullptr))
-    return (int)cudaErrorInvalidValue;
+  return !(a.P < 1 || a.interval <= 0 || a.fault_mode < 0 || a.fault_mode > 2 ||
+           (a.fault_mode && (a.W < 1 || a.down_t == nullptr || a.up_t == nullptr)) ||
+           (a.fault_mode == 1 && a.faults_delayed == nullptr) ||
+           (a.fault_mode == 2 && a.faults_dropped == nullptr));
+}
+
+}  // namespace
+
+extern "C" {
+
+int event_ingress(const long long* args, void* stream) {
+  Reader r{args, 0};
+  IngressArgs a;
+  if (!read_ingress(r, a)) return (int)cudaErrorInvalidValue;
   if (a.H > 0)
-    event_ingress_kernel<<<blocks_for(a.H), kThreads, 0, (cudaStream_t)stream>>>(a);
+    event_ingress_kernel<<<(a.H + kIngressThreads - 1) / kIngressThreads, kIngressThreads, 0,
+                           (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K36: K10's argument block (its event lanes and `active` are K36's
+// outputs, es = 1) followed by the pop's: the slab planes t, order, kind,
+// payload, the capacity C, the scalar limit and the per-host limits (0:
+// none).
+int pop_ingress(const long long* args, void* stream) {
+  Reader r{args, 0};
+  IngressArgs a;
+  if (!read_ingress(r, a)) return (int)cudaErrorInvalidValue;
+  PopArgs q;
+  q.t = r.p<long long>();
+  q.order = r.p<long long>();
+  q.kind = r.p<const int>();
+  q.payload = r.p<const int>();
+  q.C = (int)r.v();
+  q.limit = r.v();
+  q.limits = r.p<const long long>();
+  if (a.es != 1 || q.C < 1 || a.ev_t == nullptr) return (int)cudaErrorInvalidValue;
+  if (a.H == 0) return (int)cudaGetLastError();
+  // four lanes per host up to 64 slots, else a warp (two passes at 1,024);
+  // 16-byte loads of the time plane where every row starts 16-byte aligned
+  const bool narrow = q.C <= 4 * kPopPerLane;
+  const bool v2 = q.C % 2 == 0 && reinterpret_cast<uintptr_t>(q.t) % 16 == 0;
+  auto* kernel = narrow ? (v2 ? pop_ingress_kernel<4, 2> : pop_ingress_kernel<4, 1>)
+                        : (v2 ? pop_ingress_kernel<32, 2> : pop_ingress_kernel<32, 1>);
+  const int hosts = narrow ? kPopThreads / 4 : kPopThreads / 32;
+  kernel<<<(a.H + hosts - 1) / hosts, kPopThreads, 0, (cudaStream_t)stream>>>(
+      q, a, const_cast<long long*>(a.ev_order), const_cast<int*>(a.ev_kind),
+      const_cast<int*>(a.ev_payload), const_cast<bool*>(a.active));
   return (int)cudaGetLastError();
 }
 

@@ -141,10 +141,16 @@ __device__ __forceinline__ float fluid_uniform(u64 seed, i64 host, i64 ctr) {
   return __fmul_rn((float)(unsigned)(u >> 40), 1.0f / 16777216.0f);
 }
 
-// ---- token bucket: charge size_bits where mask; returns the departure ----
+// ---- token bucket ----
 
-__device__ __forceinline__ i64 tb_remove(i64& tokens, i64& last_itv, i64 cap, i64 refill,
-                                         i64 interval, i64 t, i64 size_bits, bool mask) {
+// One packet of size_bits at t, planned: its departure and the bucket's
+// state after charging it (`tb_remove` applies that state where asked).
+struct TbPlan {
+  i64 depart, tokens, last_itv;
+};
+
+__device__ __forceinline__ TbPlan tb_plan(i64 tokens, i64 last_itv, i64 cap, i64 refill,
+                                          i64 interval, i64 t, i64 size_bits) {
   const i64 itv = imax(floordiv(t, interval), last_itv);
   const i64 elapsed = wsub(itv, last_itv);
   const i64 gain = elapsed < (1LL << 20) ? wmul(elapsed, refill) : cap;
@@ -152,16 +158,28 @@ __device__ __forceinline__ i64 tb_remove(i64& tokens, i64& last_itv, i64 cap, i6
   const bool conforms = tk >= size_bits;
   const i64 deficit = imax(wsub(size_bits, tk), 0);
   const i64 rs = imax(refill, 1);
-  const i64 k = floordiv(wsub(wadd(deficit, rs), 1), rs);
+  // ceil(deficit / rs); 0 without a deficit (rs - 1 < rs), so the
+  // division runs only where a packet waits
+  const i64 k = deficit > 0 ? floordiv(wsub(wadd(deficit, rs), 1), rs) : 0;
   const i64 depart_wait = wmul(wadd(itv, k), interval);
   const bool shaped = refill > 0;
   const i64 depart_now = imax(t, wmul(itv, interval));
-  const i64 depart = (shaped && !conforms) ? depart_wait : (shaped ? depart_now : t);
-  if (mask && shaped) {
-    tokens = conforms ? wsub(tk, size_bits) : wsub(wadd(tk, wmul(k, refill)), size_bits);
-    last_itv = conforms ? itv : wadd(itv, k);
+  TbPlan p;
+  p.depart = (shaped && !conforms) ? depart_wait : (shaped ? depart_now : t);
+  p.tokens = conforms ? wsub(tk, size_bits) : wsub(wadd(tk, wmul(k, refill)), size_bits);
+  p.last_itv = conforms ? itv : wadd(itv, k);
+  return p;
+}
+
+// charge size_bits where mask; returns the departure
+__device__ __forceinline__ i64 tb_remove(i64& tokens, i64& last_itv, i64 cap, i64 refill,
+                                         i64 interval, i64 t, i64 size_bits, bool mask) {
+  const TbPlan p = tb_plan(tokens, last_itv, cap, refill, interval, t, size_bits);
+  if (mask && refill > 0) {
+    tokens = p.tokens;
+    last_itv = p.last_itv;
   }
-  return depart;
+  return p.depart;
 }
 
 // ---- CoDel (RFC 8289) ----
@@ -191,15 +209,16 @@ __device__ __forceinline__ bool codel_on_packet(Codel& s, i64 now, i64 sojourn, 
   const bool leave = s.dropping && !ok;
   const bool fire = s.dropping && ok && now >= s.drop_next;
   const int count_f = wadd32(s.count, 1);
-  const i64 dn_f = codel_control_law(s.drop_next, count_f);
   const bool enter = !s.dropping && ok;
   const bool recent = wsub(now, s.drop_next) < 16 * kCodelInterval;
   const int count_e = (recent && s.count > 2) ? s.count - 2 : 1;
-  const i64 dn_e = codel_control_law(now, count_e);
   if (!mask) return false;
   const bool new_dropping = leave ? false : (enter ? true : s.dropping);
   const int new_count = fire ? count_f : (enter ? count_e : s.count);
-  const i64 new_dn = fire ? dn_f : (enter ? dn_e : s.drop_next);
+  // fire and enter exclude each other (dropping or not): one control law,
+  // evaluated only where one of them moves drop_next
+  i64 new_dn = s.drop_next;
+  if (fire || enter) new_dn = codel_control_law(fire ? s.drop_next : now, new_count);
   s.first_above = new_fa;
   s.drop_next = new_dn;
   s.count = new_count;

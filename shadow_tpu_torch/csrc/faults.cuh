@@ -19,13 +19,14 @@ constexpr long long kLatScale = 1000;
 
 // Whether t falls in one of the host's windows [down, up); `resume` gets
 // the least up time over the windows that contain t, 0 where none does.
+// The windows are parameters no kernel writes: read-only loads.
 __device__ __forceinline__ bool down_resume(const long long* down_t, const long long* up_t,
                                             int W, long long t, long long& resume) {
   bool down = false;
   long long r = kTimeMax;
   for (int w = 0; w < W; ++w) {
-    const long long u = up_t[w];
-    if (down_t[w] <= t && t < u) {
+    const long long u = __ldg(up_t + w);
+    if (__ldg(down_t + w) <= t && t < u) {
       down = true;
       r = u < r ? u : r;
     }

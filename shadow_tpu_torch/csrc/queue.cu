@@ -11,7 +11,9 @@
 //                                                    crash window containing the floored
 //                                                    head, :2256-2259 with
 //                                                    core/faults.py:266 down_and_resume)
-//   K2  shadow_tpu/ops/events.py:138 pop_min        (lexicographic min, read, clear)
+//   K2  shadow_tpu/ops/events.py:138 pop_min        (lexicographic min, read, clear;
+//                                                    the device code in queue_pop.cuh,
+//                                                    shared with K36 in event.cu)
 //   K3  shadow_tpu/ops/events.py:342 push_many      (k-th firing push -> k-th free
 //                                                    slot, minus its reserve)
 //   K5  shadow_tpu/ops/events.py:201 pop_k          (peek the K earliest in-window)
@@ -60,24 +62,18 @@
 #include <cuda_runtime.h>
 
 #include "faults.cuh"
+#include "queue_pop.cuh"
 
 namespace {
 
-constexpr long long kTimeMax = 0x7fffffffffffffffLL;
-constexpr long long kOrderMax = 0x7fffffffffffffffLL;
+using qpop::kFull;
+using qpop::kOrderMax;
+using qpop::kTimeMax;
+using qpop::lex_less;
+using qpop::lex_less3;
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxPorts = 32;
-
-__device__ __forceinline__ bool lex_less(long long at, long long ao, long long bt, long long bo) {
-  return at < bt || (at == bt && ao < bo);
-}
-
-__device__ __forceinline__ bool lex_less3(long long at, long long ao, int ai, long long bt,
-                                          long long bo, int bi) {
-  return at < bt || (at == bt && (ao < bo || (ao == bo && ai < bi)));
-}
 
 // warp-wide lexicographic (t, order) minimum; every lane gets the result
 __device__ __forceinline__ void warp_lexmin(long long& t, long long& o) {
@@ -125,9 +121,10 @@ __global__ void next_time_kernel(const long long* __restrict__ t,
   }
 }
 
-// K2: per host, the lexicographic (t, order) minimum over all slots; active
-// iff its time is below `limit`. The winner is read out and its (t, order)
-// cleared to the empty sentinel in place. Inactive hosts get the dummy event.
+// K2: per host, the (t, order, slot) minimum over all slots under the tie
+// rule of queue_pop.cuh; active iff its time is below `limit`. The winner
+// is read out and its (t, order) cleared to the empty sentinel in place.
+// Inactive hosts get the dummy event.
 __global__ void pop_min_kernel(long long* __restrict__ t, long long* __restrict__ order,
                                const int* __restrict__ kind, const int* __restrict__ payload,
                                long long limit, const long long* __restrict__ limits,
@@ -138,36 +135,26 @@ __global__ void pop_min_kernel(long long* __restrict__ t, long long* __restrict_
   const int lane = threadIdx.x & (kWarp - 1);
   const int h = host_of_warp();
   if (h >= H) return;
-  // per-host limits (the ensemble plane's frozen replicas pop under 0), or
-  // one for every host
+  // per-host limits (the ensemble plane's frozen replicas pop under 0, the
+  // CPU model's held hosts too), or one for every host
   if (limits != nullptr) limit = limits[h];
   const long long base = (long long)h * C;
-  long long bt = kTimeMax, bo = kOrderMax;
-  int bi = -1;
-  for (int c = lane; c < C; c += kWarp) {
-    long long vt = t[base + c], vo = order[base + c];
-    if (lex_less(vt, vo, bt, bo)) { bt = vt; bo = vo; bi = c; }
-  }
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    long long ot = __shfl_xor_sync(kFull, bt, off);
-    long long oo = __shfl_xor_sync(kFull, bo, off);
-    int oi = __shfl_xor_sync(kFull, bi, off);
-    if (lex_less(ot, oo, bt, bo)) { bt = ot; bo = oo; bi = oi; }
-  }
-  // every lane now holds the same winner (unique keys; empties tie only
-  // among themselves and are never active)
-  const bool act = bt < limit && bi >= 0;
+  qpop::Cand w;
+  for (int c = lane; c < C; c += kWarp) w.fold(t[base + c], order[base + c], c);
+  qpop::group_min<kWarp>(w);
+  // every lane now holds the same winner
+  const bool act = w.t < limit;
   if (lane < P) {
-    ev_payload[(long long)h * P + lane] = act ? payload[(base + bi) * P + lane] : 0;
+    ev_payload[(long long)h * P + lane] = act ? payload[(base + w.i) * P + lane] : 0;
   }
   if (lane == 0) {
-    ev_t[h] = act ? bt : kTimeMax;
-    ev_order[h] = act ? bo : kOrderMax;
-    ev_kind[h] = act ? kind[base + bi] : 0;
+    ev_t[h] = act ? w.t : kTimeMax;
+    ev_order[h] = act ? w.o : kOrderMax;
+    ev_kind[h] = act ? kind[base + w.i] : 0;
     active[h] = act;
     if (act) {
-      t[base + bi] = kTimeMax;
-      order[base + bi] = kOrderMax;
+      t[base + w.i] = kTimeMax;
+      order[base + w.i] = kOrderMax;
     }
   }
 }

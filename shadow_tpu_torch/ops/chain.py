@@ -28,6 +28,12 @@ One executed event per host runs in three steps:
      more loss draw follows the path-loss draw and the latency is
      inflated by the windows' multiplier first.
 
+On a flat queue the one-event microstep pops and runs step 1 in one kernel
+(`pop_ingress`, K36): the pop of ops/events.py `pop_min` (one limit, or
+one per host) followed by the ingress, with no [H] event lanes written
+by one launch and read back by the next. Its plain version is
+`pop_min_plain` followed by `event_ingress_plain`.
+
 The plain egress (`event_egress_plain`) returns the event's [E, H] entry
 stack and per-host used latency, as the reference's `_event_body` does;
 `event_egress_append_plain` then appends that stack
@@ -66,7 +72,14 @@ from shadow_tpu_torch.models.base import (
 )
 from shadow_tpu_torch.net import codel_on_packet, tb_conforming_remove
 from shadow_tpu_torch.ops.cuda_build import ARG_BLOCK, CudaKernel, addr, arg_block, check, on_cpu
-from shadow_tpu_torch.ops.events import Push, pack_order, unpack_order_src
+from shadow_tpu_torch.ops.events import (
+    Event,
+    Push,
+    _check_slab,
+    pack_order,
+    pop_min_plain,
+    unpack_order_src,
+)
 from shadow_tpu_torch.ops.rng import rng_uniform, u64
 from shadow_tpu_torch.simtime import TIME_MAX
 
@@ -248,18 +261,11 @@ def _event_stride(ev, h: int, p: int) -> int:
     return es
 
 
-def event_ingress(c, params, cfg, ev, active, timer_mask: int = 0):
-    """`event_ingress_plain` as one kernel (K10) on CUDA, updating the
-    carry's events, digest, CoDel, downlink bucket, codel-dropped and
-    delivered lanes in place; under the CPU model also the busy horizon,
-    under the CPU model or queue-hold faults the event's time lane (its
-    execution time), and the fault counters, the second digest and the
-    event-class counters where their planes are on."""
-    if on_cpu(ev.t):
-        return event_ingress_plain(c, params, cfg, ev, active, timer_mask)
+def _ingress_block(c, params, cfg, ev, active, timer_mask: int, es: int):
+    """K10's argument block for event `ev` (host stride `es`) and `active`
+    (K36: its outputs), with the Ingress outputs it writes allocated."""
     h = active.shape[0]
     p = ev.payload.shape[1]
-    es = _event_stride(ev, h, p)
     dev = ev.t.device
     s, tb, cd = c.stats, c.tb_ingress, c.codel
     check(active, torch.bool, (h,), "active")
@@ -308,7 +314,7 @@ def event_ingress(c, params, cfg, ev, active, timer_mask: int = 0):
         t=ev.t,
     )
     rq = ing.requeue
-    _ingress_k(arg_block([
+    block = [
         h, p, es, int(cfg.shaping), int(cfg.use_codel), int(cfg.tb_interval_ns),
         addr(ev.t), addr(ev.order), addr(ev.kind), addr(ev.payload), addr(active),
         addr(s.events), addr(s.digest), addr(s.pkts_codel_dropped), addr(s.pkts_delivered),
@@ -321,8 +327,70 @@ def event_ingress(c, params, cfg, ev, active, timer_mask: int = 0):
         addr(s.faults_delayed if fault_mode == 1 else None),
         addr(s.faults_dropped if fault_mode == 2 else None), addr(d2),
         timer_mask if cfg.netobs else 0, *(addr(x) for x in ec),
-    ]))
+    ]
+    return block, ing
+
+
+def event_ingress(c, params, cfg, ev, active, timer_mask: int = 0):
+    """`event_ingress_plain` as one kernel (K10) on CUDA, updating the
+    carry's events, digest, CoDel, downlink bucket, codel-dropped and
+    delivered lanes in place; under the CPU model also the busy horizon,
+    under the CPU model or queue-hold faults the event's time lane (its
+    execution time), and the fault counters, the second digest and the
+    event-class counters where their planes are on."""
+    if on_cpu(ev.t):
+        return event_ingress_plain(c, params, cfg, ev, active, timer_mask)
+    es = _event_stride(ev, active.shape[0], ev.payload.shape[1])
+    block, ing = _ingress_block(c, params, cfg, ev, active, timer_mask, es)
+    _ingress_k(arg_block(block))
     return c, ing
+
+
+# --------------------------------------------------------------------------
+# K36 pop_ingress
+# --------------------------------------------------------------------------
+
+_pop_ingress_k = CudaKernel("event", "pop_ingress", ARG_BLOCK)
+
+
+def pop_ingress_plain(c, params, cfg, q, limit, timer_mask: int = 0):
+    """`pop_min_plain` followed by `event_ingress_plain`: the one-event
+    microstep's pop and ingress. The event comes back with its time
+    rewritten to the execution time, as the ingress gives it. Returns
+    (queue', carry', event, active, Ingress)."""
+    q, ev, active = pop_min_plain(q, limit)
+    c, ing = event_ingress_plain(c, params, cfg, ev, active, timer_mask)
+    return q, c, ev._replace(t=ing.t), active, ing
+
+
+def pop_ingress(c, params, cfg, q, limit, timer_mask: int = 0):
+    """Pop each host's earliest event below `limit` (an int, or an i64[H]
+    of per-host limits: the CPU model's or queue hold's held hosts, the
+    ensemble plane's per-row window ends) from the flat queue `q` and run
+    the ingress on it: `pop_ingress_plain` on the CPU, one kernel (K36) on
+    CUDA. On CUDA the popped slots' (t, order) are cleared and the carry's
+    lanes updated in place, as K2 and K10 do. Returns (queue', carry',
+    event, active, Ingress)."""
+    if on_cpu(q.t):
+        return pop_ingress_plain(c, params, cfg, q, limit, timer_mask)
+    h, cap, p = _check_slab(q)
+    dev = q.t.device
+    limits = None
+    if isinstance(limit, torch.Tensor):
+        check(limit, torch.int64, (h,), "pop limits")
+        limits, limit = limit, 0
+    ev = Event(
+        t=torch.empty((h,), dtype=torch.int64, device=dev),
+        order=torch.empty((h,), dtype=torch.int64, device=dev),
+        kind=torch.empty((h,), dtype=torch.int32, device=dev),
+        payload=torch.empty((h, p), dtype=torch.int32, device=dev),
+    )
+    active = torch.empty((h,), dtype=torch.bool, device=dev)
+    block, ing = _ingress_block(c, params, cfg, ev, active, timer_mask, 1)
+    _pop_ingress_k(arg_block(block + [
+        addr(q.t), addr(q.order), addr(q.kind), addr(q.payload), cap, int(limit), addr(limits),
+    ]))
+    return q, c, ev, active, ing
 
 
 # --------------------------------------------------------------------------
@@ -714,4 +782,5 @@ def event_egress(c, params, cfg, ev_t, dispatch, window_end, out, fluid_fx=None)
 KERNELS = {
     "event_ingress": _ingress_k,
     "event_egress": _egress_k,
+    "pop_ingress": _pop_ingress_k,
 }

@@ -18,8 +18,10 @@ This module holds the queue's hand-written CUDA kernels (csrc/queue.cu):
                          bucketed queue's block-minimum plane), floored
                          by the CPU model's busy horizon and moved past a
                          queue-hold crash window where given
-  K2 `queue_pop_min`     per-host (time, order) minimum below a limit, read
-                         out and cleared in place
+  K2 `queue_pop_min`     per-host (time, order) minimum below a limit (one
+                         scalar, or one per host), read out and cleared in
+                         place (its device code also runs in K36, the
+                         one-event microstep's pop and ingress)
   K3 `queue_push_many`   the k-th firing push lands in the k-th free slot,
                          each push holding back its reserve
   K5 `queue_pop_k`       peek each host's K earliest events below a limit
@@ -295,7 +297,7 @@ def pop_min_plain(q: EventQueue, limit: int) -> tuple[EventQueue, Event, torch.T
     )
 
 
-def pop_min(q: EventQueue, limit, rows: bool = False) -> tuple[EventQueue, Event, torch.Tensor]:
+def pop_min(q: EventQueue, limit) -> tuple[EventQueue, Event, torch.Tensor]:
     """Pop each host's earliest event strictly before `limit` (an int, or
     an i64[H] tensor of per-host limits).
 
@@ -303,19 +305,16 @@ def pop_min(q: EventQueue, limit, rows: bool = False) -> tuple[EventQueue, Event
     (t=TIME_MAX, order=ORDER_MAX, kind 0, payload 0). On CUDA the kernel
     clears the popped slot's time and order IN PLACE, so the returned queue
     shares (and the input queue sees) the updated planes; kind and payload
-    stay as they were, exactly as in the reference. With per-host limits it
-    runs as K5 at k = 1 and K6 (the same event and clear), or with `rows`
-    (the ensemble plane's per-replica limits) as K2 reading them."""
+    stay as they were, exactly as in the reference. Per-host limits (the
+    ensemble plane's per-replica window ends, the wheel merge's split) are
+    read by K2 itself. The one-event microstep pops through K36
+    (`ops/chain.py pop_ingress`), which runs this pop's device code."""
     if on_cpu(q.t):
         return pop_min_plain(q, limit)
     limits = None
-    if isinstance(limit, torch.Tensor) and rows:
+    if isinstance(limit, torch.Tensor):
         check(limit, torch.int64, (q.t.shape[0],), "pop limits")
         limits, limit = limit, 0
-    elif isinstance(limit, torch.Tensor):
-        popped = pop_k(q, limit, 1)
-        active = popped.active[:, 0]
-        return clear_popped(q, popped, active.to(torch.int32)), popped.event(0), active
     h, c, p = _check_slab(q)
     dev = q.t.device
     ev = Event(
@@ -794,8 +793,8 @@ def q_next_time(q, floor: torch.Tensor | None = None, crash=None) -> torch.Tenso
             else next_time(q, floor, crash))
 
 
-def q_pop_min(q, limit, rows: bool = False):
-    return bq_pop_min(q, limit) if isinstance(q, BucketQueue) else pop_min(q, limit, rows)
+def q_pop_min(q, limit):
+    return bq_pop_min(q, limit) if isinstance(q, BucketQueue) else pop_min(q, limit)
 
 
 def q_head(q) -> tuple[torch.Tensor, torch.Tensor]:

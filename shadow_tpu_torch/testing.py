@@ -193,6 +193,65 @@ def chain_case(seed: int, h: int, dev, *, n_push: int, sends: tuple, route: str,
                 timer_mask=0b1010)
 
 
+POP_LIMITS = ("scalar", "host", "row")
+
+
+def pop_ingress_case(seed: int, h: int, cap: int, dev, *, limits: str = "scalar",
+                     reps: int = 4, **chain_kw) -> dict:
+    """Random inputs of the one-event microstep's pop and ingress (K36):
+    `chain_case`'s config, params and carry (with `limits` "row", the
+    carry and config of `replica_chain_case` over `reps` replicas of h /
+    reps hosts, the third frozen) and a flat [h, cap] queue whose live
+    slots sit around each host's event time, with many exact time ties
+    (the order key decides), empty and full rows and hosts whose events
+    all lie past the limit. `limits`: "scalar" one limit for every host;
+    "host" an i64[h] with held hosts at 0, others at one of three window
+    ends or TIME_MAX; "row" an i64[h] that is one window end per replica
+    (0 on the frozen one). Returns a dict with cfg, params, carry, queue,
+    limit, timer_mask."""
+    from shadow_tpu_torch.ops.events import ORDER_MAX, EventQueue
+
+    if limits == "row":
+        h = reps * (h // reps)
+        case = replica_chain_case(seed, reps, h // reps, dev, frozen=(2,), **chain_kw)
+    else:
+        case = chain_case(seed, h, dev, **chain_kw)
+    r = np.random.default_rng([seed, 60])  # the queue's own draws
+    ms = 1_000_000
+    # each host's least time is its chain_case event's (the carry's CoDel,
+    # bucket and crash-window states sit around it)
+    t_ev = case["ev"].t.cpu().numpy()
+    t_host = np.where(t_ev != TIME_MAX, t_ev, r.integers(1_000, 1_200, h) * ms)
+    fill = r.integers(0, cap + 1, h)
+    fill[r.random(h) < 0.15] = cap
+    fill[r.random(h) < 0.1] = 0
+    live = r.random((h, cap)).argsort(axis=1) < fill[:, None]
+    n = int(live.sum())
+    rows = np.nonzero(live)[0]
+    # a third of the live slots at exactly the host's least time: ties
+    qt = np.full((h, cap), TIME_MAX, np.int64)
+    qt[live] = t_host[rows] + np.where(r.random(n) < 0.35, 0, r.integers(0, 60, n) * ms)
+    qo = np.full((h, cap), ORDER_MAX, np.int64)
+    qo[live] = ((r.integers(0, 2, n) << 62) | (r.integers(0, h, n) << 40)
+                | r.permutation(n).astype(np.int64))
+    kind = (r.integers(0, 4, (h, cap)) | np.where(r.random((h, cap)) < 0.7, KIND_PKT, 0)
+            | np.where(r.random((h, cap)) < 0.2, KIND_INGRESS_DONE, 0)).astype(np.int32)
+    payload = r.integers(-(1 << 31), 1 << 31, (h, cap, 4)).astype(np.int32)
+    payload[:, :, 0] = r.integers(40, 1_500, (h, cap))
+    queue = EventQueue(*(torch.as_tensor(a, device=dev) for a in (
+        qt, qo, kind, payload, r.integers(0, 5, h).astype(np.int64))))
+    if limits == "scalar":
+        limit = 1_100 * ms
+    elif limits == "host":
+        lim = r.choice([0, 1_050 * ms, 1_100 * ms, 1_150 * ms, TIME_MAX], h)
+        limit = torch.as_tensor(lim.astype(np.int64), device=dev)
+    else:
+        lim = np.repeat([1_050 * ms, 1_150 * ms, 0, TIME_MAX, 1_100 * ms][:reps], h // reps)
+        limit = torch.as_tensor(lim.astype(np.int64), device=dev)
+    return dict(cfg=case["cfg"], params=case["params"], carry=case["carry"], queue=queue,
+                limit=limit, timer_mask=case["timer_mask"])
+
+
 def _fault_lanes(seed: int, h: int, dev, cfg, params, carry, t: np.ndarray):
     """chain_case's fault windows, fault counters and second digest, from
     their own generator: crash windows whose edges sit at the events' times

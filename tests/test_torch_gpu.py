@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1-K35 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K36 against their plain PyTorch versions, on
 the card. Marked `gpu`; without a CUDA device each test skips.
 
 Run on a machine with a card, from the repository root:
@@ -64,7 +64,12 @@ inside the mixed handler) on `mixed_case` with native tables all, none and
 mixed over udp_echo (no sanitising) and gossip (sanitising), and K35
 (`guarded_window`) on `guarded_case` lanes (a probe that fires on the first
 round and one that never fires, stop lanes grown and not), at the mixed
-leg's 4,096 hosts.
+leg's 4,096 hosts. The one-event microstep's pop and ingress, K36
+(`pop_ingress`), on `shadow_tpu_torch.testing.pop_ingress_case` queues
+(heavy time ties, empty and full rows, 13 to 1,024 slots, odd and even,
+150 and 4,097 hosts) under one limit, per-host limits and per-row limits, with each
+ingress lane on, against the plain pop followed by the plain ingress, and
+per-host limits against K5 + K6 at k = 1.
 Tolerance: exact equality — every output is an
 integer, a bool, or an integer made from float32/float64 math. chip_smoke.py
 repeats the check at the main path's shapes.
@@ -102,6 +107,8 @@ from shadow_tpu_torch.testing import (
     ensemble_case,
     replica_chain_case,
     replica_merge_case,
+    POP_LIMITS,
+    pop_ingress_case,
 )
 
 H, C, P = 24, 16, 4
@@ -260,7 +267,7 @@ def test_batch_and_bucket_kernels_match_plain(dev, fill, cap, block):
 @pytest.mark.parametrize("fill", FILLS)
 def test_per_host_limit_pop_matches_plain(dev, fill, cap, block):
     """K5 with an i64[H] limit (the wheel's merged pop), on both queue
-    types, and the flat pop_min that runs as K5 + K6 under one."""
+    types, and the flat pop_min under one (K2 reading the limits)."""
     q = slab(13, fill, dev) if cap == C else wide_slab(13 + cap, cap, dev)
     r = np.random.default_rng(cap)
     limits = torch.as_tensor(np.where(r.random(H) < 0.3, 0, r.integers(0, 7, H) * 1000),
@@ -896,6 +903,58 @@ def test_ingress_event_classes_match_plain(dev, name):
     torch.cuda.synchronize()
 
 
+POP_INGRESS_LANES = {
+    "shaping_codel": CHAIN_CASES["anchor"],
+    "unshaped": CHAIN_CASES["unshaped"],
+    "cpu_model": dict(CHAIN_CASES["anchor"], cpu_delay=3_000_000),
+    "hold": dict(CHAIN_CASES["anchor"], cpu_delay=3_000_000, restart_queue="hold"),
+    "clear": dict(CHAIN_CASES["anchor"], restart_queue="clear"),
+    "digest2": dict(CHAIN_CASES["anchor"], dual_digest=True),
+    "event_classes": dict(CHAIN_CASES["anchor"], netobs=True),
+}
+# the ensemble plane runs neither the sentinel nor the observatories
+POP_INGRESS_PARAMS = [(lane, lim) for lane in POP_INGRESS_LANES for lim in POP_LIMITS
+                      if not (lim == "row" and lane in ("digest2", "event_classes"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [150, 4097])
+@pytest.mark.parametrize("cap", [13, 14, 64, 65, 1024])
+@pytest.mark.parametrize("lane,limits", POP_INGRESS_PARAMS)
+def test_pop_ingress_matches_plain(dev, lane, limits, cap, h):
+    """K36 (the pop and the ingress in one launch) against `pop_min_plain`
+    followed by `event_ingress_plain`: the queue's planes, the event (its
+    time the execution time), `active`, every carry lane and every Ingress
+    field, under one limit, per-host limits and per-row limits (replicas,
+    one frozen), with tail blocks and capacities of one and two passes,
+    read 8 or 16 bytes a lane (odd or even)."""
+    case = pop_ingress_case(7, h, cap, dev, limits=limits, **POP_INGRESS_LANES[lane])
+    args = (case["params"], case["cfg"])
+    got = pchain.pop_ingress(clone_carry(case["carry"]), *args, clone(case["queue"]),
+                             case["limit"], case["timer_mask"])
+    want = pchain.pop_ingress_plain(clone_carry(case["carry"]), *args, clone(case["queue"]),
+                                    case["limit"], case["timer_mask"])
+    assert_all_equal(flat_tensors(got), flat_tensors(want))
+    active = want[3]
+    assert bool(active.any()) and not bool(active.all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [14, 64, 1024])
+def test_pop_ingress_per_host_limits_pop_as_k5_k6(dev, cap):
+    """Per-host limits through K36 pop the event, and clear the slot, that
+    K5 at k = 1 followed by K6 pops and clears."""
+    case = pop_ingress_case(9, 4097, cap, dev, limits="host", **POP_INGRESS_LANES["unshaped"])
+    q0, limit = case["queue"], case["limit"]
+    q, _, ev, active, _ = pchain.pop_ingress(clone_carry(case["carry"]), case["params"],
+                                             case["cfg"], clone(q0), limit)
+    popped = pev.pop_k(q0, limit, 1)
+    q_k = pev.clear_popped(clone(q0), popped, popped.active[:, 0].to(torch.int32))
+    assert_all_equal([*q, *ev, active], [*q_k, *popped.event(0), popped.active[:, 0]])
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("stride", [1, 4])
 def test_tgen_flow_lanes_match_plain(dev, stride):
@@ -1171,7 +1230,7 @@ def test_pop_min_per_row_limits_matches_plain(dev, fill):
     0): the plain version's event, mask and slab."""
     q = slab(9, fill, dev)
     lim = torch.as_tensor(np.repeat([3000, 0, 6000, 0], H // 4), device=dev)
-    got = pev.pop_min(clone(q), lim, rows=True)
+    got = pev.pop_min(clone(q), lim)
     want = pev.pop_min_plain(clone(q), lim)
     assert_all_equal(flat_tensors(got), flat_tensors(want))
     assert not bool(got[2].view(4, -1)[1].any())

@@ -96,7 +96,7 @@ def test_yaml_run_matches_jax():
         "fault_down_resume": 0, "integrity_round_check": 0, "queue_migrate": 0,
         "pressure_total": 0, "trace_round": 0, "flow_append": 0, "dshard_pack": 0,
         "exchange_unpack": 0, "replica_window": 0, "replica_fold": 0,
-        "hybrid_handle": 0, "mixed_plane": 0, "guarded_window": 0,
+        "hybrid_handle": 0, "mixed_plane": 0, "guarded_window": 0, "pop_ingress": 0,
     }  # the CPU path runs the plain versions, never a kernel
 
 
